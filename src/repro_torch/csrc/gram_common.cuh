@@ -1,0 +1,203 @@
+// Shared pieces of the sampled Gram-packet kernels (sampled_rows.cu,
+// sampled_cols.cu): the split-contraction tile kernel, parameterised on how
+// a tile of the implicit sampled panel Y is gathered, and the fixed-order
+// second pass that sums the split partials, mirrors the upper triangle and
+// applies scale / reg / scale_r.
+//
+// Packet contract (both layouts): for Y (m, K) the implicit sampled panel,
+//   G = scale * Y Y^T + reg * I   (m, m),   r = scale_r * Y u   (m,).
+// The rows layout gathers Y = X[flat, :] (K = n), the cols layout gathers
+// Y = X[:, flat]^T (K = d) straight from X's (d, n) layout.
+//
+// Work split.  G has only ceil(m/32)(ceil(m/32)+1)/2 lower tiles (10 at
+// m = 128), far fewer than the card's 132 SMs, so the contraction K is cut
+// into `splits` chunks of `chunk` elements and every (lower tile, chunk)
+// pair is one block.  Each block writes its own partial tile; no float
+// atomics, so the result is the same on every run.  The chunking is chosen
+// on the host from the shapes alone (tuning.py), which fixes the summation
+// order for a given (m, K).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int TILE = 32;      // edge of a G tile
+constexpr int BK = 32;        // contraction step staged in shared memory
+constexpr int THREADS = 256;  // block size of the reduce and apply kernels
+constexpr int PTHREADS = 64;  // packet_partial: 8 x 8 threads, 4 x 4 outputs each
+constexpr int PAD = 4;        // keeps the rows of a [k][sample] slab 16-byte aligned
+constexpr int LOADS = TILE * BK / PTHREADS;  // slab elements per thread per step
+
+// A slab holds BK contraction steps of TILE samples, k-major, so that a
+// thread reads its 4 consecutive samples with one 16-byte shared load.
+template <typename T>
+using Slab = T[BK][TILE + PAD];
+
+// Linear lower-triangle tile index t -> (ti, tj) with tj <= ti.
+__device__ __forceinline__ void lower_tile(int t, int* ti, int* tj) {
+  int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  while (i * (i + 1) / 2 > t) --i;
+  *ti = i;
+  *tj = t - i * (i + 1) / 2;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
+  const double2 v0 = reinterpret_cast<const double2*>(p)[0];
+  const double2 v1 = reinterpret_cast<const double2*>(p)[1];
+  o[0] = v0.x; o[1] = v0.y; o[2] = v1.x; o[3] = v1.y;
+}
+
+// One block: lower tile (ti, tj) of G over contraction chunk blockIdx.y.
+// `Gather` has fetch(pre, idx, k0, k_end, tid), which reads this thread's
+// LOADS elements of the next slab from X into registers (0 past m, where
+// idx < 0, and past k_end), and store(slab, pre, tid), which writes them to
+// shared memory.  The next slab's loads are issued before the current slab's
+// arithmetic, so their latency hides behind it.
+template <typename T, typename Gather>
+__global__ void __launch_bounds__(PTHREADS)
+packet_partial(Gather gather, const int* __restrict__ flat,
+               const T* __restrict__ u, int m, int64_t K, int64_t chunk,
+               int mp, T* __restrict__ Gp, T* __restrict__ rp) {
+  __shared__ __align__(16) Slab<T> ys_i;
+  __shared__ __align__(16) Slab<T> ys_j;
+  __shared__ T us[BK];
+  __shared__ int idx_i[TILE];
+  __shared__ int idx_j[TILE];
+
+  int ti, tj;
+  lower_tile(blockIdx.x, &ti, &tj);
+  const int split = blockIdx.y;
+  const int64_t k_begin = static_cast<int64_t>(split) * chunk;
+  const int64_t k_end = min(K, k_begin + chunk);
+  const int tid = threadIdx.x;
+  const bool diag = (ti == tj);
+  const bool with_r = (tj == 0);  // r rides on exactly one tile per row band
+
+  if (tid < TILE) {
+    const int a = ti * TILE + tid;
+    const int c = tj * TILE + tid;
+    idx_i[tid] = a < m ? flat[a] : -1;
+    idx_j[tid] = c < m ? flat[c] : -1;
+  }
+  __syncthreads();
+
+  T pre_i[LOADS], pre_j[LOADS];
+  T pre_u = 0;
+  gather.fetch(pre_i, idx_i, k_begin, k_end, tid);
+  if (!diag) gather.fetch(pre_j, idx_j, k_begin, k_end, tid);
+  if (with_r && tid < BK && k_begin + tid < k_end) pre_u = u[k_begin + tid];
+
+  const int tx = tid % 8, ty = tid / 8;  // rows 4ty..4ty+3, cols 4tx..4tx+3
+  T acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  // Residual: 2 threads per tile row, each over every other step.
+  const int rrow = tid / 2, rpart = tid % 2;
+  T racc = 0;
+
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
+    gather.store(ys_i, pre_i, tid);
+    if (diag) gather.store(ys_j, pre_i, tid);
+    else gather.store(ys_j, pre_j, tid);
+    if (with_r && tid < BK) us[tid] = pre_u;
+    __syncthreads();
+    const int64_t kn = k0 + BK;
+    if (kn < k_end) {
+      gather.fetch(pre_i, idx_i, kn, k_end, tid);
+      if (!diag) gather.fetch(pre_j, idx_j, kn, k_end, tid);
+      if (with_r && tid < BK) pre_u = (kn + tid < k_end) ? u[kn + tid] : T(0);
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      T a[4], b[4];
+      load4(&ys_i[kk][4 * ty], a);
+      load4(&ys_j[kk][4 * tx], b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+    if (with_r) {
+#pragma unroll
+      for (int kk = rpart; kk < BK; kk += 2) racc += ys_i[kk][rrow] * us[kk];
+    }
+    __syncthreads();
+  }
+
+  T* G = Gp + static_cast<size_t>(split) * mp * mp;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    T* row = G + static_cast<size_t>(ti * TILE + 4 * ty + i) * mp + tj * TILE;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) row[4 * tx + j] = acc[i][j];
+  }
+  if (with_r) {
+    racc += __shfl_down_sync(0xffffffffu, racc, 1, 2);  // fixed order
+    if (rpart == 0)
+      rp[static_cast<size_t>(split) * mp + ti * TILE + rrow] = racc;
+  }
+}
+
+// Second pass: G[a, b] = scale * sum_s Gp[s, lower(a, b)] + reg * (a == b),
+// r[a] = scale_r * sum_s rp[s, a], splits summed in index order.  Entries
+// strictly above the tile diagonal read the transposed lower tile.
+template <typename T>
+__global__ void packet_reduce(const T* __restrict__ Gp,
+                              const T* __restrict__ rp, int splits, int m,
+                              int mp, T scale, T reg, T scale_r,
+                              T* __restrict__ G, T* __restrict__ r) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  const size_t plane = static_cast<size_t>(mp) * mp;
+  if (e < mm) {
+    const int a = static_cast<int>(e / m), b = static_cast<int>(e % m);
+    const size_t src = (a / TILE >= b / TILE)
+                           ? static_cast<size_t>(a) * mp + b
+                           : static_cast<size_t>(b) * mp + a;
+    T acc = 0;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) acc += Gp[s * plane + src];
+    T g = scale * acc;
+    if (a == b) g += reg;
+    G[e] = g;
+  } else if (e < mm + m) {
+    const int a = static_cast<int>(e - mm);
+    T acc = 0;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) acc += rp[static_cast<size_t>(s) * mp + a];
+    r[a] = scale_r * acc;
+  }
+}
+
+// Launch both passes on `stream`; returns the first launch error (0 if none).
+template <typename T, typename Gather>
+int launch_packet(Gather gather, const int* flat, const T* u, int m,
+                  int64_t K, int64_t chunk, int splits, double scale,
+                  double reg, double scale_r, T* Gp, T* rp, T* G, T* r,
+                  cudaStream_t stream) {
+  const int nt = (m + TILE - 1) / TILE;
+  const int mp = nt * TILE;
+  dim3 grid(nt * (nt + 1) / 2, splits);
+  packet_partial<T, Gather><<<grid, PTHREADS, 0, stream>>>(
+      gather, flat, u, m, K, chunk, mp, Gp, rp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = static_cast<int64_t>(m) * m + m;
+  const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
+  packet_reduce<T><<<blocks, THREADS, 0, stream>>>(
+      Gp, rp, splits, m, mp, static_cast<T>(scale), static_cast<T>(reg),
+      static_cast<T>(scale_r), G, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro

@@ -1,0 +1,134 @@
+// Column-sampled kernels of the dual (CA-BDCD) hot path: Y = X[:, flat]
+// read from X's original (d, n) row-major layout -- no transposed copy of X
+// exists anywhere -- with flat (m,) int32, duplicates allowed.
+//
+// K3 cols_packet: (G, r) = (scale * Y^T Y + reg * I, scale_r * Y^T u),
+//   contracted over d, u (d,).
+//   Replaces gram_packet_sampled_cols_pallas (src/repro/kernels/gram/
+//   sampled_colmajor.py), which fetches a 128-lane slab per sampled column
+//   and picks the lane with a one-hot select.  Here each element
+//   X[k, flat[a]] is read on its own: one 32-byte sector for 4 useful bytes
+//   in f32 (8x over-read, against the TPU's 128x slab).  Bound on the H100:
+//   the sector traffic m * d * 32 B at 3.35 TB/s (about 26 us at m = 128,
+//   d = 20958), above both the useful-bytes bound and the m(m+1)/2 * d
+//   multiply-adds on the f32 CUDA cores.  Same split-contraction tiling as
+//   K1 (gram_common.cuh); the d-chunks fill the card.
+//
+// K4 cols_apply: out(d) = scale * Y v.
+//   Replaces panel_apply_cols_pallas (sampled_colmajor.py).  One warp per row
+//   k of X; the lanes stride over the sampled columns and a fixed shuffle
+//   tree sums them.  The reads are scattered by nature: the bound is the
+//   sector traffic m * d * 32 B.
+#include "gram_common.cuh"
+
+namespace {
+
+using repro::LOADS;
+using repro::PTHREADS;
+using repro::Slab;
+using repro::THREADS;
+using repro::TILE;
+
+template <typename T>
+struct ColsGather {
+  const T* __restrict__ X;
+  int64_t n;  // row length of X; the contraction runs over X's d rows
+
+  // Element e = tid + PTHREADS * q of a slab is (sample e % TILE, step
+  // e / TILE): a warp reads the 32 sampled columns of one row of X.
+  __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,
+                                        int64_t k0, int64_t k_end,
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      const int col = idx[e % TILE];
+      const int64_t k = k0 + e / TILE;
+      pre[q] = (col >= 0 && k < k_end) ? X[k * n + col] : T(0);
+    }
+  }
+
+  __device__ __forceinline__ void store(Slab<T>& ys, const T (&pre)[LOADS],
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      ys[e / TILE][e % TILE] = pre[q];
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+cols_apply(const T* __restrict__ X, const int* __restrict__ flat,
+           const T* __restrict__ v, int m, int64_t d, int64_t n, T scale,
+           T* __restrict__ out) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= d) return;  // uniform across the warp
+  const T* __restrict__ xr = X + row * n;
+  T acc = 0;
+  for (int a = lane; a < m; a += 32) acc += xr[flat[a]] * v[a];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[row] = scale * acc;
+}
+
+template <typename T>
+int packet_impl(const void* X, const void* flat, const void* u, void* Gp,
+                void* rp, void* G, void* r, int64_t d, int64_t n, int m,
+                int64_t chunk, int splits, double scale, double reg,
+                double scale_r, void* stream) {
+  ColsGather<T> gather{static_cast<const T*>(X), n};
+  return repro::launch_packet<T>(
+      gather, static_cast<const int*>(flat), static_cast<const T*>(u), m, d,
+      chunk, splits, scale, reg, scale_r, static_cast<T*>(Gp),
+      static_cast<T*>(rp), static_cast<T*>(G), static_cast<T*>(r),
+      static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int apply_impl(const void* X, const void* flat, const void* v, void* out,
+               int64_t d, int64_t n, int m, double scale, void* stream) {
+  constexpr int rows_per_block = THREADS / 32;
+  const int blocks = static_cast<int>((d + rows_per_block - 1) / rows_per_block);
+  cols_apply<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const int*>(flat),
+      static_cast<const T*>(v), m, d, n, static_cast<T>(scale),
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int cols_packet_f32(const void* X, const void* flat, const void* u, void* Gp,
+                    void* rp, void* G, void* r, int64_t d, int64_t n, int m,
+                    int64_t chunk, int splits, double scale, double reg,
+                    double scale_r, void* stream) {
+  return packet_impl<float>(X, flat, u, Gp, rp, G, r, d, n, m, chunk, splits,
+                            scale, reg, scale_r, stream);
+}
+
+int cols_packet_f64(const void* X, const void* flat, const void* u, void* Gp,
+                    void* rp, void* G, void* r, int64_t d, int64_t n, int m,
+                    int64_t chunk, int splits, double scale, double reg,
+                    double scale_r, void* stream) {
+  return packet_impl<double>(X, flat, u, Gp, rp, G, r, d, n, m, chunk,
+                             splits, scale, reg, scale_r, stream);
+}
+
+int cols_apply_f32(const void* X, const void* flat, const void* v, void* out,
+                   int64_t d, int64_t n, int m, double scale, void* stream) {
+  return apply_impl<float>(X, flat, v, out, d, n, m, scale, stream);
+}
+
+int cols_apply_f64(const void* X, const void* flat, const void* v, void* out,
+                   int64_t d, int64_t n, int m, double scale, void* stream) {
+  return apply_impl<double>(X, flat, v, out, d, n, m, scale, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,137 @@
+// Row-sampled kernels of the primal (CA-BCD) hot path: Y = X[flat, :] for
+// X (d, n) row-major, flat (m,) int32 with duplicates allowed.
+//
+// K1 rows_packet: (G, r) = (scale * Y Y^T + reg * I, scale_r * Y u).
+//   Replaces gram_packet_sampled_pallas (src/repro/kernels/gram/
+//   sampled_kernel.py), which scalar-prefetches flat and DMA-gathers the
+//   sampled rows into VMEM tile by tile.  Here each block loads its 32
+//   indices itself and stages X[flat[a], k0:k0+32] in shared memory with
+//   coalesced loads (a warp reads 32 neighbouring columns of one row).
+//   Bound on the H100: m(m+1)/2 * n fused multiply-adds on the f32 CUDA
+//   cores (no tensor cores are used) against m*n reads of X; at the solve's
+//   m = 128, n = 72309 the operations bound (about 18 us at 67 TFLOP/s)
+//   exceeds the bytes bound (about 11 us).  The design fills the card by
+//   splitting n across blocks (gram_common.cuh) and skips the upper tiles.
+//
+// K2 rows_apply: out(n) = scale * Y^T v.
+//   Replaces panel_apply_pallas (sampled_kernel.py).  A bandwidth kernel:
+//   each thread owns one column of n and walks the m gathered rows, so every
+//   read of X is coalesced and duplicate indices accumulate naturally.
+//   Bound: m * n reads of X at 3.35 TB/s.
+#include "gram_common.cuh"
+
+namespace {
+
+using repro::BK;
+using repro::LOADS;
+using repro::PTHREADS;
+using repro::Slab;
+using repro::THREADS;
+
+template <typename T>
+struct RowsGather {
+  const T* __restrict__ X;
+  int64_t n;  // row length of X (the contraction)
+
+  // Element e = tid + PTHREADS * q of a slab is (sample e / BK, step e % BK):
+  // a warp reads 32 neighbouring columns of one sampled row.
+  __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,
+                                        int64_t k0, int64_t k_end,
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      const int row = idx[e / BK];
+      const int64_t k = k0 + e % BK;
+      pre[q] = (row >= 0 && k < k_end) ? X[row * n + k] : T(0);
+    }
+  }
+
+  __device__ __forceinline__ void store(Slab<T>& ys, const T (&pre)[LOADS],
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      ys[e % BK][e / BK] = pre[q];
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rows_apply(const T* __restrict__ X, const int* __restrict__ flat,
+           const T* __restrict__ v, int m, int64_t n, T scale,
+           T* __restrict__ out) {
+  __shared__ int idx_s[THREADS];
+  __shared__ T v_s[THREADS];
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  T acc = 0;
+  for (int a0 = 0; a0 < m; a0 += THREADS) {
+    const int cnt = min(THREADS, m - a0);
+    __syncthreads();
+    if (threadIdx.x < cnt) {
+      idx_s[threadIdx.x] = flat[a0 + threadIdx.x];
+      v_s[threadIdx.x] = v[a0 + threadIdx.x];
+    }
+    __syncthreads();
+    if (k < n)
+      for (int a = 0; a < cnt; ++a) acc += X[idx_s[a] * n + k] * v_s[a];
+  }
+  if (k < n) out[k] = scale * acc;
+}
+
+template <typename T>
+int packet_impl(const void* X, const void* flat, const void* u, void* Gp,
+                void* rp, void* G, void* r, int64_t n, int m, int64_t chunk,
+                int splits, double scale, double reg, double scale_r,
+                void* stream) {
+  RowsGather<T> gather{static_cast<const T*>(X), n};
+  return repro::launch_packet<T>(
+      gather, static_cast<const int*>(flat), static_cast<const T*>(u), m, n,
+      chunk, splits, scale, reg, scale_r, static_cast<T*>(Gp),
+      static_cast<T*>(rp), static_cast<T*>(G), static_cast<T*>(r),
+      static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int apply_impl(const void* X, const void* flat, const void* v, void* out,
+               int64_t n, int m, double scale, void* stream) {
+  const int blocks = static_cast<int>((n + THREADS - 1) / THREADS);
+  rows_apply<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const int*>(flat),
+      static_cast<const T*>(v), m, n, static_cast<T>(scale),
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int rows_packet_f32(const void* X, const void* flat, const void* u, void* Gp,
+                    void* rp, void* G, void* r, int64_t n, int m,
+                    int64_t chunk, int splits, double scale, double reg,
+                    double scale_r, void* stream) {
+  return packet_impl<float>(X, flat, u, Gp, rp, G, r, n, m, chunk, splits,
+                            scale, reg, scale_r, stream);
+}
+
+int rows_packet_f64(const void* X, const void* flat, const void* u, void* Gp,
+                    void* rp, void* G, void* r, int64_t n, int m,
+                    int64_t chunk, int splits, double scale, double reg,
+                    double scale_r, void* stream) {
+  return packet_impl<double>(X, flat, u, Gp, rp, G, r, n, m, chunk, splits,
+                             scale, reg, scale_r, stream);
+}
+
+int rows_apply_f32(const void* X, const void* flat, const void* v, void* out,
+                   int64_t n, int m, double scale, void* stream) {
+  return apply_impl<float>(X, flat, v, out, n, m, scale, stream);
+}
+
+int rows_apply_f64(const void* X, const void* flat, const void* v, void* out,
+                   int64_t n, int m, double scale, void* stream) {
+  return apply_impl<double>(X, flat, v, out, n, m, scale, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,5 @@
+from .regression import (PAPER_DATASETS, PAPER_DATASETS_FULL, SyntheticSpec,
+                         lam_for, make_regression)
+
+__all__ = ["SyntheticSpec", "make_regression", "lam_for", "PAPER_DATASETS",
+           "PAPER_DATASETS_FULL"]

@@ -1,0 +1,69 @@
+"""Carrying problems, plans and results between the reference package and
+the port.
+
+The two packages share no code and no random streams, so a comparison hands
+both the same numpy arrays: :func:`problem_from_numpy` turns the reference's
+arrays into the port's tensors in the same layouts, :func:`plan_from_reference`
+maps the reference ``SolverPlan`` fields this port supports, and
+:func:`result_to_numpy` converts a port result back.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import SolveResult, SolverPlan
+
+# Reference impls and their counterparts here: the jnp oracles map to the
+# plain versions, the TPU kernels to the CUDA kernels.
+_IMPL_MAP = {None: None, "ref": "ref", "pallas": "cuda"}
+
+
+def problem_from_numpy(X, y, idx, x0=None, *, device, dtype):
+    """(X (d, n), y (n,), idx int32 (iters, b), x0 or None) as tensors on
+    ``device`` in ``dtype`` (idx stays int32)."""
+    def conv(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    idx_t = torch.as_tensor(np.asarray(idx, dtype=np.int32), device=device)
+    return conv(X), conv(y), idx_t, (None if x0 is None else conv(x0))
+
+
+def plan_from_reference(**fields) -> SolverPlan:
+    """A :class:`SolverPlan` from reference ``SolverPlan`` keyword fields.
+
+    Supported: ``b``, ``s``, ``impl`` (``"ref"``, ``"pallas"`` -> ``"cuda"``,
+    ``None``), ``track_cond``, and ``fuse_packet`` / ``unroll``, which do not
+    change a local solve's arithmetic and are dropped.  Raises on what this
+    port does not have: ``guard``, ``fault``, ``tenants``, a ``wire`` other
+    than ``"psum"``, TPU ``tiles``, and any other field.
+    """
+    fields = dict(fields)
+    fields.pop("fuse_packet", None)
+    fields.pop("unroll", None)
+    unsupported = []
+    if fields.pop("guard", False):
+        unsupported.append("guard")
+    for name in ("guard_boost", "guard_cond_max"):
+        fields.pop(name, None)        # meaningless without guard
+    for name in ("fault", "tenants", "tiles"):
+        if fields.pop(name, None) is not None:
+            unsupported.append(name)
+    if fields.pop("wire", "psum") != "psum":
+        unsupported.append("wire")
+    impl = fields.pop("impl", None)
+    if impl not in _IMPL_MAP:
+        unsupported.append(f"impl={impl!r}")
+    unsupported.extend(sorted(set(fields) - {"b", "s", "track_cond"}))
+    if unsupported:
+        raise ValueError(f"reference plan fields not supported by the port: "
+                         f"{unsupported}")
+    return SolverPlan(impl=_IMPL_MAP[impl], **fields)
+
+
+def result_to_numpy(res: SolveResult) -> SolveResult:
+    """The same result with every tensor copied to a numpy array."""
+    def conv(t):
+        return t.detach().cpu().numpy()
+    return SolveResult(conv(res.w), conv(res.alpha),
+                       {k: conv(v) for k, v in res.history.items()},
+                       {k: conv(v) for k, v in res.metrics.items()})

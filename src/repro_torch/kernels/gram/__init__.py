@@ -1,0 +1,33 @@
+"""Sampled Gram-packet kernels for the s-step solvers: plain PyTorch
+versions (``ref``) and hand-written CUDA kernels for Hopper (``csrc/``).
+
+``KERNELS`` lists the CUDA kernels with their launch counters."""
+from . import tuning
+from .operands import (ColMajorOperand, PacketOperand, RowMajorOperand,
+                       as_operand)
+from .ops import PacketPlan, gram_packet_sampled, panel_apply
+from .ref import (gram_packet_ref, gram_packet_sampled_cols_ref,
+                  gram_packet_sampled_ref, gram_ref, panel_apply_cols_ref,
+                  panel_apply_ref)
+from .sampled_colmajor import (COLS_APPLY, COLS_PACKET,
+                               gram_packet_sampled_cols, panel_apply_cols)
+from .sampled_kernel import (ROWS_APPLY, ROWS_PACKET,
+                             gram_packet_sampled_rows, panel_apply_rows)
+
+KERNELS = (ROWS_PACKET, ROWS_APPLY, COLS_PACKET, COLS_APPLY)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = [
+    "PacketPlan", "PacketOperand", "RowMajorOperand", "ColMajorOperand",
+    "as_operand", "gram_packet_sampled", "panel_apply", "gram_ref",
+    "gram_packet_ref", "gram_packet_sampled_ref",
+    "gram_packet_sampled_cols_ref", "panel_apply_ref", "panel_apply_cols_ref",
+    "gram_packet_sampled_rows", "panel_apply_rows",
+    "gram_packet_sampled_cols", "panel_apply_cols", "KERNELS",
+    "reset_launch_counts", "tuning",
+]

@@ -1,0 +1,1 @@
+"""User-facing entry points of the port (``python -m repro_torch.launch.*``)."""
