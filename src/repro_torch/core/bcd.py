@@ -36,7 +36,7 @@ def bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, iters: int,
         generator: torch.Generator | None = None, *,
         w0: torch.Tensor | None = None, idx: torch.Tensor | None = None,
         w_ref: torch.Tensor | None = None, impl: str | None = None,
-        tiles: tuple[int, int] | None = None) -> SolveResult:
+        tiles: int | None = None) -> SolveResult:
     """Classical BCD, Algorithm 1 (residual form): the engine at s = 1."""
     plan = SolverPlan(b=b, s=1, impl=impl, tiles=tiles)
     return s_step_solve(PRIMAL, plan, X, y, lam, iters, generator, x0=w0,
@@ -48,7 +48,7 @@ def ca_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, s: int,
            w0: torch.Tensor | None = None, idx: torch.Tensor | None = None,
            w_ref: torch.Tensor | None = None, track_cond: bool = False,
            impl: str | None = None,
-           tiles: tuple[int, int] | None = None) -> SolveResult:
+           tiles: int | None = None) -> SolveResult:
     """CA-BCD, Algorithm 2: the engine at s > 1.  ``iters`` counts inner
     iterations; a non-multiple of ``s`` runs a ragged final outer step."""
     plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond)

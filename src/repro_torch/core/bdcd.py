@@ -27,7 +27,7 @@ def bdcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, iters: int,
          generator: torch.Generator | None = None, *,
          alpha0: torch.Tensor | None = None, idx: torch.Tensor | None = None,
          w_ref: torch.Tensor | None = None, impl: str | None = None,
-         tiles: tuple[int, int] | None = None) -> SolveResult:
+         tiles: int | None = None) -> SolveResult:
     """Classical BDCD, Algorithm 3: the engine at s = 1 (``b`` is b')."""
     plan = SolverPlan(b=b, s=1, impl=impl, tiles=tiles)
     return s_step_solve(DUAL, plan, X, y, lam, iters, generator, x0=alpha0,
@@ -40,7 +40,7 @@ def ca_bdcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, s: int,
             idx: torch.Tensor | None = None,
             w_ref: torch.Tensor | None = None, track_cond: bool = False,
             impl: str | None = None,
-            tiles: tuple[int, int] | None = None) -> SolveResult:
+            tiles: int | None = None) -> SolveResult:
     """CA-BDCD, Algorithm 4: the engine at s > 1; same index stream as
     :func:`bdcd` gives the same iterates in exact arithmetic."""
     plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond)

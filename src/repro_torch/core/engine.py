@@ -47,28 +47,25 @@ class SolverPlan:
     """Everything the engine needs besides the problem data.
 
     ``b`` is the block size (b' for the dual), ``s`` the loop-blocking
-    parameter (s = 1 is the classical algorithm).  ``impl``/``tiles`` select
-    the Gram-packet backend and its (bm, bk), collapsed into one
-    :class:`~repro_torch.kernels.gram.PacketPlan`.  ``track_cond`` records
+    parameter (s = 1 is the classical algorithm).  ``impl`` selects the
+    Gram-packet backend and ``tiles`` its contraction chunk ``bk``, collapsed
+    into one :class:`~repro_torch.kernels.gram.PacketPlan`.  ``track_cond`` records
     cond(scale * G + reg * I) per outer step in the history.
     """
     b: int
     s: int = 1
     impl: str | None = None
-    tiles: tuple[int, int] | None = None
+    tiles: int | None = None
     track_cond: bool = False
 
     def __post_init__(self):
         for name in ("b", "s"):
             check_positive_int(f"SolverPlan.{name}", getattr(self, name))
-        if self.tiles is not None and len(self.tiles) != 2:
-            raise ValueError(
-                f"SolverPlan.tiles={self.tiles!r} must be a (bm, bk) pair")
         self.packet  # PacketPlan validates impl and the tile values
 
     @property
     def packet(self) -> PacketPlan:
-        return PacketPlan.make(impl=self.impl, tiles=self.tiles)
+        return PacketPlan(impl=self.impl, bk=self.tiles)
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,7 @@ Semantics over the implicit sampled panel ``Y(flat)``, shape (m, C):
   ``sampled_colmajor.py``.
 
 The operands never pad the array: the kernels mask their ragged edges, so no
-call copies the dataset.  Knob resolution (``impl``/``bm``/``bk``) stays in
+call copies the dataset.  Knob resolution (``impl``/``bk``) stays in
 ``ops.py``; ``impl`` arrives here as ``"ref"`` or ``"cuda"``.
 """
 from __future__ import annotations
@@ -49,15 +49,15 @@ class RowMajorOperand:
     def contraction(self) -> int:
         return self.array.shape[1]
 
-    def packet(self, flat, u, *, scale, reg, scale_r, impl, bm, bk):
+    def packet(self, flat, u, *, scale, reg, scale_r, impl, bk):
         if impl == "ref":
             return ref.gram_packet_sampled_ref(self.array, flat, u, scale,
                                                reg, scale_r)
         return gram_packet_sampled_rows(self.array, _int32(flat), u,
                                         scale=scale, reg=reg,
-                                        scale_r=scale_r, bm=bm, bk=bk)
+                                        scale_r=scale_r, bk=bk)
 
-    def apply(self, flat, v, *, scale, impl, bm, bk):
+    def apply(self, flat, v, *, scale, impl):
         if impl == "ref":
             return ref.panel_apply_ref(self.array, flat, v, scale)
         return panel_apply_rows(self.array, _int32(flat), v, scale=scale)
@@ -82,15 +82,15 @@ class ColMajorOperand:
     def contraction(self) -> int:
         return self.array.shape[0]
 
-    def packet(self, flat, u, *, scale, reg, scale_r, impl, bm, bk):
+    def packet(self, flat, u, *, scale, reg, scale_r, impl, bk):
         if impl == "ref":
             return ref.gram_packet_sampled_cols_ref(self.array, flat, u,
                                                     scale, reg, scale_r)
         return gram_packet_sampled_cols(self.array, _int32(flat), u,
                                         scale=scale, reg=reg,
-                                        scale_r=scale_r, bm=bm, bk=bk)
+                                        scale_r=scale_r, bk=bk)
 
-    def apply(self, flat, v, *, scale, impl, bm, bk):
+    def apply(self, flat, v, *, scale, impl):
         if impl == "ref":
             return ref.panel_apply_cols_ref(self.array, flat, v, scale)
         return panel_apply_cols(self.array, _int32(flat), v, scale=scale)

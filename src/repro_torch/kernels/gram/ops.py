@@ -33,29 +33,19 @@ IMPLS = ("ref", "cuda")
 class PacketPlan:
     """One bundle of kernel-dispatch knobs for a sequence of packet calls.
 
-    ``impl`` selects the backend (``None`` resolves per device); ``bm``/``bk``
-    pin the kernel tiles (``None`` consults ``tuning.pick_tiles``).  Knobs
-    are validated at construction, so a typo fails before the first call.
+    ``impl`` selects the backend (``None`` resolves per device); ``bk`` pins
+    the packet kernels' contraction chunk (``None`` consults
+    ``tuning.pick_tiles``; the G tile edge is fixed at ``tuning.TILE``).
+    Knobs are validated at construction, so a typo fails before the first
+    call.
     """
     impl: str | None = None
-    bm: int | None = None
     bk: int | None = None
 
     def __post_init__(self):
         if self.impl is not None:
             _check_impl(self.impl)
-        for name in ("bm", "bk"):
-            _check_tile(name, getattr(self, name))
-
-    @classmethod
-    def make(cls, impl: str | None = None,
-             tiles: tuple[int, int] | None = None) -> "PacketPlan":
-        """Build from the public solver knobs (``impl``, ``tiles=(bm, bk)``)."""
-        if tiles is None:
-            return cls(impl=impl)
-        if len(tiles) != 2:
-            raise ValueError(f"tiles={tiles!r} must be a (bm, bk) pair")
-        return cls(impl=impl, bm=tiles[0], bk=tiles[1])
+        _check_tile("bk", self.bk)
 
 
 def check_positive_int(name: str, v) -> None:
@@ -80,13 +70,11 @@ def _check_impl(impl: str) -> None:
             f"unknown gram impl {impl!r}; expected one of {IMPLS}")
 
 
-def _resolve(plan: PacketPlan | None, impl, bm, bk, device: torch.device
-             ) -> tuple[str, int | None, int | None]:
-    _check_tile("bm", bm)
+def _resolve(plan: PacketPlan | None, impl, bk, device: torch.device
+             ) -> tuple[str, int | None]:
     _check_tile("bk", bk)
     if plan is not None:
         impl = impl if impl is not None else plan.impl
-        bm = bm if bm is not None else plan.bm
         bk = bk if bk is not None else plan.bk
     if impl is None:
         impl = "cuda" if device.type == "cuda" else "ref"
@@ -94,30 +82,28 @@ def _resolve(plan: PacketPlan | None, impl, bm, bk, device: torch.device
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors; the operand is on "
                          f"{device}")
-    return impl, bm, bk
+    return impl, bk
 
 
 def gram_packet_sampled(X, flat: torch.Tensor, u: torch.Tensor, *,
                         scale: float = 1.0, reg: float = 0.0,
                         scale_r: float | None = None, impl: str | None = None,
-                        bm: int | None = None, bk: int | None = None,
-                        plan: PacketPlan | None = None
+                        bk: int | None = None, plan: PacketPlan | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Panel-free packet for the operand's sampled panel; ``flat`` (m,)
     integer indices (duplicates allowed), ``u`` of the operand's contraction
     length."""
     op = as_operand(X)
-    impl, bm, bk = _resolve(plan, impl, bm, bk, op.array.device)
+    impl, bk = _resolve(plan, impl, bk, op.array.device)
     return op.packet(flat, u, scale=scale, reg=reg, scale_r=scale_r,
-                     impl=impl, bm=bm, bk=bk)
+                     impl=impl, bk=bk)
 
 
 def panel_apply(X, flat: torch.Tensor, v: torch.Tensor, *,
                 scale: float = 1.0, impl: str | None = None,
-                bm: int | None = None, bk: int | None = None,
                 plan: PacketPlan | None = None) -> torch.Tensor:
     """out = scale * Y^T v for the operand's sampled panel; the output length
     is the operand's contraction dimension."""
     op = as_operand(X)
-    impl, bm, bk = _resolve(plan, impl, bm, bk, op.array.device)
-    return op.apply(flat, v, scale=scale, impl=impl, bm=bm, bk=bk)
+    impl, _ = _resolve(plan, impl, None, op.array.device)
+    return op.apply(flat, v, scale=scale, impl=impl)

@@ -21,7 +21,7 @@ import torch
 
 from . import _build, ref
 from .sampled_kernel import (D, I, I64, P, SUFFIX, check_cuda_operands,
-                             launch_packet, resolve_tiles)
+                             launch_packet, resolve_chunk)
 
 COLS_PACKET = _build.KernelInfo(
     "gram_packet_sampled_cols", "src/repro_torch/csrc/sampled_cols.cu",
@@ -40,7 +40,7 @@ _APPLY_ARGS = (P, P, P, P, I64, I64, I, D, P)
 def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
                              u: torch.Tensor, *, scale: float = 1.0,
                              reg: float = 0.0, scale_r: float | None = None,
-                             bm: int | None = None, bk: int | None = None
+                             bk: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: the column-sampled packet for X (d, n), flat (m,) int32 over n,
     u (d,)."""
@@ -49,7 +49,7 @@ def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
                                                 scale_r)
     d, n = X.shape
     check_cuda_operands(X, flat, u, d, n, COLS_PACKET.name)
-    _, chunk = resolve_tiles(flat.shape[0], d, X.dtype, "cols", bm, bk)
+    chunk = resolve_chunk(flat.shape[0], d, X.dtype, "cols", bk)
     return launch_packet(COLS_PACKET, "cols_packet", _PACKET_ARGS, X, flat, u,
                          (d, n), d, chunk, scale, reg,
                          scale if scale_r is None else scale_r)

@@ -75,19 +75,14 @@ def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
                          f"[0, {n_index})")
 
 
-def resolve_tiles(m: int, K: int, dtype: torch.dtype, layout: str,
-                  bm: int | None, bk: int | None) -> tuple[int, int]:
-    """Explicit tiles win over the tuning pick; the kernels take bm = 32 and
-    a bk that is a multiple of the 32-step shared-memory stage."""
-    auto_bm, auto_bk = tuning.pick_tiles(m, K, dtype, layout)
-    bm = auto_bm if bm is None else bm
-    bk = auto_bk if bk is None else bk
-    if bm != tuning.TILE:
-        raise ValueError(f"bm={bm}: the CUDA kernels are built for "
-                         f"bm={tuning.TILE} only")
+def resolve_chunk(m: int, K: int, dtype: torch.dtype, layout: str,
+                  bk: int | None) -> int:
+    """An explicit chunk wins over the tuning pick; it must be a multiple of
+    the 32-step shared-memory stage."""
+    bk = tuning.pick_tiles(m, K, dtype, layout) if bk is None else bk
     if bk % tuning.BK:
         raise ValueError(f"bk={bk} must be a multiple of {tuning.BK}")
-    return bm, bk
+    return bk
 
 
 def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
@@ -120,14 +115,14 @@ def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
 def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
                              u: torch.Tensor, *, scale: float = 1.0,
                              reg: float = 0.0, scale_r: float | None = None,
-                             bm: int | None = None, bk: int | None = None
+                             bk: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the row-sampled packet for X (d, n), flat (m,) int32, u (n,)."""
     if X.device.type == "cpu":
         return ref.gram_packet_sampled_ref(X, flat, u, scale, reg, scale_r)
     d, n = X.shape
     check_cuda_operands(X, flat, u, n, d, ROWS_PACKET.name)
-    _, chunk = resolve_tiles(flat.shape[0], n, X.dtype, "rows", bm, bk)
+    chunk = resolve_chunk(flat.shape[0], n, X.dtype, "rows", bk)
     return launch_packet(ROWS_PACKET, "rows_packet", _PACKET_ARGS, X, flat, u,
                          (n,), n, chunk, scale, reg,
                          scale if scale_r is None else scale_r)

@@ -1,13 +1,10 @@
-"""Tile selection for the Hopper Gram-packet kernels: ``(bm, bk)`` per
-``(m, K, dtype, layout)``.
+"""Tile selection for the Hopper Gram-packet kernels: the contraction chunk
+``bk`` per ``(m, K, dtype, layout)``.
 
-The knobs mean what the CUDA kernels (``csrc/gram_common.cuh``) do with them:
-
-* ``bm`` -- the edge of a G tile.  The kernels are compiled for
-  :data:`TILE` = 32 only; any other value is refused by the wrappers.
-* ``bk`` -- the length of one contraction chunk: the contraction K (n for
-  the row layout, d for the column layout) is cut into ``ceil(K / bk)``
-  chunks, one block per (lower G tile, chunk).  A multiple of :data:`BK`.
+The CUDA kernels (``csrc/gram_common.cuh``) cut G into tiles of the fixed
+edge :data:`TILE` = 32 and the contraction K (n for the row layout, d for
+the column layout) into ``ceil(K / bk)`` chunks of length ``bk``, one block
+per (lower G tile, chunk).  ``bk`` is a multiple of :data:`BK`.
 
 The default ``bk`` fills the card: it aims at :data:`TARGET_BLOCKS` blocks
 for the layout but keeps at least :data:`MIN_STEPS` shared-memory steps per
@@ -34,7 +31,7 @@ MAX_SPLITS = 65535    # gridDim.y limit
 
 LAYOUTS = ("rows", "cols")
 
-_TABLE: dict[tuple[int, int, str, str], tuple[int, int]] = {}
+_TABLE: dict[tuple[int, int, str, str], int] = {}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -54,8 +51,8 @@ def _check_layout(layout: str) -> None:
             f"unknown operand layout {layout!r}; expected one of {LAYOUTS}")
 
 
-def lower_tiles(m: int, bm: int = TILE) -> int:
-    nt = _cdiv(m, bm)
+def lower_tiles(m: int) -> int:
+    nt = _cdiv(m, TILE)
     return nt * (nt + 1) // 2
 
 
@@ -68,12 +65,12 @@ def default_chunk(m: int, K: int, layout: str = "rows") -> int:
 
 
 def pick_tiles(m: int, K: int, dtype: torch.dtype, layout: str = "rows"
-               ) -> tuple[int, int]:
-    """``(bm, bk)`` for an (m samples, K contraction) packet in ``layout``:
-    a table hit, else ``(TILE, default_chunk(m, K, layout))``."""
+               ) -> int:
+    """``bk`` for an (m samples, K contraction) packet in ``layout``: a
+    table hit, else ``default_chunk(m, K, layout)``."""
     _check_layout(layout)
     key = (_bucket(max(m, 1)), _bucket(max(K, 1)), str(dtype).split(".")[-1],
            layout)
     if key in _TABLE:
         return _TABLE[key]
-    return TILE, default_chunk(m, K, layout)
+    return default_chunk(m, K, layout)

@@ -32,7 +32,7 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0):
         for m in (8, 128):
             flat = torch.randperm(S, generator=g, device=dev)[:m].to(
                 torch.int32)
-            _, auto = tuning.pick_tiles(m, K, X.dtype, layout)
+            auto = tuning.pick_tiles(m, K, X.dtype, layout)
             for bk in sorted(set(CHUNKS) | {auto}):
                 ms = device_ms(lambda: kern(X, flat, u, bk=bk), reps,
                                KERNEL_NAMES["packet"])

@@ -180,12 +180,12 @@ def test_registry_and_string_formulations(problem):
 
 def test_solver_plan_validation():
     for bad in ({"b": 0}, {"b": 2, "s": 0}, {"b": 2.5},
-                {"b": 2, "impl": "pallas"}, {"b": 2, "tiles": (32,)},
-                {"b": 2, "tiles": (32, 0)}):
+                {"b": 2, "impl": "pallas"}, {"b": 2, "tiles": (32, 64)},
+                {"b": 2, "tiles": 0}):
         with pytest.raises(ValueError):
             T.SolverPlan(**bad)
-    assert T.SolverPlan(b=4, s=2, impl="cuda", tiles=(32, 64)).packet == \
-        T.engine.PacketPlan("cuda", 32, 64)
+    assert T.SolverPlan(b=4, s=2, impl="cuda", tiles=64).packet == \
+        T.engine.PacketPlan("cuda", 64)
 
 
 def test_interop_round_trip(problem):

@@ -24,7 +24,7 @@ from repro_torch.kernels import gram as gk
 from repro_torch.kernels.gram import ref as tref
 from repro_torch.kernels.gram import tuning
 from repro_torch.kernels.gram.sampled_kernel import (check_cuda_operands,
-                                                     resolve_tiles)
+                                                     resolve_chunk)
 
 from _x64 import x64_mode  # noqa: F401  (autouse fixture)
 
@@ -183,18 +183,16 @@ def test_impl_cuda_on_cpu_tensor_raises(call):
 def test_packet_plan_validation():
     with pytest.raises(ValueError, match="unknown gram impl"):
         gk.PacketPlan(impl="pallas")
-    for bad in (0, -32, 1.5, True):
-        with pytest.raises(ValueError, match="positive int"):
-            gk.PacketPlan(bm=bad)
+    for bad in (0, -32, 1.5, True, (32, 64)):
         with pytest.raises(ValueError, match="positive int"):
             gk.PacketPlan(bk=bad)
-    with pytest.raises(ValueError, match="pair"):
-        gk.PacketPlan.make(tiles=(32,))
-    assert gk.PacketPlan.make("ref", (32, 64)) == gk.PacketPlan("ref", 32, 64)
+    with pytest.raises(TypeError):
+        gk.PacketPlan(bm=32)            # the G tile edge is not a knob
+    assert gk.PacketPlan("ref", 64) == gk.PacketPlan(impl="ref", bk=64)
     X = torch.zeros((4, 6))
     flat = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(ValueError, match="positive int"):
-        gk.gram_packet_sampled(X, flat, torch.zeros(6), bm=0)
+        gk.gram_packet_sampled(X, flat, torch.zeros(6), bk=0)
 
 
 def test_explicit_knobs_win_over_plan():
@@ -215,8 +213,8 @@ def test_explicit_knobs_win_over_plan():
                                  (77, 100), (1, 1), (4096, 10**6)])
 @pytest.mark.parametrize("layout", ["rows", "cols"])
 def test_pick_tiles_fill_the_card_within_limits(m, K, layout):
-    bm, bk = tuning.pick_tiles(m, K, torch.float32, layout)
-    assert bm == tuning.TILE and bk % tuning.BK == 0 and bk >= tuning.BK
+    bk = tuning.pick_tiles(m, K, torch.float32, layout)
+    assert bk % tuning.BK == 0 and bk >= tuning.BK
     splits = -(-K // bk)
     assert 1 <= splits <= tuning.MAX_SPLITS
     blocks = tuning.lower_tiles(m) * splits
@@ -224,17 +222,17 @@ def test_pick_tiles_fill_the_card_within_limits(m, K, layout):
     # (chunks round up to whole shared-memory steps, hence the 0.8)
     room = tuning.lower_tiles(m) * max(1, K // (tuning.BK * tuning.MIN_STEPS))
     assert blocks >= 0.8 * min(tuning.TARGET_BLOCKS[layout], room)
-    assert resolve_tiles(m, K, torch.float32, layout, None, None) == (bm, bk)
+    assert resolve_chunk(m, K, torch.float32, layout, None) == bk
 
 
 def test_pick_tiles_rejects_unknown_layout_and_bad_tiles():
     with pytest.raises(ValueError, match="layout"):
         tuning.pick_tiles(8, 100, torch.float32, "diag")
-    with pytest.raises(ValueError, match="bm=32 only"):
-        resolve_tiles(8, 100, torch.float32, "rows", 16, None)
     with pytest.raises(ValueError, match="multiple of 32"):
-        resolve_tiles(8, 100, torch.float32, "rows", None, 48)
-    assert resolve_tiles(8, 100, torch.float32, "rows", 32, 64) == (32, 64)
+        resolve_chunk(8, 100, torch.float32, "rows", 16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        resolve_chunk(8, 100, torch.float32, "rows", 48)
+    assert resolve_chunk(8, 100, torch.float32, "rows", 64) == 64
 
 
 def _operands(**over):
