@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path -- the single-device s-step solve of CA-BCD
-(primal) and CA-BDCD (dual) -- at the full real-sim shape of the paper's
-Table 3 (d = 20958 features, n = 72309 points, X = 6.06 GB in f32), through
-the four hand-written CUDA kernels K1-K4, and checks each kernel against its
-plain PyTorch version on the card.
+Drives the port's paths -- the single-device s-step solve of CA-BCD
+(primal) and CA-BDCD (dual), the tenant-batched engine (primal, dual,
+proximal) and the continuous-batching solve service -- at the full real-sim
+shape of the paper's Table 3 (d = 20958 features, n = 72309 points,
+X = 6.06 GB in f32), through the six hand-written CUDA kernels K1-K6, and
+checks each kernel against its plain PyTorch version on the card.
 
 Phases (any failure raises; nothing is caught):
   1. set-up: versions, the card's name and power limit, the kernel build;
   2. each kernel against its plain version at the solve's shapes (f32) and at
-     a small f64 shape, with its device time beside its bound, the plain
-     version's time and a library call's time;
-  3. the solves at real-sim size: CA(16) against classical, the kernel path
-     against impl="ref", the objective going down, the launch counts;
+     the 8x-cut f64 shape, with its device time beside its bound, the plain
+     version's time and a library call's time; the matvecs K5/K6 also equal
+     to K3/K1's r and their T-tenant launch to T single launches
+     (torch.equal);
+  3. the single solves at real-sim size (counted): CA(16) against
+     classical, the kernel path against impl="ref", the objective going
+     down, the launch counts; 3b. the device-idle share from a trace;
   4. f64 exactness through the kernels at the 8x-cut real-sim shape: CA(s)
-     against classical for s in {3, 16} with a ragged tail.
+     against classical for s in {3, 16} with a ragged tail;
+  5. the batched engine at real-sim size (counted): 8 tenants with mixed
+     lambda, primal, dual and proximal, each tenant equal to its single
+     solve (torch.equal); ms per outer step at T in {1, 8, 32}; the
+     device-idle share;
+  6. the solve service at real-sim size (counted): 24 requests through 16
+     slots, primal then dual, each ticket equal to a single solve replayed
+     over the index chunks of its steps (torch.equal); solves/s.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -63,6 +74,8 @@ LINE_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # hundred f32 ulps.
 TOL_SOLVE_F32 = 1e-4
 TOL_SOLVE_F64 = 1e-10           # CA(s) against classical in f64
+TENANTS = 8                     # tenants of the batched engine's run
+BATCHED_ITERS = 72              # 4 full outer steps at s = 16, a ragged 8
 
 
 def log(msg: str) -> None:
@@ -98,7 +111,8 @@ def ragged_flat(gen, n_total: int, m: int):
     return perm.to(torch.int32).contiguous()
 
 
-def bound(kind: str, m: int, uniq: int, K: int, dtype) -> dict:
+def bound(kind: str, m: int, uniq: int, K: int, dtype,
+          tenants: int = 1) -> dict:
     """Least time for the function on these inputs: each input read once
     (only the sampled rows / columns of X), each output written once, against
     the operations at the CUDA-core rate of ``dtype``."""
@@ -106,6 +120,9 @@ def bound(kind: str, m: int, uniq: int, K: int, dtype) -> dict:
     if kind == "packet":
         nbytes = (uniq * K + K + m * m + m) * isz + 4 * m
         flops = 2 * (m * (m + 1) // 2 * K + m * K)
+    elif kind == "matvec":
+        nbytes = (uniq * K + tenants * K + tenants * m) * isz + 4 * m
+        flops = 2 * tenants * m * K
     else:
         nbytes = (uniq * K + m + K) * isz + 4 * m
         flops = 2 * m * K
@@ -115,14 +132,9 @@ def bound(kind: str, m: int, uniq: int, K: int, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
-                  main_m: dict) -> dict:
-    """Phase 2 on one X: every kernel against its plain version for each m in
-    ``ms``; at ``main_m[kind]`` also the timings.  Returns per-kernel records
-    at the main shapes."""
-    d, n = X.shape
-    tol = TOL_KERNEL[str(X.dtype)]
-    specs = [  # kernel, info, plain, layout, samples, contraction, kind
+def kernel_specs(d: int, n: int) -> list:
+    """(kernel, info, plain, samples, contraction, kind, layout) of K1-K6."""
+    return [
         (gk.gram_packet_sampled_rows, gk.ROWS_PACKET,
          gk.gram_packet_sampled_ref, d, n, "packet", "rows"),
         (gk.panel_apply_rows, gk.ROWS_APPLY, gk.panel_apply_ref, d, n,
@@ -131,14 +143,50 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
          gk.gram_packet_sampled_cols_ref, n, d, "packet", "cols"),
         (gk.panel_apply_cols, gk.COLS_APPLY, gk.panel_apply_cols_ref, n, d,
          "apply", "cols"),
+        (gk.panel_matvec_cols, gk.COLS_MATVEC, gk.panel_matvec_cols_ref, n, d,
+         "matvec", "cols"),
+        (gk.panel_matvec_rows, gk.ROWS_MATVEC, gk.panel_matvec_ref, d, n,
+         "matvec", "rows"),
     ]
+
+
+def check_matvec_identities(X, flat, vec, kern, layout: str, tag: str,
+                            name: str) -> None:
+    """The matvec kernel against the packet's r at scale = scale_r = 1 and
+    its T-tenant launch against T single launches, under torch.equal."""
+    packet = (gk.gram_packet_sampled_rows if layout == "rows"
+              else gk.gram_packet_sampled_cols)
+    u = vec[0].clone()
+    _, r = packet(X, flat, u, scale=1.0, scale_r=1.0)
+    same_r = torch.equal(kern(X, flat, u), r)
+    out = kern(X, flat, vec)
+    singles = all(torch.equal(out[j], kern(X, flat, vec[j]))
+                  for j in range(vec.shape[0]))
+    torch.cuda.synchronize()
+    log(f"    {tag} {name} m={flat.shape[0]}: equal to the packet's r "
+        f"{same_r}; {vec.shape[0]}-tenant launch equal to single launches "
+        f"{singles}")
+    if not (same_r and singles):
+        raise AssertionError(f"{name}: matvec identities fail at "
+                             f"m={flat.shape[0]} ({same_r}, {singles})")
+
+
+def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
+                  main_m: dict, tenants: int) -> dict:
+    """Phase 2 on one X: every kernel against its plain version for each m in
+    ``ms`` (the matvecs with ``tenants`` vectors, and held to the packets' r);
+    at the m's in ``main_m[kind]`` also the timings.  Returns per-kernel
+    records, the first timed m of each under the kernel's name."""
+    d, n = X.shape
+    tol = TOL_KERNEL[str(X.dtype)]
     out = {}
-    for kern, info, plain, S, K, kind, layout in specs:
+    for kern, info, plain, S, K, kind, layout in kernel_specs(d, n):
         for m in ms:
             flat = (blocked_flat(gen, S, 8, m // 8) if m % 8 == 0
                     else ragged_flat(gen, S, m))
-            vec = torch.randn((K if kind == "packet" else m,), generator=gen,
-                              device=X.device, dtype=X.dtype)
+            shape = {"packet": (K,), "apply": (m,), "matvec": (tenants, K)}
+            vec = torch.randn(shape[kind], generator=gen, device=X.device,
+                              dtype=X.dtype)
             got = kern(X, flat, vec)
             want = plain(X, flat, vec)
             torch.cuda.synchronize()
@@ -161,7 +209,11 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                                      f"version at m={m}: {errs}")
             if sym != 0.0:
                 raise AssertionError(f"{info.name}: G is not symmetric")
-            if m != main_m.get(kind):
+            if kind == "matvec":
+                check_matvec_identities(X, flat, vec, kern, layout, tag,
+                                        info.name)
+            timed = main_m.get(kind, ())
+            if m not in timed:
                 continue
             uniq = int(torch.unique(flat).numel())
             rec = {"name": info.name, "route": "cuda", "source": info.source,
@@ -175,13 +227,20 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 if not rec["tf32_cross_err"] > tol:
                     raise AssertionError(f"the f32 gate {tol} would pass a G "
                                          f"computed in TF32")
-            names = KERNEL_NAMES["packet" if kind == "packet"
+            names = KERNEL_NAMES[kind if kind != "apply"
                                  else f"{layout}_apply"]
-            rec["ms"] = device_ms(lambda: kern(X, flat, vec), reps, names)
-            rec["wrapper_ms"] = wall_ms(lambda: kern(X, flat, vec), reps)
-            rec["plain_ms"] = device_ms(lambda: plain(X, flat, vec), reps)
-            rec["library_ms"] = library_ms(X, flat, vec, kind, layout, reps)
-            rec.update(bound(kind, m, uniq, K, X.dtype))
+            rec.update(time_kernel(X, flat, vec, kern, plain, kind, layout,
+                                   names, reps))
+            rec.update(bound(kind, m, uniq, K, X.dtype,
+                             tenants if kind == "matvec" else 1))
+            if kind == "matvec":
+                rec["tenants"] = tenants
+                one = vec[0].clone()
+                for key, val in time_kernel(X, flat, one, kern, plain, kind,
+                                            layout, names, reps).items():
+                    rec[f"{key}_t1"] = val
+                rec["bound_ms_t1"] = bound(kind, m, uniq, K, X.dtype)[
+                    "bound_ms"]
             if layout == "cols":
                 # scattered reads: one 32-byte sector per sampled element.  A
                 # model of the traffic, not a measurement: it stays out of the
@@ -192,9 +251,23 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 f"library {rec['library_ms']:.4f}, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                 + (f", sector bound {rec['sector_ms']:.4f} ms"
-                   if "sector_ms" in rec else ""))
-            out[info.name] = rec
+                   if "sector_ms" in rec else "")
+                + (f"; {tenants} tenants. One tenant: device "
+                   f"{rec['ms_t1']:.4f}, wrapper {rec['wrapper_ms_t1']:.4f}, "
+                   f"plain {rec['plain_ms_t1']:.4f}, library (torch.mv) "
+                   f"{rec['library_ms_t1']:.4f}, bound "
+                   f"{rec['bound_ms_t1']:.4f}" if kind == "matvec" else ""))
+            key = info.name if m == timed[0] else f"{info.name}@m{m}"
+            out[key] = rec
     return out
+
+
+def time_kernel(X, flat, vec, kern, plain, kind: str, layout: str,
+                names: tuple, reps: int) -> dict:
+    return {"ms": device_ms(lambda: kern(X, flat, vec), reps, names),
+            "wrapper_ms": wall_ms(lambda: kern(X, flat, vec), reps),
+            "plain_ms": device_ms(lambda: plain(X, flat, vec), reps),
+            "library_ms": library_ms(X, flat, vec, kind, layout, reps)}
 
 
 def tf32_cross_err(X, flat, vec, plain, G) -> float:
@@ -211,7 +284,9 @@ def tf32_cross_err(X, flat, vec, plain, G) -> float:
 def library_ms(X, flat, vec, kind: str, layout: str, reps: int):
     """One cuBLAS call computing the kernel's function from the sampled panel
     gathered beforehand (the gather is left out of the time): [G | r] as one
-    matrix product, or the apply as one matrix-vector product."""
+    matrix product, the apply as one matrix-vector product, the matvec as
+    ``torch.mv`` for one vector and as one matrix product for T tenant
+    vectors."""
     fl = flat.long()
     if layout == "rows":
         Y = X.index_select(0, fl)                     # (m, n)
@@ -220,6 +295,11 @@ def library_ms(X, flat, vec, kind: str, layout: str, reps: int):
     if kind == "packet":
         rhs = torch.cat([Y.T, vec[:, None]], dim=1).contiguous()
         return device_ms(lambda: torch.mm(Y, rhs), reps)
+    if kind == "matvec":
+        if vec.dim() == 1:
+            return device_ms(lambda: torch.mv(Y, vec), reps)
+        tT = vec.T.contiguous()
+        return device_ms(lambda: torch.mm(Y, tT), reps)
     Yt = Y.T.contiguous()
     return device_ms(lambda: torch.mv(Yt, vec), reps)
 
@@ -302,34 +382,49 @@ def where_time_goes(X, y, lam, idx_p, idx_d, iters: int,
     """Phase 3b: per solve, the device's busy time from a profiler trace
     against the wall time of the same solve run unprofiled, and the kernels
     that take the device's time."""
-    from torch.profiler import ProfilerActivity, profile
     b = idx_p.shape[1]
     for form, solve, idx in (("primal", core.ca_bcd, idx_p[:iters]),
                              ("dual", core.ca_bdcd, idx_d[:iters])):
         for s in (1, 16):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve(X, y, lam, b, s, iters, idx=idx)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solve(X, y, lam, b, s, iters, idx=idx)
-                torch.cuda.synchronize()
-            per_name = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    per_name[e.name] = (per_name.get(e.name, 0.0)
-                                        + e.time_range.elapsed_us() / 1e3)
-            busy = sum(per_name.values())
-            top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-            log(f"  {form:6s} s={s:2d}, {iters} iters: wall {wall:.1f} ms, "
-                f"device busy {busy:.1f} ms, idle {1 - busy / wall:.1%}")
-            for name, ms in top:
-                log(f"      {ms:9.3f} ms  {name[:90]}")
-            stats[f"profile_{form}_s{s}"] = {
-                "wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
-                "top": [[name[:120], ms] for name, ms in top]}
+            stats[f"profile_{form}_s{s}"] = profile_run(
+                lambda: solve(X, y, lam, b, s, iters, idx=idx),
+                f"{form:6s} s={s:2d}, {iters} iters", 6)
+
+
+def profile_run(fn, tag: str, top_n: int) -> dict:
+    """Wall time of ``fn`` run unprofiled against the device's busy time in a
+    profiler trace of a second run, the kernels that take it, and the host
+    operations with the most self CPU time (under the profiler, which adds
+    its own cost to each)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    busy = sum(per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:top_n]
+    log(f"  {tag}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
+        f"{1 - busy / wall:.1%}")
+    for name, ms in top:
+        log(f"      {ms:9.3f} ms  {name[:90]}")
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
+                   for a in prof.key_averages()), key=lambda r: -r[1])[:top_n]
+    log("    host, self CPU time under the profiler:")
+    for name, ms, count in host:
+        log(f"      {ms:9.3f} ms  {count:6d} calls  {name[:70]}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "top": [[name[:120], ms] for name, ms in top],
+            "host_top": [[name[:120], ms, count] for name, ms, count in host]}
 
 
 def exactness_f64(data, gen, iters: int) -> None:
@@ -350,6 +445,179 @@ def exactness_f64(data, gen, iters: int) -> None:
                 f"(tol {TOL_SOLVE_F64:.0e})")
             if not (e <= TOL_SOLVE_F64 and ea <= TOL_SOLVE_F64):
                 raise AssertionError(f"f64 {form} s={s}: CA(s) != classical")
+
+
+def tenant_problem(X, y, lam, gen, T: int) -> tuple:
+    """T tenant targets around y, mixed l2 weights around ``lam`` and, for
+    the proximal, l1 weights that are fractions of the lasso critical value
+    max |X y| / n (all > 0)."""
+    n = y.shape[0]
+    noise = torch.randn((T, n), generator=gen, device=y.device,
+                        dtype=y.dtype)
+    ys = y[None, :] + 0.1 * float(y.std()) * noise
+    lams = [lam * 2.0 ** (t % 8 - 2) for t in range(T)]
+    lam1_max = float((X @ y).abs().max()) / n
+    lam1s = [lam1_max * (0.005 + 0.01 * (t % 8)) for t in range(T)]
+    return ys, lams, lam1s
+
+
+def batched_engine(X, y, lam, gen, iters: int, stats: dict) -> dict:
+    """Phase 5: the tenant-batched engine at real-sim size, counted; every
+    tenant against its single solve through the kernels under torch.equal;
+    time per outer step at T in {1, 8, 32}; the device-idle share."""
+    d, n = X.shape
+    b, s, T = 8, 16, 8
+    plan = core.SolverPlan(b=b, s=s)
+    ys, lams, lam1s = tenant_problem(X, y, lam, gen, 32)
+    forms = {"primal": d, "dual": n, "proximal": d}
+    idx = {f: core.sample_blocks(gen, dim, b, iters)
+           for f, dim in forms.items()}
+
+    def batch(form, t):
+        coeffs = {"lam1": lam1s[:t]} if form == "proximal" else {}
+        return core.TenantBatch(ys=ys[:t], lams=lams[:t], coeffs=coeffs)
+
+    outer = -(-iters // s)
+    results = {}
+    gk.reset_launch_counts()                          # batched path starts
+    for form in forms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[form] = core.s_step_solve_batched(form, plan, X,
+                                                  batch(form, T), iters,
+                                                  idx=idx[form])
+        torch.cuda.synchronize()
+        log(f"  {form:8s} T={T}: batched solve {time.perf_counter() - t0:.3f}"
+            f" s ({iters} iterations, {outer} outer steps)")
+    counts = {k.name: k.launches for k in gk.KERNELS}  # batched path ends
+    want = {"gram_packet_sampled_rows": 2 * outer,
+            "panel_apply_rows": 2 * T * iters,
+            "gram_packet_sampled_cols": outer, "panel_apply_cols": T * iters,
+            "panel_matvec_cols": outer, "panel_matvec_rows": 2 * outer}
+    log(f"  launches {counts}")
+    if counts != want:
+        raise AssertionError(f"batched launches {counts}, expected {want}")
+
+    for form, res in results.items():
+        worst = 0.0
+        for t in range(T):
+            f = (core.ProximalElasticNet(lam1=lam1s[t]) if form == "proximal"
+                 else form)
+            single = core.s_step_solve(f, plan, X, ys[t], lams[t], iters,
+                                       idx=idx[form])
+            if not (torch.equal(res.ws[t], single.w)
+                    and torch.equal(res.alphas[t], single.alpha)):
+                raise AssertionError(f"{form}: tenant {t} of the batched "
+                                     "solve differs from its single solve")
+            if not bool(torch.isfinite(single.w).all()):
+                raise AssertionError(f"{form}: tenant {t} is not finite")
+            worst = max(worst, float(single.history["residual"][-1]))
+        nnz = ""
+        if form == "proximal":
+            nnz = ", nonzeros " + " ".join(
+                str(int((res.ws[t] != 0).sum())) for t in range(T))
+        log(f"  {form:8s}: all {T} tenants equal their single solves "
+            f"(torch.equal on w and alpha); largest final residual "
+            f"{worst:.4e}{nnz}")
+
+    # Host-bound times move from run to run: three rounds over T, median
+    # and range reported.
+    walls = {t: [] for t in (1, 8, 32)}
+    for _ in range(3):
+        for t in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            core.s_step_solve_batched("primal", plan, X, batch("primal", t),
+                                      iters, idx=idx["primal"])
+            torch.cuda.synchronize()
+            walls[t].append(time.perf_counter() - t0)
+    for t, ws in walls.items():
+        wall = sorted(ws)[1]
+        stats[f"batched_primal_T{t}"] = {
+            "wall_s": ws, "ms_per_outer": wall / outer * 1e3,
+            "tenant_it_per_s": t * iters / wall}
+        log(f"  primal T={t:2d}: {wall / outer * 1e3:.2f} ms per outer step "
+            f"(median of 3; {min(ws) / outer * 1e3:.2f} to "
+            f"{max(ws) / outer * 1e3:.2f}), {t * iters / wall:.1f} tenant "
+            f"inner it/s")
+
+    stats["profile_batched_primal_T8"] = profile_run(
+        lambda: core.s_step_solve_batched("primal", plan, X,
+                                          batch("primal", T), iters,
+                                          idx=idx["primal"]),
+        f"profile, primal T={T}, {iters} iters", 10)
+    return counts
+
+
+def service_run(X, y, lam, gen, stats: dict) -> dict:
+    """Phase 6: the solve service at real-sim size, primal then dual, 24
+    requests through 16 slots (counted); every ticket replayed as a single
+    solve over the index chunks of its own steps, under torch.equal."""
+    from repro_torch.serve import SolverService, SolverServiceConfig
+    from repro_torch.serve import solver_service as svc_mod
+    cfg = SolverServiceConfig(slots=16, min_bucket=8, chunk_iters=32,
+                              max_iters=128, seed=1)
+    plan = core.SolverPlan(b=8, s=16)
+    requests = 24
+    ys, lams, _ = tenant_problem(X, y, lam, gen, requests)
+    draw = svc_mod.sample_blocks
+    chunks = []
+
+    def recording(generator, n_total, b, iters):
+        idx = draw(generator, n_total, b, iters)
+        chunks.append(idx)
+        return idx
+
+    runs = []
+    svc_mod.sample_blocks = recording
+    try:
+        gk.reset_launch_counts()                      # service path starts
+        for form in ("primal", "dual"):
+            chunks.clear()
+            svc = SolverService(X, plan, form, cfg)
+            rids = [svc.submit(ys[i], lams[i]) for i in range(requests)]
+            first = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while svc.table.pending or svc.table.any_active:
+                svc.step()
+                for rid in rids:
+                    if svc.table.requests[rid].slot >= 0:
+                        first.setdefault(rid, len(chunks) - 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tickets = [svc.result(rid) for rid in rids]
+            its = sum(t.iters for t in tickets)
+            stats[f"service_{form}"] = {
+                "wall_s": wall, "steps": len(chunks),
+                "solves_per_s": requests / wall,
+                "tenant_it_per_s": its / wall}
+            log(f"  {form:6s}: {requests} requests, {len(chunks)} steps, "
+                f"{wall:.3f} s: {requests / wall:.2f} solves/s, "
+                f"{its / wall:.1f} tenant inner it/s")
+            runs.append((form, rids, first, tickets, list(chunks)))
+        counts = {k.name: k.launches for k in gk.KERNELS}  # path ends
+    finally:
+        svc_mod.sample_blocks = draw
+    log(f"  launches {counts}")
+
+    for form, rids, first, tickets, drawn in runs:
+        for i, (rid, ticket) in enumerate(zip(rids, tickets)):
+            k0, steps = first[rid], ticket.iters // cfg.chunk_iters
+            idx = torch.cat(drawn[k0:k0 + steps])
+            single = core.s_step_solve(form, plan, X, ys[i], lams[i],
+                                       ticket.iters, idx=idx)
+            w = torch.from_numpy(ticket.w).to(X.device)
+            alpha = torch.from_numpy(ticket.alpha).to(X.device)
+            if not (torch.equal(w, single.w)
+                    and torch.equal(alpha, single.alpha)):
+                raise AssertionError(f"{form}: ticket {rid} differs from its "
+                                     "replayed single solve")
+            if not (math.isfinite(ticket.residual) and ticket.iters == 128):
+                raise AssertionError(f"{form}: ticket {rid}: {ticket}")
+        log(f"  {form:6s}: all {requests} tickets equal their replayed "
+            f"single solves (torch.equal on w and alpha)")
+    return counts
 
 
 def main() -> int:
@@ -408,9 +676,12 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ---------------------------
     log("== 2. kernels against their plain versions")
-    main_m = {"packet": 128, "apply": 8}       # sb at s = 16, b at any s
-    records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m)
-    check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {})
+    # sb at s = 16 for the packets and matvecs, b for the applies; the
+    # matvecs also at m = 8 (s = 1), with the batched engine's 8 tenants.
+    main_m = {"packet": (128,), "apply": (8,), "matvec": (128, 8)}
+    records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m,
+                            TENANTS)
+    check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
 
     # -- 3. the solves at real-sim size ------------------------------------
     log(f"== 3. real-sim solves, b = 8, iters = {args.iters} (the dual's "
@@ -419,21 +690,42 @@ def main() -> int:
     idx_p = core.sample_blocks(gen, d, 8, args.iters)
     idx_d = core.sample_blocks(gen, n, 8, args.iters)
     stats = {}
-    counts = run_solves(X, y, lam, idx_p, idx_d, args.iters, stats)
+    paths = {"single solves": run_solves(X, y, lam, idx_p, idx_d,
+                                         args.iters, stats)}
     log("== 3b. where a solve's time goes (profiler trace)")
     where_time_goes(X, y, lam, idx_p, idx_d, min(64, args.iters), stats)
-    del X, y
 
     # -- 4. f64 exactness --------------------------------------------------
     log("== 4. f64 exactness through the kernels (8x-cut real-sim)")
     exactness_f64(cut, gen, 200)
+    del cut
 
+    # -- 5. the tenant-batched engine --------------------------------------
+    log(f"== 5. batched engine, real-sim, T = {TENANTS}, b = 8, s = 16, "
+        f"{BATCHED_ITERS} iterations")
+    paths["batched engine"] = batched_engine(X, y, lam, gen, BATCHED_ITERS,
+                                             stats)
+
+    # -- 6. the solve service ----------------------------------------------
+    log("== 6. solve service, real-sim, 24 requests, 16 slots, chunks of 32, "
+        "128 iterations each")
+    paths["service"] = service_run(X, y, lam, gen, stats)
+    del X, y
+
+    # Each path's own kernels must have run on it; the line counts the
+    # launches of all counted paths.
+    on_path = {"single solves": [k.name for k in gk.KERNELS[:4]],
+               "batched engine": [k.name for k in gk.KERNELS],
+               "service": [k.name for k in gk.KERNELS]}
+    for path, names in on_path.items():
+        idle = [name for name in names if paths[path][name] == 0]
+        if idle:
+            raise AssertionError(f"{idle} never ran on the {path} path")
     kernels = []
     for info in gk.KERNELS:
         rec = dict(records[info.name])
-        rec["launches"] = counts[info.name]
-        if rec["launches"] == 0:
-            raise AssertionError(f"{info.name} never ran on the main path")
+        rec["launches"] = sum(c[info.name] for c in paths.values())
+        rec["launches_by_path"] = {p: c[info.name] for p, c in paths.items()}
         kernels.append(rec)
     if args.json:                   # every record, with its extra keys
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

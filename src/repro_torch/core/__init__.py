@@ -1,19 +1,31 @@
-"""repro_torch.core -- CA-BCD / CA-BDCD for regularized least squares on one
-device, in PyTorch: the s-step engine, its two ridge formulations, sampling,
-the block subproblem solves and the direct ground truth."""
-from .engine import (FORMULATIONS, DualRidge, PrimalRidge, SolveResult,
-                     SolverPlan, get_solver, register_solver,
-                     registered_solvers, s_step_solve)
+"""repro_torch.core -- CA-BCD / CA-BDCD / CA proximal BCD for regularized
+least squares on one device, in PyTorch: the s-step engine and its
+tenant-batched driver, the ridge and elastic-net formulations, sampling, the
+block subproblem solves and the direct ground truth."""
+from .engine import (FORMULATIONS, BatchedSolveResult, DualRidge,
+                     PrimalRidge, SolveResult, SolverPlan, TenantBatch,
+                     batched_residuals, get_solver, register_formulation,
+                     register_solver, registered_solvers, s_step_solve,
+                     s_step_solve_batched)
 from .bcd import bcd, ca_bcd, objective
 from .bdcd import bdcd, ca_bdcd
 from .direct import ridge_exact
+from .proximal import (ProximalElasticNet, ca_proximal_bcd,
+                       elastic_net_objective, proximal_bcd,
+                       proximal_bcd_reference)
 from .sampling import overlap_matrix, sample_blocks
-from .subproblem import block_forward_substitution, solve_spd
+from .subproblem import (block_forward_substitution,
+                         block_forward_substitution_prox, soft_threshold,
+                         solve_spd)
 
 __all__ = [
     "FORMULATIONS", "DualRidge", "PrimalRidge", "SolveResult", "SolverPlan",
-    "get_solver", "register_solver", "registered_solvers", "s_step_solve",
+    "TenantBatch", "BatchedSolveResult", "s_step_solve_batched",
+    "batched_residuals", "get_solver", "register_formulation",
+    "register_solver", "registered_solvers", "s_step_solve",
     "bcd", "ca_bcd", "objective", "bdcd", "ca_bdcd", "ridge_exact",
+    "ProximalElasticNet", "ca_proximal_bcd", "proximal_bcd",
+    "proximal_bcd_reference", "elastic_net_objective",
     "overlap_matrix", "sample_blocks", "block_forward_substitution",
-    "solve_spd",
+    "block_forward_substitution_prox", "soft_threshold", "solve_spd",
 ]

@@ -17,6 +17,11 @@ regularised in :func:`_assemble_subproblem`, and true divisions stay
 divisions (by a device tensor, so that no backend turns them into a
 reciprocal multiply).  ``iters`` need not be a multiple of ``s``: a ragged
 final outer step of ``iters % s`` blocks runs through the same body.
+
+The tenant-batched driver (:func:`s_step_solve_batched`) runs T solves over
+one X and one index stream: one shared Gram packet per outer step, one
+residual-direction launch for all tenants, and then each tenant's assembly,
+sweep and updates through the very calls its single solve makes.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 
 from repro_torch.kernels.gram import (ColMajorOperand, PacketOperand,
                                       PacketPlan, RowMajorOperand,
-                                      gram_packet_sampled, panel_apply)
+                                      gram_packet_sampled, panel_apply,
+                                      panel_matvec)
 from repro_torch.kernels.gram.ops import check_positive_int
 
 from .sampling import overlap_matrix, sample_blocks
@@ -50,17 +56,22 @@ class SolverPlan:
     parameter (s = 1 is the classical algorithm).  ``impl`` selects the
     Gram-packet backend and ``tiles`` its contraction chunk ``bk``, collapsed
     into one :class:`~repro_torch.kernels.gram.PacketPlan`.  ``track_cond`` records
-    cond(scale * G + reg * I) per outer step in the history.
+    cond(scale * G + reg * I) per outer step in the history.  ``tenants``
+    pins the tenant count of a batched solve (``None``: whatever the
+    :class:`TenantBatch` holds); a batch of another width is refused.
     """
     b: int
     s: int = 1
     impl: str | None = None
     tiles: int | None = None
     track_cond: bool = False
+    tenants: int | None = None
 
     def __post_init__(self):
         for name in ("b", "s"):
             check_positive_int(f"SolverPlan.{name}", getattr(self, name))
+        if self.tenants is not None:
+            check_positive_int("SolverPlan.tenants", self.tenants)
         self.packet  # PacketPlan validates impl and the tile values
 
     @property
@@ -142,7 +153,7 @@ class _BoundPrimal:
     def base(self, r, carry, flat):
         return r - self.lam * carry[0][flat]              # Eq. (7)/(8) rhs
 
-    def inner_sweep(self, A, base, s_k, b):
+    def inner_sweep(self, A, base, s_k, b, flat, carry, overlap=None):
         return block_forward_substitution(A, base, s_k, b)
 
     def update(self, carry, idx, dx, pp):
@@ -165,6 +176,7 @@ class PrimalRidge:
     """(CA-)BCD: samples features (rows of X)."""
     name = "primal"
     operand_layout = "rows"
+    tenant_batched = True       # per-tenant y and lam; the Gram is shared
 
     def sample_dim(self, d, n):
         return d
@@ -232,7 +244,7 @@ class _BoundDual:
         num = u - alpha[flat] - self.y[flat]
         return num / self._n                               # Eq. (17)/(18)
 
-    def inner_sweep(self, A, base, s_k, b):
+    def inner_sweep(self, A, base, s_k, b, flat, carry, overlap=None):
         return block_forward_substitution(A, base, s_k, b)
 
     def update(self, carry, idx, dx, pp):
@@ -264,6 +276,11 @@ class DualRidge:
     (d, n) layout through the column-major operand."""
     name = "dual"
     operand_layout = "cols"
+    # The Gram scale 1/(lam n^2) is per tenant: the packet stays raw and each
+    # tenant scales it in _assemble_subproblem, as its single solve does.
+    # lam stays a python float per tenant, so every derived constant is the
+    # single solve's; no per-tenant pinning is needed.
+    tenant_batched = True
 
     def sample_dim(self, d, n):
         return n
@@ -274,6 +291,13 @@ class DualRidge:
 
 
 FORMULATIONS = {"primal": PrimalRidge(), "dual": DualRidge()}
+
+
+def register_formulation(form):
+    """Make ``form`` resolvable by its ``name`` (``s_step_solve("name", ...)``
+    and the batched driver); returns it."""
+    FORMULATIONS[form.name] = form
+    return form
 
 
 # --------------------------------------------------------------------------
@@ -308,7 +332,7 @@ def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k):
                                scale_r=1.0, reg=0.0, plan=pp)
     O = overlap_matrix(flat).to(G.dtype) if s_k > 1 else None
     A, base = _assemble_subproblem(bound, G, r, carry, flat, O, sb)
-    dxs = bound.inner_sweep(A, base, s_k, b)
+    dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
 
     # Reconstruct the per-inner-iteration trajectory: one deferred update
     # (and one metric evaluation) per block.
@@ -345,19 +369,23 @@ def _check_idx(idx, iters: int, b: int) -> None:
                          f"(iters, b) = ({iters}, {b})")
 
 
-def _drive(bound, plan: SolverPlan, idx):
-    """``iters // s`` full outer steps plus, when ``iters % s != 0``, one
-    ragged step of ``iters % s`` blocks.  Returns ``(carry, history)``."""
-    s = plan.s
+def _outer_steps(idx, s: int) -> list:
+    """``(s_k, idx_k)`` of each outer step: ``iters // s`` full steps plus,
+    when ``iters % s != 0``, one ragged step of ``iters % s`` blocks."""
     iters = idx.shape[0]
-    outer_full, rem = divmod(iters, s)
+    steps = [(s, idx[k:k + s]) for k in range(0, iters - s + 1, s)]
+    if iters % s:
+        steps.append((iters % s, idx[iters - iters % s:]))
+    return steps
+
+
+def _drive(bound, plan: SolverPlan, idx):
+    """Every outer step of :func:`_outer_steps`.  Returns
+    ``(carry, history)``."""
     carry = bound.init_carry()
     hist = []
-    for k in range(outer_full):
-        carry, h = _outer_step(bound, plan, s, carry, idx[k * s:(k + 1) * s])
-        hist.extend(h)
-    if rem:
-        carry, h = _outer_step(bound, plan, rem, carry, idx[outer_full * s:])
+    for s_k, idx_k in _outer_steps(idx, plan.s):
+        carry, h = _outer_step(bound, plan, s_k, carry, idx_k)
         hist.extend(h)
     history = ({key: torch.stack([h[key] for h in hist]) for key in hist[0]}
                if hist else {})
@@ -394,6 +422,212 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Tenant-batched engine: T solves over one X and one index stream
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TenantBatch:
+    """T tenant solves sharing one X and one block-index stream.
+
+    * ``ys`` (T, n): per-tenant targets, on X's device.
+    * ``lams``: T per-tenant l2 weights, kept as python floats, so that each
+      tenant binds exactly as its single solve does.
+    * ``coeffs``: per-tenant fields of the bound formulation, name -> T
+      python floats (the proximal ``lam1``).
+    * ``x0s`` (T, dim): optional warm starts of the formulation's own iterate.
+    * ``tol``: optional early retirement: after an outer step, a tenant whose
+      ``residual`` metric is ``tol`` or below takes no further updates.
+    """
+    ys: torch.Tensor
+    lams: tuple
+    coeffs: dict = dataclasses.field(default_factory=dict)
+    x0s: torch.Tensor | None = None
+    tol: float | None = None
+
+    def __post_init__(self):
+        if self.ys.dim() != 2:
+            raise ValueError(f"TenantBatch.ys must be (tenants, n), got "
+                             f"{tuple(self.ys.shape)}")
+        T = self.ys.shape[0]
+        object.__setattr__(self, "lams", _floats("lams", self.lams, T))
+        object.__setattr__(self, "coeffs", {
+            k: _floats(f"coeffs[{k!r}]", v, T)
+            for k, v in self.coeffs.items()})
+        if self.x0s is not None and (self.x0s.dim() != 2
+                                     or self.x0s.shape[0] != T):
+            raise ValueError(f"TenantBatch.x0s must be ({T}, dim), got "
+                             f"{tuple(self.x0s.shape)}")
+        if self.tol is not None and not self.tol > 0:
+            raise ValueError(f"TenantBatch.tol={self.tol!r} must be > 0")
+
+    @property
+    def tenants(self) -> int:
+        return self.ys.shape[0]
+
+
+def _floats(name: str, values, T: int) -> tuple:
+    """T per-tenant numbers as python floats (a tensor is read back to the
+    host once)."""
+    if isinstance(values, torch.Tensor):
+        values = values.tolist()
+    values = tuple(float(v) for v in values)
+    if len(values) != T:
+        raise ValueError(f"TenantBatch.{name} has {len(values)} entries, "
+                         f"expected one per tenant ({T})")
+    return values
+
+
+class BatchedSolveResult(NamedTuple):
+    ws: torch.Tensor       # (T, d) per-tenant primal iterates
+    alphas: torch.Tensor   # (T, n) per-tenant auxiliary iterates
+    active: torch.Tensor   # (T,) bool: False once a tenant retired
+    metrics: dict = {}
+
+
+def _bind_tenants(form, X, batch: TenantBatch, with_x0: bool) -> list:
+    """One bound formulation per tenant.  Each tenant's vectors are copied
+    out of the batch, so that they are laid out as a single solve's."""
+    bounds = []
+    for t in range(batch.tenants):
+        x0 = (batch.x0s[t].clone() if with_x0 and batch.x0s is not None
+              else None)
+        bound = form.bind(X, batch.ys[t].clone(), batch.lams[t], x0=x0)
+        extra = {k: v[t] for k, v in batch.coeffs.items()}
+        bounds.append(dataclasses.replace(bound, **extra) if extra else bound)
+    return bounds
+
+
+def _outer_step_batched(bounds: list, plan: SolverPlan, s_k: int,
+                        carries: list, active: list, idx_k,
+                        tol: float | None) -> None:
+    """ONE batched outer step, in place on ``carries`` and ``active``.
+
+    The sb x sb Gram leaves K1/K3 once, raw, and serves every tenant; its
+    fused residual is a don't-care (u = 0, scale_r = 0), as in the
+    reference.  The residual directions of all tenants come from one K6/K5
+    launch, which sums in the packet's residual order, so each equals the r
+    of the tenant's own single-solve packet.  Each active tenant then runs
+    the single solve's assembly, sweep and per-block updates, one tenant
+    after another: a (T, b, b) Cholesky could take another library path and
+    round differently.  A retired tenant is skipped, so its carry stays
+    exactly as it was."""
+    b = plan.b
+    sb = s_k * b
+    pp = plan.packet
+    flat = idx_k.reshape(sb)
+    operand = bounds[0].operand
+    X = operand.array
+    u0 = torch.zeros((operand.contraction,), dtype=X.dtype, device=X.device)
+    G0, _ = gram_packet_sampled(operand, flat, u0, scale=1.0, scale_r=0.0,
+                                reg=0.0, plan=pp)
+    U = torch.stack([bd.packet_vector(c) for bd, c in zip(bounds, carries)])
+    R = panel_matvec(operand, flat, U, scale=1.0, plan=pp)
+    O = overlap_matrix(flat).to(G0.dtype) if s_k > 1 else None
+    residuals = {}
+    for t, bound in enumerate(bounds):
+        if not active[t]:
+            continue
+        carry = carries[t]
+        A, base = _assemble_subproblem(bound, G0, R[t], carry, flat, O, sb)
+        dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
+        for j in range(s_k):
+            carry = bound.update(carry, flat[j * b:(j + 1) * b],
+                                 dxs[j * b:(j + 1) * b], pp)
+        carries[t] = carry
+        if tol is not None:
+            residuals[t] = bound.metrics(carry)["residual"]
+    if residuals:                        # one wait for the device per step
+        values = torch.stack(list(residuals.values())).tolist()
+        for t, r in zip(residuals, values):
+            active[t] = r > tol          # NaN retires, as in the reference
+
+
+def _check_batched(form, plan: SolverPlan, batch: TenantBatch) -> None:
+    if not getattr(form, "tenant_batched", False):
+        raise ValueError(f"formulation {form.name!r} does not support the "
+                         "tenant-batched engine (tenant_batched is not set)")
+    if plan.track_cond:
+        raise ValueError("batched solves do not support "
+                         "SolverPlan.track_cond")
+    if plan.tenants is not None and plan.tenants != batch.tenants:
+        raise ValueError(f"SolverPlan.tenants={plan.tenants} != batch width "
+                         f"{batch.tenants}")
+
+
+def _host_mask(active0, T: int) -> list:
+    if active0 is None:
+        return [True] * T
+    if isinstance(active0, torch.Tensor):
+        active0 = active0.tolist()
+    mask = [bool(a) for a in active0]
+    if len(mask) != T:
+        raise ValueError(f"active0 has {len(mask)} entries, expected {T}")
+    return mask
+
+
+def s_step_solve_batched(formulation, plan: SolverPlan, X: torch.Tensor,
+                         batch: TenantBatch, iters: int,
+                         generator: torch.Generator | None = None, *,
+                         idx: torch.Tensor | None = None, carry0=None,
+                         active0=None) -> BatchedSolveResult:
+    """T tenant solves on X's device over one index stream, the Gram packet
+    shared.  Each tenant's iterates equal its single :func:`s_step_solve`
+    over the same stream bit for bit, on the plain versions and through the
+    kernels.
+
+    ``carry0`` (a ``(ws, alphas)`` pair) and ``active0`` (T bools) resume an
+    earlier batched solve; a tenant that is not active takes no update.
+    With ``batch.tol`` set, tenants retire once their ``residual`` reaches
+    it (checked after each outer step; ``result.active`` says who is still
+    running).  No per-iteration history is kept.
+    """
+    form = _resolve_form(formulation)
+    _check_batched(form, plan, batch)
+    d, n = X.shape
+    if idx is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or an explicit idx")
+        idx = sample_blocks(generator, form.sample_dim(d, n), plan.b, iters)
+    else:
+        _check_idx(idx, iters, plan.b)
+    idx = idx.to(device=X.device, dtype=torch.int32)
+    T = batch.tenants
+    bounds = _bind_tenants(form, X, batch, with_x0=carry0 is None)
+    if carry0 is None:
+        carries = [bd.init_carry() for bd in bounds]
+    else:
+        ws0, alphas0 = carry0
+        if tuple(ws0.shape) != (T, d) or tuple(alphas0.shape) != (T, n):
+            raise ValueError(f"carry0 shapes {tuple(ws0.shape)}, "
+                             f"{tuple(alphas0.shape)} != ({T}, {d}), "
+                             f"({T}, {n})")
+        carries = [(ws0[t].clone(), alphas0[t].clone()) for t in range(T)]
+    active = _host_mask(active0, T)
+
+    for s_k, idx_k in _outer_steps(idx, plan.s):
+        if not any(active):
+            break
+        _outer_step_batched(bounds, plan, s_k, carries, active, idx_k,
+                            batch.tol)
+    return BatchedSolveResult(
+        torch.stack([c[0] for c in carries]),
+        torch.stack([c[1] for c in carries]),
+        torch.tensor(active, dtype=torch.bool, device=X.device), {})
+
+
+def batched_residuals(formulation, X: torch.Tensor, batch: TenantBatch,
+                      carries) -> torch.Tensor:
+    """(T,) ``residual`` metric of each tenant's carry ``(ws, alphas)``,
+    computed as its single solve computes it."""
+    form = _resolve_form(formulation)
+    ws, alphas = carries
+    bounds = _bind_tenants(form, X, batch, with_x0=False)
+    return torch.stack([
+        bd.metrics((ws[t].clone(), alphas[t].clone()))["residual"]
+        for t, bd in enumerate(bounds)])
+
+
+# --------------------------------------------------------------------------
 # Solver registry, keyed on (formulation, backend)
 # --------------------------------------------------------------------------
 
@@ -415,7 +649,7 @@ def get_solver(formulation: str, backend: str = "local") -> Callable:
     """Look up a solver.  ``local`` entries have the CA signature
     ``(X, y, lam, b, s, iters, generator, **kw)``."""
     if (formulation, backend) not in _REGISTRY:
-        from . import bcd, bdcd  # noqa: F401  (self-registering modules)
+        from . import bcd, bdcd, proximal  # noqa: F401  (self-registering)
     try:
         return _REGISTRY[(formulation, backend)]
     except KeyError:

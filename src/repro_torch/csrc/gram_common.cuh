@@ -9,6 +9,15 @@
 // The rows layout gathers Y = X[flat, :] (K = n), the cols layout gathers
 // Y = X[:, flat]^T (K = d) straight from X's (d, n) layout.
 //
+// Matvec contract (K5 / K6): out = scale * Y t for T tenant vectors t (T, K),
+// each summed in exactly the order of the packet's r: the same chunks, the
+// same two lanes per sample row over a chunk (even and odd steps, each in
+// increasing k, each step one fused multiply-add), the same pairing and the
+// same split sum.  residual_lane, residual_pair and split_sum below are that
+// order; packet_partial / packet_reduce and matvec_partial / matvec_reduce
+// all go through them, so K6(X, flat, u) == K1's r and K5 == K3's r bit for
+// bit at equal (m, K, chunk).
+//
 // Work split.  G has only ceil(m/32)(ceil(m/32)+1)/2 lower tiles (10 at
 // m = 128), far fewer than the card's 132 SMs, so the contraction K is cut
 // into `splits` chunks of `chunk` elements and every (lower tile, chunk)
@@ -53,6 +62,46 @@ __device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
   const double2 v0 = reinterpret_cast<const double2*>(p)[0];
   const double2 v1 = reinterpret_cast<const double2*>(p)[1];
   o[0] = v0.x; o[1] = v0.y; o[2] = v1.x; o[3] = v1.y;
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// One residual lane over one staged slab: sample row `row`, lane `part`
+// (0 or 1) adds ys[kk][row] * us[kk] for kk = part, part + 2, ... < BK in
+// increasing kk, each as one explicit fused multiply-add.  Past m and past
+// the chunk's end the slab and us hold zeros, so every lane runs the same
+// steps in every kernel.
+template <typename T>
+__device__ __forceinline__ T residual_lane(const Slab<T>& ys, const T* us,
+                                           int row, int part, T acc) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int kk = 2 * i + part;
+    acc = fma_rn(ys[kk][row], us[kk], acc);
+  }
+  return acc;
+}
+
+// A sample row's chunk partial: the even lane's sum plus the odd lane's.
+template <typename T>
+__device__ __forceinline__ T residual_pair(T even, T odd) {
+  return even + odd;
+}
+
+// sum_s p[s * stride] for s = 0 .. splits-1, in index order from 0.
+template <typename T>
+__device__ __forceinline__ T split_sum(const T* __restrict__ p, int splits,
+                                       size_t stride) {
+  T acc = 0;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) acc += p[s * stride];
+  return acc;
 }
 
 // One block: lower tile (ti, tj) of G over contraction chunk blockIdx.y.
@@ -127,10 +176,7 @@ packet_partial(Gather gather, const int* __restrict__ flat,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
     }
-    if (with_r) {
-#pragma unroll
-      for (int kk = rpart; kk < BK; kk += 2) racc += ys_i[kk][rrow] * us[kk];
-    }
+    if (with_r) racc = residual_lane(ys_i, us, rrow, rpart, racc);
     __syncthreads();
   }
 
@@ -142,9 +188,10 @@ packet_partial(Gather gather, const int* __restrict__ flat,
     for (int j = 0; j < 4; ++j) row[4 * tx + j] = acc[i][j];
   }
   if (with_r) {
-    racc += __shfl_down_sync(0xffffffffu, racc, 1, 2);  // fixed order
+    const T odd = __shfl_down_sync(0xffffffffu, racc, 1, 2);
     if (rpart == 0)
-      rp[static_cast<size_t>(split) * mp + ti * TILE + rrow] = racc;
+      rp[static_cast<size_t>(split) * mp + ti * TILE + rrow] =
+          residual_pair(racc, odd);
   }
 }
 
@@ -164,18 +211,12 @@ __global__ void packet_reduce(const T* __restrict__ Gp,
     const size_t src = (a / TILE >= b / TILE)
                            ? static_cast<size_t>(a) * mp + b
                            : static_cast<size_t>(b) * mp + a;
-    T acc = 0;
-#pragma unroll 8
-    for (int s = 0; s < splits; ++s) acc += Gp[s * plane + src];
-    T g = scale * acc;
+    T g = scale * split_sum(Gp + src, splits, plane);
     if (a == b) g += reg;
     G[e] = g;
   } else if (e < mm + m) {
     const int a = static_cast<int>(e - mm);
-    T acc = 0;
-#pragma unroll 8
-    for (int s = 0; s < splits; ++s) acc += rp[static_cast<size_t>(s) * mp + a];
-    r[a] = scale_r * acc;
+    r[a] = scale_r * split_sum(rp + a, splits, static_cast<size_t>(mp));
   }
 }
 
@@ -197,6 +238,125 @@ int launch_packet(Gather gather, const int* flat, const T* u, int m,
   packet_reduce<T><<<blocks, THREADS, 0, stream>>>(
       Gp, rp, splits, m, mp, static_cast<T>(scale), static_cast<T>(reg),
       static_cast<T>(scale_r), G, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Matvec kernels (K5, K6): out[j] = scale * Y t[j] for tenants j < T.
+//
+// One block per (32-row band of Y, contraction chunk, group of MV_TENANTS
+// tenants).  The block stages each gathered slab of Y once, with the same
+// Gather as the packet, and runs every tenant of its group over it; each
+// thread owns one residual lane (row, part) and keeps its group's
+// accumulators in shared memory.  Bound by the bytes of the sampled rows /
+// columns of X (read once per tenant group) and of t.
+// ---------------------------------------------------------------------------
+
+constexpr int MV_TENANTS = 32;                     // tenants per block
+constexpr int TLOADS = MV_TENANTS * BK / PTHREADS;  // t elements per thread
+
+// This thread's share of the next t slab: element e = tid + PTHREADS * q is
+// (tenant t0 + e / BK, step k0 + e % BK), 0 past the group or the chunk.
+template <typename T>
+__device__ __forceinline__ void fetch_t(T (&pre)[TLOADS],
+                                        const T* __restrict__ t, int t0,
+                                        int nt, int64_t K, int64_t k0,
+                                        int64_t k_end, int tid) {
+#pragma unroll
+  for (int q = 0; q < TLOADS; ++q) {
+    const int e = tid + PTHREADS * q;
+    const int j = e / BK;
+    const int64_t k = k0 + e % BK;
+    pre[q] = (j < nt && k < k_end)
+                 ? t[static_cast<int64_t>(t0 + j) * K + k] : T(0);
+  }
+}
+
+template <typename T, typename Gather>
+__global__ void __launch_bounds__(PTHREADS)
+matvec_partial(Gather gather, const int* __restrict__ flat,
+               const T* __restrict__ t, int tenants, int m, int64_t K,
+               int64_t chunk, int mp, T* __restrict__ rp) {
+  __shared__ __align__(16) Slab<T> ys;
+  __shared__ T ts[MV_TENANTS][BK];
+  __shared__ T acc[MV_TENANTS][PTHREADS];
+  __shared__ int idx[TILE];
+
+  const int band = blockIdx.x;
+  const int split = blockIdx.y;
+  const int t0 = blockIdx.z * MV_TENANTS;
+  const int nt = min(MV_TENANTS, tenants - t0);
+  const int64_t k_begin = static_cast<int64_t>(split) * chunk;
+  const int64_t k_end = min(K, k_begin + chunk);
+  const int tid = threadIdx.x;
+  const int row = tid / 2, part = tid % 2;
+
+  if (tid < TILE) {
+    const int a = band * TILE + tid;
+    idx[tid] = a < m ? flat[a] : -1;
+  }
+  for (int j = 0; j < nt; ++j) acc[j][tid] = 0;  // each thread its own column
+  __syncthreads();
+
+  T pre[LOADS], pre_t[TLOADS];
+  gather.fetch(pre, idx, k_begin, k_end, tid);
+  fetch_t(pre_t, t, t0, nt, K, k_begin, k_end, tid);
+
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
+    gather.store(ys, pre, tid);
+#pragma unroll
+    for (int q = 0; q < TLOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      ts[e / BK][e % BK] = pre_t[q];
+    }
+    __syncthreads();
+    const int64_t kn = k0 + BK;
+    if (kn < k_end) {
+      gather.fetch(pre, idx, kn, k_end, tid);
+      fetch_t(pre_t, t, t0, nt, K, kn, k_end, tid);
+    }
+    for (int j = 0; j < nt; ++j)
+      acc[j][tid] = residual_lane(ys, ts[j], row, part, acc[j][tid]);
+    __syncthreads();
+  }
+
+  for (int j = 0; j < nt; ++j) {  // nt is uniform across the block
+    const T mine = acc[j][tid];
+    const T odd = __shfl_down_sync(0xffffffffu, mine, 1, 2);
+    if (part == 0)
+      rp[(static_cast<size_t>(split) * tenants + t0 + j) * mp + band * TILE +
+         row] = residual_pair(mine, odd);
+  }
+}
+
+// Second pass: out[j, a] = scale * sum_s rp[s, j, a], splits in index order.
+template <typename T>
+__global__ void matvec_reduce(const T* __restrict__ rp, int splits,
+                              int tenants, int m, int mp, T scale,
+                              T* __restrict__ out) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<int64_t>(tenants) * m) return;
+  const int j = static_cast<int>(e / m), a = static_cast<int>(e % m);
+  out[e] = scale * split_sum(rp + static_cast<size_t>(j) * mp + a, splits,
+                             static_cast<size_t>(tenants) * mp);
+}
+
+// Launch both matvec passes on `stream`; rp holds (splits, tenants, mp).
+template <typename T, typename Gather>
+int launch_matvec(Gather gather, const int* flat, const T* t, int tenants,
+                  int m, int64_t K, int64_t chunk, int splits, double scale,
+                  T* rp, T* out, cudaStream_t stream) {
+  const int nt = (m + TILE - 1) / TILE;
+  const int mp = nt * TILE;
+  dim3 grid(nt, splits, (tenants + MV_TENANTS - 1) / MV_TENANTS);
+  matvec_partial<T, Gather><<<grid, PTHREADS, 0, stream>>>(
+      gather, flat, t, tenants, m, K, chunk, mp, rp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = static_cast<int64_t>(tenants) * m;
+  const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
+  matvec_reduce<T><<<blocks, THREADS, 0, stream>>>(
+      rp, splits, tenants, m, mp, static_cast<T>(scale), out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,15 @@
 //   k of X; the lanes stride over the sampled columns and a fixed shuffle
 //   tree sums them.  The reads are scattered by nature: the bound is the
 //   sector traffic m * d * 32 B.
+//
+// K5 cols_matvec: out(T, m) = scale * Y^T t for T tenant vectors t (T, d).
+//   Replaces panel_matvec_cols_pallas (sampled_colmajor.py), which the
+//   batched dual maps over its tenants.  One launch serves every tenant: a
+//   block gathers each 32 x 32 slab of sampled columns once, as K3 does, and
+//   runs its tenants over it in K3's residual order, so K5(X, flat, w) equals
+//   K3's r bit for bit (gram_common.cuh).  Bound: the scattered reads, one
+//   32-byte sector per sampled element (m * d * 32 B), plus T * d elements
+//   of t.
 #include "gram_common.cuh"
 
 namespace {
@@ -101,6 +110,17 @@ int apply_impl(const void* X, const void* flat, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int matvec_impl(const void* X, const void* flat, const void* t, void* rp,
+                void* out, int64_t d, int64_t n, int m, int tenants,
+                int64_t chunk, int splits, double scale, void* stream) {
+  ColsGather<T> gather{static_cast<const T*>(X), n};
+  return repro::launch_matvec<T>(
+      gather, static_cast<const int*>(flat), static_cast<const T*>(t),
+      tenants, m, d, chunk, splits, scale, static_cast<T*>(rp),
+      static_cast<T*>(out), static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -129,6 +149,22 @@ int cols_apply_f32(const void* X, const void* flat, const void* v, void* out,
 int cols_apply_f64(const void* X, const void* flat, const void* v, void* out,
                    int64_t d, int64_t n, int m, double scale, void* stream) {
   return apply_impl<double>(X, flat, v, out, d, n, m, scale, stream);
+}
+
+int cols_matvec_f32(const void* X, const void* flat, const void* t,
+                    void* rp, void* out, int64_t d, int64_t n, int m,
+                    int tenants, int64_t chunk, int splits, double scale,
+                    void* stream) {
+  return matvec_impl<float>(X, flat, t, rp, out, d, n, m, tenants, chunk,
+                            splits, scale, stream);
+}
+
+int cols_matvec_f64(const void* X, const void* flat, const void* t,
+                    void* rp, void* out, int64_t d, int64_t n, int m,
+                    int tenants, int64_t chunk, int splits, double scale,
+                    void* stream) {
+  return matvec_impl<double>(X, flat, t, rp, out, d, n, m, tenants, chunk,
+                             splits, scale, stream);
 }
 
 }  // extern "C"

@@ -18,6 +18,15 @@
 //   each thread owns one column of n and walks the m gathered rows, so every
 //   read of X is coalesced and duplicate indices accumulate naturally.
 //   Bound: m * n reads of X at 3.35 TB/s.
+//
+// K6 rows_matvec: out(T, m) = scale * Y t for T tenant vectors t (T, n).
+//   Replaces panel_matvec_pallas (sampled_kernel.py), which the batched
+//   engine maps over the tenants (one launch each).  Here one launch serves
+//   every tenant: a block stages each gathered slab of 32 sampled rows once
+//   (coalesced, as in K1) and runs its tenants over it, each in K1's
+//   residual order, so K6(X, flat, u) equals K1's r bit for bit
+//   (gram_common.cuh).  Bound: the m * n bytes of the sampled rows plus the
+//   T * n bytes of t, at 3.35 TB/s.
 #include "gram_common.cuh"
 
 namespace {
@@ -104,6 +113,17 @@ int apply_impl(const void* X, const void* flat, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int matvec_impl(const void* X, const void* flat, const void* t, void* rp,
+                void* out, int64_t n, int m, int tenants, int64_t chunk,
+                int splits, double scale, void* stream) {
+  RowsGather<T> gather{static_cast<const T*>(X), n};
+  return repro::launch_matvec<T>(
+      gather, static_cast<const int*>(flat), static_cast<const T*>(t),
+      tenants, m, n, chunk, splits, scale, static_cast<T*>(rp),
+      static_cast<T*>(out), static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -132,6 +152,20 @@ int rows_apply_f32(const void* X, const void* flat, const void* v, void* out,
 int rows_apply_f64(const void* X, const void* flat, const void* v, void* out,
                    int64_t n, int m, double scale, void* stream) {
   return apply_impl<double>(X, flat, v, out, n, m, scale, stream);
+}
+
+int rows_matvec_f32(const void* X, const void* flat, const void* t,
+                    void* rp, void* out, int64_t n, int m, int tenants,
+                    int64_t chunk, int splits, double scale, void* stream) {
+  return matvec_impl<float>(X, flat, t, rp, out, n, m, tenants, chunk, splits,
+                            scale, stream);
+}
+
+int rows_matvec_f64(const void* X, const void* flat, const void* t,
+                    void* rp, void* out, int64_t n, int m, int tenants,
+                    int64_t chunk, int splits, double scale, void* stream) {
+  return matvec_impl<double>(X, flat, t, rp, out, n, m, tenants, chunk,
+                             splits, scale, stream);
 }
 
 }  // extern "C"

@@ -5,14 +5,17 @@ The two packages share no code and no random streams, so a comparison hands
 both the same numpy arrays: :func:`problem_from_numpy` turns the reference's
 arrays into the port's tensors in the same layouts, :func:`plan_from_reference`
 maps the reference ``SolverPlan`` fields this port supports, and
-:func:`result_to_numpy` converts a port result back.
+:func:`result_to_numpy` converts a port result back.  For the tenant-batched
+engine, :func:`batch_from_numpy` builds a ``TenantBatch`` from numpy arrays
+and :func:`batched_result_to_numpy` converts a batched result back.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import SolveResult, SolverPlan
+from repro_torch.core.engine import (BatchedSolveResult, SolveResult,
+                                     SolverPlan, TenantBatch)
 
 # Reference impls and their counterparts here: the jnp oracles map to the
 # plain versions, the TPU kernels to the CUDA kernels.
@@ -32,9 +35,9 @@ def plan_from_reference(**fields) -> SolverPlan:
     """A :class:`SolverPlan` from reference ``SolverPlan`` keyword fields.
 
     Supported: ``b``, ``s``, ``impl`` (``"ref"``, ``"pallas"`` -> ``"cuda"``,
-    ``None``), ``track_cond``, and ``fuse_packet`` / ``unroll``, which do not
-    change a local solve's arithmetic and are dropped.  Raises on what this
-    port does not have: ``guard``, ``fault``, ``tenants``, a ``wire`` other
+    ``None``), ``track_cond``, ``tenants``, and ``fuse_packet`` / ``unroll``,
+    which do not change a local solve's arithmetic and are dropped.  Raises
+    on what this port does not have: ``guard``, ``fault``, a ``wire`` other
     than ``"psum"``, TPU ``tiles``, and any other field.
     """
     fields = dict(fields)
@@ -45,7 +48,7 @@ def plan_from_reference(**fields) -> SolverPlan:
         unsupported.append("guard")
     for name in ("guard_boost", "guard_cond_max"):
         fields.pop(name, None)        # meaningless without guard
-    for name in ("fault", "tenants", "tiles"):
+    for name in ("fault", "tiles"):
         if fields.pop(name, None) is not None:
             unsupported.append(name)
     if fields.pop("wire", "psum") != "psum":
@@ -53,7 +56,8 @@ def plan_from_reference(**fields) -> SolverPlan:
     impl = fields.pop("impl", None)
     if impl not in _IMPL_MAP:
         unsupported.append(f"impl={impl!r}")
-    unsupported.extend(sorted(set(fields) - {"b", "s", "track_cond"}))
+    unsupported.extend(sorted(set(fields)
+                              - {"b", "s", "track_cond", "tenants"}))
     if unsupported:
         raise ValueError(f"reference plan fields not supported by the port: "
                          f"{unsupported}")
@@ -67,3 +71,26 @@ def result_to_numpy(res: SolveResult) -> SolveResult:
     return SolveResult(conv(res.w), conv(res.alpha),
                        {k: conv(v) for k, v in res.history.items()},
                        {k: conv(v) for k, v in res.metrics.items()})
+
+
+def batch_from_numpy(ys, lams, coeffs=None, x0s=None, tol=None, *, device,
+                     dtype) -> TenantBatch:
+    """A :class:`TenantBatch` from numpy: ys (T, n) and x0s (T, dim) as
+    tensors on ``device`` in ``dtype``; lams and each coefficient (T,) as
+    python floats."""
+    def conv(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return TenantBatch(
+        ys=conv(ys), lams=[float(v) for v in np.asarray(lams)],
+        coeffs={k: [float(v) for v in np.asarray(c)]
+                for k, c in (coeffs or {}).items()},
+        x0s=None if x0s is None else conv(x0s), tol=tol)
+
+
+def batched_result_to_numpy(res: BatchedSolveResult) -> BatchedSolveResult:
+    """The same batched result with every tensor copied to a numpy array."""
+    def conv(t):
+        return t.detach().cpu().numpy()
+    return BatchedSolveResult(conv(res.ws), conv(res.alphas),
+                              conv(res.active),
+                              {k: conv(v) for k, v in res.metrics.items()})

@@ -5,16 +5,19 @@ versions (``ref``) and hand-written CUDA kernels for Hopper (``csrc/``).
 from . import tuning
 from .operands import (ColMajorOperand, PacketOperand, RowMajorOperand,
                        as_operand)
-from .ops import PacketPlan, gram_packet_sampled, panel_apply
+from .ops import PacketPlan, gram_packet_sampled, panel_apply, panel_matvec
 from .ref import (gram_packet_ref, gram_packet_sampled_cols_ref,
                   gram_packet_sampled_ref, gram_ref, panel_apply_cols_ref,
-                  panel_apply_ref)
-from .sampled_colmajor import (COLS_APPLY, COLS_PACKET,
-                               gram_packet_sampled_cols, panel_apply_cols)
-from .sampled_kernel import (ROWS_APPLY, ROWS_PACKET,
-                             gram_packet_sampled_rows, panel_apply_rows)
+                  panel_apply_ref, panel_matvec_cols_ref, panel_matvec_ref)
+from .sampled_colmajor import (COLS_APPLY, COLS_MATVEC, COLS_PACKET,
+                               gram_packet_sampled_cols, panel_apply_cols,
+                               panel_matvec_cols)
+from .sampled_kernel import (ROWS_APPLY, ROWS_MATVEC, ROWS_PACKET,
+                             gram_packet_sampled_rows, panel_apply_rows,
+                             panel_matvec_rows)
 
-KERNELS = (ROWS_PACKET, ROWS_APPLY, COLS_PACKET, COLS_APPLY)
+KERNELS = (ROWS_PACKET, ROWS_APPLY, COLS_PACKET, COLS_APPLY, COLS_MATVEC,
+           ROWS_MATVEC)
 
 
 def reset_launch_counts() -> None:
@@ -24,10 +27,12 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "PacketPlan", "PacketOperand", "RowMajorOperand", "ColMajorOperand",
-    "as_operand", "gram_packet_sampled", "panel_apply", "gram_ref",
-    "gram_packet_ref", "gram_packet_sampled_ref",
+    "as_operand", "gram_packet_sampled", "panel_apply", "panel_matvec",
+    "gram_ref", "gram_packet_ref", "gram_packet_sampled_ref",
     "gram_packet_sampled_cols_ref", "panel_apply_ref", "panel_apply_cols_ref",
-    "gram_packet_sampled_rows", "panel_apply_rows",
-    "gram_packet_sampled_cols", "panel_apply_cols", "KERNELS",
+    "panel_matvec_ref", "panel_matvec_cols_ref",
+    "gram_packet_sampled_rows", "panel_apply_rows", "panel_matvec_rows",
+    "gram_packet_sampled_cols", "panel_apply_cols", "panel_matvec_cols",
+    "KERNELS",
     "reset_launch_counts", "tuning",
 ]

@@ -4,12 +4,16 @@ Semantics over the implicit sampled panel ``Y(flat)``, shape (m, C):
 
     packet(flat, u):  G = scale * Y Y^T + reg * I,   r = scale_r * Y u
     apply(flat, v):   out(C) = scale * Y^T v
+    matvec(flat, t):  out(m) = scale * Y t   (t (C,), or (T, C) -> (T, m))
 
 * :class:`RowMajorOperand` -- array (S, C), samples are rows (the primal's
-  X); kernels K1/K2 of ``sampled_kernel.py``.
+  X); kernels K1/K2/K6 of ``sampled_kernel.py``.
 * :class:`ColMajorOperand` -- array (C, S), samples are columns of the
-  original layout (the dual's X, never transposed); kernels K3/K4 of
+  original layout (the dual's X, never transposed); kernels K3/K4/K5 of
   ``sampled_colmajor.py``.
+
+``matvec`` sums in the packet's residual order, so at the same ``bk`` it
+equals the packet's r bit for bit on either backend.
 
 The operands never pad the array: the kernels mask their ragged edges, so no
 call copies the dataset.  Knob resolution (``impl``/``bk``) stays in
@@ -23,8 +27,10 @@ from typing import ClassVar
 import torch
 
 from . import ref
-from .sampled_colmajor import gram_packet_sampled_cols, panel_apply_cols
-from .sampled_kernel import gram_packet_sampled_rows, panel_apply_rows
+from .sampled_colmajor import (gram_packet_sampled_cols, panel_apply_cols,
+                               panel_matvec_cols)
+from .sampled_kernel import (gram_packet_sampled_rows, panel_apply_rows,
+                             panel_matvec_rows)
 
 
 def _int32(flat: torch.Tensor) -> torch.Tensor:
@@ -62,6 +68,12 @@ class RowMajorOperand:
             return ref.panel_apply_ref(self.array, flat, v, scale)
         return panel_apply_rows(self.array, _int32(flat), v, scale=scale)
 
+    def matvec(self, flat, t, *, scale, impl, bk):
+        if impl == "ref":
+            return ref.panel_matvec_ref(self.array, flat, t, scale)
+        return panel_matvec_rows(self.array, _int32(flat), t, scale=scale,
+                                 bk=bk)
+
 
 @dataclasses.dataclass(frozen=True)
 class ColMajorOperand:
@@ -94,6 +106,12 @@ class ColMajorOperand:
         if impl == "ref":
             return ref.panel_apply_cols_ref(self.array, flat, v, scale)
         return panel_apply_cols(self.array, _int32(flat), v, scale=scale)
+
+    def matvec(self, flat, t, *, scale, impl, bk):
+        if impl == "ref":
+            return ref.panel_matvec_cols_ref(self.array, flat, t, scale)
+        return panel_matvec_cols(self.array, _int32(flat), t, scale=scale,
+                                 bk=bk)
 
 
 PacketOperand = RowMajorOperand | ColMajorOperand

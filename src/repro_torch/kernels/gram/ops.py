@@ -6,6 +6,10 @@
   which means row-major: ``Y = X[flat, :]``.
 * ``panel_apply(X, flat, v)`` -- ``out = scale * Y^T v``, the deferred
   vector updates (``alpha += Y^T dw`` primal, ``w -= Y da`` dual).
+* ``panel_matvec(X, flat, t)`` -- ``out = scale * Y t``, the residual
+  direction, for one vector t or a (T, C) stack of tenant vectors.  It sums
+  in the packet's residual order, so the chunk ``bk`` (a plan's too) must be
+  the packet's for the two to agree bit for bit.
 
 Backends: ``"ref"`` (the plain PyTorch versions of ``ref.py``, on any
 device) and ``"cuda"`` (the hand-written kernels, CUDA tensors only).
@@ -107,3 +111,14 @@ def panel_apply(X, flat: torch.Tensor, v: torch.Tensor, *,
     op = as_operand(X)
     impl, _ = _resolve(plan, impl, None, op.array.device)
     return op.apply(flat, v, scale=scale, impl=impl)
+
+
+def panel_matvec(X, flat: torch.Tensor, t: torch.Tensor, *,
+                 scale: float = 1.0, impl: str | None = None,
+                 bk: int | None = None, plan: PacketPlan | None = None
+                 ) -> torch.Tensor:
+    """out = scale * Y t for the operand's sampled panel: t (C,) -> (m,),
+    t (T, C) -> (T, m), C the operand's contraction length."""
+    op = as_operand(X)
+    impl, bk = _resolve(plan, impl, bk, op.array.device)
+    return op.matvec(flat, t, scale=scale, impl=impl, bk=bk)

@@ -67,3 +67,33 @@ def panel_apply_cols_ref(X: torch.Tensor, flat: torch.Tensor,
     """out(d) = scale * X[:, flat] @ v (the dual's ``w -= Y da / (lam n)``)."""
     acc = acc_dtype(X.dtype)
     return scale * (X[:, flat.long()].to(acc) @ v.to(acc))
+
+
+def _per_tenant(Y: torch.Tensor, t: torch.Tensor, scale: float
+                ) -> torch.Tensor:
+    """``scale * (Y @ t)`` in the accumulation dtype, for t (K,) or, one
+    product per tenant, for t (T, K).  A (T, K) matrix product would round
+    differently from the single product a packet's r is; each tenant's row
+    is copied first so that it is laid out as a single solve's vector."""
+    acc = acc_dtype(Y.dtype)
+    if t.dim() == 1:
+        return scale * (Y.to(acc) @ t.to(acc))
+    return torch.stack([scale * (Y.to(acc) @ ti.clone().to(acc))
+                        for ti in t])
+
+
+def panel_matvec_ref(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
+                     scale: float = 1.0) -> torch.Tensor:
+    """out(m) = scale * X[flat, :] t, the residual direction, for t (n,);
+    (T, m) for T tenant vectors t (T, n).  The exact expression of
+    :func:`gram_packet_sampled_ref`'s r, so the two agree bit for bit."""
+    return _per_tenant(X[flat.long(), :], t, scale)
+
+
+def panel_matvec_cols_ref(X: torch.Tensor, flat: torch.Tensor,
+                          t: torch.Tensor, scale: float = 1.0
+                          ) -> torch.Tensor:
+    """out(m) = scale * X[:, flat]^T t, the dual residual direction, for
+    t (d,); (T, m) for t (T, d).  The exact expression of
+    :func:`gram_packet_sampled_cols_ref`'s r."""
+    return _per_tenant(X[:, flat.long()].T, t, scale)

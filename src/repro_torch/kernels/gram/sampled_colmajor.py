@@ -11,6 +11,10 @@ layout, with no transposed copy of X.
 * :func:`panel_apply_cols` (K4) -- ``out(d) = scale * Y v``.  Replaces
   ``panel_apply_cols_pallas`` (same file).  One warp per row of X, also
   bounded by the sector traffic of its scattered reads.
+* :func:`panel_matvec_cols` (K5) -- ``out = scale * Y^T t`` for t (d,) or
+  T tenant vectors (T, d).  Replaces ``panel_matvec_cols_pallas`` (same
+  file).  Sums in K3's residual order, so it equals K3's r bit for bit at
+  the same chunk; bounded by the sector traffic of the sampled columns.
 
 CPU tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 kernel or raise.
@@ -21,7 +25,7 @@ import torch
 
 from . import _build, ref
 from .sampled_kernel import (D, I, I64, P, SUFFIX, check_cuda_operands,
-                             launch_packet, resolve_chunk)
+                             launch_matvec, launch_packet, resolve_chunk)
 
 COLS_PACKET = _build.KernelInfo(
     "gram_packet_sampled_cols", "src/repro_torch/csrc/sampled_cols.cu",
@@ -29,12 +33,17 @@ COLS_PACKET = _build.KernelInfo(
 COLS_APPLY = _build.KernelInfo(
     "panel_apply_cols", "src/repro_torch/csrc/sampled_cols.cu",
     "src/repro/kernels/gram/sampled_colmajor.py:280")
+COLS_MATVEC = _build.KernelInfo(
+    "panel_matvec_cols", "src/repro_torch/csrc/sampled_cols.cu",
+    "src/repro/kernels/gram/sampled_colmajor.py:224")
 
 # cols_packet_*(X, flat, u, Gp, rp, G, r, d, n, m, chunk, splits, scale, reg,
 #               scale_r, stream); cols_apply_*(X, flat, v, out, d, n, m,
-#               scale, stream)
+#               scale, stream); cols_matvec_*(X, flat, t, rp, out, d, n, m,
+#               tenants, chunk, splits, scale, stream)
 _PACKET_ARGS = (P,) * 7 + (I64, I64, I, I64, I, D, D, D, P)
 _APPLY_ARGS = (P, P, P, P, I64, I64, I, D, P)
+_MATVEC_ARGS = (P,) * 5 + (I64, I64, I, I, I64, I, D, P)
 
 
 def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
@@ -72,3 +81,18 @@ def panel_apply_cols(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,
     _build.check(err, COLS_APPLY.name)
     COLS_APPLY.launches += 1
     return out
+
+
+def panel_matvec_cols(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
+                      *, scale: float = 1.0, bk: int | None = None
+                      ) -> torch.Tensor:
+    """K5: out = scale * X[:, flat]^T t for X (d, n), flat (m,) over n,
+    t (d,) -> (m,) or t (T, d) -> (T, m).  At the packet's chunk the sums
+    equal K3's r."""
+    if X.device.type == "cpu":
+        return ref.panel_matvec_cols_ref(X, flat, t, scale)
+    d, n = X.shape
+    check_cuda_operands(X, flat, t, d, n, COLS_MATVEC.name, tenants=True)
+    chunk = resolve_chunk(flat.shape[0], d, X.dtype, "cols", bk)
+    return launch_matvec(COLS_MATVEC, "cols_matvec", _MATVEC_ARGS, X, flat, t,
+                         (d, n), d, chunk, scale)

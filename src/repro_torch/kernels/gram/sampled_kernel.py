@@ -10,6 +10,10 @@
 * :func:`panel_apply_rows` (K2) -- ``out(n) = scale * Y^T v``.  Replaces
   ``panel_apply_pallas`` (same file).  Bounded by the m * n bytes of X it
   reads; one thread per column keeps every read coalesced.
+* :func:`panel_matvec_rows` (K6) -- ``out = scale * Y t`` for t (n,) or T
+  tenant vectors (T, n).  Replaces ``panel_matvec_pallas`` (same file).
+  Sums in K1's residual order, so it equals K1's r bit for bit at the same
+  chunk; bounded by the m * n bytes of the sampled rows plus t's T * n.
 
 Each wrapper runs the plain version (``ref.py``) when ``X`` lies on the CPU,
 and on a CUDA tensor launches its kernel or raises: there is no fallback.
@@ -30,21 +34,27 @@ ROWS_PACKET = _build.KernelInfo(
 ROWS_APPLY = _build.KernelInfo(
     "panel_apply_rows", "src/repro_torch/csrc/sampled_rows.cu",
     "src/repro/kernels/gram/sampled_kernel.py:209")
+ROWS_MATVEC = _build.KernelInfo(
+    "panel_matvec_rows", "src/repro_torch/csrc/sampled_rows.cu",
+    "src/repro/kernels/gram/sampled_kernel.py:261")
 
 P, I, I64, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # rows_packet_*(X, flat, u, Gp, rp, G, r, n, m, chunk, splits, scale, reg,
 #               scale_r, stream); rows_apply_*(X, flat, v, out, n, m, scale,
-#               stream)
+#               stream); rows_matvec_*(X, flat, t, rp, out, n, m, tenants,
+#               chunk, splits, scale, stream)
 _PACKET_ARGS = (P,) * 7 + (I64, I, I64, I, D, D, D, P)
 _APPLY_ARGS = (P, P, P, P, I64, I, D, P)
+_MATVEC_ARGS = (P,) * 5 + (I64, I, I, I64, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
                         vec: torch.Tensor, vec_len: int, n_index: int,
-                        what: str) -> None:
+                        what: str, *, tenants: bool = False) -> None:
     """Everything a kernel takes on trust, checked before the launch: device,
-    dtype, contiguity, shapes and the index range ``0 <= flat < n_index``."""
+    dtype, contiguity, shapes and the index range ``0 <= flat < n_index``.
+    ``tenants`` lets the vector carry a leading tenant axis, (T, vec_len)."""
     if X.dtype not in SUFFIX:
         hint = (" (bf16 input is not supported by the CUDA kernels yet)"
                 if X.dtype == torch.bfloat16 else "")
@@ -53,21 +63,21 @@ def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
     if X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"{what}: X must be a contiguous 2-D tensor, got "
                          f"shape {tuple(X.shape)} strides {X.stride()}")
-    for name, t in (("flat", flat), ("vector", vec)):
+    for name, t, dims in (("flat", flat, (1,)),
+                          ("vector", vec, (1, 2) if tenants else (1,))):
         if t.device != X.device:
             raise ValueError(f"{what}: {name} on {t.device}, X on {X.device}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous 1-D, got "
-                             f"shape {tuple(t.shape)}")
+        if t.dim() not in dims or not t.is_contiguous() or t.numel() == 0:
+            raise ValueError(f"{what}: {name} must be a contiguous, "
+                             f"non-empty {' or '.join(map(str, dims))}-D "
+                             f"tensor, got shape {tuple(t.shape)}")
     if flat.dtype != torch.int32:
         raise TypeError(f"{what}: flat must be int32, got {flat.dtype}")
-    if flat.numel() == 0:
-        raise ValueError(f"{what}: flat is empty")
     if vec.dtype != X.dtype:
         raise TypeError(f"{what}: vector dtype {vec.dtype} != X dtype "
                         f"{X.dtype}")
-    if vec.shape[0] != vec_len:
-        raise ValueError(f"{what}: vector length {vec.shape[0]} != "
+    if vec.shape[-1] != vec_len:
+        raise ValueError(f"{what}: vector length {vec.shape[-1]} != "
                          f"{vec_len}")
     lo, hi = torch.stack(torch.aminmax(flat)).tolist()   # one device sync
     if lo < 0 or hi >= n_index:
@@ -112,6 +122,33 @@ def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
     return G, r
 
 
+def launch_matvec(info: _build.KernelInfo, symbol: str, argtypes: tuple,
+                  X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
+                  sizes: tuple, K: int, chunk: int,
+                  scale: float) -> torch.Tensor:
+    """Allocate the output and the split partials, then launch a matvec
+    kernel: ``symbol_{f32,f64}(X, flat, t, rp, out, *sizes, m, tenants,
+    chunk, splits, scale, stream)``.  Returns (m,) for t (K,), (T, m) for
+    t (T, K)."""
+    m = flat.shape[0]
+    tenants = 1 if t.dim() == 1 else t.shape[0]
+    splits = -(-K // chunk)
+    mp = -(-m // tuning.TILE) * tuning.TILE
+    opts = {"dtype": X.dtype, "device": X.device}
+    out = torch.empty((tenants, m), **opts)
+    rp = torch.empty((splits, tenants, mp), **opts)
+    fn = _build.bind(info.source.split("/")[-1], f"{symbol}_{SUFFIX[X.dtype]}",
+                     argtypes)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(X.data_ptr(), flat.data_ptr(), t.data_ptr(), rp.data_ptr(),
+                 out.data_ptr(), *sizes, m, tenants, chunk, splits,
+                 float(scale), stream)
+    _build.check(err, info.name)
+    info.launches += 1
+    return out if t.dim() == 2 else out[0]
+
+
 def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
                              u: torch.Tensor, *, scale: float = 1.0,
                              reg: float = 0.0, scale_r: float | None = None,
@@ -145,3 +182,18 @@ def panel_apply_rows(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,
     _build.check(err, ROWS_APPLY.name)
     ROWS_APPLY.launches += 1
     return out
+
+
+def panel_matvec_rows(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
+                      *, scale: float = 1.0, bk: int | None = None
+                      ) -> torch.Tensor:
+    """K6: out = scale * X[flat, :] t for X (d, n), flat (m,), t (n,) -> (m,)
+    or t (T, n) -> (T, m).  ``bk`` is the contraction chunk; at the packet's
+    chunk (the default pick for the same m) the sums equal K1's r."""
+    if X.device.type == "cpu":
+        return ref.panel_matvec_ref(X, flat, t, scale)
+    d, n = X.shape
+    check_cuda_operands(X, flat, t, n, d, ROWS_MATVEC.name, tenants=True)
+    chunk = resolve_chunk(flat.shape[0], n, X.dtype, "rows", bk)
+    return launch_matvec(ROWS_MATVEC, "rows_matvec", _MATVEC_ARGS, X, flat, t,
+                         (n,), n, chunk, scale)

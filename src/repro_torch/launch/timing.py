@@ -68,4 +68,5 @@ def wall_ms(fn, reps: int) -> float:
 
 
 KERNEL_NAMES = {"packet": ("packet_partial", "packet_reduce"),
+                "matvec": ("matvec_partial", "matvec_reduce"),
                 "rows_apply": ("rows_apply",), "cols_apply": ("cols_apply",)}

@@ -8,7 +8,10 @@ mode).  This file imports no JAX, so it also runs where JAX is not installed:
 Tolerances: kernel against plain version, relative Frobenius 1e-5 in f32 (the
 split contraction sums in another order than cuBLAS), for each output and for
 G's cross terms alone (entries of two different indices), and 1e-12 in f64;
-CA(s) against classical through the kernels, relative 1e-10 in f64.
+CA(s) against classical through the kernels, relative 1e-10 in f64.  The
+matvec kernels K5/K6 sum in the packet's residual order, so they are held to
+K3/K1's r, to their own single-tenant launches and, in the batched engine,
+to the single solves under ``torch.equal``: no tolerance.
 """
 import pytest
 import torch
@@ -24,7 +27,9 @@ KERNELS = {"rows_packet": (gk.gram_packet_sampled_rows,
            "rows_apply": (gk.panel_apply_rows, tref.panel_apply_ref),
            "cols_packet": (gk.gram_packet_sampled_cols,
                            tref.gram_packet_sampled_cols_ref),
-           "cols_apply": (gk.panel_apply_cols, tref.panel_apply_cols_ref)}
+           "cols_apply": (gk.panel_apply_cols, tref.panel_apply_cols_ref),
+           "cols_matvec": (gk.panel_matvec_cols, tref.panel_matvec_cols_ref),
+           "rows_matvec": (gk.panel_matvec_rows, tref.panel_matvec_ref)}
 
 
 @pytest.fixture
@@ -52,7 +57,7 @@ def test_kernel_matches_plain_version_on_card(cuda_device, kernel, m, dtype,
     flat = torch.randint(0, samples, (m,), generator=g, device=cuda_device,
                          dtype=torch.int32)
     flat[-1] = flat[0]                                 # a duplicate index
-    vec = torch.randn((K if kind == "packet" else m,), generator=g,
+    vec = torch.randn((m if kind == "apply" else K,), generator=g,
                       device=cuda_device, dtype=dtype)
     kern, plain = KERNELS[kernel]
     got, want = kern(X, flat, vec), plain(X, flat, vec)
@@ -102,3 +107,72 @@ def test_solves_run_through_the_kernels_and_match_classical(cuda_device,
     assert apply.launches == 2 * iters
     assert _rel(ca.w, base.w) <= 1e-10 and _rel(ca.alpha, base.alpha) <= 1e-10
     assert _rel(ca.w, ref.w) <= 1e-10
+
+
+def _layout_problem(device, dtype, layout, m, tenants, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, n = 300, 2001
+    X = torch.randn((d, n), generator=g, device=device, dtype=dtype)
+    samples, K = (d, n) if layout == "rows" else (n, d)
+    flat = torch.randint(0, samples, (m,), generator=g, device=device,
+                         dtype=torch.int32)
+    flat[-1] = flat[0]
+    t = torch.randn((tenants, K), generator=g, device=device, dtype=dtype)
+    return X, flat, t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 8, 77, 128, 200])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_matvec_equals_packet_residual_on_card(cuda_device, layout, m,
+                                               dtype):
+    X, flat, t = _layout_problem(cuda_device, dtype, layout, m, 1, m + 7)
+    packet = (gk.gram_packet_sampled_rows if layout == "rows"
+              else gk.gram_packet_sampled_cols)
+    matvec = (gk.panel_matvec_rows if layout == "rows"
+              else gk.panel_matvec_cols)
+    _, r = packet(X, flat, t[0], scale=1.0, scale_r=1.0)
+    assert torch.equal(matvec(X, flat, t[0]), r)
+
+
+@pytest.mark.parametrize("tenants", [2, 33, 70])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_tenant_launch_equals_single_launches_on_card(cuda_device, layout,
+                                                      tenants):
+    X, flat, t = _layout_problem(cuda_device, torch.float32, layout, 77,
+                                 tenants, tenants)
+    matvec = (gk.panel_matvec_rows if layout == "rows"
+              else gk.panel_matvec_cols)
+    gk.reset_launch_counts()
+    out = matvec(X, flat, t, scale=0.5)
+    info = gk.ROWS_MATVEC if layout == "rows" else gk.COLS_MATVEC
+    assert info.launches == 1 and out.shape == (tenants, 77)
+    for j in range(tenants):
+        assert torch.equal(out[j], matvec(X, flat, t[j], scale=0.5))
+
+
+@pytest.mark.parametrize("form", ["primal", "dual", "proximal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_equals_singles_through_the_kernels(cuda_device, form,
+                                                    dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    d, n, b, s, iters, T = 60, 150, 4, 5, 23, 3
+    X = torch.randn((d, n), generator=g, device=cuda_device, dtype=dtype)
+    ys = torch.randn((T, n), generator=g, device=cuda_device, dtype=dtype)
+    lams, lam1s = (0.05, 0.2, 1.0), (0.01, 0.02, 0.004)
+    idx = core.sample_blocks(g, n if form == "dual" else d, b, iters)
+    coeffs = {"lam1": lam1s} if form == "proximal" else {}
+    plan = core.SolverPlan(b=b, s=s)
+    gk.reset_launch_counts()
+    res = core.s_step_solve_batched(
+        form, plan, X, core.TenantBatch(ys=ys, lams=lams, coeffs=coeffs),
+        iters, idx=idx)
+    matvec = gk.COLS_MATVEC if form == "dual" else gk.ROWS_MATVEC
+    assert matvec.launches == -(-iters // s)
+    for t in range(T):
+        f = (core.ProximalElasticNet(lam1=lam1s[t]) if form == "proximal"
+             else form)
+        single = core.s_step_solve(f, plan, X, ys[t], lams[t], iters,
+                                   idx=idx)
+        assert torch.equal(res.ws[t], single.w)
+        assert torch.equal(res.alphas[t], single.alpha)

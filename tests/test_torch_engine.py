@@ -161,9 +161,10 @@ def test_registry_and_string_formulations(problem):
     assert T.get_solver("primal") is T.ca_bcd
     assert T.get_solver("dual", "local") is T.ca_bdcd
     assert set(T.registered_solvers()) >= {("primal", "local"),
-                                           ("dual", "local")}
+                                           ("dual", "local"),
+                                           ("proximal", "local")}
     with pytest.raises(KeyError, match="no solver registered"):
-        T.get_solver("proximal")
+        T.get_solver("accelerated")
     with pytest.raises(ValueError, match="unknown backend"):
         T.register_solver("primal", "sharded", T.ca_bcd)
     with pytest.raises(KeyError, match="unknown formulation"):
@@ -209,10 +210,11 @@ def test_plan_from_reference_maps_supported_fields():
     assert plan == T.SolverPlan(b=8, s=4, impl="cuda", track_cond=True)
     assert plan_from_reference(b=2).impl is None
     assert plan_from_reference(b=2, impl="ref", unroll=4).impl == "ref"
+    assert plan_from_reference(b=2, tenants=4).tenants == 4
 
 
 @pytest.mark.parametrize("field,value", [
-    ("guard", True), ("fault", object()), ("tenants", 4), ("wire", "ring"),
+    ("guard", True), ("fault", object()), ("wire", "ring"),
     ("tiles", (128, 512)), ("impl", "pallas_interpret"), ("colour", 1)])
 def test_plan_from_reference_refuses_unsupported_fields(field, value):
     with pytest.raises(ValueError, match="not supported"):

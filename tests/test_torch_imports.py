@@ -29,7 +29,8 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
-    assert "repro_torch.launch.quickstart" in mods
+    assert {"repro_torch.launch.quickstart", "repro_torch.core.proximal",
+            "repro_torch.serve.solver_service"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -61,6 +62,8 @@ def test_no_file_of_the_port_imports_jax_or_the_reference(path):
 
 def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
-    assert {"core/engine.py", "kernels/gram/sampled_kernel.py",
+    assert {"core/engine.py", "core/proximal.py",
+            "kernels/gram/sampled_kernel.py",
             "kernels/gram/sampled_colmajor.py", "interop.py",
-            "launch/quickstart.py"} <= names
+            "launch/quickstart.py", "serve/slots.py",
+            "serve/solver_service.py"} <= names

@@ -6,7 +6,8 @@ dispatch are checked against ``repro.kernels.gram.ref`` in f32 and f64, with
 duplicate indices, shapes that are no multiple of any tile, and non-default
 scale / reg / scale_r.  Tolerances: f64 rtol 1e-10 / atol 1e-12 (XLA and
 ATen sum in different orders); f32 rtol 1e-5 / atol 1e-5 (sums of at most
-~60 terms of unit size).
+~60 terms of unit size).  The plain matvecs are also held to the port's own
+packet r under ``torch.equal``: they are written as its exact expression.
 
 The CUDA kernels themselves run only on the card: their tests are in
 ``test_torch_cuda.py``.
@@ -19,6 +20,7 @@ import torch
 from repro.kernels.gram import ColMajorOperand as JCols
 from repro.kernels.gram import gram_packet_sampled as j_packet
 from repro.kernels.gram import panel_apply as j_apply
+from repro.kernels.gram import panel_matvec as j_matvec
 from repro.kernels.gram import ref as jref
 from repro_torch.kernels import gram as gk
 from repro_torch.kernels.gram import ref as tref
@@ -166,18 +168,26 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
         out, tref.panel_apply_cols_ref(X, flat, X[0, :4]), rtol=0, atol=0)
     gk.gram_packet_sampled_cols(X, flat, X[:, 0])
     gk.panel_apply_rows(X, flat, X[0, :4])
-    assert [k.launches for k in gk.KERNELS] == [0, 0, 0, 0]
+    torch.testing.assert_close(
+        gk.panel_matvec_rows(X, flat, X[:2]),
+        tref.panel_matvec_ref(X, flat, X[:2]), rtol=0, atol=0)
+    gk.panel_matvec_cols(X, flat, X[:, 0])
+    assert len(gk.KERNELS) == 6
+    assert [k.launches for k in gk.KERNELS] == [0] * len(gk.KERNELS)
 
 
-@pytest.mark.parametrize("call", ["packet", "apply"])
+@pytest.mark.parametrize("call", ["packet", "apply", "matvec"])
 def test_impl_cuda_on_cpu_tensor_raises(call):
     X = torch.zeros((4, 6))
     flat = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         if call == "packet":
             gk.gram_packet_sampled(X, flat, torch.zeros(6), impl="cuda")
-        else:
+        elif call == "apply":
             gk.panel_apply(X, flat, torch.zeros(2), impl="cuda")
+        else:
+            gk.panel_matvec(X, flat, torch.zeros(6),
+                            plan=gk.PacketPlan(impl="cuda"))
 
 
 def test_packet_plan_validation():
@@ -262,3 +272,66 @@ def test_cuda_operand_checks_refuse_what_the_kernel_cannot_take(over, err,
 
 def test_cuda_operand_checks_accept_valid_input():
     check_cuda_operands(**_operands())
+    check_cuda_operands(**_operands(vec=torch.zeros((3, 7))), tenants=True)
+
+
+@pytest.mark.parametrize("vec,tenants", [
+    (torch.zeros((3, 7)), False),      # a tenant axis where none is taken
+    (torch.zeros((0, 7)), True),       # no tenants
+    (torch.zeros((2, 3, 7)), True)])   # two leading axes
+def test_tenant_axis_only_where_the_kernel_takes_it(vec, tenants):
+    with pytest.raises(ValueError, match="tensor"):
+        check_cuda_operands(**_operands(vec=vec), tenants=tenants)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("tenants", [0, 3])
+def test_matvec_oracles_match_reference_and_packet_r(dt, shape, layout,
+                                                     tenants):
+    """The plain matvecs against the reference's oracles (one reference call
+    per tenant), and equal to the port's packet r under torch.equal: the
+    identity that makes batched solves equal single solves."""
+    npdt, tdt, rtol, atol = DTYPES[dt]
+    d, n, m = shape
+    samples, K = (d, n) if layout == "rows" else (n, d)
+    X, flat, rng = _inputs(d, n, m, npdt, samples, seed=6)
+    t = rng.standard_normal((tenants, K) if tenants else K).astype(npdt)
+    jfn = (jref.panel_matvec_ref if layout == "rows"
+           else jref.panel_matvec_cols_ref)
+    tfn = (tref.panel_matvec_ref if layout == "rows"
+           else tref.panel_matvec_cols_ref)
+    pfn = (tref.gram_packet_sampled_ref if layout == "rows"
+           else tref.gram_packet_sampled_cols_ref)
+    Xt, ft = torch.from_numpy(X), torch.from_numpy(flat)
+    got = tfn(Xt, ft, torch.from_numpy(t), 0.5)
+    assert got.dtype == tdt
+    assert got.shape == ((tenants, m) if tenants else (m,))
+    rows = got if tenants else got[None]
+    for j, tj in enumerate(t if tenants else t[None]):
+        _close(rows[j], jfn(jnp.asarray(X), jnp.asarray(flat),
+                            jnp.asarray(tj), 0.5), rtol, atol)
+        _, r = pfn(Xt, ft, torch.from_numpy(np.ascontiguousarray(tj)), 1.0,
+                   0.0, 0.5)
+        assert torch.equal(rows[j], r)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_matvec_through_ops_matches_reference(dt):
+    npdt, _, rtol, atol = DTYPES[dt]
+    d, n, m = 21, 34, 10
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((d, n)).astype(npdt)
+    Xt = torch.from_numpy(X)
+    for op_t, op_j, samples, K in (
+            (gk.RowMajorOperand(Xt), jnp.asarray(X), d, n),
+            (gk.ColMajorOperand(Xt), JCols(jnp.asarray(X)), n, d)):
+        flat = rng.integers(0, samples, m).astype(np.int32)
+        t = rng.standard_normal(K).astype(npdt)
+        out = gk.panel_matvec(op_t, torch.from_numpy(flat),
+                              torch.from_numpy(t), scale=2.0,
+                              plan=gk.PacketPlan(bk=64))
+        want = j_matvec(op_j, jnp.asarray(flat), jnp.asarray(t), scale=2.0,
+                        impl="ref")
+        _close(out, want, rtol, atol)
