@@ -3,10 +3,11 @@
 
 Drives the port's paths -- the single-device s-step solve of CA-BCD
 (primal) and CA-BDCD (dual), the tenant-batched engine (primal, dual,
-proximal) and the continuous-batching solve service -- at the full real-sim
-shape of the paper's Table 3 (d = 20958 features, n = 72309 points,
-X = 6.06 GB in f32), through the six hand-written CUDA kernels K1-K6, and
-checks each kernel against its plain PyTorch version on the card.
+proximal), the continuous-batching solve service and the baselines (CG,
+CholeskyQR and TSQR) -- at the full real-sim shape of the paper's Table 3
+(d = 20958 features, n = 72309 points, X = 6.06 GB in f32), through the
+eight hand-written CUDA kernels K1-K8, and checks each kernel against its
+plain PyTorch version on the card.
 
 Phases (any failure raises; nothing is caught):
   1. set-up: versions, the card's name and power limit, the kernel build;
@@ -14,7 +15,9 @@ Phases (any failure raises; nothing is caught):
      the 8x-cut f64 shape, with its device time beside its bound, the plain
      version's time and a library call's time; the matvecs K5/K6 also equal
      to K3/K1's r and their T-tenant launch to T single launches
-     (torch.equal);
+     (torch.equal); the dense K7 / K8 on a gathered panel, K7 equal to K1 on
+     the same indices and K8 to K7's G (torch.equal); K2 and K6 at CG's
+     shape (flat = arange(d));
   3. the single solves at real-sim size (counted): CA(16) against
      classical, the kernel path against impl="ref", the objective going
      down, the launch counts; 3b. the device-idle share from a trace;
@@ -26,7 +29,14 @@ Phases (any failure raises; nothing is caught):
      device-idle share;
   6. the solve service at real-sim size (counted): 24 requests through 16
      slots, primal then dual, each ticket equal to a single solve replayed
-     over the index chunks of its steps (torch.equal); solves/s.
+     over the index chunks of its steps (torch.equal); solves/s;
+  7. the baselines at real-sim size: K8 at CholeskyQR's full operand
+     against its plain version and an f64 product, timed; then (counted)
+     the CholeskyQR ridge solve through K8, CG through K2 / K6 and through
+     the dense products, CG's history, TSQR and CholeskyQR in f64 on the
+     8x-cut real-sim (primal) and news20 (dual), K7 on a gathered panel;
+     each solve against the direct one; the solve's time split; the
+     device-idle share of a CG solve.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -48,6 +58,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch import core  # noqa: E402
+from repro_torch.core.subproblem import cholesky_nan  # noqa: E402
+from repro_torch.core.tsqr import ridge_operand  # noqa: E402
 from repro_torch.data import (PAPER_DATASETS, PAPER_DATASETS_FULL,  # noqa: E402
                               make_regression)
 from repro_torch.kernels import gram as gk  # noqa: E402
@@ -76,6 +88,13 @@ TOL_SOLVE_F32 = 1e-4
 TOL_SOLVE_F64 = 1e-10           # CA(s) against classical in f64
 TENANTS = 8                     # tenants of the batched engine's run
 BATCHED_ITERS = 72              # 4 full outer steps at s = 16, a ragged 8
+# Baselines against the direct solve: f32 at real-sim size (each side rounds
+# its own O(d n) sums; the operator's condition is near 1 at this lambda),
+# f64 at the 8x cut (CholeskyQR squares the operand's condition).
+TOL_BASELINE_F32 = 1e-4
+TOL_BASELINE_F64 = 1e-8
+CG_MAX_ITERS = 100
+HISTORY_ITERS = 20
 
 
 def log(msg: str) -> None:
@@ -112,19 +131,24 @@ def ragged_flat(gen, n_total: int, m: int):
 
 
 def bound(kind: str, m: int, uniq: int, K: int, dtype,
-          tenants: int = 1) -> dict:
+          tenants: int = 1, indexed: bool = True) -> dict:
     """Least time for the function on these inputs: each input read once
-    (only the sampled rows / columns of X), each output written once, against
-    the operations at the CUDA-core rate of ``dtype``."""
+    (only the sampled rows / columns of X, and the int32 indices where the
+    kernel takes them), each output written once, against the operations at
+    the CUDA-core rate of ``dtype``."""
     isz = 8 if str(dtype) == "torch.float64" else 4
+    index_bytes = 4 * m if indexed else 0
     if kind == "packet":
-        nbytes = (uniq * K + K + m * m + m) * isz + 4 * m
+        nbytes = (uniq * K + K + m * m + m) * isz + index_bytes
         flops = 2 * (m * (m + 1) // 2 * K + m * K)
+    elif kind == "gram":                    # dense, no index, no residual
+        nbytes = (m * K + m * m) * isz
+        flops = 2 * (m * (m + 1) // 2 * K)
     elif kind == "matvec":
-        nbytes = (uniq * K + tenants * K + tenants * m) * isz + 4 * m
+        nbytes = (uniq * K + tenants * K + tenants * m) * isz + index_bytes
         flops = 2 * tenants * m * K
     else:
-        nbytes = (uniq * K + m + K) * isz + 4 * m
+        nbytes = (uniq * K + m + K) * isz + index_bytes
         flops = 2 * m * K
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S[str(dtype)] * 1e3
@@ -259,6 +283,104 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                    f"{rec['bound_ms_t1']:.4f}" if kind == "matvec" else ""))
             key = info.name if m == timed[0] else f"{info.name}@m{m}"
             out[key] = rec
+    return out
+
+
+def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
+                        timed_m: int | None) -> dict:
+    """Phase 2 for K7 / K8 on a panel Y = X[flat] gathered beforehand (the
+    reference's kernels_bench compares the two the same way): each against
+    its plain version, K7 equal to K1 on (X, flat) and K8 equal to K7's G
+    (torch.equal); at ``timed_m`` K7's timings.  Returns K7's record."""
+    tol = TOL_KERNEL[str(X.dtype)]
+    d, n = X.shape
+    out = {}
+    for m in ms:
+        flat = (blocked_flat(gen, d, 8, m // 8) if m % 8 == 0
+                else ragged_flat(gen, d, m))
+        Y = X[flat.long()].contiguous()
+        u = torch.randn((n,), generator=gen, device=X.device, dtype=X.dtype)
+        got7 = gk.gram_packet_dense(Y, u)
+        got8 = gk.gram_dense(Y)
+        want7 = gk.gram_packet_ref(Y, u)
+        want8 = gk.gram_ref(Y)
+        torch.cuda.synchronize()
+        errs = [rel(got7[0], want7[0]), rel(got7[1], want7[1]),
+                rel(cross_terms(got7[0], flat), cross_terms(want7[0], flat)),
+                rel(got8, want8),
+                rel(cross_terms(got8, flat), cross_terms(want8, flat))]
+        max_abs = max(float((g - w).abs().max())
+                      for g, w in ((got7[0], want7[0]), (got7[1], want7[1]),
+                                   (got8, want8)))
+        G1, r1 = gk.gram_packet_sampled_rows(X, flat, u)
+        same_k1 = torch.equal(got7[0], G1) and torch.equal(got7[1], r1)
+        same_k7 = torch.equal(got8, got7[0])
+        sym = torch.equal(got7[0], got7[0].T) and torch.equal(got8, got8.T)
+        log(f"  {tag} gram_packet_dense / gram_dense m={m:4d} K={n}: rel err "
+            f"G, r, G cross terms, K8 G, K8 cross terms "
+            + " ".join(f"{e:.2e}" for e in errs)
+            + f" (tol {tol:.0e}), max abs {max_abs:.2e}; K7 == K1 {same_k1}, "
+            f"K8 == K7's G {same_k7}, symmetric {sym}")
+        if not all(math.isfinite(e) and e <= tol for e in errs):
+            raise AssertionError(f"K7 / K8 disagree with their plain versions "
+                                 f"at m={m}: {errs}")
+        if not (same_k1 and same_k7 and sym):
+            raise AssertionError(f"K7 / K8 identities fail at m={m}: "
+                                 f"{same_k1}, {same_k7}, {sym}")
+        if m != timed_m:
+            continue
+        info = gk.DENSE_PACKET
+        rec = {"name": info.name, "route": "cuda", "source": info.source,
+               "replaces": info.replaces, "max_abs_err": max_abs, "m": m,
+               "K": n, "dtype": str(X.dtype).replace("torch.", ""),
+               "ms": device_ms(lambda: gk.gram_packet_dense(Y, u), reps,
+                               KERNEL_NAMES["packet"]),
+               "wrapper_ms": wall_ms(lambda: gk.gram_packet_dense(Y, u), reps),
+               "plain_ms": device_ms(lambda: gk.gram_packet_ref(Y, u), reps)}
+        rhs = torch.cat([Y.T, u[:, None]], dim=1).contiguous()
+        rec["library_ms"] = device_ms(lambda: torch.mm(Y, rhs), reps)
+        rec.update(bound("packet", m, m, n, X.dtype, indexed=False))
+        log(f"    device {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f}),"
+            f" plain {rec['plain_ms']:.4f}, library (mm on [Y^T | u]) "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+        out[info.name] = rec
+    return out
+
+
+def check_cg_shape(X, gen, reps: int) -> dict:
+    """Phase 2 for K2 and K6 at the shape CG gives them: flat = arange(d),
+    m = d, one vector; against their plain versions, timed."""
+    tol = TOL_KERNEL[str(X.dtype)]
+    d, n = X.shape
+    flat = torch.arange(d, dtype=torch.int32, device=X.device)
+    out = {}
+    for kern, info, plain, kind, vec_len, names in (
+            (gk.panel_apply_rows, gk.ROWS_APPLY, gk.panel_apply_ref, "apply",
+             d, KERNEL_NAMES["rows_apply"]),
+            (gk.panel_matvec_rows, gk.ROWS_MATVEC, gk.panel_matvec_ref,
+             "matvec", n, KERNEL_NAMES["matvec"])):
+        vec = torch.randn((vec_len,), generator=gen, device=X.device,
+                          dtype=X.dtype)
+        got, want = kern(X, flat, vec), plain(X, flat, vec)
+        torch.cuda.synchronize()
+        err = rel(got, want)
+        rec = {"name": info.name, "m": d, "K": n, "rel_err": err,
+               "max_abs_err": float((got - want).abs().max())}
+        del got, want
+        log(f"  f32 {info.name} at CG's shape m = d = {d}, K = {n}, T = 1: "
+            f"rel err {err:.2e} (tol {tol:.0e})")
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"{info.name} disagrees with its plain "
+                                 f"version at CG's shape: {err}")
+        rec.update(time_kernel(X, flat, vec, kern, plain, kind, "rows", names,
+                               reps))
+        rec.update(bound(kind, d, d, n, X.dtype))
+        log(f"    device {rec['ms']:.4f} ms (wrapper incl. host checks "
+            f"{rec['wrapper_ms']:.4f}), plain {rec['plain_ms']:.4f}, library "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+        out[f"{info.name}@cg"] = rec
     return out
 
 
@@ -490,10 +612,12 @@ def batched_engine(X, y, lam, gen, iters: int, stats: dict) -> dict:
         log(f"  {form:8s} T={T}: batched solve {time.perf_counter() - t0:.3f}"
             f" s ({iters} iterations, {outer} outer steps)")
     counts = {k.name: k.launches for k in gk.KERNELS}  # batched path ends
-    want = {"gram_packet_sampled_rows": 2 * outer,
-            "panel_apply_rows": 2 * T * iters,
-            "gram_packet_sampled_cols": outer, "panel_apply_cols": T * iters,
-            "panel_matvec_cols": outer, "panel_matvec_rows": 2 * outer}
+    want = {k.name: 0 for k in gk.KERNELS}
+    want.update({"gram_packet_sampled_rows": 2 * outer,
+                 "panel_apply_rows": 2 * T * iters,
+                 "gram_packet_sampled_cols": outer,
+                 "panel_apply_cols": T * iters,
+                 "panel_matvec_cols": outer, "panel_matvec_rows": 2 * outer})
     log(f"  launches {counts}")
     if counts != want:
         raise AssertionError(f"batched launches {counts}, expected {want}")
@@ -620,6 +744,218 @@ def service_run(X, y, lam, gen, stats: dict) -> dict:
     return counts
 
 
+def k8_full_shape(X, lam: float, reps: int) -> dict:
+    """Phase 7, not counted: K8 on CholeskyQR's real-sim operand A^T
+    (d, n + d) against its plain version and against an f64 product of the
+    same f32 operand, whose entries' products are exact in f64; then its
+    timings.  Returns K8's record."""
+    info = gk.DENSE_GRAM
+    tol = TOL_KERNEL[str(X.dtype)]
+    At = ridge_operand(X, lam)
+    m, K = At.shape
+    G, Gp = gk.gram_dense(At), gk.gram_ref(At)
+    A64 = At.double()
+    G64 = A64 @ A64.T
+    del A64
+    torch.cuda.synchronize()
+    eye = torch.arange(m, device=X.device)
+    errs = {"kernel_vs_plain": rel(G, Gp), "kernel_vs_f64": rel(G, G64),
+            "plain_vs_f64": rel(Gp, G64),
+            "cross_kernel_vs_plain": rel(cross_terms(G, eye),
+                                         cross_terms(Gp, eye)),
+            "cross_kernel_vs_f64": rel(cross_terms(G, eye),
+                                       cross_terms(G64, eye))}
+    max_abs = float((G - Gp).abs().max())
+    sym = torch.equal(G, G.T)
+    del G, Gp, G64
+    log(f"  f32 gram_dense at A^T {tuple(At.shape)} "
+        f"({At.numel() * 4 / 1e9:.2f} GB): rel err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {tol:.0e}); max abs against plain {max_abs:.2e}; "
+        f"symmetric {sym}")
+    if not (all(math.isfinite(e) and e <= tol for e in errs.values())
+            and sym):
+        raise AssertionError(f"gram_dense at the full shape: {errs}, "
+                             f"symmetric {sym}")
+    rec = {"name": info.name, "route": "cuda", "source": info.source,
+           "replaces": info.replaces, "max_abs_err": max_abs, "m": m, "K": K,
+           "dtype": "float32", "errors": errs,
+           "ms": device_ms(lambda: gk.gram_dense(At), reps,
+                           KERNEL_NAMES["packet"]),
+           "plain_ms": device_ms(lambda: gk.gram_ref(At), reps),
+           "library_ms": device_ms(lambda: torch.mm(At, At.T), reps)}
+    rec.update(bound("gram", m, m, K, At.dtype))
+    log(f"    device {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f}, library "
+        f"(mm) {rec['library_ms']:.2f}, bound {rec['bound_ms']:.2f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def cholqr_split(X, y, lam: float, w_whole) -> dict:
+    """The CholeskyQR ridge solve's steps, as ``tsqr_ridge`` takes them,
+    each timed to a synchronisation: the operand's build, K8, the Cholesky
+    factorisation, the right-hand side and two triangular solves."""
+    n = X.shape[1]
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    At = step("build_ms", lambda: ridge_operand(X, lam))
+    G = step("gram_ms", lambda: gk.gram(At))
+    del At
+    R = step("cholesky_ms", lambda: cholesky_nan(G)).T
+    del G
+
+    def solves():
+        z = torch.linalg.solve_triangular(R.T, (X @ y / n)[:, None],
+                                          upper=False)
+        return torch.linalg.solve_triangular(R, z, upper=True)[:, 0]
+
+    w = step("solves_ms", solves)
+    times["rel_to_whole_solve"] = rel(w, w_whole)
+    log("  CholeskyQR solve, step by step: "
+        + ", ".join(f"{k} {v:.2f}" if k.endswith("ms") else f"{k} {v:.1e}"
+                    for k, v in times.items()))
+    return times
+
+
+def baselines(X, y, lam: float, cut, gen, stats: dict) -> dict:
+    """Phase 7: the baselines at real-sim size (counted): the CholeskyQR
+    ridge solve through K8; CG through K2 / K6 (impl="cuda") and through
+    the dense products (impl=None); CG's history and the TSQR / CholeskyQR
+    solves of both branches in f64 on the 8x cuts; K7 on a gathered panel.
+    Each solve against the direct solve; then the CholeskyQR solve's time
+    split and the device-idle share of a CG solve."""
+    d, n = X.shape
+    news20 = make_regression(gen, PAPER_DATASETS["news20"], torch.float64,
+                             device=X.device)[:2]
+    flat = blocked_flat(gen, d, 8, 16)
+    u = torch.randn((n,), generator=gen, device=X.device, dtype=X.dtype)
+    lams = {name: 1e-6 * float(torch.linalg.norm(data[0]) ** 2)
+            for name, data in (("real-sim 8x cut", cut), ("news20 8x cut",
+                                                          news20))}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launch_counts()                          # baselines path starts
+    t0 = time.perf_counter()
+    w_chol = core.tsqr_ridge(X, y, lam, method="cholqr")
+    torch.cuda.synchronize()
+    chol_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cg = {}
+    for route in ("cuda", None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = core.cg_ridge(X, y, lam, max_iters=CG_MAX_ITERS, impl=route)
+        torch.cuda.synchronize()
+        cg[route] = (res, time.perf_counter() - t0)
+    Xc, yc = cut[:2]
+    lam_c = lams["real-sim 8x cut"]
+    w_ref_c = core.ridge_exact(Xc, yc, lam_c)
+    hist = core.cg_ridge_history(Xc, yc, lam_c, HISTORY_ITERS, w_ref=w_ref_c,
+                                 impl="cuda")
+    qr = {}
+    for name, (Xd, yd) in (("real-sim 8x cut", cut[:2]),
+                           ("news20 8x cut", news20)):
+        lam_d = lams[name]
+        A = ridge_operand(Xd, lam_d).T
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R_t = core.tsqr(A)
+        torch.cuda.synchronize()
+        tsqr_s = time.perf_counter() - t0
+        R_c = core.cholqr_r(A)
+        del A
+        qr[name] = {"gram_rel": rel(R_t.T @ R_t, R_c.T @ R_c),
+                    "tsqr_s": tsqr_s, "shape": tuple(Xd.shape),
+                    "w": {m: core.tsqr_ridge(Xd, yd, lam_d, method=m)
+                          for m in ("tsqr", "cholqr")},
+                    "exact": core.ridge_exact(Xd, yd, lam_d)}
+    G7, r7 = gk.gram_packet(X[flat.long()].contiguous(), u)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in gk.KERNELS}  # baselines path ends
+    log(f"  launches {counts}")
+    want = {k.name: 0 for k in gk.KERNELS}
+    want.update({"gram_dense": 5, "gram_packet_dense": 1,
+                 "panel_apply_rows": cg["cuda"][0].iters + HISTORY_ITERS,
+                 "panel_matvec_rows": cg["cuda"][0].iters + HISTORY_ITERS})
+    if counts != want:
+        raise AssertionError(f"baselines launches {counts}, expected {want}")
+
+    w_exact = core.ridge_exact(X, y, lam)
+    e_chol = rel(w_chol, w_exact)
+    log(f"  (a) CholeskyQR ridge solve through K8: {chol_s:.3f} s, peak "
+        f"{peak:.2f} GiB beside X; |w - w_exact|/|w_exact| {e_chol:.2e} "
+        f"(tol {TOL_BASELINE_F32:.0e})")
+    stats["cholqr_solve"] = {"wall_s": chol_s, "peak_gib_beside_x": peak,
+                             "rel_to_exact": e_chol}
+    agree = [e_chol]
+    for route, (res, wall) in cg.items():
+        e = rel(res.w, w_chol)
+        agree.append(e)
+        log(f"  (b) CG impl={route!s:4s}: {res.iters} iterations (tol 1e-15, "
+            f"at most {CG_MAX_ITERS}), {wall:.3f} s, "
+            f"{wall / max(res.iters, 1) * 1e3:.2f} ms per iteration; "
+            f"|w - w_cholqr|/|w_cholqr| {e:.2e}, |w - w_exact|/|w_exact| "
+            f"{rel(res.w, w_exact):.2e}")
+        stats[f"cg_{route}"] = {"iters": res.iters, "wall_s": wall,
+                                "ms_per_iter": wall / max(res.iters, 1) * 1e3,
+                                "rel_to_cholqr": e}
+    if not all(math.isfinite(e) and e <= TOL_BASELINE_F32 for e in agree):
+        raise AssertionError(f"baselines disagree at real-sim size: {agree}")
+    if not all(res.iters >= 1 for res, _ in cg.values()):
+        raise AssertionError("CG took no iteration")
+
+    obj = hist.history["objective"]
+    eps = torch.finfo(obj.dtype).eps
+    rise = float((obj[1:] / obj[:-1] - 1).max())
+    log(f"  (c) CG history, f64 8x-cut real-sim, {HISTORY_ITERS} iterations "
+        f"through K2 / K6: objective {float(obj[0]):.12e} -> "
+        f"{float(obj[-1]):.12e}, largest relative step up {rise:.1e} (allowed "
+        f"{4 * eps:.1e}: past convergence the objective is flat up to its "
+        f"own rounding); res_norm {float(hist.history['res_norm'][0]):.2e} "
+        f"-> {float(hist.history['res_norm'][-1]):.2e}; sol_err "
+        f"{float(hist.history['sol_err'][-1]):.2e}")
+    if not (bool(torch.isfinite(obj).all()) and rise <= 4 * eps
+            and float(obj[-1]) < float(obj[0])):
+        raise AssertionError(f"CG history: the objective rose ({rise})")
+
+    for name, rec in qr.items():
+        errs = {"R^T R tsqr vs cholqr": rec["gram_rel"]}
+        errs.update({f"{m} vs exact": rel(w, rec["exact"])
+                     for m, w in rec["w"].items()})
+        log(f"  (d) f64 {name} {rec['shape']}: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {TOL_BASELINE_F64:.0e}); Householder TSQR "
+            f"{rec['tsqr_s']:.3f} s")
+        stats[f"qr_{name}"] = {"errors": errs, "tsqr_s": rec["tsqr_s"]}
+        if not all(math.isfinite(e) and e <= TOL_BASELINE_F64
+                   for e in errs.values()):
+            raise AssertionError(f"f64 {name}: {errs}")
+
+    G1, r1 = gk.gram_packet_sampled_rows(X, flat, u)
+    if not (torch.equal(G7, G1) and torch.equal(r7, r1)):
+        raise AssertionError("K7 on the gathered panel differs from K1")
+    log("  K7 (ops.gram_packet) on the gathered panel Y = X[flat], m = 128: "
+        "equal to K1 on (X, flat) (torch.equal)")
+
+    stats["cholqr_split"] = cholqr_split(X, y, lam, w_chol)
+    log("== 7e. where a CG solve's time goes (profiler trace)")
+    for route in ("cuda", None):
+        stats[f"profile_cg_{route}"] = profile_run(
+            lambda: core.cg_ridge(X, y, lam, max_iters=CG_MAX_ITERS,
+                                  impl=route),
+            f"CG impl={route}", 6)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -681,7 +1017,11 @@ def main() -> int:
     main_m = {"packet": (128,), "apply": (8,), "matvec": (128, 8)}
     records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m,
                             TENANTS)
+    records.update(check_dense_kernels(X, gen, "f32", (8, 128, 77),
+                                       args.reps, 128))
+    records.update(check_cg_shape(X, gen, max(1, args.reps // 5)))
     check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
+    check_dense_kernels(cut[0], gen, "f64", (8, 128, 77), 0, None)
 
     # -- 3. the solves at real-sim size ------------------------------------
     log(f"== 3. real-sim solves, b = 8, iters = {args.iters} (the dual's "
@@ -698,7 +1038,6 @@ def main() -> int:
     # -- 4. f64 exactness --------------------------------------------------
     log("== 4. f64 exactness through the kernels (8x-cut real-sim)")
     exactness_f64(cut, gen, 200)
-    del cut
 
     # -- 5. the tenant-batched engine --------------------------------------
     log(f"== 5. batched engine, real-sim, T = {TENANTS}, b = 8, s = 16, "
@@ -710,13 +1049,22 @@ def main() -> int:
     log("== 6. solve service, real-sim, 24 requests, 16 slots, chunks of 32, "
         "128 iterations each")
     paths["service"] = service_run(X, y, lam, gen, stats)
-    del X, y
+
+    # -- 7. the baselines --------------------------------------------------
+    log("== 7. baselines at real-sim: CholeskyQR through K8, CG through "
+        "K2 / K6, TSQR; f64 on the 8x cuts")
+    records["gram_dense"] = k8_full_shape(X, lam, 2)
+    paths["baselines"] = baselines(X, y, lam, cut, gen, stats)
+    del X, y, cut
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.
     on_path = {"single solves": [k.name for k in gk.KERNELS[:4]],
-               "batched engine": [k.name for k in gk.KERNELS],
-               "service": [k.name for k in gk.KERNELS]}
+               "batched engine": [k.name for k in gk.KERNELS[:6]],
+               "service": [k.name for k in gk.KERNELS[:6]],
+               "baselines": [k.name for k in (gk.ROWS_APPLY, gk.ROWS_MATVEC,
+                                               gk.DENSE_PACKET,
+                                               gk.DENSE_GRAM)]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:

@@ -1,7 +1,9 @@
 """repro_torch.core -- CA-BCD / CA-BDCD / CA proximal BCD for regularized
 least squares on one device, in PyTorch: the s-step engine and its
 tenant-batched driver, the ridge and elastic-net formulations, sampling, the
-block subproblem solves and the direct ground truth."""
+block subproblem solves, the direct ground truth and the baselines the paper
+compares against (CG, TSQR and CholeskyQR)."""
+from repro_torch.kernels.gram import gram, gram_packet, normal_matvec
 from .engine import (FORMULATIONS, BatchedSolveResult, DualRidge,
                      PrimalRidge, SolveResult, SolverPlan, TenantBatch,
                      batched_residuals, get_solver, register_formulation,
@@ -10,6 +12,7 @@ from .engine import (FORMULATIONS, BatchedSolveResult, DualRidge,
 from .bcd import bcd, ca_bcd, objective
 from .bdcd import bdcd, ca_bdcd
 from .direct import ridge_exact
+from .krylov import CGResult, cg_ridge, cg_ridge_history
 from .proximal import (ProximalElasticNet, ca_proximal_bcd,
                        elastic_net_objective, proximal_bcd,
                        proximal_bcd_reference)
@@ -17,6 +20,7 @@ from .sampling import overlap_matrix, sample_blocks
 from .subproblem import (block_forward_substitution,
                          block_forward_substitution_prox, soft_threshold,
                          solve_spd)
+from .tsqr import cholqr_r, tsqr, tsqr_ridge
 
 __all__ = [
     "FORMULATIONS", "DualRidge", "PrimalRidge", "SolveResult", "SolverPlan",
@@ -28,4 +32,6 @@ __all__ = [
     "proximal_bcd_reference", "elastic_net_objective",
     "overlap_matrix", "sample_blocks", "block_forward_substitution",
     "block_forward_substitution_prox", "soft_threshold", "solve_spd",
+    "CGResult", "cg_ridge", "cg_ridge_history", "tsqr", "cholqr_r",
+    "tsqr_ridge", "gram", "gram_packet", "normal_matvec",
 ]

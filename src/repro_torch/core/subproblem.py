@@ -10,16 +10,22 @@ from __future__ import annotations
 import torch
 
 
-def solve_spd(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve ``A x = rhs`` for symmetric positive definite ``A`` via Cholesky.
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of symmetric positive definite ``A``.
 
-    A matrix that is not positive definite gives NaN, as the reference's
-    jnp solve does, instead of an exception: ``cholesky_ex`` reports failure
-    on the device without a host synchronisation, and the NaN flows through.
+    A matrix that is not positive definite gives an all-NaN factor, as the
+    reference's jnp Cholesky does, instead of an exception: ``cholesky_ex``
+    reports failure on the device without a host synchronisation, and the
+    NaN flows through.
     """
     chol, info = torch.linalg.cholesky_ex(A)
-    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
-    return torch.cholesky_solve(rhs[:, None], chol).squeeze(-1)
+    return chol.masked_fill_((info != 0)[..., None, None], float("nan"))
+
+
+def solve_spd(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = rhs`` for symmetric positive definite ``A`` via Cholesky
+    (NaN where ``A`` is not positive definite; :func:`cholesky_nan`)."""
+    return torch.cholesky_solve(rhs[:, None], cholesky_nan(A)).squeeze(-1)
 
 
 def block_forward_substitution(A: torch.Tensor, base: torch.Tensor, s: int,

@@ -1,13 +1,16 @@
-// Shared pieces of the sampled Gram-packet kernels (sampled_rows.cu,
-// sampled_cols.cu): the split-contraction tile kernel, parameterised on how
-// a tile of the implicit sampled panel Y is gathered, and the fixed-order
-// second pass that sums the split partials, mirrors the upper triangle and
-// applies scale / reg / scale_r.
+// Shared pieces of the Gram-packet kernels (sampled_rows.cu,
+// sampled_cols.cu, gram_dense.cu): the split-contraction tile kernel,
+// parameterised on how a tile of the panel Y is gathered, and the
+// fixed-order second pass that sums the split partials, mirrors the upper
+// triangle and applies scale / reg / scale_r.
 //
-// Packet contract (both layouts): for Y (m, K) the implicit sampled panel,
+// Packet contract (every layout): for Y (m, K) the panel,
 //   G = scale * Y Y^T + reg * I   (m, m),   r = scale_r * Y u   (m,).
 // The rows layout gathers Y = X[flat, :] (K = n), the cols layout gathers
-// Y = X[:, flat]^T (K = d) straight from X's (d, n) layout.
+// Y = X[:, flat]^T (K = d) straight from X's (d, n) layout, and the dense
+// layout reads a materialised Y = A (m, K) with no index.  The Gram alone
+// (K8) is the packet instantiated with RESIDUAL = false: no u is read and
+// no r is written, and G is summed exactly as the packet's G.
 //
 // Matvec contract (K5 / K6): out = scale * Y t for T tenant vectors t (T, K),
 // each summed in exactly the order of the packet's r: the same chunks, the
@@ -104,13 +107,51 @@ __device__ __forceinline__ T split_sum(const T* __restrict__ p, int splits,
   return acc;
 }
 
+// The row gather, Y = X[flat, :] for X (S, n) row-major: element
+// e = tid + PTHREADS * q of a slab is (sample e / BK, step e % BK), so a
+// warp reads 32 neighbouring columns of one row.  K1, K6 and, through
+// DenseGather (gram_dense.cu), K7 and K8.
+template <typename T>
+struct RowsGather {
+  const T* __restrict__ X;
+  int64_t n;  // row length of X (the contraction)
+
+  __device__ __forceinline__ int index(const int* __restrict__ flat,
+                                       int a) const {
+    return flat[a];
+  }
+
+  __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,
+                                        int64_t k0, int64_t k_end,
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      const int row = idx[e / BK];
+      const int64_t k = k0 + e % BK;
+      pre[q] = (row >= 0 && k < k_end) ? X[row * n + k] : T(0);
+    }
+  }
+
+  __device__ __forceinline__ void store(Slab<T>& ys, const T (&pre)[LOADS],
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q) {
+      const int e = tid + PTHREADS * q;
+      ys[e % BK][e / BK] = pre[q];
+    }
+  }
+};
+
 // One block: lower tile (ti, tj) of G over contraction chunk blockIdx.y.
-// `Gather` has fetch(pre, idx, k0, k_end, tid), which reads this thread's
-// LOADS elements of the next slab from X into registers (0 past m, where
-// idx < 0, and past k_end), and store(slab, pre, tid), which writes them to
-// shared memory.  The next slab's loads are issued before the current slab's
-// arithmetic, so their latency hides behind it.
-template <typename T, typename Gather>
+// `Gather` has index(flat, a), the row of X that sample a reads;
+// fetch(pre, idx, k0, k_end, tid), which reads this thread's LOADS elements
+// of the next slab from X into registers (0 past m, where idx < 0, and past
+// k_end); and store(slab, pre, tid), which writes them to shared memory.
+// The next slab's loads are issued before the current slab's arithmetic, so
+// their latency hides behind it.  RESIDUAL = false leaves out every step of
+// r (u and rp may be null); G's arithmetic is the same either way.
+template <typename T, typename Gather, bool RESIDUAL>
 __global__ void __launch_bounds__(PTHREADS)
 packet_partial(Gather gather, const int* __restrict__ flat,
                const T* __restrict__ u, int m, int64_t K, int64_t chunk,
@@ -128,13 +169,14 @@ packet_partial(Gather gather, const int* __restrict__ flat,
   const int64_t k_end = min(K, k_begin + chunk);
   const int tid = threadIdx.x;
   const bool diag = (ti == tj);
-  const bool with_r = (tj == 0);  // r rides on exactly one tile per row band
+  // r rides on exactly one tile per row band
+  const bool with_r = RESIDUAL && (tj == 0);
 
   if (tid < TILE) {
     const int a = ti * TILE + tid;
     const int c = tj * TILE + tid;
-    idx_i[tid] = a < m ? flat[a] : -1;
-    idx_j[tid] = c < m ? flat[c] : -1;
+    idx_i[tid] = a < m ? gather.index(flat, a) : -1;
+    idx_j[tid] = c < m ? gather.index(flat, c) : -1;
   }
   __syncthreads();
 
@@ -196,9 +238,10 @@ packet_partial(Gather gather, const int* __restrict__ flat,
 }
 
 // Second pass: G[a, b] = scale * sum_s Gp[s, lower(a, b)] + reg * (a == b),
-// r[a] = scale_r * sum_s rp[s, a], splits summed in index order.  Entries
-// strictly above the tile diagonal read the transposed lower tile.
-template <typename T>
+// r[a] = scale_r * sum_s rp[s, a] (with RESIDUAL), splits summed in index
+// order.  Entries strictly above the tile diagonal read the transposed lower
+// tile.
+template <typename T, bool RESIDUAL>
 __global__ void packet_reduce(const T* __restrict__ Gp,
                               const T* __restrict__ rp, int splits, int m,
                               int mp, T scale, T reg, T scale_r,
@@ -214,14 +257,14 @@ __global__ void packet_reduce(const T* __restrict__ Gp,
     T g = scale * split_sum(Gp + src, splits, plane);
     if (a == b) g += reg;
     G[e] = g;
-  } else if (e < mm + m) {
+  } else if (RESIDUAL && e < mm + m) {
     const int a = static_cast<int>(e - mm);
     r[a] = scale_r * split_sum(rp + a, splits, static_cast<size_t>(mp));
   }
 }
 
 // Launch both passes on `stream`; returns the first launch error (0 if none).
-template <typename T, typename Gather>
+template <typename T, typename Gather, bool RESIDUAL = true>
 int launch_packet(Gather gather, const int* flat, const T* u, int m,
                   int64_t K, int64_t chunk, int splits, double scale,
                   double reg, double scale_r, T* Gp, T* rp, T* G, T* r,
@@ -229,13 +272,13 @@ int launch_packet(Gather gather, const int* flat, const T* u, int m,
   const int nt = (m + TILE - 1) / TILE;
   const int mp = nt * TILE;
   dim3 grid(nt * (nt + 1) / 2, splits);
-  packet_partial<T, Gather><<<grid, PTHREADS, 0, stream>>>(
+  packet_partial<T, Gather, RESIDUAL><<<grid, PTHREADS, 0, stream>>>(
       gather, flat, u, m, K, chunk, mp, Gp, rp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(m) * m + m;
+  const int64_t total = static_cast<int64_t>(m) * m + (RESIDUAL ? m : 0);
   const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
-  packet_reduce<T><<<blocks, THREADS, 0, stream>>>(
+  packet_reduce<T, RESIDUAL><<<blocks, THREADS, 0, stream>>>(
       Gp, rp, splits, m, mp, static_cast<T>(scale), static_cast<T>(reg),
       static_cast<T>(scale_r), G, r);
   return static_cast<int>(cudaGetLastError());
@@ -293,7 +336,7 @@ matvec_partial(Gather gather, const int* __restrict__ flat,
 
   if (tid < TILE) {
     const int a = band * TILE + tid;
-    idx[tid] = a < m ? flat[a] : -1;
+    idx[tid] = a < m ? gather.index(flat, a) : -1;
   }
   for (int j = 0; j < nt; ++j) acc[j][tid] = 0;  // each thread its own column
   __syncthreads();

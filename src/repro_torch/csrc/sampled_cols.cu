@@ -43,6 +43,11 @@ struct ColsGather {
   const T* __restrict__ X;
   int64_t n;  // row length of X; the contraction runs over X's d rows
 
+  __device__ __forceinline__ int index(const int* __restrict__ flat,
+                                       int a) const {
+    return flat[a];
+  }
+
   // Element e = tid + PTHREADS * q of a slab is (sample e % TILE, step
   // e / TILE): a warp reads the 32 sampled columns of one row of X.
   __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,

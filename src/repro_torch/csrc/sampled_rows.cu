@@ -31,40 +31,8 @@
 
 namespace {
 
-using repro::BK;
-using repro::LOADS;
-using repro::PTHREADS;
-using repro::Slab;
+using repro::RowsGather;
 using repro::THREADS;
-
-template <typename T>
-struct RowsGather {
-  const T* __restrict__ X;
-  int64_t n;  // row length of X (the contraction)
-
-  // Element e = tid + PTHREADS * q of a slab is (sample e / BK, step e % BK):
-  // a warp reads 32 neighbouring columns of one sampled row.
-  __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,
-                                        int64_t k0, int64_t k_end,
-                                        int tid) const {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + PTHREADS * q;
-      const int row = idx[e / BK];
-      const int64_t k = k0 + e % BK;
-      pre[q] = (row >= 0 && k < k_end) ? X[row * n + k] : T(0);
-    }
-  }
-
-  __device__ __forceinline__ void store(Slab<T>& ys, const T (&pre)[LOADS],
-                                        int tid) const {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + PTHREADS * q;
-      ys[e % BK][e / BK] = pre[q];
-    }
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

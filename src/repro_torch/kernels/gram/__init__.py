@@ -1,11 +1,15 @@
-"""Sampled Gram-packet kernels for the s-step solvers: plain PyTorch
-versions (``ref``) and hand-written CUDA kernels for Hopper (``csrc/``).
+"""Gram-packet kernels for the s-step solvers and the baselines: plain
+PyTorch versions (``ref``) and hand-written CUDA kernels for Hopper
+(``csrc/``).
 
 ``KERNELS`` lists the CUDA kernels with their launch counters."""
 from . import tuning
-from .operands import (ColMajorOperand, PacketOperand, RowMajorOperand,
-                       as_operand)
-from .ops import PacketPlan, gram_packet_sampled, panel_apply, panel_matvec
+from .gram_kernel import (DENSE_GRAM, DENSE_PACKET, gram_dense,
+                          gram_packet_dense)
+from .operands import (ColMajorOperand, MaterializedOperand, PacketOperand,
+                       RowMajorOperand, as_operand)
+from .ops import (PacketPlan, gram, gram_packet, gram_packet_sampled,
+                  normal_matvec, panel_apply, panel_matvec)
 from .ref import (gram_packet_ref, gram_packet_sampled_cols_ref,
                   gram_packet_sampled_ref, gram_ref, panel_apply_cols_ref,
                   panel_apply_ref, panel_matvec_cols_ref, panel_matvec_ref)
@@ -17,7 +21,7 @@ from .sampled_kernel import (ROWS_APPLY, ROWS_MATVEC, ROWS_PACKET,
                              panel_matvec_rows)
 
 KERNELS = (ROWS_PACKET, ROWS_APPLY, COLS_PACKET, COLS_APPLY, COLS_MATVEC,
-           ROWS_MATVEC)
+           ROWS_MATVEC, DENSE_PACKET, DENSE_GRAM)
 
 
 def reset_launch_counts() -> None:
@@ -27,12 +31,13 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "PacketPlan", "PacketOperand", "RowMajorOperand", "ColMajorOperand",
-    "as_operand", "gram_packet_sampled", "panel_apply", "panel_matvec",
+    "MaterializedOperand", "as_operand", "gram", "gram_packet",
+    "gram_packet_sampled", "panel_apply", "panel_matvec", "normal_matvec",
     "gram_ref", "gram_packet_ref", "gram_packet_sampled_ref",
     "gram_packet_sampled_cols_ref", "panel_apply_ref", "panel_apply_cols_ref",
     "panel_matvec_ref", "panel_matvec_cols_ref",
     "gram_packet_sampled_rows", "panel_apply_rows", "panel_matvec_rows",
     "gram_packet_sampled_cols", "panel_apply_cols", "panel_matvec_cols",
-    "KERNELS",
+    "gram_packet_dense", "gram_dense", "KERNELS",
     "reset_launch_counts", "tuning",
 ]

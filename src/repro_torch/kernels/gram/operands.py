@@ -11,6 +11,9 @@ Semantics over the implicit sampled panel ``Y(flat)``, shape (m, C):
 * :class:`ColMajorOperand` -- array (C, S), samples are columns of the
   original layout (the dual's X, never transposed); kernels K3/K4/K5 of
   ``sampled_colmajor.py``.
+* :class:`MaterializedOperand` -- array K (S, S) of products formed
+  beforehand (a kernel matrix): the packet gathers ``K[flat][:, flat]``
+  instead of contracting, with the same torch code on every backend.
 
 ``matvec`` sums in the packet's residual order, so at the same ``bk`` it
 equals the packet's r bit for bit on either backend.
@@ -114,11 +117,49 @@ class ColMajorOperand:
                                  bk=bk)
 
 
-PacketOperand = RowMajorOperand | ColMajorOperand
+@dataclasses.dataclass(frozen=True)
+class MaterializedOperand:
+    """Array K (S, S) of pre-materialised products: the packet's Gram is
+    gathered, not contracted -- ``G = scale * K[flat][:, flat] + reg * I``,
+    ``r = scale_r * K[flat, :] u``.  There is no panel to fuse away, so every
+    backend runs the same torch gather (no kernel is owed for it)."""
+    array: torch.Tensor
+    layout: ClassVar[str] = "materialized"
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+    @property
+    def samples(self) -> int:
+        return self.array.shape[0]
+
+    @property
+    def contraction(self) -> int:
+        return self.array.shape[1]
+
+    def packet(self, flat, u, *, scale, reg, scale_r, impl, bk):
+        acc = ref.acc_dtype(self.dtype)
+        fl = flat.long()
+        rows = self.array[fl, :].to(acc)
+        G = scale * rows[:, fl] + reg * torch.eye(fl.shape[0], dtype=acc,
+                                                  device=rows.device)
+        sr = scale if scale_r is None else scale_r
+        return G, sr * (rows @ u.to(acc))
+
+    def apply(self, flat, v, *, scale, impl):
+        return ref.panel_apply_ref(self.array, flat, v, scale)
+
+    def matvec(self, flat, t, *, scale, impl, bk):
+        return ref.panel_matvec_ref(self.array, flat, t, scale)
+
+
+PacketOperand = RowMajorOperand | ColMajorOperand | MaterializedOperand
 
 
 def as_operand(x) -> PacketOperand:
     """Operands pass through; a raw tensor means row-major."""
-    if isinstance(x, (RowMajorOperand, ColMajorOperand)):
+    if isinstance(x, (RowMajorOperand, ColMajorOperand,
+                      MaterializedOperand)):
         return x
     return RowMajorOperand(x)

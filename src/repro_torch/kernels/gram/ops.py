@@ -1,5 +1,8 @@
 """Public ops for the Gram packet: knob resolution and backend dispatch.
 
+* ``gram_packet(A, u)`` / ``gram(A)`` -- the packet, and the Gram alone, on
+  an operand A (m, K) that is already materialised (a gathered panel,
+  CholeskyQR's regularised operand): kernels K7 / K8.
 * ``gram_packet_sampled(X, flat, u)`` -- the panel-free packet
   ``(G, r) = (scale * Y Y^T + reg * I, scale_r * Y u)`` for the operand's
   sampled panel ``Y``.  ``X`` is a PacketOperand or a raw (d, n) tensor,
@@ -10,12 +13,13 @@
   direction, for one vector t or a (T, C) stack of tenant vectors.  It sums
   in the packet's residual order, so the chunk ``bk`` (a plan's too) must be
   the packet's for the two to agree bit for bit.
+* ``normal_matvec(X, v)`` -- ``(scale * X X^T + lam I) v``, CG's operator.
 
 Backends: ``"ref"`` (the plain PyTorch versions of ``ref.py``, on any
 device) and ``"cuda"`` (the hand-written kernels, CUDA tensors only).
 ``impl=None`` resolves from the operand's device: a CUDA tensor takes the
 kernels, a CPU tensor the plain versions.  ``impl="cuda"`` on a CPU tensor
-raises.
+raises.  ``normal_matvec`` is the exception: see its docstring.
 
 Callers that issue many packet calls with the same knobs (the engine) carry
 one :class:`PacketPlan` and pass it as ``plan=``; explicitly passed knobs win
@@ -28,7 +32,10 @@ import operator
 
 import torch
 
+from . import ref
+from .gram_kernel import gram_dense, gram_packet_dense
 from .operands import as_operand
+from .sampled_kernel import panel_apply_rows, panel_matvec_rows
 
 IMPLS = ("ref", "cuda")
 
@@ -74,12 +81,18 @@ def _check_impl(impl: str) -> None:
             f"unknown gram impl {impl!r}; expected one of {IMPLS}")
 
 
-def _resolve(plan: PacketPlan | None, impl, bk, device: torch.device
-             ) -> tuple[str, int | None]:
+def _with_plan(plan: PacketPlan | None, impl, bk) -> tuple:
+    """Explicit knobs win; only None defers to the plan's."""
     _check_tile("bk", bk)
     if plan is not None:
         impl = impl if impl is not None else plan.impl
         bk = bk if bk is not None else plan.bk
+    return impl, bk
+
+
+def _resolve(plan: PacketPlan | None, impl, bk, device: torch.device
+             ) -> tuple[str, int | None]:
+    impl, bk = _with_plan(plan, impl, bk)
     if impl is None:
         impl = "cuda" if device.type == "cuda" else "ref"
     _check_impl(impl)
@@ -87,6 +100,32 @@ def _resolve(plan: PacketPlan | None, impl, bk, device: torch.device
         raise ValueError(f"impl='cuda' needs CUDA tensors; the operand is on "
                          f"{device}")
     return impl, bk
+
+
+def gram_packet(A: torch.Tensor, u: torch.Tensor, *, scale: float = 1.0,
+                reg: float = 0.0, scale_r: float | None = None,
+                impl: str | None = None, bk: int | None = None,
+                plan: PacketPlan | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused (G, r) = (scale * A A^T + reg * I, scale_r * A u) on a
+    materialised A (m, K), u (K,); ``scale_r`` defaults to ``scale``.  The
+    kernel (K7) reads A in place: a CUDA A must be contiguous."""
+    impl, bk = _resolve(plan, impl, bk, A.device)
+    if impl == "ref":
+        return ref.gram_packet_ref(A, u, scale, reg, scale_r)
+    return gram_packet_dense(A, u, scale=scale, reg=reg, scale_r=scale_r,
+                             bk=bk)
+
+
+def gram(A: torch.Tensor, *, scale: float = 1.0, reg: float = 0.0,
+         impl: str | None = None, bk: int | None = None,
+         plan: PacketPlan | None = None) -> torch.Tensor:
+    """G = scale * A A^T + reg * I on a materialised A (m, K), through the
+    residual-free kernel (K8): no u is fed, computed or written."""
+    impl, bk = _resolve(plan, impl, bk, A.device)
+    if impl == "ref":
+        return ref.gram_ref(A, scale, reg)
+    return gram_dense(A, scale=scale, reg=reg, bk=bk)
 
 
 def gram_packet_sampled(X, flat: torch.Tensor, u: torch.Tensor, *,
@@ -122,3 +161,32 @@ def panel_matvec(X, flat: torch.Tensor, t: torch.Tensor, *,
     op = as_operand(X)
     impl, bk = _resolve(plan, impl, bk, op.array.device)
     return op.matvec(flat, t, scale=scale, impl=impl, bk=bk)
+
+
+def normal_matvec(X: torch.Tensor, v: torch.Tensor, *, lam: float = 0.0,
+                  scale: float = 1.0, impl: str | None = None,
+                  bk: int | None = None, plan: PacketPlan | None = None
+                  ) -> torch.Tensor:
+    """(scale * X X^T + lam I) v for X (d, n), v (d,): CG's normal-equations
+    operator (``core/krylov.py``), never a d x d matrix.
+
+    Unlike the other ops, ``impl=None`` (and ``"ref"``) stays on the plain
+    dense product ``X @ (X.T @ v) * scale + lam * v`` on every device, as
+    the reference leaves it to XLA outside any kernel: two large
+    matrix-vector products that cuBLAS already runs at the card's memory
+    rate.  That is the baseline's default, not a fallback.  The kernel route
+    is opt-in with ``impl="cuda"``: K2 (``X^T v`` as ``panel_apply_rows``
+    with ``flat = arange(d)``) then K6 (``X t`` as ``panel_matvec_rows``),
+    each with its wrapper's index check.  It calls the wrappers directly, so
+    on a CPU tensor they run their plain versions, which is how the CPU
+    tests reach this route.
+    """
+    impl, bk = _with_plan(plan, impl, bk)
+    impl = impl or "ref"
+    _check_impl(impl)
+    if impl == "ref":
+        return X @ (X.T @ v) * scale + lam * v
+    rows = torch.arange(X.shape[0], dtype=torch.int32, device=X.device)
+    t = panel_apply_rows(X, rows, v)                               # X^T v
+    out = panel_matvec_rows(X, rows, t.to(X.dtype), scale=scale, bk=bk)
+    return out + lam * v

@@ -59,9 +59,9 @@ def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
     d, n = X.shape
     check_cuda_operands(X, flat, u, d, n, COLS_PACKET.name)
     chunk = resolve_chunk(flat.shape[0], d, X.dtype, "cols", bk)
-    return launch_packet(COLS_PACKET, "cols_packet", _PACKET_ARGS, X, flat, u,
-                         (d, n), d, chunk, scale, reg,
-                         scale if scale_r is None else scale_r)
+    return launch_packet(COLS_PACKET, "cols_packet", _PACKET_ARGS,
+                         (X, flat, u), (d, n), flat.shape[0], d, chunk, scale,
+                         reg, scale if scale_r is None else scale_r)
 
 
 def panel_apply_cols(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,

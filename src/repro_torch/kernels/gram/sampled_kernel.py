@@ -49,12 +49,9 @@ _MATVEC_ARGS = (P,) * 5 + (I64, I, I, I64, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
-                        vec: torch.Tensor, vec_len: int, n_index: int,
-                        what: str, *, tenants: bool = False) -> None:
-    """Everything a kernel takes on trust, checked before the launch: device,
-    dtype, contiguity, shapes and the index range ``0 <= flat < n_index``.
-    ``tenants`` lets the vector carry a leading tenant axis, (T, vec_len)."""
+def check_matrix(X: torch.Tensor, what: str) -> None:
+    """The operand a kernel reads: float32 or float64, 2-D and contiguous
+    (the wrappers never copy it)."""
     if X.dtype not in SUFFIX:
         hint = (" (bf16 input is not supported by the CUDA kernels yet)"
                 if X.dtype == torch.bfloat16 else "")
@@ -63,22 +60,42 @@ def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
     if X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"{what}: X must be a contiguous 2-D tensor, got "
                          f"shape {tuple(X.shape)} strides {X.stride()}")
-    for name, t, dims in (("flat", flat, (1,)),
-                          ("vector", vec, (1, 2) if tenants else (1,))):
-        if t.device != X.device:
-            raise ValueError(f"{what}: {name} on {t.device}, X on {X.device}")
-        if t.dim() not in dims or not t.is_contiguous() or t.numel() == 0:
-            raise ValueError(f"{what}: {name} must be a contiguous, "
-                             f"non-empty {' or '.join(map(str, dims))}-D "
-                             f"tensor, got shape {tuple(t.shape)}")
-    if flat.dtype != torch.int32:
-        raise TypeError(f"{what}: flat must be int32, got {flat.dtype}")
+
+
+def check_vector(X: torch.Tensor, vec: torch.Tensor, vec_len: int,
+                 what: str, *, name: str = "vector",
+                 dims: tuple = (1,)) -> None:
+    """A contiguous, non-empty vector (or ``dims``-D stack of vectors) of
+    ``vec_len`` elements, on X's device and of X's dtype."""
+    _check_placement(X, vec, name, dims, what)
     if vec.dtype != X.dtype:
-        raise TypeError(f"{what}: vector dtype {vec.dtype} != X dtype "
+        raise TypeError(f"{what}: {name} dtype {vec.dtype} != X dtype "
                         f"{X.dtype}")
     if vec.shape[-1] != vec_len:
-        raise ValueError(f"{what}: vector length {vec.shape[-1]} != "
+        raise ValueError(f"{what}: {name} length {vec.shape[-1]} != "
                          f"{vec_len}")
+
+
+def _check_placement(X, t, name, dims, what) -> None:
+    if t.device != X.device:
+        raise ValueError(f"{what}: {name} on {t.device}, X on {X.device}")
+    if t.dim() not in dims or not t.is_contiguous() or t.numel() == 0:
+        raise ValueError(f"{what}: {name} must be a contiguous, "
+                         f"non-empty {' or '.join(map(str, dims))}-D "
+                         f"tensor, got shape {tuple(t.shape)}")
+
+
+def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
+                        vec: torch.Tensor, vec_len: int, n_index: int,
+                        what: str, *, tenants: bool = False) -> None:
+    """Everything a kernel takes on trust, checked before the launch: device,
+    dtype, contiguity, shapes and the index range ``0 <= flat < n_index``.
+    ``tenants`` lets the vector carry a leading tenant axis, (T, vec_len)."""
+    check_matrix(X, what)
+    _check_placement(X, flat, "flat", (1,), what)
+    check_vector(X, vec, vec_len, what, dims=(1, 2) if tenants else (1,))
+    if flat.dtype != torch.int32:
+        raise TypeError(f"{what}: flat must be int32, got {flat.dtype}")
     lo, hi = torch.stack(torch.aminmax(flat)).tolist()   # one device sync
     if lo < 0 or hi >= n_index:
         raise IndexError(f"{what}: flat spans [{lo}, {hi}], outside "
@@ -96,27 +113,32 @@ def resolve_chunk(m: int, K: int, dtype: torch.dtype, layout: str,
 
 
 def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
-                  X: torch.Tensor, flat: torch.Tensor, u: torch.Tensor,
-                  sizes: tuple, K: int, chunk: int, scale: float, reg: float,
-                  scale_r: float) -> tuple[torch.Tensor, torch.Tensor]:
+                  inputs: tuple, sizes: tuple, m: int, K: int, chunk: int,
+                  scale: float, reg: float, scale_r: float | None
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Allocate the outputs and the split partials, then launch a packet
-    kernel: ``symbol_{f32,f64}(X, flat, u, Gp, rp, G, r, *sizes, m, chunk,
-    splits, scale, reg, scale_r, stream)``."""
-    m = flat.shape[0]
+    kernel: ``symbol_{f32,f64}(*inputs, Gp, rp, G, r, *sizes, m, chunk,
+    splits, scale, reg, scale_r, stream)``, or for the Gram alone
+    (``scale_r`` None) ``symbol_*(*inputs, Gp, G, *sizes, m, chunk, splits,
+    scale, reg, stream)`` and r None.  ``inputs[0]`` is the operand."""
+    X = inputs[0]
     splits = -(-K // chunk)
     mp = -(-m // tuning.TILE) * tuning.TILE
     opts = {"dtype": X.dtype, "device": X.device}
     G = torch.empty((m, m), **opts)
-    r = torch.empty((m,), **opts)
     Gp = torch.empty((splits, mp, mp), **opts)
-    rp = torch.empty((splits, mp), **opts)
+    if scale_r is None:
+        r, outs, scalars = None, (Gp, G), (scale, reg)
+    else:
+        r = torch.empty((m,), **opts)
+        rp = torch.empty((splits, mp), **opts)
+        outs, scalars = (Gp, rp, G, r), (scale, reg, scale_r)
     fn = _build.bind(info.source.split("/")[-1], f"{symbol}_{SUFFIX[X.dtype]}",
                      argtypes)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(X.data_ptr(), flat.data_ptr(), u.data_ptr(), Gp.data_ptr(),
-                 rp.data_ptr(), G.data_ptr(), r.data_ptr(), *sizes, m, chunk,
-                 splits, float(scale), float(reg), float(scale_r), stream)
+        err = fn(*(t.data_ptr() for t in inputs + outs), *sizes, m, chunk,
+                 splits, *map(float, scalars), stream)
     _build.check(err, info.name)
     info.launches += 1
     return G, r
@@ -160,9 +182,9 @@ def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
     d, n = X.shape
     check_cuda_operands(X, flat, u, n, d, ROWS_PACKET.name)
     chunk = resolve_chunk(flat.shape[0], n, X.dtype, "rows", bk)
-    return launch_packet(ROWS_PACKET, "rows_packet", _PACKET_ARGS, X, flat, u,
-                         (n,), n, chunk, scale, reg,
-                         scale if scale_r is None else scale_r)
+    return launch_packet(ROWS_PACKET, "rows_packet", _PACKET_ARGS,
+                         (X, flat, u), (n,), flat.shape[0], n, chunk, scale,
+                         reg, scale if scale_r is None else scale_r)
 
 
 def panel_apply_rows(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,

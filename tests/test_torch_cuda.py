@@ -11,7 +11,11 @@ G's cross terms alone (entries of two different indices), and 1e-12 in f64;
 CA(s) against classical through the kernels, relative 1e-10 in f64.  The
 matvec kernels K5/K6 sum in the packet's residual order, so they are held to
 K3/K1's r, to their own single-tenant launches and, in the batched engine,
-to the single solves under ``torch.equal``: no tolerance.
+to the single solves under ``torch.equal``: no tolerance.  So are the dense
+kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, and
+K8's G equals K7's.  The baselines through the kernels: CholeskyQR and CG
+against the direct solve in f64, relative 1e-9 (CholeskyQR squares the
+operand's condition; CG stops at tol 1e-13).
 """
 import pytest
 import torch
@@ -176,3 +180,65 @@ def test_batched_equals_singles_through_the_kernels(cuda_device, form,
                                    idx=idx)
         assert torch.equal(res.ws[t], single.w)
         assert torch.equal(res.alphas[t], single.alpha)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("m,K", [(1, 33), (8, 2001), (77, 300), (200, 2001)])
+def test_dense_kernels_match_plain_versions_on_card(cuda_device, m, K, dtype,
+                                                    tol):
+    g = torch.Generator(device=cuda_device).manual_seed(m + K)
+    A = torch.randn((m, K), generator=g, device=cuda_device, dtype=dtype)
+    u = torch.randn((K,), generator=g, device=cuda_device, dtype=dtype)
+    gk.reset_launch_counts()
+    G, r = gk.gram_packet_dense(A, u, scale=0.5, reg=0.25, scale_r=2.0)
+    G8 = gk.gram_dense(A, scale=0.5, reg=0.25)
+    assert gk.DENSE_PACKET.launches == gk.DENSE_GRAM.launches == 1
+    Gw, rw = tref.gram_packet_ref(A, u, 0.5, 0.25, 2.0)
+    assert G.dtype == dtype and G.shape == (m, m) and r.shape == (m,)
+    assert _rel(G, Gw) <= tol and _rel(r, rw) <= tol
+    assert torch.equal(G, G.T)
+    if m > 1:
+        off = ~torch.eye(m, dtype=torch.bool, device=cuda_device)
+        assert _rel(G[off], Gw[off]) <= tol
+    assert torch.equal(G8, G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 8, 77, 128, 200])
+def test_dense_packet_on_gathered_panel_equals_sampled_packet_on_card(
+        cuda_device, m, dtype):
+    X, flat, t = _layout_problem(cuda_device, dtype, "rows", m, 1, m + 11)
+    knobs = {"scale": 0.5, "reg": 0.25}
+    G1, r1 = gk.gram_packet_sampled_rows(X, flat, t[0], scale_r=2.0, **knobs)
+    Y = X[flat.long()].contiguous()
+    G7, r7 = gk.gram_packet_dense(Y, t[0], scale_r=2.0, **knobs)
+    assert torch.equal(G7, G1) and torch.equal(r7, r1)
+    assert torch.equal(gk.gram_dense(Y, **knobs), G7)
+
+
+def test_dense_kernels_refuse_a_non_contiguous_operand_on_card(cuda_device):
+    A = torch.zeros((7, 5), device=cuda_device).T
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gram_dense(A)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gram_packet_dense(A, torch.zeros(7, device=cuda_device))
+
+
+@pytest.mark.parametrize("branch", ["primal", "dual"])
+def test_baselines_run_through_the_kernels_on_card(cuda_device, branch):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    d, n = (40, 90) if branch == "primal" else (90, 40)
+    X = torch.randn((d, n), generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    y = torch.randn((n,), generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    w_opt = core.ridge_exact(X, y, 0.1)
+    gk.reset_launch_counts()
+    w_chol = core.tsqr_ridge(X, y, 0.1, method="cholqr")
+    assert gk.DENSE_GRAM.launches == 1
+    assert _rel(w_chol, w_opt) <= 1e-9
+    assert _rel(core.tsqr_ridge(X, y, 0.1), w_opt) <= 1e-9
+    res = core.cg_ridge(X, y, 0.1, tol=1e-13, impl="cuda")
+    assert gk.ROWS_APPLY.launches == gk.ROWS_MATVEC.launches == res.iters
+    assert _rel(res.w, w_opt) <= 1e-9

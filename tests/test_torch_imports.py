@@ -30,7 +30,9 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert {"repro_torch.launch.quickstart", "repro_torch.core.proximal",
-            "repro_torch.serve.solver_service"} <= set(mods)
+            "repro_torch.serve.solver_service", "repro_torch.core.krylov",
+            "repro_torch.core.tsqr",
+            "repro_torch.kernels.gram.gram_kernel"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -66,4 +68,5 @@ def test_the_scan_sees_the_whole_port():
             "kernels/gram/sampled_kernel.py",
             "kernels/gram/sampled_colmajor.py", "interop.py",
             "launch/quickstart.py", "serve/slots.py",
-            "serve/solver_service.py"} <= names
+            "serve/solver_service.py", "core/krylov.py", "core/tsqr.py",
+            "kernels/gram/gram_kernel.py"} <= names

@@ -172,7 +172,9 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
         gk.panel_matvec_rows(X, flat, X[:2]),
         tref.panel_matvec_ref(X, flat, X[:2]), rtol=0, atol=0)
     gk.panel_matvec_cols(X, flat, X[:, 0])
-    assert len(gk.KERNELS) == 6
+    gk.gram_packet_dense(X, X[0])
+    gk.gram_dense(X)
+    assert len(gk.KERNELS) == 8
     assert [k.launches for k in gk.KERNELS] == [0] * len(gk.KERNELS)
 
 
