@@ -15,9 +15,11 @@ Phases (any failure raises; nothing is caught):
      the 8x-cut f64 shape, with its device time beside its bound, the plain
      version's time and a library call's time; the matvecs K5/K6 also equal
      to K3/K1's r and their T-tenant launch to T single launches
-     (torch.equal); the dense K7 / K8 on a gathered panel, K7 equal to K1 on
-     the same indices and K8 to K7's G (torch.equal); K2 and K6 at CG's
-     shape (flat = arange(d));
+     (torch.equal), and K5/K6 and their library calls timed twice, L2 warm
+     (calls back to back) and L2 cold (a 256 MB write before each call); the
+     dense K7 / K8 on a gathered panel, K7 equal to K1 on the same indices
+     and K8 to K7's G (torch.equal); K2 and K6 at CG's shape
+     (flat = arange(d));
   3. the single solves at real-sim size (counted): CA(16) against
      classical, the kernel path against impl="ref", the objective going
      down, the launch counts; 3b. the device-idle share from a trace;
@@ -64,7 +66,9 @@ from repro_torch.data import (PAPER_DATASETS, PAPER_DATASETS_FULL,  # noqa: E402
                               make_regression)
 from repro_torch.kernels import gram as gk  # noqa: E402
 from repro_torch.kernels.gram import _build  # noqa: E402
-from repro_torch.launch.timing import KERNEL_NAMES, device_ms, wall_ms  # noqa: E402
+from repro_torch.launch.tile_sweep import matvec_launcher  # noqa: E402
+from repro_torch.launch.timing import (KERNEL_NAMES, device_ms,  # noqa: E402
+                                       event_ms, l2_flush, wall_ms)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f32 / f64 rates
 # of the CUDA cores outside the tensor cores (the kernels use no tensor cores).
@@ -196,10 +200,11 @@ def check_matvec_identities(X, flat, vec, kern, layout: str, tag: str,
 
 
 def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
-                  main_m: dict, tenants: int) -> dict:
+                  main_m: dict, tenants: int, flush=None) -> dict:
     """Phase 2 on one X: every kernel against its plain version for each m in
     ``ms`` (the matvecs with ``tenants`` vectors, and held to the packets' r);
-    at the m's in ``main_m[kind]`` also the timings.  Returns per-kernel
+    at the m's in ``main_m[kind]`` also the timings, the matvecs' also with
+    the L2 flushed by ``flush`` before each call.  Returns per-kernel
     records, the first timed m of each under the kernel's name."""
     d, n = X.shape
     tol = TOL_KERNEL[str(X.dtype)]
@@ -259,9 +264,12 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                              tenants if kind == "matvec" else 1))
             if kind == "matvec":
                 rec["tenants"] = tenants
+                rec.update(time_cold(X, flat, vec, layout, reps, flush))
                 one = vec[0].clone()
-                for key, val in time_kernel(X, flat, one, kern, plain, kind,
-                                            layout, names, reps).items():
+                for key, val in (time_kernel(X, flat, one, kern, plain, kind,
+                                             layout, names, reps)
+                                 | time_cold(X, flat, one, layout, reps,
+                                             flush)).items():
                     rec[f"{key}_t1"] = val
                 rec["bound_ms_t1"] = bound(kind, m, uniq, K, X.dtype)[
                     "bound_ms"]
@@ -281,6 +289,9 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                    f"plain {rec['plain_ms_t1']:.4f}, library (torch.mv) "
                    f"{rec['library_ms_t1']:.4f}, bound "
                    f"{rec['bound_ms_t1']:.4f}" if kind == "matvec" else ""))
+            if kind == "matvec":
+                log_cold(rec, "")
+                log_cold(rec, "_t1")
             key = info.name if m == timed[0] else f"{info.name}@m{m}"
             out[key] = rec
     return out
@@ -348,9 +359,10 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
     return out
 
 
-def check_cg_shape(X, gen, reps: int) -> dict:
+def check_cg_shape(X, gen, reps: int, flush) -> dict:
     """Phase 2 for K2 and K6 at the shape CG gives them: flat = arange(d),
-    m = d, one vector; against their plain versions, timed."""
+    m = d, one vector; against their plain versions, timed (K6 also with
+    the L2 flushed before each call)."""
     tol = TOL_KERNEL[str(X.dtype)]
     d, n = X.shape
     flat = torch.arange(d, dtype=torch.int32, device=X.device)
@@ -380,6 +392,9 @@ def check_cg_shape(X, gen, reps: int) -> dict:
             f"{rec['wrapper_ms']:.4f}), plain {rec['plain_ms']:.4f}, library "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
+        if kind == "matvec":
+            rec.update(time_cold(X, flat, vec, "rows", reps, flush))
+            log_cold(rec, "")
         out[f"{info.name}@cg"] = rec
     return out
 
@@ -389,7 +404,42 @@ def time_kernel(X, flat, vec, kern, plain, kind: str, layout: str,
     return {"ms": device_ms(lambda: kern(X, flat, vec), reps, names),
             "wrapper_ms": wall_ms(lambda: kern(X, flat, vec), reps),
             "plain_ms": device_ms(lambda: plain(X, flat, vec), reps),
-            "library_ms": library_ms(X, flat, vec, kind, layout, reps)}
+            "library_ms": device_ms(library_call(X, flat, vec, kind, layout),
+                                    reps)}
+
+
+def time_cold(X, flat, vec, layout: str, reps: int, flush) -> dict:
+    """A matvec (launched as its wrapper launches it, less the operand
+    checks that wait on the device) and its library call with the L2 cache
+    flushed before each call; and PyTorch's gather of the same sampled rows
+    / columns, warm and cold: the same reads of X as the kernel's, in one
+    library kernel."""
+    dim = 0 if layout == "rows" else 1
+    fl = flat.long()
+
+    def gather():
+        return X.index_select(dim, fl)
+
+    return {"ms_cold": event_ms(matvec_launcher(X, flat, vec, layout), reps,
+                                flush),
+            "library_ms_cold": event_ms(library_call(X, flat, vec, "matvec",
+                                                     layout), reps, flush),
+            "gather_ms": device_ms(gather, reps),
+            "gather_ms_cold": event_ms(gather, reps, flush)}
+
+
+def log_cold(rec: dict, suffix: str) -> None:
+    """The L2-cold times of a matvec record beside its bound (and, for the
+    column layout, the sector traffic)."""
+    cold, lib = rec[f"ms_cold{suffix}"], rec[f"library_ms_cold{suffix}"]
+    b = rec[f"bound_ms{suffix}"]
+    log(f"    L2 cold{' (one tenant)' if suffix else ''}: device {cold:.4f} "
+        f"ms, library {lib:.4f}; device / bound {cold / b:.2f}; PyTorch's "
+        f"gather of the same elements (index_select) warm "
+        f"{rec[f'gather_ms{suffix}']:.4f}, cold "
+        f"{rec[f'gather_ms_cold{suffix}']:.4f}"
+        + (f", device / sector bound {cold / rec['sector_ms']:.2f}"
+           if "sector_ms" in rec else ""))
 
 
 def tf32_cross_err(X, flat, vec, plain, G) -> float:
@@ -403,9 +453,9 @@ def tf32_cross_err(X, flat, vec, plain, G) -> float:
     return rel(cross_terms(G_tf32, flat), cross_terms(G, flat))
 
 
-def library_ms(X, flat, vec, kind: str, layout: str, reps: int):
+def library_call(X, flat, vec, kind: str, layout: str):
     """One cuBLAS call computing the kernel's function from the sampled panel
-    gathered beforehand (the gather is left out of the time): [G | r] as one
+    gathered beforehand (the gather is not part of the call): [G | r] as one
     matrix product, the apply as one matrix-vector product, the matvec as
     ``torch.mv`` for one vector and as one matrix product for T tenant
     vectors."""
@@ -416,14 +466,14 @@ def library_ms(X, flat, vec, kind: str, layout: str, reps: int):
         Y = X.index_select(1, fl).T.contiguous()      # (m, d)
     if kind == "packet":
         rhs = torch.cat([Y.T, vec[:, None]], dim=1).contiguous()
-        return device_ms(lambda: torch.mm(Y, rhs), reps)
+        return lambda: torch.mm(Y, rhs)
     if kind == "matvec":
         if vec.dim() == 1:
-            return device_ms(lambda: torch.mv(Y, vec), reps)
+            return lambda: torch.mv(Y, vec)
         tT = vec.T.contiguous()
-        return device_ms(lambda: torch.mm(Y, tT), reps)
+        return lambda: torch.mm(Y, tT)
     Yt = Y.T.contiguous()
-    return device_ms(lambda: torch.mv(Yt, vec), reps)
+    return lambda: torch.mv(Yt, vec)
 
 
 def run_solves(X, y, lam, idx_p, idx_d, iters: int,
@@ -780,10 +830,9 @@ def k8_full_shape(X, lam: float, reps: int) -> dict:
     rec = {"name": info.name, "route": "cuda", "source": info.source,
            "replaces": info.replaces, "max_abs_err": max_abs, "m": m, "K": K,
            "dtype": "float32", "errors": errs,
-           "ms": device_ms(lambda: gk.gram_dense(At), reps,
-                           KERNEL_NAMES["packet"]),
-           "plain_ms": device_ms(lambda: gk.gram_ref(At), reps),
-           "library_ms": device_ms(lambda: torch.mm(At, At.T), reps)}
+           "ms": event_ms(lambda: gk.gram_dense(At), reps),
+           "plain_ms": event_ms(lambda: gk.gram_ref(At), reps),
+           "library_ms": event_ms(lambda: torch.mm(At, At.T), reps)}
     rec.update(bound("gram", m, m, K, At.dtype))
     log(f"    device {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f}, library "
         f"(mm) {rec['library_ms']:.2f}, bound {rec['bound_ms']:.2f} ms "
@@ -1015,11 +1064,13 @@ def main() -> int:
     # sb at s = 16 for the packets and matvecs, b for the applies; the
     # matvecs also at m = 8 (s = 1), with the batched engine's 8 tenants.
     main_m = {"packet": (128,), "apply": (8,), "matvec": (128, 8)}
+    flush = l2_flush(dev)
     records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m,
-                            TENANTS)
+                            TENANTS, flush)
     records.update(check_dense_kernels(X, gen, "f32", (8, 128, 77),
                                        args.reps, 128))
-    records.update(check_cg_shape(X, gen, max(1, args.reps // 5)))
+    records.update(check_cg_shape(X, gen, max(1, args.reps // 5), flush))
+    del flush
     check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
     check_dense_kernels(cut[0], gen, "f64", (8, 128, 77), 0, None)
 

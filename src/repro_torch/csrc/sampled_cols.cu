@@ -22,12 +22,17 @@
 //
 // K5 cols_matvec: out(T, m) = scale * Y^T t for T tenant vectors t (T, d).
 //   Replaces panel_matvec_cols_pallas (sampled_colmajor.py), which the
-//   batched dual maps over its tenants.  One launch serves every tenant: a
-//   block gathers each 32 x 32 slab of sampled columns once, as K3 does, and
-//   runs its tenants over it in K3's residual order, so K5(X, flat, w) equals
-//   K3's r bit for bit (gram_common.cuh).  Bound: the scattered reads, one
-//   32-byte sector per sampled element (m * d * 32 B), plus T * d elements
-//   of t.
+//   batched dual maps over its tenants.  One launch serves every tenant,
+//   each in K3's residual order, so K5(X, flat, w) equals K3's r bit for
+//   bit (gram_common.cuh).  Bound: the scattered reads, one 32-byte sector
+//   per sampled element (m * d * 32 B), plus T * d elements of t.  The
+//   design (matvec_ring): blocks of a few sampled columns stream them
+//   through a shared-memory ring, one 4- or 8-byte cp.async per element
+//   (no two sampled elements share a line), so that thousands of reads per
+//   SM are in flight.  What bounds it on an H100 is the rate at which the
+//   memory serves isolated elements, each in its own DRAM page: PyTorch's
+//   own gather of the same elements (index_select) takes longer than the
+//   whole kernel (PERF.md), and no ring depth or block shape moves it.
 #include "gram_common.cuh"
 
 namespace {
@@ -40,6 +45,7 @@ using repro::TILE;
 
 template <typename T>
 struct ColsGather {
+  static constexpr bool CONTIGUOUS = false;  // Y's rows are columns of X
   const T* __restrict__ X;
   int64_t n;  // row length of X; the contraction runs over X's d rows
 
@@ -69,6 +75,11 @@ struct ColsGather {
       const int e = tid + PTHREADS * q;
       ys[e / TILE][e % TILE] = pre[q];
     }
+  }
+
+  // Where Y[a, k] = X[k, col] lies for sample column `col` (matvec_ring).
+  __device__ __forceinline__ const T* at(int col, int64_t k) const {
+    return X + k * n + col;
   }
 };
 
@@ -117,12 +128,15 @@ int apply_impl(const void* X, const void* flat, const void* v, void* out,
 
 template <typename T>
 int matvec_impl(const void* X, const void* flat, const void* t, void* rp,
-                void* out, int64_t d, int64_t n, int m, int tenants,
-                int64_t chunk, int splits, double scale, void* stream) {
+                void* tickets, void* out, int64_t d, int64_t n, int m,
+                int tenants, int64_t chunk, int splits, int rows, int group,
+                int stages, int steps, int grid_x, int smem, double scale,
+                void* stream) {
   ColsGather<T> gather{static_cast<const T*>(X), n};
   return repro::launch_matvec<T>(
       gather, static_cast<const int*>(flat), static_cast<const T*>(t),
-      tenants, m, d, chunk, splits, scale, static_cast<T*>(rp),
+      tenants, m, d, chunk, splits, rows, group, stages, steps, grid_x, smem,
+      scale, static_cast<T*>(rp), static_cast<int*>(tickets),
       static_cast<T*>(out), static_cast<cudaStream_t>(stream));
 }
 
@@ -157,19 +171,23 @@ int cols_apply_f64(const void* X, const void* flat, const void* v, void* out,
 }
 
 int cols_matvec_f32(const void* X, const void* flat, const void* t,
-                    void* rp, void* out, int64_t d, int64_t n, int m,
-                    int tenants, int64_t chunk, int splits, double scale,
-                    void* stream) {
-  return matvec_impl<float>(X, flat, t, rp, out, d, n, m, tenants, chunk,
-                            splits, scale, stream);
+                    void* rp, void* tickets, void* out, int64_t d,
+                    int64_t n, int m, int tenants, int64_t chunk,
+                    int splits, int rows, int group, int stages, int steps,
+                    int grid_x, int smem, double scale, void* stream) {
+  return matvec_impl<float>(X, flat, t, rp, tickets, out, d, n, m, tenants,
+                           chunk, splits, rows, group, stages, steps, grid_x,
+                           smem, scale, stream);
 }
 
 int cols_matvec_f64(const void* X, const void* flat, const void* t,
-                    void* rp, void* out, int64_t d, int64_t n, int m,
-                    int tenants, int64_t chunk, int splits, double scale,
-                    void* stream) {
-  return matvec_impl<double>(X, flat, t, rp, out, d, n, m, tenants, chunk,
-                             splits, scale, stream);
+                    void* rp, void* tickets, void* out, int64_t d,
+                    int64_t n, int m, int tenants, int64_t chunk,
+                    int splits, int rows, int group, int stages, int steps,
+                    int grid_x, int smem, double scale, void* stream) {
+  return matvec_impl<double>(X, flat, t, rp, tickets, out, d, n, m, tenants,
+                             chunk, splits, rows, group, stages, steps,
+                             grid_x, smem, scale, stream);
 }
 
 }  // extern "C"

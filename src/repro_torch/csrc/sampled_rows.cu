@@ -22,11 +22,19 @@
 // K6 rows_matvec: out(T, m) = scale * Y t for T tenant vectors t (T, n).
 //   Replaces panel_matvec_pallas (sampled_kernel.py), which the batched
 //   engine maps over the tenants (one launch each).  Here one launch serves
-//   every tenant: a block stages each gathered slab of 32 sampled rows once
-//   (coalesced, as in K1) and runs its tenants over it, each in K1's
-//   residual order, so K6(X, flat, u) equals K1's r bit for bit
-//   (gram_common.cuh).  Bound: the m * n bytes of the sampled rows plus the
-//   T * n bytes of t, at 3.35 TB/s.
+//   every tenant, each in K1's residual order, so K6(X, flat, u) equals
+//   K1's r bit for bit (gram_common.cuh).  With flat = arange(d) it is CG's
+//   X p.  Bound: the m * n bytes of the sampled rows plus the T * n bytes of
+//   t, at 3.35 TB/s; a chain does one multiply-add per step, so the kernel
+//   gets near it only with many loads in flight.  The design (matvec_ring):
+//   blocks of a few sample rows stream them through a shared-memory ring
+//   filled by 16-byte cp.async chunks, the next stage in flight while the
+//   block sums the current one, and the split sum done by the last block of
+//   each row group.  At CG's shape (one long chain per row) that reaches
+//   1.2x the bytes bound on an H100; at the solve's m = 128 a chunk is
+//   short (704 steps, six stages of 128), and each block's fixed chain of
+//   round trips (its indices, its stages, the ticket and split sum) is what
+//   is left (PERF.md).
 #include "gram_common.cuh"
 
 namespace {
@@ -83,12 +91,15 @@ int apply_impl(const void* X, const void* flat, const void* v, void* out,
 
 template <typename T>
 int matvec_impl(const void* X, const void* flat, const void* t, void* rp,
-                void* out, int64_t n, int m, int tenants, int64_t chunk,
-                int splits, double scale, void* stream) {
+                void* tickets, void* out, int64_t n, int m, int tenants,
+                int64_t chunk, int splits, int rows, int group, int stages,
+                int steps, int grid_x, int smem, double scale,
+                void* stream) {
   RowsGather<T> gather{static_cast<const T*>(X), n};
   return repro::launch_matvec<T>(
       gather, static_cast<const int*>(flat), static_cast<const T*>(t),
-      tenants, m, n, chunk, splits, scale, static_cast<T*>(rp),
+      tenants, m, n, chunk, splits, rows, group, stages, steps, grid_x, smem,
+      scale, static_cast<T*>(rp), static_cast<int*>(tickets),
       static_cast<T*>(out), static_cast<cudaStream_t>(stream));
 }
 
@@ -123,17 +134,23 @@ int rows_apply_f64(const void* X, const void* flat, const void* v, void* out,
 }
 
 int rows_matvec_f32(const void* X, const void* flat, const void* t,
-                    void* rp, void* out, int64_t n, int m, int tenants,
-                    int64_t chunk, int splits, double scale, void* stream) {
-  return matvec_impl<float>(X, flat, t, rp, out, n, m, tenants, chunk, splits,
-                            scale, stream);
+                    void* rp, void* tickets, void* out, int64_t n, int m,
+                    int tenants, int64_t chunk, int splits, int rows,
+                    int group, int stages, int steps, int grid_x, int smem,
+                    double scale, void* stream) {
+  return matvec_impl<float>(X, flat, t, rp, tickets, out, n, m, tenants,
+                           chunk, splits, rows, group, stages, steps, grid_x,
+                           smem, scale, stream);
 }
 
 int rows_matvec_f64(const void* X, const void* flat, const void* t,
-                    void* rp, void* out, int64_t n, int m, int tenants,
-                    int64_t chunk, int splits, double scale, void* stream) {
-  return matvec_impl<double>(X, flat, t, rp, out, n, m, tenants, chunk,
-                             splits, scale, stream);
+                    void* rp, void* tickets, void* out, int64_t n, int m,
+                    int tenants, int64_t chunk, int splits, int rows,
+                    int group, int stages, int steps, int grid_x, int smem,
+                    double scale, void* stream) {
+  return matvec_impl<double>(X, flat, t, rp, tickets, out, n, m, tenants,
+                             chunk, splits, rows, group, stages, steps,
+                             grid_x, smem, scale, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,10 @@ layout, with no transposed copy of X.
 * :func:`panel_matvec_cols` (K5) -- ``out = scale * Y^T t`` for t (d,) or
   T tenant vectors (T, d).  Replaces ``panel_matvec_cols_pallas`` (same
   file).  Sums in K3's residual order, so it equals K3's r bit for bit at
-  the same chunk; bounded by the sector traffic of the sampled columns.
+  the same chunk; bounded by the sector traffic of the sampled columns,
+  which K6's ring kernel keeps in flight (one ``cp.async`` per element).
+  What holds it back is the rate at which the memory serves isolated
+  elements: PyTorch's gather of the same elements is slower than K5.
 
 CPU tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 kernel or raise.
@@ -25,7 +28,8 @@ import torch
 
 from . import _build, ref
 from .sampled_kernel import (D, I, I64, P, SUFFIX, check_cuda_operands,
-                             launch_matvec, launch_packet, resolve_chunk)
+                             launch_matvec, launch_packet, matvec_geometry,
+                             resolve_chunk)
 
 COLS_PACKET = _build.KernelInfo(
     "gram_packet_sampled_cols", "src/repro_torch/csrc/sampled_cols.cu",
@@ -39,11 +43,12 @@ COLS_MATVEC = _build.KernelInfo(
 
 # cols_packet_*(X, flat, u, Gp, rp, G, r, d, n, m, chunk, splits, scale, reg,
 #               scale_r, stream); cols_apply_*(X, flat, v, out, d, n, m,
-#               scale, stream); cols_matvec_*(X, flat, t, rp, out, d, n, m,
-#               tenants, chunk, splits, scale, stream)
+#               scale, stream); cols_matvec_*(X, flat, t, rp, tickets, out,
+#               d, n, m, tenants, chunk, splits, rows, group, stages, steps,
+#               grid_x, smem, scale, stream)
 _PACKET_ARGS = (P,) * 7 + (I64, I64, I, I64, I, D, D, D, P)
 _APPLY_ARGS = (P, P, P, P, I64, I64, I, D, P)
-_MATVEC_ARGS = (P,) * 5 + (I64, I64, I, I, I64, I, D, P)
+MATVEC_ARGS = (P,) * 6 + (I64, I64, I, I, I64, I, I, I, I, I, I, I, D, P)
 
 
 def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
@@ -93,6 +98,7 @@ def panel_matvec_cols(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
         return ref.panel_matvec_cols_ref(X, flat, t, scale)
     d, n = X.shape
     check_cuda_operands(X, flat, t, d, n, COLS_MATVEC.name, tenants=True)
-    chunk = resolve_chunk(flat.shape[0], d, X.dtype, "cols", bk)
-    return launch_matvec(COLS_MATVEC, "cols_matvec", _MATVEC_ARGS, X, flat, t,
-                         (d, n), d, chunk, scale)
+    geom = matvec_geometry(flat.shape[0], d, 1 if t.dim() == 1 else
+                           t.shape[0], X.dtype, "cols", bk)
+    return launch_matvec(COLS_MATVEC, "cols_matvec", MATVEC_ARGS, X, flat, t,
+                         (d, n), geom, scale)

@@ -14,6 +14,11 @@
   tenant vectors (T, n).  Replaces ``panel_matvec_pallas`` (same file).
   Sums in K1's residual order, so it equals K1's r bit for bit at the same
   chunk; bounded by the m * n bytes of the sampled rows plus t's T * n.
+  Each block streams a few sample rows through a shared-memory ring filled
+  by ``cp.async``, so that loads stay in flight while it sums, and the last
+  block of each row group sums the chunks; the launch geometry comes from
+  :func:`matvec_geometry`.  Near the bytes bound at CG's shape; at the
+  solve's m = 128 each block's fixed chain of round trips is what is left.
 
 Each wrapper runs the plain version (``ref.py``) when ``X`` lies on the CPU,
 and on a CUDA tensor launches its kernel or raises: there is no fallback.
@@ -23,6 +28,7 @@ launches.  The wrappers never pad ``X``: the kernels mask ragged edges.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,12 +47,30 @@ ROWS_MATVEC = _build.KernelInfo(
 P, I, I64, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # rows_packet_*(X, flat, u, Gp, rp, G, r, n, m, chunk, splits, scale, reg,
 #               scale_r, stream); rows_apply_*(X, flat, v, out, n, m, scale,
-#               stream); rows_matvec_*(X, flat, t, rp, out, n, m, tenants,
-#               chunk, splits, scale, stream)
+#               stream); rows_matvec_*(X, flat, t, rp, tickets, out, n, m,
+#               tenants, chunk, splits, rows, group, stages, steps, grid_x,
+#               smem, scale, stream)
 _PACKET_ARGS = (P,) * 7 + (I64, I, I64, I, D, D, D, P)
 _APPLY_ARGS = (P, P, P, P, I64, I, D, P)
-_MATVEC_ARGS = (P,) * 5 + (I64, I, I, I64, I, D, P)
+MATVEC_ARGS = (P,) * 6 + (I64, I, I, I64, I, I, I, I, I, I, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# The matvec ring kernel (csrc/gram_common.cuh, matvec_ring): its block size,
+# and the rows per block, ring depths and stage lengths (contraction steps)
+# it is built for.  A stage row holds its steps plus one 16-byte chunk.
+MV_THREADS = 128
+MV_ROWS = (4, 8, 16, 32)
+MV_STAGES = (2, 3, 4)
+MV_STEPS = (64, 128, 256)
+# The picks, from launch.tile_sweep's matvec sweep (PERF.md): the most rows
+# per block that keep at most MV_OWNERS summing threads (beyond that, at
+# T = 8, the block's shared-memory loads bound it) and still give
+# MV_TARGET_BLOCKS blocks, else the fewest rows; and per layout the ring
+# depth and stage length, (stages, steps).
+MV_OWNERS = 64
+MV_TARGET_BLOCKS = 4 * 132
+MV_PICK = {"rows": (2, 128), "cols": (2, 64)}
+SMEM_PER_BLOCK = 232448         # bytes of shared memory a block may use
 
 
 def check_matrix(X: torch.Tensor, what: str) -> None:
@@ -144,28 +168,109 @@ def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
     return G, r
 
 
+class MatvecGeometry(NamedTuple):
+    """How a matvec launch is cut: ``rows`` sample rows and ``group``
+    tenants per block, a ring of ``stages`` stages of ``steps``
+    contraction steps, ``threads`` per block,
+    ``grid`` = (row groups x tenant groups, splits), ``smem`` bytes of
+    dynamic shared memory, and the contraction ``chunk`` with its
+    ``splits``."""
+    rows: int
+    group: int
+    stages: int
+    steps: int
+    threads: int
+    grid: tuple
+    smem: int
+    chunk: int
+    splits: int
+
+
+def matvec_geometry(m: int, K: int, tenants: int, dtype: torch.dtype,
+                    layout: str, bk: int | None = None, *,
+                    rows: int | None = None, stages: int | None = None,
+                    steps: int | None = None) -> MatvecGeometry:
+    """The launch geometry of K5 / K6 for ``tenants`` vectors over an
+    (m samples, K contraction) panel, from the shapes alone.  The chunk is
+    the packet's (:func:`resolve_chunk`), which fixes every sum; rows per
+    block, ring depth and stage length only cut the work (``rows``,
+    ``stages`` and ``steps`` override the picks, for the sweep)."""
+    chunk = resolve_chunk(m, K, dtype, layout, bk)
+    splits = -(-K // chunk)
+    if splits > tuning.MAX_SPLITS:
+        raise ValueError(f"{splits} splits exceed the grid's "
+                         f"{tuning.MAX_SPLITS}")
+
+    def group(r):
+        return min(tenants, MV_THREADS // r)
+
+    def grid_x(r):
+        return -(-m // r) * -(-tenants // group(r))
+
+    if rows is None:
+        fits = [r for r in MV_ROWS if r * group(r) <= MV_OWNERS
+                and grid_x(r) * splits >= MV_TARGET_BLOCKS]
+        rows = max(fits) if fits else min(MV_ROWS)
+    stages = MV_PICK[layout][0] if stages is None else stages
+    steps = MV_PICK[layout][1] if steps is None else steps
+    if (rows not in MV_ROWS or stages not in MV_STAGES
+            or steps not in MV_STEPS):
+        raise ValueError(f"rows={rows}, stages={stages}, steps={steps}: the "
+                         f"kernel is built for rows in {MV_ROWS}, stages in "
+                         f"{MV_STAGES}, steps in {MV_STEPS}")
+    isz = torch.empty((), dtype=dtype).element_size()
+    ld = steps + 16 // isz
+    smem = (16 * -(-4 * (2 * rows + group(rows)) // 16)
+            + stages * (rows + group(rows)) * ld * isz)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"rows={rows}, stages={stages}, steps={steps}: "
+                         f"{smem} bytes of shared memory exceed the block's "
+                         f"{SMEM_PER_BLOCK}")
+    return MatvecGeometry(rows, group(rows), stages, steps, MV_THREADS,
+                          (grid_x(rows), splits), smem, chunk, splits)
+
+
+# Ticket counters of the matvec kernel, per (device, stream): zero between
+# launches, so that a launch needs no fill kernel of its own.
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n int32 zeros on ``device`` for the matvec kernel's ticket
+    counters, kept per (device, stream): each launch leaves them zero again
+    (the last block of a row group resets its own), so only a first or a
+    larger launch allocates."""
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
 def launch_matvec(info: _build.KernelInfo, symbol: str, argtypes: tuple,
                   X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
-                  sizes: tuple, K: int, chunk: int,
+                  sizes: tuple, geom: MatvecGeometry,
                   scale: float) -> torch.Tensor:
     """Allocate the output and the split partials, then launch a matvec
-    kernel: ``symbol_{f32,f64}(X, flat, t, rp, out, *sizes, m, tenants,
-    chunk, splits, scale, stream)``.  Returns (m,) for t (K,), (T, m) for
-    t (T, K)."""
+    kernel: ``symbol_{f32,f64}(X, flat, t, rp, tickets, out, *sizes, m,
+    tenants, chunk, splits, rows, group, stages, steps, grid_x, smem, scale,
+    stream)``.  Returns (m,) for t (K,), (T, m) for t (T, K)."""
     m = flat.shape[0]
     tenants = 1 if t.dim() == 1 else t.shape[0]
-    splits = -(-K // chunk)
     mp = -(-m // tuning.TILE) * tuning.TILE
     opts = {"dtype": X.dtype, "device": X.device}
     out = torch.empty((tenants, m), **opts)
-    rp = torch.empty((splits, tenants, mp), **opts)
+    rp = torch.empty((geom.splits, tenants, mp), **opts)
     fn = _build.bind(info.source.split("/")[-1], f"{symbol}_{SUFFIX[X.dtype]}",
                      argtypes)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
+        tickets = _tickets(X.device, stream, geom.grid[0])
         err = fn(X.data_ptr(), flat.data_ptr(), t.data_ptr(), rp.data_ptr(),
-                 out.data_ptr(), *sizes, m, tenants, chunk, splits,
-                 float(scale), stream)
+                 tickets.data_ptr(), out.data_ptr(), *sizes, m, tenants,
+                 geom.chunk, geom.splits, geom.rows, geom.group, geom.stages,
+                 geom.steps, geom.grid[0], geom.smem, float(scale), stream)
     _build.check(err, info.name)
     info.launches += 1
     return out if t.dim() == 2 else out[0]
@@ -216,6 +321,7 @@ def panel_matvec_rows(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,
         return ref.panel_matvec_ref(X, flat, t, scale)
     d, n = X.shape
     check_cuda_operands(X, flat, t, n, d, ROWS_MATVEC.name, tenants=True)
-    chunk = resolve_chunk(flat.shape[0], n, X.dtype, "rows", bk)
-    return launch_matvec(ROWS_MATVEC, "rows_matvec", _MATVEC_ARGS, X, flat, t,
-                         (n,), n, chunk, scale)
+    geom = matvec_geometry(flat.shape[0], n, 1 if t.dim() == 1 else
+                           t.shape[0], X.dtype, "rows", bk)
+    return launch_matvec(ROWS_MATVEC, "rows_matvec", MATVEC_ARGS, X, flat, t,
+                         (n,), geom, scale)

@@ -1,36 +1,51 @@
-"""Sweep the contraction chunk ``bk`` of the packet kernels K1 and K3 on the
-card, at the solve's shapes (real-sim: d = 20958, n = 72309, f32).
+"""Sweep the free launch geometry of the Gram kernels on the card, at the
+solve's shapes (real-sim: d = 20958, n = 72309, f32).
 
-Prints, per (kernel, m, bk), the device time of one packet and the number of
-blocks it launches, with the default pick of ``tuning.pick_tiles`` marked.
-The data are Gaussian: a packet's time does not depend on X's values.
+* ``packet``: the contraction chunk ``bk`` of the packet kernels K1 and K3,
+  per m; prints the device time of one packet and its block count, with the
+  default pick of ``tuning.pick_tiles`` marked.
+* ``matvec``: rows per block, ring depth and stage length of the matvec
+  kernels K5 and K6 (``sampled_kernel.matvec_geometry``; combinations that
+  need more shared memory than a block has are skipped), with the chunk
+  fixed by the packet,
+  at m = 128 (s = 16, b = 8) and m = 8 for T = 1 and T = 8 tenants, and K6 at
+  CG's shape (flat = arange(d)); each timed with L2 warm (calls back to
+  back, profiler) and cold (``timing.l2_flush`` before each call, CUDA
+  events).  Every geometry's
+  output must equal the default's under ``torch.equal``: the geometry cuts
+  the work, never a sum.
+
+The data are Gaussian: neither kernel's time depends on X's values.
 
 Run on a GPU:  PYTHONPATH=src python -m repro_torch.launch.tile_sweep
+               [--only packet|matvec] [--reps N]
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 
 import torch
 
 from repro_torch.data.regression import check_device
 from repro_torch.kernels import gram as gk
+from repro_torch.kernels.gram import sampled_colmajor as sc
+from repro_torch.kernels.gram import sampled_kernel as sk
 from repro_torch.kernels.gram import tuning
-from repro_torch.launch.timing import KERNEL_NAMES, device_ms
+from repro_torch.launch.timing import (KERNEL_NAMES, device_ms, event_ms,
+                                       l2_flush)
 
 CHUNKS = (256, 512, 1024, 1536, 2048, 3072, 4096, 8192)
 
 
-def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0):
-    dev = check_device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    X = torch.randn((d, n), generator=g, device=dev)
+def sweep_packets(X, g, reps: int) -> list:
+    d, n = X.shape
     rows = []
     for kern, layout, S, K in ((gk.gram_packet_sampled_rows, "rows", d, n),
                                (gk.gram_packet_sampled_cols, "cols", n, d)):
-        u = torch.randn((K,), generator=g, device=dev)
+        u = torch.randn((K,), generator=g, device=X.device)
         for m in (8, 128):
-            flat = torch.randperm(S, generator=g, device=dev)[:m].to(
+            flat = torch.randperm(S, generator=g, device=X.device)[:m].to(
                 torch.int32)
             auto = tuning.pick_tiles(m, K, X.dtype, layout)
             for bk in sorted(set(CHUNKS) | {auto}):
@@ -40,12 +55,85 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0):
                 mark = "  <- default" if bk == auto else ""
                 print(f"{kern.__name__:26s} m={m:4d} bk={bk:5d} "
                       f"blocks={blocks:5d}: {ms:.4f} ms{mark}", flush=True)
-                rows.append((layout, m, bk, ms))
+                rows.append(("packet", layout, m, bk, ms))
+    return rows
+
+
+def matvec_launcher(X, flat, t, layout: str, geom=None):
+    """A call that launches K6 (``layout`` "rows") or K5 ("cols") on
+    (X, flat, t) at ``geom`` (default: the wrappers' pick), without the
+    wrappers' operand checks, which wait on the device: for timing."""
+    d, n = X.shape
+    K = n if layout == "rows" else d
+    tenants = 1 if t.dim() == 1 else t.shape[0]
+    geom = geom or sk.matvec_geometry(flat.shape[0], K, tenants, X.dtype,
+                                      layout)
+    if layout == "rows":
+        return lambda: sk.launch_matvec(sk.ROWS_MATVEC, "rows_matvec",
+                                        sk.MATVEC_ARGS, X, flat, t, (n,),
+                                        geom, 1.0)
+    return lambda: sk.launch_matvec(sc.COLS_MATVEC, "cols_matvec",
+                                    sc.MATVEC_ARGS, X, flat, t, (d, n), geom,
+                                    1.0)
+
+
+def sweep_matvecs(X, g, reps: int) -> list:
+    """Every (rows, stages, steps) the kernel is built for, at each main
+    shape."""
+    d, n = X.shape
+    cases = [(layout, m, T) for layout in ("rows", "cols") for m in (128, 8)
+             for T in (1, 8)] + [("rows", d, 1)]
+    out = []
+    flush = l2_flush(X.device)
+    for layout, m, T in cases:
+        S, K = (d, n) if layout == "rows" else (n, d)
+        flat = (torch.arange(d, dtype=torch.int32, device=X.device)
+                if m == d else torch.randperm(S, generator=g,
+                                              device=X.device)[:m].to(
+                                                  torch.int32))
+        t = torch.randn((T, K), generator=g, device=X.device)
+        auto = sk.matvec_geometry(m, K, T, X.dtype, layout)
+        want = matvec_launcher(X, flat, t, layout, auto)()
+        for r, s, q in itertools.product(sk.MV_ROWS, sk.MV_STAGES,
+                                         sk.MV_STEPS):
+            try:
+                geom = sk.matvec_geometry(m, K, T, X.dtype, layout, rows=r,
+                                          stages=s, steps=q)
+            except ValueError:              # more shared memory than a block
+                continue
+            launch = matvec_launcher(X, flat, t, layout, geom)
+            if not torch.equal(launch(), want):
+                raise AssertionError(f"{layout} m={m} T={T}: rows={r} "
+                                     f"stages={s} steps={q} changed a sum")
+            n_reps = max(1, reps // 5) if m == d else reps
+            warm = device_ms(launch, n_reps, KERNEL_NAMES["matvec"])
+            cold = event_ms(launch, n_reps, flush)
+            mark = "  <- default" if geom == auto else ""
+            print(f"{layout}_matvec m={m:5d} T={T} chunk={auto.chunk:5d} "
+                  f"rows={r:2d} stages={s} steps={q:3d} blocks="
+                  f"{geom.grid[0] * geom.grid[1]:5d} smem={geom.smem:6d}: "
+                  f"warm {warm:.4f} ms, cold {cold:.4f} ms{mark}",
+                  flush=True)
+            out.append(("matvec", layout, m, T, r, s, q, warm, cold))
+    return out
+
+
+def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
+         only: str | None = None) -> list:
+    dev = check_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((d, n), generator=g, device=dev)
+    rows = []
+    if only in (None, "packet"):
+        rows += sweep_packets(X, g, reps)
+    if only in (None, "matvec"):
+        rows += sweep_matvecs(X, g, reps)
     return rows
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", choices=("packet", "matvec"), default=None)
     args = ap.parse_args()
-    main(reps=args.reps)
+    main(reps=args.reps, only=args.only)

@@ -13,10 +13,14 @@ matvec kernels K5/K6 sum in the packet's residual order, so they are held to
 K3/K1's r, to their own single-tenant launches and, in the batched engine,
 to the single solves under ``torch.equal``: no tolerance.  So are the dense
 kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, and
-K8's G equals K7's.  The baselines through the kernels: CholeskyQR and CG
-against the direct solve in f64, relative 1e-9 (CholeskyQR squares the
-operand's condition; CG stops at tol 1e-13).
+K8's G equals K7's.  The matvecs' output does not depend on their launch
+geometry (rows per block, ring depth), also under ``torch.equal``.  The
+baselines through the kernels: CholeskyQR and CG against the direct solve in
+f64, relative 1e-9 (CholeskyQR squares the operand's condition; CG stops at
+tol 1e-13).
 """
+import itertools
+
 import pytest
 import torch
 
@@ -242,3 +246,82 @@ def test_baselines_run_through_the_kernels_on_card(cuda_device, branch):
     res = core.cg_ridge(X, y, 0.1, tol=1e-13, impl="cuda")
     assert gk.ROWS_APPLY.launches == gk.ROWS_MATVEC.launches == res.iters
     assert _rel(res.w, w_opt) <= 1e-9
+
+
+def _matvec_pair(layout):
+    if layout == "rows":
+        return gk.gram_packet_sampled_rows, gk.panel_matvec_rows
+    return gk.gram_packet_sampled_cols, gk.panel_matvec_cols
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,chunk", [(77, "shortest"), (77, "ragged"),
+                                     (33, "whole"), (1000, "whole")])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_matvec_equals_packet_residual_at_explicit_chunk_on_card(
+        cuda_device, layout, m, chunk, dtype):
+    """At an explicit chunk: the shortest (32 steps), one that leaves a
+    ragged last split (n = 2001 = 20 * 96 + 81, d = 300 = 4 * 64 + 44), and
+    one split over the whole contraction (the longest chains)."""
+    X, flat, t = _layout_problem(cuda_device, dtype, layout, m, 1, m + 13)
+    K = t.shape[1]
+    bk = {"shortest": 32, "ragged": 96 if layout == "rows" else 64,
+          "whole": -(-K // 32) * 32}[chunk]
+    packet, matvec = _matvec_pair(layout)
+    _, r = packet(X, flat, t[0], scale=1.0, scale_r=1.0, bk=bk)
+    assert torch.equal(matvec(X, flat, t[0], bk=bk), r)
+
+
+@pytest.mark.parametrize("tenants", [3, 40])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_tenant_launch_equals_single_launches_f64_on_card(cuda_device,
+                                                          layout, tenants):
+    X, flat, t = _layout_problem(cuda_device, torch.float64, layout, 77,
+                                 tenants, tenants + 1)
+    _, matvec = _matvec_pair(layout)
+    out = matvec(X, flat, t, scale=0.25)
+    assert out.shape == (tenants, 77) and out.dtype == torch.float64
+    for j in range(tenants):
+        assert torch.equal(out[j], matvec(X, flat, t[j], scale=0.25))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_rows_matvec_at_cg_shape_matches_plain_version_on_card(cuda_device,
+                                                                dtype, tol):
+    """K6 with flat = arange(d), CG's X p, against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    d, n = 300, 2001
+    X = torch.randn((d, n), generator=g, device=cuda_device, dtype=dtype)
+    flat = torch.arange(d, dtype=torch.int32, device=cuda_device)
+    p = torch.randn((n,), generator=g, device=cuda_device, dtype=dtype)
+    got = gk.panel_matvec_rows(X, flat, p)
+    assert got.shape == (d,)
+    assert _rel(got, tref.panel_matvec_ref(X, flat, p)) <= tol
+
+
+@pytest.mark.parametrize("tenants", [1, 8])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_matvec_geometry_changes_no_sum_on_card(cuda_device, layout,
+                                                tenants):
+    """Every rows-per-block, ring depth and stage length the kernel is built
+    for gives the default geometry's output bit for bit: only the chunk
+    fixes a sum."""
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    from repro_torch.kernels.gram import sampled_kernel as sk
+    X, flat, t = _layout_problem(cuda_device, torch.float32, layout, 77,
+                                 tenants, 9)
+    d, n = X.shape
+    K = t.shape[1]
+    info, symbol, args, sizes = (
+        (sk.ROWS_MATVEC, "rows_matvec", sk.MATVEC_ARGS, (n,))
+        if layout == "rows" else
+        (sc.COLS_MATVEC, "cols_matvec", sc.MATVEC_ARGS, (d, n)))
+    want = _matvec_pair(layout)[1](X, flat, t)
+    for rows, stages, steps in itertools.product(sk.MV_ROWS, sk.MV_STAGES,
+                                                 sk.MV_STEPS):
+        geom = sk.matvec_geometry(77, K, tenants, X.dtype, layout, rows=rows,
+                                  stages=stages, steps=steps)
+        got = sk.launch_matvec(info, symbol, args, X, flat, t, sizes, geom,
+                               1.0)
+        assert torch.equal(got, want), (rows, stages, steps)

@@ -25,6 +25,7 @@ from repro.kernels.gram import ref as jref
 from repro_torch.kernels import gram as gk
 from repro_torch.kernels.gram import ref as tref
 from repro_torch.kernels.gram import tuning
+from repro_torch.kernels.gram import sampled_kernel as sk
 from repro_torch.kernels.gram.sampled_kernel import (check_cuda_operands,
                                                      resolve_chunk)
 
@@ -245,6 +246,56 @@ def test_pick_tiles_rejects_unknown_layout_and_bad_tiles():
     with pytest.raises(ValueError, match="multiple of 32"):
         resolve_chunk(8, 100, torch.float32, "rows", 48)
     assert resolve_chunk(8, 100, torch.float32, "rows", 64) == 64
+
+
+@pytest.mark.parametrize("m,K,tenants", [
+    (128, 72309, 1), (128, 72309, 8), (8, 72309, 8), (128, 20958, 32),
+    (20958, 72309, 1), (77, 300, 70), (1, 1, 1), (4096, 10**6, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_matvec_geometry_within_limits_at_the_packets_chunk(m, K, tenants,
+                                                             dtype, layout):
+    """The launch geometry of K5 / K6: the packet's chunk (which fixes every
+    sum), a grid within CUDA's limits that covers every (row, tenant, chunk),
+    and shared memory within the block's 227 KB, at the pick and at every
+    rows / stages / steps the kernel is built for (those that would need
+    more shared memory are refused)."""
+    chunk = resolve_chunk(m, K, dtype, layout, None)
+    geoms = [sk.matvec_geometry(m, K, tenants, dtype, layout)]
+    for r in sk.MV_ROWS:
+        for s in sk.MV_STAGES:
+            for q in sk.MV_STEPS:
+                try:
+                    geoms.append(sk.matvec_geometry(
+                        m, K, tenants, dtype, layout, rows=r, stages=s,
+                        steps=q))
+                except ValueError as err:
+                    assert "shared memory" in str(err)
+    isz = 8 if dtype == torch.float64 else 4
+    for geom in geoms:
+        assert geom.chunk == chunk and geom.splits == -(-K // chunk)
+        assert geom.grid[1] == geom.splits <= tuning.MAX_SPLITS
+        assert tuning.TILE % geom.rows == 0
+        assert 1 <= geom.group <= tenants
+        assert geom.rows * geom.group <= geom.threads == sk.MV_THREADS
+        row_groups = -(-m // geom.rows)
+        assert geom.grid[0] == row_groups * -(-tenants // geom.group)
+        assert geom.grid[0] < 2**31
+        assert geom.smem <= sk.SMEM_PER_BLOCK
+        assert geom.smem >= geom.stages * (geom.rows + geom.group) * (
+            geom.steps + 16 // isz) * isz
+    assert sk.matvec_geometry(m, K, tenants, dtype, layout, 64).chunk == 64
+
+
+def test_matvec_geometry_refuses_what_the_kernel_is_not_built_for():
+    with pytest.raises(ValueError, match="built for"):
+        sk.matvec_geometry(128, 1000, 1, torch.float32, "rows", rows=12)
+    with pytest.raises(ValueError, match="built for"):
+        sk.matvec_geometry(128, 1000, 1, torch.float32, "cols", stages=5)
+    with pytest.raises(ValueError, match="built for"):
+        sk.matvec_geometry(128, 1000, 1, torch.float32, "rows", steps=96)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sk.matvec_geometry(128, 1000, 1, torch.float32, "rows", 48)
 
 
 def _operands(**over):
