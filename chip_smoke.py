@@ -13,8 +13,10 @@ Phases (any failure raises; nothing is caught):
   1. set-up: versions, the card's name and power limit, the kernel build;
   2. each kernel against its plain version at the solve's shapes (f32) and at
      the 8x-cut f64 shape, with its device time beside its bound, the plain
-     version's time and a library call's time; the matvecs K5/K6 also equal
-     to K3/K1's r and their T-tenant launch to T single launches
+     version's time and a library call's time (for K1-K6 also PyTorch's
+     gather of the sampled panel that the library call starts from,
+     ``gather_ms``, outside the printed kernels line); the matvecs K5/K6
+     also equal to K3/K1's r and their T-tenant launch to T single launches
      (torch.equal), and K5/K6 and their library calls timed twice, L2 warm
      (calls back to back) and L2 cold (a 256 MB write before each call); the
      dense K7 / K8 on a gathered panel, K7 equal to K1 on the same indices
@@ -50,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -280,14 +283,17 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 rec["sector_ms"] = uniq * K * SECTOR / HBM_BYTES_PER_S * 1e3
             log(f"    device {rec['ms']:.4f} ms (wrapper incl. host checks "
                 f"{rec['wrapper_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
-                f"library {rec['library_ms']:.4f}, bound "
+                f"library {rec['library_ms']:.4f} (gather "
+                f"{rec['gather_ms']:.4f}, gather + library "
+                f"{rec['gather_ms'] + rec['library_ms']:.4f}), bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                 + (f", sector bound {rec['sector_ms']:.4f} ms"
                    if "sector_ms" in rec else "")
                 + (f"; {tenants} tenants. One tenant: device "
                    f"{rec['ms_t1']:.4f}, wrapper {rec['wrapper_ms_t1']:.4f}, "
                    f"plain {rec['plain_ms_t1']:.4f}, library (torch.mv) "
-                   f"{rec['library_ms_t1']:.4f}, bound "
+                   f"{rec['library_ms_t1']:.4f} (gather + library "
+                   f"{rec['gather_ms_t1'] + rec['library_ms_t1']:.4f}), bound "
                    f"{rec['bound_ms_t1']:.4f}" if kind == "matvec" else ""))
             if kind == "matvec":
                 log_cold(rec, "")
@@ -345,14 +351,26 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
                "replaces": info.replaces, "max_abs_err": max_abs, "m": m,
                "K": n, "dtype": str(X.dtype).replace("torch.", ""),
                "ms": device_ms(lambda: gk.gram_packet_dense(Y, u), reps,
-                               KERNEL_NAMES["packet"]),
+                               KERNEL_NAMES["dense"]),
                "wrapper_ms": wall_ms(lambda: gk.gram_packet_dense(Y, u), reps),
                "plain_ms": device_ms(lambda: gk.gram_packet_ref(Y, u), reps)}
         rhs = torch.cat([Y.T, u[:, None]], dim=1).contiguous()
         rec["library_ms"] = device_ms(lambda: torch.mm(Y, rhs), reps)
         rec.update(bound("packet", m, m, n, X.dtype, indexed=False))
-        log(f"    device {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f}),"
-            f" plain {rec['plain_ms']:.4f}, library (mm on [Y^T | u]) "
+        # the two kernels of K7 apart, and K1's reduce pass over the same
+        # number of chunk partials
+        rec["tile_ms"] = device_ms(lambda: gk.gram_packet_dense(Y, u), reps,
+                                   ("dense_tile",))
+        rec["reduce_ms"] = device_ms(lambda: gk.gram_packet_dense(Y, u),
+                                     reps, ("dense_reduce",))
+        rec["k1_reduce_ms"] = device_ms(
+            lambda: gk.gram_packet_sampled_rows(X, flat, u), reps,
+            ("packet_reduce",))
+        log(f"    device {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f};"
+            f" dense_tile {rec['tile_ms']:.4f}, dense_reduce "
+            f"{rec['reduce_ms']:.4f}, K1's packet_reduce on as many "
+            f"partials {rec['k1_reduce_ms']:.4f}), plain "
+            f"{rec['plain_ms']:.4f}, library (mm on [Y^T | u]) "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
         out[info.name] = rec
@@ -390,8 +408,9 @@ def check_cg_shape(X, gen, reps: int, flush) -> dict:
         rec.update(bound(kind, d, d, n, X.dtype))
         log(f"    device {rec['ms']:.4f} ms (wrapper incl. host checks "
             f"{rec['wrapper_ms']:.4f}), plain {rec['plain_ms']:.4f}, library "
-            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
+            f"{rec['library_ms']:.4f} (gather {rec['gather_ms']:.4f}, gather "
+            f"+ library {rec['gather_ms'] + rec['library_ms']:.4f}), bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         if kind == "matvec":
             rec.update(time_cold(X, flat, vec, "rows", reps, flush))
             log_cold(rec, "")
@@ -401,31 +420,35 @@ def check_cg_shape(X, gen, reps: int, flush) -> dict:
 
 def time_kernel(X, flat, vec, kern, plain, kind: str, layout: str,
                 names: tuple, reps: int) -> dict:
+    """Warm device times of the kernel, its plain version, its library call
+    and PyTorch's gather of the sampled panel that the library call starts
+    from (not part of ``library_ms``), and the wrapper's time per call."""
     return {"ms": device_ms(lambda: kern(X, flat, vec), reps, names),
             "wrapper_ms": wall_ms(lambda: kern(X, flat, vec), reps),
             "plain_ms": device_ms(lambda: plain(X, flat, vec), reps),
             "library_ms": device_ms(library_call(X, flat, vec, kind, layout),
-                                    reps)}
+                                    reps),
+            "gather_ms": device_ms(gather_call(X, flat, layout), reps)}
+
+
+def gather_call(X, flat, layout: str):
+    """PyTorch's gather of the sampled rows (``layout`` "rows") or columns
+    of X: one library kernel, the same reads of X as the kernels'."""
+    dim, fl = (0 if layout == "rows" else 1), flat.long()
+    return lambda: X.index_select(dim, fl)
 
 
 def time_cold(X, flat, vec, layout: str, reps: int, flush) -> dict:
     """A matvec (launched as its wrapper launches it, less the operand
-    checks that wait on the device) and its library call with the L2 cache
-    flushed before each call; and PyTorch's gather of the same sampled rows
-    / columns, warm and cold: the same reads of X as the kernel's, in one
-    library kernel."""
-    dim = 0 if layout == "rows" else 1
-    fl = flat.long()
-
-    def gather():
-        return X.index_select(dim, fl)
-
+    checks that wait on the device), its library call and PyTorch's gather
+    of the same sampled rows / columns, with the L2 cache flushed before
+    each call."""
     return {"ms_cold": event_ms(matvec_launcher(X, flat, vec, layout), reps,
                                 flush),
             "library_ms_cold": event_ms(library_call(X, flat, vec, "matvec",
                                                      layout), reps, flush),
-            "gather_ms": device_ms(gather, reps),
-            "gather_ms_cold": event_ms(gather, reps, flush)}
+            "gather_ms_cold": event_ms(gather_call(X, flat, layout), reps,
+                                       flush)}
 
 
 def log_cold(rec: dict, suffix: str) -> None:
@@ -829,30 +852,62 @@ def k8_full_shape(X, lam: float, reps: int) -> dict:
                              f"symmetric {sym}")
     rec = {"name": info.name, "route": "cuda", "source": info.source,
            "replaces": info.replaces, "max_abs_err": max_abs, "m": m, "K": K,
-           "dtype": "float32", "errors": errs,
-           "ms": event_ms(lambda: gk.gram_dense(At), reps),
-           "plain_ms": event_ms(lambda: gk.gram_ref(At), reps),
-           "library_ms": event_ms(lambda: torch.mm(At, At.T), reps)}
+           "dtype": "float32", "errors": errs}
+    rec["ms"], rec["clocks"] = sampling_clocks(
+        lambda: event_ms(lambda: gk.gram_dense(At), reps))
+    rec["plain_ms"] = event_ms(lambda: gk.gram_ref(At), reps)
+    rec["library_ms"], rec["library_clocks"] = sampling_clocks(
+        lambda: event_ms(lambda: torch.mm(At, At.T), reps))
     rec.update(bound("gram", m, m, K, At.dtype))
     log(f"    device {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f}, library "
         f"(mm) {rec['library_ms']:.2f}, bound {rec['bound_ms']:.2f} ms "
-        f"({rec['bound_by']})")
+        f"({rec['bound_by']}); while K8 ran: {rec['clocks']}; while mm "
+        f"ran: {rec['library_clocks']}")
     return rec
+
+
+def sampling_clocks(fn) -> tuple:
+    """``fn()`` while nvidia-smi samples the card every 100 ms; returns
+    fn's result and the median SM clock (MHz) and power draw (W) of the
+    samples, with their count.  For calls of a second or more."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate()
+    rows = [[float(v) for v in line.split(",")]
+            for line in text.splitlines()
+            if re.fullmatch(r"\s*[\d.]+\s*,\s*[\d.]+\s*", line)]
+    mid = len(rows) // 2
+    return out, {"sm_mhz": sorted(r[0] for r in rows)[mid] if rows else None,
+                 "power_w": sorted(r[1] for r in rows)[mid] if rows else None,
+                 "samples": len(rows)}
 
 
 def cholqr_split(X, y, lam: float, w_whole) -> dict:
     """The CholeskyQR ridge solve's steps, as ``tsqr_ridge`` takes them,
-    each timed to a synchronisation: the operand's build, K8, the Cholesky
-    factorisation, the right-hand side and two triangular solves."""
+    each timed to a synchronisation, with each step's peak of device memory
+    above what was allocated before the first (X among it): the operand's
+    build, K8, the Cholesky factorisation (the operand freed first), the
+    right-hand side and two triangular solves."""
     n = X.shape[1]
     times = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
 
     def step(name, fn):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0) * 1e3
+        times[name.replace("_ms", "_peak_gib")] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
         return out
 
     At = step("build_ms", lambda: ridge_operand(X, lam))
@@ -868,8 +923,8 @@ def cholqr_split(X, y, lam: float, w_whole) -> dict:
 
     w = step("solves_ms", solves)
     times["rel_to_whole_solve"] = rel(w, w_whole)
-    log("  CholeskyQR solve, step by step: "
-        + ", ".join(f"{k} {v:.2f}" if k.endswith("ms") else f"{k} {v:.1e}"
+    log("  CholeskyQR solve, step by step (ms; peak GiB above the start): "
+        + ", ".join(f"{k} {v:.1e}" if k.startswith("rel") else f"{k} {v:.2f}"
                     for k, v in times.items()))
     return times
 

@@ -3,8 +3,8 @@ on an operand A (m, K) that is already materialised.
 
 * :func:`gram_packet_dense` (K7) -- ``(G, r) = (scale * A A^T + reg * I,
   scale_r * A u)``.  Replaces ``gram_packet_pallas`` (``src/repro/kernels/
-  gram/gram_kernel.py``).  K1's kernel reading A's own rows: it takes K1's
-  chunk for the same (m, K), so ``K7(X[flat], u)`` equals
+  gram/gram_kernel.py``).  It takes K1's chunk for the same (m, K) and sums
+  every entry in K1's order, so ``K7(X[flat], u)`` equals
   ``K1(X, flat, u)`` bit for bit.  Bounded by its m(m+1)/2 * K
   multiply-adds on the f32 CUDA cores.
 * :func:`gram_dense` (K8) -- ``G = scale * A A^T + reg * I``.  Replaces
@@ -12,16 +12,25 @@ on an operand A (m, K) that is already materialised.
   its G equals K7's G bit for bit.  The R-factor Gram of CholeskyQR
   (``core.tsqr.cholqr_r``).
 
+Both launch ``dense_tile``: register-blocked lower BM x BM tiles of G fed
+by a ``cp.async`` ring, one block per (tile, contraction chunk), the tiles
+in the order of :func:`dense_tiles`.  The launch geometry comes from
+:func:`dense_geometry`, from the shapes alone; only the chunk fixes a sum.
+At one chunk the kernel writes G itself and no partial buffer is
+allocated; at more, the chunk partials go through the packets' reduce pass.
+
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches the
 kernel or raises.  A must be contiguous: the wrappers never copy it.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from . import _build, ref
-from .sampled_kernel import (D, I, I64, P, check_matrix, check_vector,
-                             launch_packet, resolve_chunk)
+from . import _build, ref, tuning
+from .sampled_kernel import (D, I, I64, P, SMEM_PER_BLOCK, SUFFIX,
+                             check_matrix, check_vector, resolve_chunk)
 
 DENSE_PACKET = _build.KernelInfo(
     "gram_packet_dense", "src/repro_torch/csrc/gram_dense.cu",
@@ -30,11 +39,189 @@ DENSE_GRAM = _build.KernelInfo(
     "gram_dense", "src/repro_torch/csrc/gram_dense.cu",
     "src/repro/kernels/gram/gram_kernel.py:161")
 
-# dense_packet_*(A, u, Gp, rp, G, r, K, m, chunk, splits, scale, reg, scale_r,
-#                stream); dense_gram_*(A, Gp, G, K, m, chunk, splits, scale,
-#                reg, stream)
-_PACKET_ARGS = (P,) * 6 + (I64, I, I64, I, D, D, D, P)
-_GRAM_ARGS = (P,) * 3 + (I64, I, I64, I, D, D, P)
+# dense_packet_*(A, u, tiles, Gp, rp, G, r, K, m, chunk, splits, bm, tm, tn,
+#                stages, steps, ntiles, smem, scale, reg, scale_r, stream);
+# dense_gram_*(A, tiles, Gp, G, K, m, chunk, splits, bm, tm, tn, stages,
+#              steps, ntiles, smem, scale, reg, stream)
+_GEOM_ARGS = (I, I, I, I, I, I, I)
+_PACKET_ARGS = (P,) * 7 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, D, P)
+_GRAM_ARGS = (P,) * 4 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, P)
+
+# The geometries dense_tile is built for, per dtype: (tile edge BM, micro-tile
+# rows TM, columns TN) and the rings (stages, steps per stage).
+DENSE_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (64, 8, 8),
+                               (32, 4, 4)),
+               torch.float64: ((64, 4, 4), (32, 4, 4))}
+DENSE_RINGS = {torch.float32: tuple((s, q) for s in (2, 3, 4)
+                                    for q in (8, 16, 32)),
+               torch.float64: ((3, 16),)}
+# The picks, from launch.tile_sweep's dense sweep (PERF.md).  The tile: the
+# widest whose lower tiles times chunks give at least DENSE_TARGET_BLOCKS
+# blocks (four a SM on 132 SMs: the 128-tile at K8's real-sim operand, the
+# 32-tile at K7's 103 chunks, where the 128- and 64-tiles leave SMs idle),
+# else the narrowest; its micro-tile the first listed.  The ring (stages,
+# steps), within 1 % of the best at both shapes; and the row bands per
+# strip of the tile order.
+DENSE_TARGET_BLOCKS = 4 * 132
+DENSE_RING = (3, 16)
+DENSE_GROUP = 16
+
+
+class DenseGeometry(NamedTuple):
+    """How a K7 / K8 launch is cut: lower ``bm`` x ``bm`` tiles with a
+    ``tm`` x ``tn`` micro-tile a thread (``threads`` a block), a ring of
+    ``stages`` stages of ``steps`` contraction steps (``smem`` bytes of
+    dynamic shared memory), ``grid`` = (lower tiles, splits), the tiles in
+    strips of ``group`` row bands, and the contraction ``chunk`` with its
+    ``splits``."""
+    bm: int
+    tm: int
+    tn: int
+    stages: int
+    steps: int
+    threads: int
+    grid: tuple
+    smem: int
+    group: int
+    chunk: int
+    splits: int
+
+
+def ring_bytes(bm: int, stages: int, steps: int, dtype: torch.dtype) -> int:
+    """Shared memory of dense_tile's ring: per stage two k-major operands of
+    ``steps`` rows of bm + 16 bytes, and ``steps`` elements of u."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    return stages * (2 * steps * (bm + 16 // isz) + steps) * isz
+
+
+def lower_tiles(m: int, bm: int) -> int:
+    nt = -(-m // bm)
+    return nt * (nt + 1) // 2
+
+
+def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
+                   *, bm: int | None = None, micro: tuple | None = None,
+                   stages: int | None = None, steps: int | None = None,
+                   group: int | None = None) -> DenseGeometry:
+    """The launch geometry of K7 / K8 on an (m, K) operand of ``dtype``,
+    from the shapes alone.  The chunk is K1's (:func:`resolve_chunk`), which
+    fixes every sum; ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps`` and
+    ``group`` override the picks (for the sweep) and move no sum."""
+    if dtype not in DENSE_TILES:
+        raise TypeError(f"dense_tile is built for {tuple(DENSE_TILES)}, "
+                        f"not {dtype}")
+    chunk = resolve_chunk(m, K, dtype, "rows", bk)
+    splits = -(-K // chunk)
+    if splits > tuning.MAX_SPLITS:
+        raise ValueError(f"{splits} splits exceed the grid's "
+                         f"{tuning.MAX_SPLITS}")
+    tiles = DENSE_TILES[dtype]
+    if bm is None:
+        edges = [t[0] for t in tiles]
+        fits = [e for e in edges
+                if lower_tiles(m, e) * splits >= DENSE_TARGET_BLOCKS]
+        bm = max(fits) if fits else min(edges)
+    if micro is None:
+        micro = next((t[1:] for t in tiles if t[0] == bm), (4, 4))
+    tm, tn = micro
+    stages = DENSE_RING[0] if stages is None else stages
+    steps = DENSE_RING[1] if steps is None else steps
+    group = DENSE_GROUP if group is None else group
+    if (bm, tm, tn) not in tiles or (stages, steps) not in DENSE_RINGS[dtype]:
+        raise ValueError(f"bm={bm}, micro={micro}, stages={stages}, "
+                         f"steps={steps}: dense_tile is built in "
+                         f"{str(dtype).split('.')[-1]} for tiles {tiles} and "
+                         f"rings {DENSE_RINGS[dtype]}")
+    if group < 1:
+        raise ValueError(f"group={group} must be positive")
+    smem = ring_bytes(bm, stages, steps, dtype)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{smem} bytes of shared memory exceed the block's "
+                         f"{SMEM_PER_BLOCK}")
+    return DenseGeometry(bm, tm, tn, stages, steps, (bm // tm) * (bm // tn),
+                         (lower_tiles(m, bm), splits), smem, group, chunk,
+                         splits)
+
+
+def tile_order(nt: int, group: int) -> list[tuple[int, int]]:
+    """The lower tiles (ti, tj), tj <= ti < nt, in launch order: strips of
+    ``group`` row bands, and within a strip column by column, so that the
+    blocks resident at one time share few row bands of A."""
+    out = []
+    for s0 in range(0, nt, group):
+        s1 = min(s0 + group, nt)
+        for tj in range(s1):
+            out.extend((ti, tj) for ti in range(max(s0, tj), s1))
+    return out
+
+
+# Tile lists on the card, per (device index, nt, group).
+_TILES: dict = {}
+
+
+def dense_tiles(device: torch.device, nt: int, group: int) -> torch.Tensor:
+    """:func:`tile_order` packed as ``ti << 16 | tj`` in an int32 tensor on
+    ``device``, built once per (device, nt, group)."""
+    key = (device.index, nt, group)
+    if key not in _TILES:
+        _TILES[key] = torch.tensor([ti << 16 | tj for ti, tj in
+                                    tile_order(nt, group)],
+                                   dtype=torch.int32, device=device)
+    return _TILES[key]
+
+
+def dense_buffers(m: int, geom: DenseGeometry, residual: bool,
+                  **opts) -> tuple:
+    """(G, r, Gp, rp) for a launch at ``geom``: the outputs G (m, m) and,
+    with ``residual``, r (m,); at more than one split the chunk partials Gp
+    (splits, mp, mp) and rp (splits, mp) that the reduce pass sums (mp: m
+    rounded up to its 32-row tiles), at one split None: the kernel then
+    writes G and r itself."""
+    G = torch.empty((m, m), **opts)
+    r = torch.empty((m,), **opts) if residual else None
+    if geom.splits == 1:
+        return G, r, None, None
+    mp = -(-m // tuning.TILE) * tuning.TILE
+    Gp = torch.empty((geom.splits, mp, mp), **opts)
+    rp = torch.empty((geom.splits, mp), **opts) if residual else None
+    return G, r, Gp, rp
+
+
+def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
+                 u: torch.Tensor | None, geom: DenseGeometry, scale: float,
+                 reg: float, scale_r: float | None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Allocate the outputs (:func:`dense_buffers`), then launch K7 (``u``
+    given) or K8 at ``geom``.  Returns (G, r), r None for K8."""
+    m, K = A.shape
+    G, r, Gp, rp = dense_buffers(m, geom, u is not None, dtype=A.dtype,
+                                 device=A.device)
+    nt = -(-m // geom.bm)
+    tiles = dense_tiles(A.device, nt, geom.group)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    sizes = (K, m, geom.chunk, geom.splits, geom.bm, geom.tm, geom.tn,
+             geom.stages, geom.steps, geom.grid[0], geom.smem)
+    suffix = SUFFIX[A.dtype]
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if u is None:
+            fn = _build.bind("gram_dense.cu", f"dense_gram_{suffix}",
+                             _GRAM_ARGS)
+            err = fn(A.data_ptr(), tiles.data_ptr(), ptr(Gp), G.data_ptr(),
+                     *sizes, float(scale), float(reg), stream)
+        else:
+            fn = _build.bind("gram_dense.cu", f"dense_packet_{suffix}",
+                             _PACKET_ARGS)
+            err = fn(A.data_ptr(), u.data_ptr(), tiles.data_ptr(), ptr(Gp),
+                     ptr(rp), G.data_ptr(), r.data_ptr(), *sizes,
+                     float(scale), float(reg),
+                     float(scale if scale_r is None else scale_r), stream)
+    _build.check(err, info.name)
+    info.launches += 1
+    return G, r
 
 
 def _check_operand(A: torch.Tensor, what: str) -> tuple[int, int]:
@@ -54,10 +241,8 @@ def gram_packet_dense(A: torch.Tensor, u: torch.Tensor, *,
         return ref.gram_packet_ref(A, u, scale, reg, scale_r)
     m, K = _check_operand(A, DENSE_PACKET.name)
     check_vector(A, u, K, DENSE_PACKET.name, name="u")
-    chunk = resolve_chunk(m, K, A.dtype, "rows", bk)
-    return launch_packet(DENSE_PACKET, "dense_packet", _PACKET_ARGS, (A, u),
-                         (K,), m, K, chunk, scale, reg,
-                         scale if scale_r is None else scale_r)
+    return launch_dense(DENSE_PACKET, A, u, dense_geometry(m, K, A.dtype, bk),
+                        scale, reg, scale_r)
 
 
 def gram_dense(A: torch.Tensor, *, scale: float = 1.0, reg: float = 0.0,
@@ -66,7 +251,6 @@ def gram_dense(A: torch.Tensor, *, scale: float = 1.0, reg: float = 0.0,
     if A.device.type == "cpu":
         return ref.gram_ref(A, scale, reg)
     m, K = _check_operand(A, DENSE_GRAM.name)
-    chunk = resolve_chunk(m, K, A.dtype, "rows", bk)
-    G, _ = launch_packet(DENSE_GRAM, "dense_gram", _GRAM_ARGS, (A,), (K,), m,
-                         K, chunk, scale, reg, None)
+    G, _ = launch_dense(DENSE_GRAM, A, None, dense_geometry(m, K, A.dtype, bk),
+                        scale, reg, None)
     return G

@@ -11,14 +11,22 @@ solve's shapes (real-sim: d = 20958, n = 72309, f32).
   at m = 128 (s = 16, b = 8) and m = 8 for T = 1 and T = 8 tenants, and K6 at
   CG's shape (flat = arange(d)); each timed with L2 warm (calls back to
   back, profiler) and cold (``timing.l2_flush`` before each call, CUDA
-  events).  Every geometry's
-  output must equal the default's under ``torch.equal``: the geometry cuts
-  the work, never a sum.
+  events).
+* ``dense``: tile edge, micro-tile, ring depth and stage length of the
+  dense Gram kernels K7 / K8 (``gram_kernel.dense_geometry``), every
+  geometry they are built for, at K8's real-sim shape (CholeskyQR's
+  operand, 20958 x 93267) and K7's gathered panel (m = 128, K = 72309);
+  for K8 also the strip height of the tile order.  K8 is timed with CUDA
+  events (seconds a call: warm, then cold after an L2 flush), K7 as the
+  matvecs.
 
-The data are Gaussian: neither kernel's time depends on X's values.
+Every geometry's output must equal the default's under ``torch.equal``:
+the geometry cuts the work, never a sum.  The data are Gaussian: no
+kernel's work depends on the values, but the card's power draw does, and
+with it the clock under the power cap (PERF.md, K8).
 
 Run on a GPU:  PYTHONPATH=src python -m repro_torch.launch.tile_sweep
-               [--only packet|matvec] [--reps N]
+               [--only packet|matvec|dense] [--reps N]
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.data.regression import check_device
 from repro_torch.kernels import gram as gk
+from repro_torch.kernels.gram import gram_kernel as gkk
 from repro_torch.kernels.gram import sampled_colmajor as sc
 from repro_torch.kernels.gram import sampled_kernel as sk
 from repro_torch.kernels.gram import tuning
@@ -118,22 +127,88 @@ def sweep_matvecs(X, g, reps: int) -> list:
     return out
 
 
+def dense_launcher(A, u, geom):
+    """A call that launches K7 (``u`` given) or K8 on A at ``geom``,
+    without the wrappers' operand checks."""
+    info = gk.DENSE_GRAM if u is None else gk.DENSE_PACKET
+    return lambda: gkk.launch_dense(info, A, u, geom, 1.0, 0.0, None)
+
+
+def dense_geometries(m: int, K: int, dtype) -> list:
+    """Every geometry dense_tile is built for at (m, K), the pick first."""
+    auto = gkk.dense_geometry(m, K, dtype)
+    every = [gkk.dense_geometry(m, K, dtype, bm=bm, micro=(tm, tn),
+                                stages=st, steps=q)
+             for (bm, tm, tn), (st, q) in itertools.product(
+                 gkk.DENSE_TILES[dtype], gkk.DENSE_RINGS[dtype])]
+    return [auto] + [geom for geom in every if geom != auto]
+
+
+def sweep_dense(g, reps: int, d: int, n: int) -> list:
+    """K8 at (d, n + d) and K7 at (128, n): every geometry against the
+    pick under torch.equal, warm and cold; K8 also per strip height."""
+    dev = g.device
+    flush = l2_flush(dev)
+    out = []
+    for name, m, K, residual in (("dense_gram", d, n + d, False),
+                                 ("dense_packet", 128, n, True)):
+        A = torch.randn((m, K), generator=g, device=dev)
+        u = torch.randn((K,), generator=g, device=dev) if residual else None
+        geoms = dense_geometries(m, K, A.dtype)
+        auto = geoms[0]
+        nt = -(-m // auto.bm)
+        if not residual:
+            geoms += [auto._replace(group=grp) for grp in (4, 8, 32, nt)
+                      if grp != auto.group]
+        want = dense_launcher(A, u, auto)()
+        for geom in geoms:
+            launch = dense_launcher(A, u, geom)
+            got = launch()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)
+                       if a is not None):
+                raise AssertionError(f"{name} {geom} changed a sum")
+            del got
+            if residual:
+                warm = device_ms(launch, reps, KERNEL_NAMES["dense"])
+                cold = event_ms(launch, reps, flush)
+            else:
+                warm = event_ms(launch, 1)
+                cold = event_ms(launch, 1, flush)
+            mark = "  <- default" if geom == auto else ""
+            print(f"{name} m={m:5d} K={K} chunk={geom.chunk:5d} "
+                  f"bm={geom.bm:3d} micro={geom.tm}x{geom.tn} "
+                  f"stages={geom.stages} steps={geom.steps:2d} "
+                  f"group={geom.group:3d} blocks="
+                  f"{geom.grid[0] * geom.grid[1]:5d} smem={geom.smem:6d}: "
+                  f"warm {warm:.4f} ms, cold {cold:.4f} ms{mark}",
+                  flush=True)
+            out.append(("dense", name, m, K, geom.bm, geom.tm, geom.tn,
+                        geom.stages, geom.steps, geom.group, warm, cold))
+        del A, u, want
+    return out
+
+
 def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
          only: str | None = None) -> list:
     dev = check_device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    X = torch.randn((d, n), generator=g, device=dev)
     rows = []
-    if only in (None, "packet"):
-        rows += sweep_packets(X, g, reps)
-    if only in (None, "matvec"):
-        rows += sweep_matvecs(X, g, reps)
+    if only in (None, "packet", "matvec"):
+        X = torch.randn((d, n), generator=g, device=dev)
+        if only in (None, "packet"):
+            rows += sweep_packets(X, g, reps)
+        if only in (None, "matvec"):
+            rows += sweep_matvecs(X, g, reps)
+        del X
+    if only in (None, "dense"):
+        rows += sweep_dense(g, reps, d, n)
     return rows
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("packet", "matvec"), default=None)
+    ap.add_argument("--only", choices=("packet", "matvec", "dense"),
+                    default=None)
     args = ap.parse_args()
     main(reps=args.reps, only=args.only)

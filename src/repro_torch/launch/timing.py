@@ -106,5 +106,6 @@ def wall_ms(fn, reps: int) -> float:
 
 
 KERNEL_NAMES = {"packet": ("packet_partial", "packet_reduce"),
+                "dense": ("dense_tile", "dense_reduce"),
                 "matvec": ("matvec_ring",),
                 "rows_apply": ("rows_apply",), "cols_apply": ("cols_apply",)}

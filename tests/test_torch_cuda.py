@@ -13,8 +13,9 @@ matvec kernels K5/K6 sum in the packet's residual order, so they are held to
 K3/K1's r, to their own single-tenant launches and, in the batched engine,
 to the single solves under ``torch.equal``: no tolerance.  So are the dense
 kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, and
-K8's G equals K7's.  The matvecs' output does not depend on their launch
-geometry (rows per block, ring depth), also under ``torch.equal``.  The
+K8's G equals K7's.  Neither the matvecs' output nor the dense kernels'
+depends on their launch geometry (rows per block, ring depth; tile edge,
+micro-tile, ring, tile order), also under ``torch.equal``.  The
 baselines through the kernels: CholeskyQR and CG against the direct solve in
 f64, relative 1e-9 (CholeskyQR squares the operand's condition; CG stops at
 tol 1e-13).
@@ -219,6 +220,75 @@ def test_dense_packet_on_gathered_panel_equals_sampled_packet_on_card(
     G7, r7 = gk.gram_packet_dense(Y, t[0], scale_r=2.0, **knobs)
     assert torch.equal(G7, G1) and torch.equal(r7, r1)
     assert torch.equal(gk.gram_dense(Y, **knobs), G7)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("K", [301, 2000])
+@pytest.mark.parametrize("m", [1, 77, 129, 300, 2900])
+def test_dense_kernels_at_ragged_m_match_plain_versions_on_card(
+        cuda_device, m, K, dtype, tol):
+    """K7 and K8 past every tile edge (m = 2900 takes the 128-tiles), with
+    rows of A 4-byte aligned (odd K) or 16-byte aligned (K = 2000), scale
+    and reg: against their plain versions; K8 equals K7's G, G its
+    transpose, and K7 equals K1 on the same rows (X = A, flat = arange)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3 * m + K)
+    A = torch.randn((m, K), generator=g, device=cuda_device, dtype=dtype)
+    u = torch.randn((K,), generator=g, device=cuda_device, dtype=dtype)
+    knobs = {"scale": 0.5, "reg": 0.25}
+    G, r = gk.gram_packet_dense(A, u, scale_r=2.0, **knobs)
+    G8 = gk.gram_dense(A, **knobs)
+    Gw, rw = tref.gram_packet_ref(A, u, 0.5, 0.25, 2.0)
+    assert G.shape == (m, m) and r.shape == (m,) and G.dtype == dtype
+    assert _rel(G, Gw) <= tol and _rel(r, rw) <= tol
+    if m > 1:
+        off = ~torch.eye(m, dtype=torch.bool, device=cuda_device)
+        assert _rel(G[off], Gw[off]) <= tol
+    assert torch.equal(G8, G) and torch.equal(G, G.T)
+    flat = torch.arange(m, dtype=torch.int32, device=cuda_device)
+    G1, r1 = gk.gram_packet_sampled_rows(A, flat, u, scale_r=2.0, **knobs)
+    assert torch.equal(G, G1) and torch.equal(r, r1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,K", [(77, 301), (129, 2001), (2900, 301)])
+def test_dense_geometry_changes_no_sum_on_card(cuda_device, m, K, dtype):
+    """Every tile edge, micro-tile, ring depth, stage length and tile order
+    the dense kernels are built for gives the pick's G and r bit for bit,
+    at one split (the kernel writes G) and at several (partials and the
+    reduce pass): only the chunk fixes a sum."""
+    from repro_torch.kernels.gram import gram_kernel as gkk
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    A = torch.randn((m, K), generator=g, device=cuda_device, dtype=dtype)
+    u = torch.randn((K,), generator=g, device=cuda_device, dtype=dtype)
+    auto = gkk.dense_geometry(m, K, dtype)
+    want7 = gkk.launch_dense(gk.DENSE_PACKET, A, u, auto, 0.5, 0.25, 2.0)
+    want8, _ = gkk.launch_dense(gk.DENSE_GRAM, A, None, auto, 0.5, 0.25,
+                                None)
+    geoms = [gkk.dense_geometry(m, K, dtype, bm=bm, micro=(tm, tn),
+                                stages=st, steps=q, group=grp)
+             for (bm, tm, tn), (st, q), grp in itertools.product(
+                 gkk.DENSE_TILES[dtype], gkk.DENSE_RINGS[dtype], (1, 16))]
+    for geom in geoms:
+        G, r = gkk.launch_dense(gk.DENSE_PACKET, A, u, geom, 0.5, 0.25, 2.0)
+        assert torch.equal(G, want7[0]) and torch.equal(r, want7[1]), geom
+        G8, _ = gkk.launch_dense(gk.DENSE_GRAM, A, None, geom, 0.5, 0.25,
+                                 None)
+        assert torch.equal(G8, want8), geom
+    assert torch.equal(want8, want7[0])
+
+
+def test_dense_kernel_refuses_a_geometry_it_is_not_built_for_on_card(
+        cuda_device):
+    """The C entry point checks the geometry the host asks for (and the
+    shared memory it counted) before anything is launched."""
+    from repro_torch.kernels.gram import gram_kernel as gkk
+    A = torch.ones((40, 100), device=cuda_device)
+    geom = gkk.dense_geometry(40, 100, A.dtype)
+    for bad in (geom._replace(smem=geom.smem + 16), geom._replace(bm=48),
+                geom._replace(stages=5)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            gkk.launch_dense(gk.DENSE_GRAM, A, None, bad, 1.0, 0.0, None)
 
 
 def test_dense_kernels_refuse_a_non_contiguous_operand_on_card(cuda_device):

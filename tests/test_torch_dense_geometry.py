@@ -1,0 +1,210 @@
+"""The host side of the dense Gram kernels K7 / K8 (``gram_kernel.py``): the
+launch geometry worked out from the shapes alone, the tile order, and the
+buffers a launch allocates.  No card and no JAX needed: the kernels' own
+arithmetic is held to their plain versions on the card
+(``tests/test_torch_cuda.py``).
+"""
+import itertools
+import re
+import statistics
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels.gram import gram_kernel as gkk
+from repro_torch.kernels.gram import sampled_kernel as sk
+from repro_torch.kernels.gram import tuning
+
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+# (m, K): K8 at CholeskyQR's real-sim operand, K7 at the gathered panel, the
+# sampled packets' other main widths, CholeskyQR's 8x cuts, ragged tests.
+SHAPES = [(20958, 93267), (128, 72309), (8, 72309), (77, 72309),
+          (2620, 11658), (1, 33), (129, 301), (300, 2000)]
+DTYPES = [torch.float32, torch.float64]
+
+
+def _every_geometry(dtype):
+    for (bm, tm, tn), (stages, steps) in itertools.product(
+            gkk.DENSE_TILES[dtype], gkk.DENSE_RINGS[dtype]):
+        yield {"bm": bm, "micro": (tm, tn), "stages": stages, "steps": steps}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,K", SHAPES)
+def test_dense_chunk_is_the_row_packets_pick(m, K, dtype):
+    """The chunk fixes every sum, so it is K1's: then K7(X[flat]) == K1."""
+    geom = gkk.dense_geometry(m, K, dtype)
+    assert geom.chunk == tuning.pick_tiles(m, K, dtype, "rows")
+    assert geom.chunk == sk.resolve_chunk(m, K, dtype, "rows", None)
+    assert geom.splits == -(-K // geom.chunk) <= tuning.MAX_SPLITS
+    assert gkk.dense_geometry(m, K, dtype, 64).chunk == 64
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,K", SHAPES)
+def test_dense_tile_edge_from_m(m, K, dtype):
+    """The widest tile edge whose lower tiles times chunks fill the card,
+    else the narrowest: a small m never runs a mostly masked wide tile."""
+    geom = gkk.dense_geometry(m, K, dtype)
+    edges = sorted(t[0] for t in gkk.DENSE_TILES[dtype])
+    blocks = {e: gkk.lower_tiles(m, e) * geom.splits for e in edges}
+    full = [e for e in edges if blocks[e] >= gkk.DENSE_TARGET_BLOCKS]
+    assert geom.bm == (max(full) if full else edges[0])
+    if m <= 128:
+        assert geom.bm < 128
+    assert (geom.bm, geom.tm, geom.tn) in gkk.DENSE_TILES[dtype]
+
+
+def test_dense_tile_edge_at_the_main_shapes():
+    f32 = torch.float32
+    assert gkk.dense_geometry(20958, 93267, f32).bm == 128     # K8
+    assert gkk.dense_geometry(20958, 93267, f32).splits == 1
+    assert gkk.dense_geometry(8, 72309, f32).bm == 32
+    assert gkk.dense_geometry(77, 72309, f32).bm <= 64
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,K", [(20958, 93267), (128, 72309), (77, 301)])
+def test_every_built_geometry_fits_a_block(m, K, dtype):
+    """Grid, threads and shared memory of every geometry the kernel is built
+    for: within the card's limits, and the grid one block per (lower tile,
+    chunk)."""
+    for over in _every_geometry(dtype):
+        geom = gkk.dense_geometry(m, K, dtype, **over)
+        nt = -(-m // geom.bm)
+        assert geom.grid == (nt * (nt + 1) // 2, geom.splits)
+        assert geom.threads == (geom.bm // geom.tm) * (geom.bm // geom.tn)
+        assert geom.threads % 32 == 0 and geom.threads <= 1024
+        assert geom.smem == gkk.ring_bytes(geom.bm, geom.stages, geom.steps,
+                                           dtype)
+        assert 0 < geom.smem <= sk.SMEM_PER_BLOCK == 232448
+        assert geom.smem % 16 == 0
+        assert geom.chunk == gkk.dense_geometry(m, K, dtype).chunk
+
+
+@pytest.mark.parametrize("bm,stages,steps,dtype,want", [
+    (128, 3, 16, torch.float32, 3 * (2 * 16 * 132 + 16) * 4),
+    (32, 2, 8, torch.float32, 2 * (2 * 8 * 36 + 8) * 4),
+    (64, 3, 16, torch.float64, 3 * (2 * 16 * 66 + 16) * 8)])
+def test_ring_bytes_counts_two_operands_and_u(bm, stages, steps, dtype, want):
+    assert gkk.ring_bytes(bm, stages, steps, dtype) == want
+
+
+@pytest.mark.parametrize("over,err", [
+    ({"bm": 48}, ValueError), ({"bm": 128, "micro": (4, 4)}, ValueError),
+    ({"stages": 5}, ValueError), ({"steps": 24}, ValueError),
+    ({"group": 0}, ValueError)])
+def test_dense_geometry_refuses_what_the_kernel_is_not_built_for(over, err):
+    with pytest.raises(err):
+        gkk.dense_geometry(128, 1000, torch.float32, **over)
+
+
+def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
+    with pytest.raises(ValueError):
+        gkk.dense_geometry(128, 1000, torch.float64, bm=128, micro=(8, 8))
+    with pytest.raises(ValueError):
+        gkk.dense_geometry(128, 1000, torch.float64, stages=2, steps=8)
+    with pytest.raises(TypeError):
+        gkk.dense_geometry(128, 1000, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple"):
+        gkk.dense_geometry(128, 1000, torch.float32, 48)
+
+
+def test_host_table_matches_what_the_source_builds():
+    """gram_dense.cu's dispatch lists the geometries the host may ask for."""
+    src = (CSRC / "gram_dense.cu").read_text()
+    rings = set(re.findall(r"REPRO_TILE\(B, M, N, (\d+), (\d+)\)", src))
+    f32 = set(re.findall(r"REPRO_RINGS\((\d+), (\d+), (\d+)\)\n", src))
+    f64 = set(re.findall(r"REPRO_TILE\((\d+), (\d+), (\d+), (\d+), (\d+)\)\n",
+                         src))
+
+    def as_int(t):
+        return tuple(map(int, t))
+
+    assert {as_int(t) for t in rings} == set(gkk.DENSE_RINGS[torch.float32])
+    assert {as_int(t) for t in f32} == set(gkk.DENSE_TILES[torch.float32])
+    assert {as_int(t)[:3] for t in f64} == set(gkk.DENSE_TILES[torch.float64])
+    assert {as_int(t)[3:] for t in f64} == set(gkk.DENSE_RINGS[torch.float64])
+
+
+@pytest.mark.parametrize("nt,group", [(1, 16), (3, 1), (7, 2), (10, 4),
+                                      (164, 16), (164, 1000), (655, 16)])
+def test_tile_order_lists_every_lower_tile_once(nt, group):
+    order = gkk.tile_order(nt, group)
+    want = {(ti, tj) for ti in range(nt) for tj in range(ti + 1)}
+    assert len(order) == len(want) == nt * (nt + 1) // 2
+    assert set(order) == want
+    strips = [ti // group for ti, _ in order]
+    assert strips == sorted(strips)          # strip by strip
+    packed = gkk.dense_tiles(torch.device("cpu"), nt, group)
+    assert packed.dtype == torch.int32 and packed.numel() == len(order)
+    assert [(int(v) >> 16, int(v) & 0xFFFF) for v in packed] == order
+
+
+def test_tile_order_keeps_resident_blocks_on_few_bands():
+    """At K8's 164 bands, a window of 264 consecutive tiles (two resident
+    blocks a SM) touches, in the median, about 2 sqrt(264) row bands of A:
+    a third of what a row-by-row order touches."""
+    def bands(order):
+        return statistics.median(
+            len({b for t in order[i:i + 264] for b in t})
+            for i in range(0, len(order) - 264, 97))
+    grouped = bands(gkk.tile_order(164, gkk.DENSE_GROUP))
+    by_rows = bands([(ti, tj) for ti in range(164) for tj in range(ti + 1)])
+    assert grouped <= 40 and 3 * grouped < by_rows
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("m,K", [(20958, 93267), (2620, 11658), (128, 72309),
+                                 (77, 301)])
+def test_partial_buffers_only_at_more_than_one_split(m, K, residual):
+    """At one split (K8 at real-sim) the kernel writes G itself: no partial
+    buffer; at more, (splits, mp, mp) partials for the reduce pass."""
+    geom = gkk.dense_geometry(m, K, torch.float32)
+    # shapes only: allocate on the meta device
+    G, r, Gp, rp = gkk.dense_buffers(m, geom, residual, dtype=torch.float32,
+                                     device="meta")
+    assert G.shape == (m, m)
+    assert (r is not None) == residual and (r is None or r.shape == (m,))
+    mp = -(-m // tuning.TILE) * tuning.TILE
+    if geom.splits == 1:
+        assert Gp is None and rp is None
+    else:
+        assert Gp.shape == (geom.splits, mp, mp)
+        assert rp is None if not residual else rp.shape == (geom.splits, mp)
+    assert (geom.splits == 1) == (m in (20958, 2620, 77))
+
+
+def test_sass_mix_reads_the_longest_ffma_loop():
+    """The instruction-mix reader used on the card: opcodes without
+    predicates or modifiers, and the loop of a backward branch."""
+    from repro_torch.launch import sass_mix
+    listing = """
+        Function : _Z3fooPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x000 */
+        /*0010*/                   LDS.128 R4, [R2] ;       /* 0x000 */
+        /*0020*/                   FFMA R8, R4, R5, R8 ;    /* 0x000 */
+        /*0030*/                   FFMA R9, R4, R6, R9 ;    /* 0x000 */
+        /*0040*/              @!P0 BRA 0x10 ;               /* 0x000 */
+        /*0050*/                   BRA 0x50 ;               /* 0x000 */
+        /*0060*/                   EXIT ;                   /* 0x000 */
+        Function : _Z3barv
+        /*0000*/                   EXIT ;                   /* 0x000 */
+"""
+    funcs = sass_mix.functions(listing)
+    assert list(funcs) == ["_Z3fooPf", "_Z3barv"]
+    mix = sass_mix.loop_mix(funcs["_Z3fooPf"])
+    assert mix["instructions"] == 7 and mix["loop_instructions"] == 4
+    assert mix["loop_opcodes"] == {"FFMA": 2, "LDS": 1, "BRA": 1}
+    assert mix["loop_ffma_share"] == 0.5
+    assert sass_mix.loop_mix(funcs["_Z3barv"])["loop_instructions"] == 0
+
+
+def test_sass_mix_demangles_in_order():
+    import shutil
+    from repro_torch.launch import sass_mix
+    if shutil.which("c++filt") is None:
+        pytest.skip("needs c++filt (binutils)")
+    assert sass_mix.demangle(["_Z3fooPf", "_Z3barv"]) == ["foo(float*)",
+                                                          "bar()"]
