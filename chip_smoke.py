@@ -15,13 +15,15 @@ Phases (any failure raises; nothing is caught):
      the 8x-cut f64 shape, with its device time beside its bound, the plain
      version's time and a library call's time (for K1-K6 also PyTorch's
      gather of the sampled panel that the library call starts from,
-     ``gather_ms``, outside the printed kernels line); the matvecs K5/K6
-     also equal to K3/K1's r and their T-tenant launch to T single launches
-     (torch.equal), and K5/K6 and their library calls timed twice, L2 warm
-     (calls back to back) and L2 cold (a 256 MB write before each call); the
-     dense K7 / K8 on a gathered panel, K7 equal to K1 on the same indices
-     and K8 to K7's G (torch.equal); K2 and K6 at CG's shape
-     (flat = arange(d));
+     ``gather_ms``, outside the printed kernels line); the packets K1 / K3
+     timed at the solve's m = 128 and m = 8, K1's tile and reduce passes
+     also apart; the matvecs K5/K6 also equal to K3/K1's r and their
+     T-tenant launch to T single launches (torch.equal), and K5/K6 and
+     their library calls timed twice, L2 warm (calls back to back) and L2
+     cold (a 256 MB write before each call); the dense K7 / K8 on a gathered
+     panel, K7 equal to K1 on the same indices and K8 to K7's G
+     (torch.equal); K2 and K6 at CG's shape (flat = arange(d)), both also
+     L2 cold;
   3. the single solves at real-sim size (counted): CA(16) against
      classical, the kernel path against impl="ref", the objective going
      down, the launch counts; 3b. the device-idle share from a trace;
@@ -69,7 +71,8 @@ from repro_torch.data import (PAPER_DATASETS, PAPER_DATASETS_FULL,  # noqa: E402
                               make_regression)
 from repro_torch.kernels import gram as gk  # noqa: E402
 from repro_torch.kernels.gram import _build  # noqa: E402
-from repro_torch.launch.tile_sweep import matvec_launcher  # noqa: E402
+from repro_torch.launch.tile_sweep import (apply_launcher,  # noqa: E402
+                                           matvec_launcher)
 from repro_torch.launch.timing import (KERNEL_NAMES, device_ms,  # noqa: E402
                                        event_ms, l2_flush, wall_ms)
 
@@ -259,19 +262,25 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 if not rec["tf32_cross_err"] > tol:
                     raise AssertionError(f"the f32 gate {tol} would pass a G "
                                          f"computed in TF32")
-            names = KERNEL_NAMES[kind if kind != "apply"
-                                 else f"{layout}_apply"]
+            names = KERNEL_NAMES[kind if kind == "matvec"
+                                 else f"{layout}_{kind}"]
             rec.update(time_kernel(X, flat, vec, kern, plain, kind, layout,
                                    names, reps))
             rec.update(bound(kind, m, uniq, K, X.dtype,
                              tenants if kind == "matvec" else 1))
+            if kind == "packet" and layout == "rows":
+                # K1's two passes apart (at both timed m, several chunks)
+                for key, part in (("tile_ms", "dense_tile"),
+                                  ("reduce_ms", "dense_reduce")):
+                    rec[key] = device_ms(lambda: kern(X, flat, vec), reps,
+                                         (part,))
             if kind == "matvec":
                 rec["tenants"] = tenants
-                rec.update(time_cold(X, flat, vec, layout, reps, flush))
+                rec.update(time_cold(X, flat, vec, kind, layout, reps, flush))
                 one = vec[0].clone()
                 for key, val in (time_kernel(X, flat, one, kern, plain, kind,
                                              layout, names, reps)
-                                 | time_cold(X, flat, one, layout, reps,
+                                 | time_cold(X, flat, one, kind, layout, reps,
                                              flush)).items():
                     rec[f"{key}_t1"] = val
                 rec["bound_ms_t1"] = bound(kind, m, uniq, K, X.dtype)[
@@ -289,6 +298,8 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                 + (f", sector bound {rec['sector_ms']:.4f} ms"
                    if "sector_ms" in rec else "")
+                + (f"; dense_tile {rec['tile_ms']:.4f}, dense_reduce "
+                   f"{rec['reduce_ms']:.4f}" if "tile_ms" in rec else "")
                 + (f"; {tenants} tenants. One tenant: device "
                    f"{rec['ms_t1']:.4f}, wrapper {rec['wrapper_ms_t1']:.4f}, "
                    f"plain {rec['plain_ms_t1']:.4f}, library (torch.mv) "
@@ -357,19 +368,14 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
         rhs = torch.cat([Y.T, u[:, None]], dim=1).contiguous()
         rec["library_ms"] = device_ms(lambda: torch.mm(Y, rhs), reps)
         rec.update(bound("packet", m, m, n, X.dtype, indexed=False))
-        # the two kernels of K7 apart, and K1's reduce pass over the same
-        # number of chunk partials
+        # the two kernels of K7 apart
         rec["tile_ms"] = device_ms(lambda: gk.gram_packet_dense(Y, u), reps,
                                    ("dense_tile",))
         rec["reduce_ms"] = device_ms(lambda: gk.gram_packet_dense(Y, u),
                                      reps, ("dense_reduce",))
-        rec["k1_reduce_ms"] = device_ms(
-            lambda: gk.gram_packet_sampled_rows(X, flat, u), reps,
-            ("packet_reduce",))
         log(f"    device {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f};"
             f" dense_tile {rec['tile_ms']:.4f}, dense_reduce "
-            f"{rec['reduce_ms']:.4f}, K1's packet_reduce on as many "
-            f"partials {rec['k1_reduce_ms']:.4f}), plain "
+            f"{rec['reduce_ms']:.4f}), plain "
             f"{rec['plain_ms']:.4f}, library (mm on [Y^T | u]) "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']})")
@@ -379,8 +385,8 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
 
 def check_cg_shape(X, gen, reps: int, flush) -> dict:
     """Phase 2 for K2 and K6 at the shape CG gives them: flat = arange(d),
-    m = d, one vector; against their plain versions, timed (K6 also with
-    the L2 flushed before each call)."""
+    m = d, one vector; against their plain versions, timed, also with the
+    L2 flushed before each call."""
     tol = TOL_KERNEL[str(X.dtype)]
     d, n = X.shape
     flat = torch.arange(d, dtype=torch.int32, device=X.device)
@@ -411,9 +417,19 @@ def check_cg_shape(X, gen, reps: int, flush) -> dict:
             f"{rec['library_ms']:.4f} (gather {rec['gather_ms']:.4f}, gather "
             f"+ library {rec['gather_ms'] + rec['library_ms']:.4f}), bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-        if kind == "matvec":
-            rec.update(time_cold(X, flat, vec, "rows", reps, flush))
-            log_cold(rec, "")
+        rec.update(time_cold(X, flat, vec, kind, "rows", reps, flush))
+        log_cold(rec, "")
+        if kind == "apply":
+            # cuBLAS's gemv on X in place (X^T v, the access pattern of K2
+            # and of CG's dense route), beside the library call on the
+            # transposed copy: log and --json only
+            rec["library_inplace_ms"] = device_ms(lambda: torch.mv(X.T, vec),
+                                                  reps)
+            rec["library_inplace_ms_cold"] = event_ms(
+                lambda: torch.mv(X.T, vec), reps, flush)
+            log(f"    torch.mv(X.T, v) on X in place: warm "
+                f"{rec['library_inplace_ms']:.4f} ms, cold "
+                f"{rec['library_inplace_ms_cold']:.4f}")
         out[f"{info.name}@cg"] = rec
     return out
 
@@ -438,22 +454,24 @@ def gather_call(X, flat, layout: str):
     return lambda: X.index_select(dim, fl)
 
 
-def time_cold(X, flat, vec, layout: str, reps: int, flush) -> dict:
-    """A matvec (launched as its wrapper launches it, less the operand
-    checks that wait on the device), its library call and PyTorch's gather
-    of the same sampled rows / columns, with the L2 cache flushed before
-    each call."""
-    return {"ms_cold": event_ms(matvec_launcher(X, flat, vec, layout), reps,
-                                flush),
-            "library_ms_cold": event_ms(library_call(X, flat, vec, "matvec",
+def time_cold(X, flat, vec, kind: str, layout: str, reps: int,
+              flush) -> dict:
+    """A matvec or the row apply (launched as its wrapper launches it, less
+    the operand checks that wait on the device), its library call and
+    PyTorch's gather of the same sampled rows / columns, with the L2 cache
+    flushed before each call."""
+    launch = (apply_launcher(X, flat, vec) if kind == "apply"
+              else matvec_launcher(X, flat, vec, layout))
+    return {"ms_cold": event_ms(launch, reps, flush),
+            "library_ms_cold": event_ms(library_call(X, flat, vec, kind,
                                                      layout), reps, flush),
             "gather_ms_cold": event_ms(gather_call(X, flat, layout), reps,
                                        flush)}
 
 
 def log_cold(rec: dict, suffix: str) -> None:
-    """The L2-cold times of a matvec record beside its bound (and, for the
-    column layout, the sector traffic)."""
+    """The L2-cold times of a matvec or apply record beside its bound (and,
+    for the column layout, the sector traffic)."""
     cold, lib = rec[f"ms_cold{suffix}"], rec[f"library_ms_cold{suffix}"]
     b = rec[f"bound_ms{suffix}"]
     log(f"    L2 cold{' (one tenant)' if suffix else ''}: device {cold:.4f} "
@@ -1117,8 +1135,9 @@ def main() -> int:
     # -- 2. kernels against their plain versions ---------------------------
     log("== 2. kernels against their plain versions")
     # sb at s = 16 for the packets and matvecs, b for the applies; the
-    # matvecs also at m = 8 (s = 1), with the batched engine's 8 tenants.
-    main_m = {"packet": (128,), "apply": (8,), "matvec": (128, 8)}
+    # packets and matvecs also at m = 8 (s = 1, 1024 of the single solves'
+    # 1088 packets), the matvecs with the batched engine's 8 tenants.
+    main_m = {"packet": (128, 8), "apply": (8,), "matvec": (128, 8)}
     flush = l2_flush(dev)
     records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m,
                             TENANTS, flush)

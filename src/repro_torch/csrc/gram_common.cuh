@@ -1,8 +1,9 @@
 // Shared pieces of the Gram-packet kernels (sampled_rows.cu,
-// sampled_cols.cu, gram_dense.cu): the split-contraction tile kernel,
-// parameterised on how a tile of the panel Y is gathered, and the
+// sampled_cols.cu, gram_dense.cu): the summation order every packet keeps,
+// the column packet's split-contraction tile kernel (K3) and its
 // fixed-order second pass that sums the split partials, mirrors the upper
-// triangle and applies scale / reg / scale_r.
+// triangle and applies scale / reg / scale_r, and the matvecs' ring kernel.
+// The row and dense packets (K1, K7, K8) run dense_tile.cuh's tile.
 //
 // Packet contract (every layout): for Y (m, K) the panel,
 //   G = scale * Y Y^T + reg * I   (m, m),   r = scale_r * Y u   (m,).
@@ -108,10 +109,8 @@ __device__ __forceinline__ T split_sum(const T* __restrict__ p, int splits,
   return acc;
 }
 
-// The row gather, Y = X[flat, :] for X (S, n) row-major: element
-// e = tid + PTHREADS * q of a slab is (sample e / BK, step e % BK), so a
-// warp reads 32 neighbouring columns of one row.  K1, K6 and, through
-// DenseGather (gram_dense.cu), K7 and K8.
+// The row gather, Y = X[flat, :] for X (S, n) row-major, as the matvec
+// ring kernel reads it (K6).  K1 gathers its rows in dense_tile.cuh.
 template <typename T>
 struct RowsGather {
   static constexpr bool CONTIGUOUS = true;  // Y's rows are rows of X
@@ -121,27 +120,6 @@ struct RowsGather {
   __device__ __forceinline__ int index(const int* __restrict__ flat,
                                        int a) const {
     return flat[a];
-  }
-
-  __device__ __forceinline__ void fetch(T (&pre)[LOADS], const int* idx,
-                                        int64_t k0, int64_t k_end,
-                                        int tid) const {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + PTHREADS * q;
-      const int row = idx[e / BK];
-      const int64_t k = k0 + e % BK;
-      pre[q] = (row >= 0 && k < k_end) ? X[row * n + k] : T(0);
-    }
-  }
-
-  __device__ __forceinline__ void store(Slab<T>& ys, const T (&pre)[LOADS],
-                                        int tid) const {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + PTHREADS * q;
-      ys[e % BK][e / BK] = pre[q];
-    }
   }
   // Where Y[a, k] lies for a sample whose row of X is `row` (matvec_ring).
   __device__ __forceinline__ const T* at(int row, int64_t k) const {

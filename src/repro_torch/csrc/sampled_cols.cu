@@ -11,8 +11,9 @@
 //   in f32 (8x over-read, against the TPU's 128x slab).  Bound on the H100:
 //   the sector traffic m * d * 32 B at 3.35 TB/s (about 26 us at m = 128,
 //   d = 20958), above both the useful-bytes bound and the m(m+1)/2 * d
-//   multiply-adds on the f32 CUDA cores.  Same split-contraction tiling as
-//   K1 (gram_common.cuh); the d-chunks fill the card.
+//   multiply-adds on the f32 CUDA cores.  The split-contraction tile of
+//   gram_common.cuh (packet_partial, packet_reduce); the d-chunks fill the
+//   card.
 //
 // K4 cols_apply: out(d) = scale * Y v.
 //   Replaces panel_apply_cols_pallas (sampled_colmajor.py).  One warp per row

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("sampled_rows.cu", "sampled_cols.cu", "gram_dense.cu")
-HEADERS = ("gram_common.cuh",)
+HEADERS = ("gram_common.cuh", "dense_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

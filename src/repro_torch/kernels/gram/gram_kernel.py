@@ -1,5 +1,8 @@
 """Wrappers of the dense Gram CUDA kernels K7 and K8 (``csrc/gram_dense.cu``),
-on an operand A (m, K) that is already materialised.
+on an operand A (m, K) that is already materialised, and the host side of
+their tile kernel ``dense_tile`` (``csrc/dense_tile.cuh``), which the
+row-sampled packet K1 (``sampled_kernel.gram_packet_sampled_rows``) also
+launches on the rows ``X[flat]`` of X in place.
 
 * :func:`gram_packet_dense` (K7) -- ``(G, r) = (scale * A A^T + reg * I,
   scale_r * A u)``.  Replaces ``gram_packet_pallas`` (``src/repro/kernels/
@@ -12,12 +15,12 @@ on an operand A (m, K) that is already materialised.
   its G equals K7's G bit for bit.  The R-factor Gram of CholeskyQR
   (``core.tsqr.cholqr_r``).
 
-Both launch ``dense_tile``: register-blocked lower BM x BM tiles of G fed
-by a ``cp.async`` ring, one block per (tile, contraction chunk), the tiles
-in the order of :func:`dense_tiles`.  The launch geometry comes from
+All three launch ``dense_tile``: register-blocked lower BM x BM tiles of G
+fed by a ``cp.async`` ring, one block per (tile, contraction chunk), the
+tiles in the order of :func:`dense_tiles`.  The launch geometry comes from
 :func:`dense_geometry`, from the shapes alone; only the chunk fixes a sum.
 At one chunk the kernel writes G itself and no partial buffer is
-allocated; at more, the chunk partials go through the packets' reduce pass.
+allocated; at more, the chunk partials go through ``dense_reduce``.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches the
 kernel or raises.  A must be contiguous: the wrappers never copy it.
@@ -42,10 +45,13 @@ DENSE_GRAM = _build.KernelInfo(
 # dense_packet_*(A, u, tiles, Gp, rp, G, r, K, m, chunk, splits, bm, tm, tn,
 #                stages, steps, ntiles, smem, scale, reg, scale_r, stream);
 # dense_gram_*(A, tiles, Gp, G, K, m, chunk, splits, bm, tm, tn, stages,
-#              steps, ntiles, smem, scale, reg, stream)
+#              steps, ntiles, smem, scale, reg, stream);
+# rows_packet_*(X, flat, u, tiles, Gp, rp, G, r, n, m, chunk, ...) as
+#               dense_packet_* with flat after X (sampled_rows.cu)
 _GEOM_ARGS = (I, I, I, I, I, I, I)
 _PACKET_ARGS = (P,) * 7 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, D, P)
 _GRAM_ARGS = (P,) * 4 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, P)
+_ROWS_PACKET_ARGS = (P,) + _PACKET_ARGS
 
 # The geometries dense_tile is built for, per dtype: (tile edge BM, micro-tile
 # rows TM, columns TN) and the rings (stages, steps per stage).
@@ -65,6 +71,10 @@ DENSE_RINGS = {torch.float32: tuple((s, q) for s in (2, 3, 4)
 DENSE_TARGET_BLOCKS = 4 * 132
 DENSE_RING = (3, 16)
 DENSE_GROUP = 16
+# The geometries the gathered tile (K1, sampled_rows.cu) is built for: the
+# picks alone, every tile edge with its first micro-tile at DENSE_RING.
+GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
+                  torch.float64: ((64, 4, 4), (32, 4, 4))}
 
 
 class DenseGeometry(NamedTuple):
@@ -102,11 +112,15 @@ def lower_tiles(m: int, bm: int) -> int:
 def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
                    *, bm: int | None = None, micro: tuple | None = None,
                    stages: int | None = None, steps: int | None = None,
-                   group: int | None = None) -> DenseGeometry:
-    """The launch geometry of K7 / K8 on an (m, K) operand of ``dtype``,
-    from the shapes alone.  The chunk is K1's (:func:`resolve_chunk`), which
-    fixes every sum; ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps`` and
-    ``group`` override the picks (for the sweep) and move no sum."""
+                   group: int | None = None,
+                   gathered: bool = False) -> DenseGeometry:
+    """The launch geometry of K7 / K8 on an (m, K) operand of ``dtype``, or
+    with ``gathered`` of K1 on m rows of X (K = n), from the shapes alone.
+    The chunk is K1's (:func:`resolve_chunk`), which fixes every sum;
+    ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps`` and ``group``
+    override the picks (for the sweep) and move no sum.  A geometry the
+    kernel is not built for (:data:`DENSE_TILES` and :data:`DENSE_RINGS`;
+    gathered, :data:`GATHERED_TILES` at :data:`DENSE_RING`) raises."""
     if dtype not in DENSE_TILES:
         raise TypeError(f"dense_tile is built for {tuple(DENSE_TILES)}, "
                         f"not {dtype}")
@@ -127,11 +141,14 @@ def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
     stages = DENSE_RING[0] if stages is None else stages
     steps = DENSE_RING[1] if steps is None else steps
     group = DENSE_GROUP if group is None else group
-    if (bm, tm, tn) not in tiles or (stages, steps) not in DENSE_RINGS[dtype]:
+    built = GATHERED_TILES[dtype] if gathered else tiles
+    rings = (DENSE_RING,) if gathered else DENSE_RINGS[dtype]
+    if (bm, tm, tn) not in built or (stages, steps) not in rings:
         raise ValueError(f"bm={bm}, micro={micro}, stages={stages}, "
                          f"steps={steps}: dense_tile is built in "
-                         f"{str(dtype).split('.')[-1]} for tiles {tiles} and "
-                         f"rings {DENSE_RINGS[dtype]}")
+                         f"{str(dtype).split('.')[-1]}"
+                         f"{' gathered' if gathered else ''} for tiles "
+                         f"{built} and rings {rings}")
     if group < 1:
         raise ValueError(f"group={group} must be positive")
     smem = ring_bytes(bm, stages, steps, dtype)
@@ -189,11 +206,13 @@ def dense_buffers(m: int, geom: DenseGeometry, residual: bool,
 
 def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
                  u: torch.Tensor | None, geom: DenseGeometry, scale: float,
-                 reg: float, scale_r: float | None
+                 reg: float, scale_r: float | None,
+                 flat: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Allocate the outputs (:func:`dense_buffers`), then launch K7 (``u``
-    given) or K8 at ``geom``.  Returns (G, r), r None for K8."""
-    m, K = A.shape
+    given), K8, or with ``flat`` K1 on the rows ``A[flat]`` of A = X, at
+    ``geom``.  Returns (G, r), r None for K8."""
+    m, K = A.shape if flat is None else (flat.shape[0], A.shape[1])
     G, r, Gp, rp = dense_buffers(m, geom, u is not None, dtype=A.dtype,
                                  device=A.device)
     nt = -(-m // geom.bm)
@@ -204,6 +223,9 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
 
     sizes = (K, m, geom.chunk, geom.splits, geom.bm, geom.tm, geom.tn,
              geom.stages, geom.steps, geom.grid[0], geom.smem)
+    scalars = (float(scale), float(reg))
+    if u is not None:
+        scalars += (float(scale if scale_r is None else scale_r),)
     suffix = SUFFIX[A.dtype]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -211,14 +233,20 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
             fn = _build.bind("gram_dense.cu", f"dense_gram_{suffix}",
                              _GRAM_ARGS)
             err = fn(A.data_ptr(), tiles.data_ptr(), ptr(Gp), G.data_ptr(),
-                     *sizes, float(scale), float(reg), stream)
+                     *sizes, *scalars, stream)
         else:
-            fn = _build.bind("gram_dense.cu", f"dense_packet_{suffix}",
-                             _PACKET_ARGS)
-            err = fn(A.data_ptr(), u.data_ptr(), tiles.data_ptr(), ptr(Gp),
-                     ptr(rp), G.data_ptr(), r.data_ptr(), *sizes,
-                     float(scale), float(reg),
-                     float(scale if scale_r is None else scale_r), stream)
+            outs = (tiles.data_ptr(), ptr(Gp), ptr(rp), G.data_ptr(),
+                    r.data_ptr())
+            if flat is None:
+                fn = _build.bind("gram_dense.cu", f"dense_packet_{suffix}",
+                                 _PACKET_ARGS)
+                err = fn(A.data_ptr(), u.data_ptr(), *outs, *sizes,
+                         *scalars, stream)
+            else:
+                fn = _build.bind("sampled_rows.cu", f"rows_packet_{suffix}",
+                                 _ROWS_PACKET_ARGS)
+                err = fn(A.data_ptr(), flat.data_ptr(), u.data_ptr(), *outs,
+                         *sizes, *scalars, stream)
     _build.check(err, info.name)
     info.launches += 1
     return G, r

@@ -1,15 +1,20 @@
-"""Wrappers of the row-sampled CUDA kernels K1 and K2 (``csrc/sampled_rows.cu``).
+"""Wrappers of the row-sampled CUDA kernels K1, K2 and K6
+(``csrc/sampled_rows.cu``).
 
 * :func:`gram_packet_sampled_rows` (K1) -- ``(G, r) = (scale * Y Y^T +
   reg * I, scale_r * Y u)`` for ``Y = X[flat, :]``.  Replaces
   ``gram_packet_sampled_pallas`` (``src/repro/kernels/gram/
   sampled_kernel.py``).  Bounded on the H100 by its m(m+1)/2 * n
-  multiply-adds on the f32 CUDA cores at the solve's m = 128; the
-  contraction is split over blocks to fill the card, the upper tiles are
-  skipped and mirrored in the second pass.
+  multiply-adds on the f32 CUDA cores at the solve's m = 128.  It runs the
+  dense Gram tile (``csrc/dense_tile.cuh``) on the rows ``X[flat]`` in
+  place, at K7's geometry for the same (m, n) (:func:`rows_packet_geometry`,
+  ``gram_kernel.launch_dense``), so it equals K7 on the gathered panel bit
+  for bit.
 * :func:`panel_apply_rows` (K2) -- ``out(n) = scale * Y^T v``.  Replaces
   ``panel_apply_pallas`` (same file).  Bounded by the m * n bytes of X it
-  reads; one thread per column keeps every read coalesced.
+  reads.  One thread per column sums one chain in sample order, with two
+  batches of loads in flight; narrow blocks keep every block resident.  The
+  geometry comes from :func:`apply_geometry` and moves no sum.
 * :func:`panel_matvec_rows` (K6) -- ``out = scale * Y t`` for t (n,) or T
   tenant vectors (T, n).  Replaces ``panel_matvec_pallas`` (same file).
   Sums in K1's residual order, so it equals K1's r bit for bit at the same
@@ -45,15 +50,28 @@ ROWS_MATVEC = _build.KernelInfo(
     "src/repro/kernels/gram/sampled_kernel.py:261")
 
 P, I, I64, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
-# rows_packet_*(X, flat, u, Gp, rp, G, r, n, m, chunk, splits, scale, reg,
-#               scale_r, stream); rows_apply_*(X, flat, v, out, n, m, scale,
-#               stream); rows_matvec_*(X, flat, t, rp, tickets, out, n, m,
-#               tenants, chunk, splits, rows, group, stages, steps, grid_x,
-#               smem, scale, stream)
-_PACKET_ARGS = (P,) * 7 + (I64, I, I64, I, D, D, D, P)
-_APPLY_ARGS = (P, P, P, P, I64, I, D, P)
+# rows_apply_*(X, flat, v, out, n, m, threads, cols, batch, scale, stream);
+# rows_matvec_*(X, flat, t, rp, tickets, out, n, m, tenants, chunk, splits,
+#               rows, group, stages, steps, grid_x, smem, scale, stream);
+# rows_packet_* in gram_kernel.py
+_APPLY_ARGS = (P, P, P, P, I64, I, I, I, I, D, P)
 MATVEC_ARGS = (P,) * 6 + (I64, I, I, I64, I, I, I, I, I, I, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# K2 (rows_apply): the block sizes, and per dtype the (columns a thread,
+# batch) pairs it is built for (a batch: the samples whose loads a thread
+# keeps in flight, two batches at a time), and the picks from
+# launch.tile_sweep's apply sweep (PERF.md): (threads, cols, batch) at CG's
+# shape, where 64-thread blocks kept in step by the window barrier read X
+# best; and the threads where m fits one 32-sample window (the solve's
+# m = 8), where no barrier runs and fewer, wider blocks take less time.
+# The batch is cut to the smallest built one that covers m, else the
+# largest built.
+APPLY_THREADS = (64, 128, 256)
+APPLY_BUILT = {torch.float32: ((1, 8), (2, 4), (2, 8), (2, 16), (4, 8)),
+               torch.float64: ((1, 8), (2, 4), (2, 8))}
+APPLY_PICK = (64, 2, 16)
+APPLY_WINDOW_THREADS = 256
 
 # The matvec ring kernel (csrc/gram_common.cuh, matvec_ring): its block size,
 # and the rows per block, ring depths and stage lengths (contraction steps)
@@ -168,6 +186,64 @@ def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
     return G, r
 
 
+class ApplyGeometry(NamedTuple):
+    """How a K2 launch is cut: ``threads`` threads a block, ``cols``
+    columns a thread (32 apart), ``batch`` samples a load batch, and
+    ``blocks`` blocks."""
+    threads: int
+    cols: int
+    batch: int
+    blocks: int
+
+
+def apply_geometry(m: int, n: int, dtype: torch.dtype, *,
+                   threads: int | None = None, cols: int | None = None,
+                   batch: int | None = None) -> ApplyGeometry:
+    """The launch geometry of K2 over m samples of rows of n columns, from
+    the shapes alone: the pick (:data:`APPLY_WINDOW_THREADS` threads where
+    m <= 32), its batch the smallest built one (at the picked cols) that
+    covers min(m, picked batch), else the largest built; ``threads``,
+    ``cols`` and ``batch`` override it (for the sweep).  Every column is one
+    chain in sample order whatever the geometry."""
+    if dtype not in APPLY_BUILT:
+        raise TypeError(f"rows_apply is built for {tuple(APPLY_BUILT)}, "
+                        f"not {dtype}")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"rows_apply takes 1 <= n < 2**31 columns, got {n}")
+    built = APPLY_BUILT[dtype]
+    if threads is None:
+        threads = APPLY_WINDOW_THREADS if m <= 32 else APPLY_PICK[0]
+    cols = APPLY_PICK[1] if cols is None else cols
+    qs = sorted(q for c, q in built if c == cols)
+    if batch is None and qs:
+        batch = next((q for q in qs if q >= min(m, APPLY_PICK[2])), qs[-1])
+    if threads not in APPLY_THREADS or (cols, batch) not in built:
+        raise ValueError(f"threads={threads}, cols={cols}, batch={batch}: "
+                         f"rows_apply is built for threads in "
+                         f"{APPLY_THREADS} and (cols, batch) in {built} in "
+                         f"{str(dtype).split('.')[-1]}")
+    return ApplyGeometry(threads, cols, batch, -(-n // (threads * cols)))
+
+
+def launch_apply(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,
+                 geom: ApplyGeometry, scale: float) -> torch.Tensor:
+    """Allocate the output and launch K2 at ``geom``:
+    ``rows_apply_{f32,f64}(X, flat, v, out, n, m, threads, cols, batch,
+    scale, stream)``."""
+    n = X.shape[1]
+    out = torch.empty((n,), dtype=X.dtype, device=X.device)
+    fn = _build.bind("sampled_rows.cu", f"rows_apply_{SUFFIX[X.dtype]}",
+                     _APPLY_ARGS)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(X.data_ptr(), flat.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 n, flat.shape[0], geom.threads, geom.cols, geom.batch,
+                 float(scale), stream)
+    _build.check(err, ROWS_APPLY.name)
+    ROWS_APPLY.launches += 1
+    return out
+
+
 class MatvecGeometry(NamedTuple):
     """How a matvec launch is cut: ``rows`` sample rows and ``group``
     tenants per block, a ring of ``stages`` stages of ``steps``
@@ -276,6 +352,15 @@ def launch_matvec(info: _build.KernelInfo, symbol: str, argtypes: tuple,
     return out if t.dim() == 2 else out[0]
 
 
+def rows_packet_geometry(m: int, n: int, dtype: torch.dtype,
+                         bk: int | None = None, **over):
+    """K1's launch geometry over m rows of X (d, n): the dense tile's pick
+    for (m, n) at K1's chunk (``gram_kernel.dense_geometry`` with
+    ``gathered``); ``over`` overrides it as there (for the tests)."""
+    from .gram_kernel import dense_geometry   # gram_kernel imports this module
+    return dense_geometry(m, n, dtype, bk, gathered=True, **over)
+
+
 def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
                              u: torch.Tensor, *, scale: float = 1.0,
                              reg: float = 0.0, scale_r: float | None = None,
@@ -284,12 +369,11 @@ def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
     """K1: the row-sampled packet for X (d, n), flat (m,) int32, u (n,)."""
     if X.device.type == "cpu":
         return ref.gram_packet_sampled_ref(X, flat, u, scale, reg, scale_r)
+    from .gram_kernel import launch_dense
     d, n = X.shape
     check_cuda_operands(X, flat, u, n, d, ROWS_PACKET.name)
-    chunk = resolve_chunk(flat.shape[0], n, X.dtype, "rows", bk)
-    return launch_packet(ROWS_PACKET, "rows_packet", _PACKET_ARGS,
-                         (X, flat, u), (n,), flat.shape[0], n, chunk, scale,
-                         reg, scale if scale_r is None else scale_r)
+    geom = rows_packet_geometry(flat.shape[0], n, X.dtype, bk)
+    return launch_dense(ROWS_PACKET, X, u, geom, scale, reg, scale_r, flat)
 
 
 def panel_apply_rows(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,
@@ -299,16 +383,8 @@ def panel_apply_rows(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,
         return ref.panel_apply_ref(X, flat, v, scale)
     d, n = X.shape
     check_cuda_operands(X, flat, v, flat.shape[0], d, ROWS_APPLY.name)
-    out = torch.empty((n,), dtype=X.dtype, device=X.device)
-    fn = _build.bind("sampled_rows.cu", f"rows_apply_{SUFFIX[X.dtype]}",
-                     _APPLY_ARGS)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(X.data_ptr(), flat.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 n, flat.shape[0], float(scale), stream)
-    _build.check(err, ROWS_APPLY.name)
-    ROWS_APPLY.launches += 1
-    return out
+    return launch_apply(X, flat, v, apply_geometry(flat.shape[0], n, X.dtype),
+                        scale)
 
 
 def panel_matvec_rows(X: torch.Tensor, flat: torch.Tensor, t: torch.Tensor,

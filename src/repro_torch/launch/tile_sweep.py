@@ -4,6 +4,15 @@ solve's shapes (real-sim: d = 20958, n = 72309, f32).
 * ``packet``: the contraction chunk ``bk`` of the packet kernels K1 and K3,
   per m; prints the device time of one packet and its block count, with the
   default pick of ``tuning.pick_tiles`` marked.
+* ``gather``: the row-sampled packet K1 at its pick, m = 128 and m = 8, on
+  rows of X in several patterns -- random (the solver's), random sorted,
+  consecutive, 7 apart (one 2 MB page apart at real-sim), and random with
+  only m/2 or m/4 distinct rows -- beside K7 on the random rows gathered
+  beforehand: what the row addresses cost the gathered tile.
+* ``apply``: block size, columns a thread and load batch of the row apply K2
+  (``sampled_kernel.apply_geometry``), every geometry it is built for, at
+  the solve's m = 8 and at CG's shape (flat = arange(d)); timed warm and
+  cold as the matvecs.
 * ``matvec``: rows per block, ring depth and stage length of the matvec
   kernels K5 and K6 (``sampled_kernel.matvec_geometry``; combinations that
   need more shared memory than a block has are skipped), with the chunk
@@ -26,7 +35,7 @@ kernel's work depends on the values, but the card's power draw does, and
 with it the clock under the power cap (PERF.md, K8).
 
 Run on a GPU:  PYTHONPATH=src python -m repro_torch.launch.tile_sweep
-               [--only packet|matvec|dense] [--reps N]
+               [--only packet|gather|apply|matvec|dense] [--reps N]
 """
 from __future__ import annotations
 
@@ -59,13 +68,88 @@ def sweep_packets(X, g, reps: int) -> list:
             auto = tuning.pick_tiles(m, K, X.dtype, layout)
             for bk in sorted(set(CHUNKS) | {auto}):
                 ms = device_ms(lambda: kern(X, flat, u, bk=bk), reps,
-                               KERNEL_NAMES["packet"])
+                               KERNEL_NAMES[f"{layout}_packet"])
                 blocks = tuning.lower_tiles(m) * -(-K // bk)
                 mark = "  <- default" if bk == auto else ""
                 print(f"{kern.__name__:26s} m={m:4d} bk={bk:5d} "
                       f"blocks={blocks:5d}: {ms:.4f} ms{mark}", flush=True)
                 rows.append(("packet", layout, m, bk, ms))
     return rows
+
+
+def sweep_gather(X, g, reps: int) -> list:
+    """K1 at its pick on rows of X in several patterns, warm and cold,
+    beside K7 on the random rows gathered beforehand."""
+    d, n = X.shape
+    flush = l2_flush(X.device)
+    u = torch.randn((n,), generator=g, device=X.device)
+    out = []
+    for m in (128, 8):
+        rnd = torch.randperm(d, generator=g, device=X.device)[:m]
+        Y = X[rnd].contiguous()
+        pats = {"random": rnd, "sorted": rnd.sort().values,
+                "consecutive": torch.arange(m, device=X.device),
+                "7 apart": 7 * torch.arange(m, device=X.device) % d,
+                "m/2 distinct": rnd[:m // 2].repeat(2),
+                "m/4 distinct": rnd[:m // 4].repeat(4)}
+        cases = [("K7 on the gathered random rows",
+                  lambda: gk.gram_packet_dense(Y, u), KERNEL_NAMES["dense"])]
+        for name, rows in pats.items():
+            flat = rows.to(torch.int32).contiguous()
+            geom = sk.rows_packet_geometry(m, n, X.dtype)
+            cases.append((f"K1 on {name} rows",
+                          lambda f=flat, geom=geom: gkk.launch_dense(
+                              gk.ROWS_PACKET, X, u, geom, 1.0, 0.0, None, f),
+                          KERNEL_NAMES["rows_packet"]))
+        for name, launch, names in cases:
+            warm = device_ms(launch, reps, names)
+            tile = device_ms(launch, reps, ("dense_tile",))
+            cold = event_ms(launch, reps, flush)
+            print(f"gather m={m:4d} {name:32s}: warm {warm:.4f} ms (tile "
+                  f"{tile:.4f}), cold {cold:.4f} ms", flush=True)
+            out.append(("gather", m, name, warm, tile, cold))
+    return out
+
+
+def apply_launcher(X, flat, v, geom=None):
+    """A call that launches K2 on (X, flat, v) at ``geom`` (default: the
+    wrapper's pick), without the wrapper's operand checks, which wait on
+    the device: for timing."""
+    geom = geom or sk.apply_geometry(flat.shape[0], X.shape[1], X.dtype)
+    return lambda: sk.launch_apply(X, flat, v, geom, 1.0)
+
+
+def sweep_applies(X, g, reps: int) -> list:
+    """Every (threads, cols, batch) K2 is built for, at the solve's m = 8
+    and at CG's shape, each held to the pick under torch.equal."""
+    d, n = X.shape
+    flush = l2_flush(X.device)
+    out = []
+    for m in (8, d):
+        flat = (torch.arange(d, dtype=torch.int32, device=X.device)
+                if m == d else torch.randperm(d, generator=g,
+                                              device=X.device)[:m].to(
+                                                  torch.int32))
+        v = torch.randn((m,), generator=g, device=X.device)
+        auto = sk.apply_geometry(m, n, X.dtype)
+        want = apply_launcher(X, flat, v, auto)()
+        for threads, (cols, batch) in itertools.product(
+                sk.APPLY_THREADS, sk.APPLY_BUILT[X.dtype]):
+            geom = sk.apply_geometry(m, n, X.dtype, threads=threads,
+                                     cols=cols, batch=batch)
+            launch = apply_launcher(X, flat, v, geom)
+            if not torch.equal(launch(), want):
+                raise AssertionError(f"rows_apply m={m}: {geom} changed a "
+                                     f"sum")
+            n_reps = max(1, reps // 5) if m == d else reps
+            warm = device_ms(launch, n_reps, KERNEL_NAMES["rows_apply"])
+            cold = event_ms(launch, n_reps, flush)
+            mark = "  <- default" if geom == auto else ""
+            print(f"rows_apply m={m:5d} threads={threads:3d} cols={cols} "
+                  f"batch={batch:2d} blocks={geom.blocks:5d}: warm "
+                  f"{warm:.4f} ms, cold {cold:.4f} ms{mark}", flush=True)
+            out.append(("apply", m, threads, cols, batch, warm, cold))
+    return out
 
 
 def matvec_launcher(X, flat, t, layout: str, geom=None):
@@ -193,10 +277,14 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
     dev = check_device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    if only in (None, "packet", "matvec"):
+    if only in (None, "packet", "gather", "apply", "matvec"):
         X = torch.randn((d, n), generator=g, device=dev)
         if only in (None, "packet"):
             rows += sweep_packets(X, g, reps)
+        if only in (None, "gather"):
+            rows += sweep_gather(X, g, reps)
+        if only in (None, "apply"):
+            rows += sweep_applies(X, g, reps)
         if only in (None, "matvec"):
             rows += sweep_matvecs(X, g, reps)
         del X
@@ -208,7 +296,8 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("packet", "matvec", "dense"),
+    ap.add_argument("--only", choices=("packet", "gather", "apply", "matvec",
+                                       "dense"),
                     default=None)
     args = ap.parse_args()
     main(reps=args.reps, only=args.only)

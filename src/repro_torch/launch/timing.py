@@ -105,7 +105,8 @@ def wall_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNEL_NAMES = {"packet": ("packet_partial", "packet_reduce"),
+KERNEL_NAMES = {"rows_packet": ("dense_tile", "dense_reduce"),
+                "cols_packet": ("packet_partial", "packet_reduce"),
                 "dense": ("dense_tile", "dense_reduce"),
                 "matvec": ("matvec_ring",),
                 "rows_apply": ("rows_apply",), "cols_apply": ("cols_apply",)}

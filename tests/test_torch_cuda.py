@@ -13,9 +13,10 @@ matvec kernels K5/K6 sum in the packet's residual order, so they are held to
 K3/K1's r, to their own single-tenant launches and, in the batched engine,
 to the single solves under ``torch.equal``: no tolerance.  So are the dense
 kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, and
-K8's G equals K7's.  Neither the matvecs' output nor the dense kernels'
-depends on their launch geometry (rows per block, ring depth; tile edge,
-micro-tile, ring, tile order), also under ``torch.equal``.  The
+K8's G equals K7's.  Neither the matvecs' output nor the dense kernels' nor
+K1's nor K2's depends on their launch geometry (rows per block, ring depth;
+tile edge, micro-tile, ring, tile order; columns a block and load batch),
+also under ``torch.equal``.  The
 baselines through the kernels: CholeskyQR and CG against the direct solve in
 f64, relative 1e-9 (CholeskyQR squares the operand's condition; CG stops at
 tol 1e-13).
@@ -89,6 +90,8 @@ def test_kernel_refuses_bad_indices_on_card(cuda_device):
     with pytest.raises(IndexError):
         gk.gram_packet_sampled_rows(X, flat, torch.zeros(7,
                                                          device=cuda_device))
+    with pytest.raises(IndexError):
+        gk.panel_apply_rows(X, flat, torch.zeros(2, device=cuda_device))
     with pytest.raises(TypeError, match="bf16"):
         gk.panel_apply_cols(X.to(torch.bfloat16), flat[:1],
                             torch.zeros(1, device=cuda_device,
@@ -395,3 +398,88 @@ def test_matvec_geometry_changes_no_sum_on_card(cuda_device, layout,
         got = sk.launch_matvec(info, symbol, args, X, flat, t, sizes, geom,
                                1.0)
         assert torch.equal(got, want), (rows, stages, steps)
+
+
+def _rows_problem(device, dtype, d, n, m, seed):
+    """X (d, n), m indices with duplicates (one forced), u (n,), v (m,)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((d, n), generator=g, device=device, dtype=dtype)
+    flat = torch.randint(0, d, (m,), generator=g, device=device,
+                         dtype=torch.int32)
+    flat[-1] = flat[0]
+    u = torch.randn((n,), generator=g, device=device, dtype=dtype)
+    v = torch.randn((m,), generator=g, device=device, dtype=dtype)
+    return X, flat, u, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2001, 2000])
+@pytest.mark.parametrize("m", [1, 8, 77, 129, 300])
+def test_row_packet_equals_dense_packet_on_gathered_rows_on_card(
+        cuda_device, m, n, dtype):
+    """K1 on (X, flat) equals K7 on the gathered panel X[flat] and K6
+    equals K1's r, under torch.equal, at ragged m with duplicate indices,
+    rows of X 4-byte (odd n) or 16-byte aligned (even n), scale and reg."""
+    X, flat, u, _ = _rows_problem(cuda_device, dtype, 300, n, m, m + n)
+    knobs = {"scale": 0.5, "reg": 0.25}
+    gk.reset_launch_counts()
+    G1, r1 = gk.gram_packet_sampled_rows(X, flat, u, scale_r=2.0, **knobs)
+    assert gk.ROWS_PACKET.launches == 1
+    G7, r7 = gk.gram_packet_dense(X[flat.long()].contiguous(), u,
+                                  scale_r=2.0, **knobs)
+    assert torch.equal(G1, G7) and torch.equal(r1, r7)
+    assert torch.equal(G1, G1.T)
+    _, r = gk.gram_packet_sampled_rows(X, flat, u, scale=1.0, scale_r=1.0)
+    assert torch.equal(gk.panel_matvec_rows(X, flat, u), r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,bk", [(77, 2001, None), (129, 2001, None),
+                                    (300, 2001, 2016), (2900, 301, None)])
+def test_row_packet_geometry_changes_no_sum_on_card(cuda_device, m, n, bk,
+                                                    dtype):
+    """Every geometry K1's gathered tile is built for gives the pick's G and
+    r bit for bit, at several splits and at one (bk = 2016 >= n; m = 2900
+    picks one split itself)."""
+    from repro_torch.kernels.gram import gram_kernel as gkk
+    from repro_torch.kernels.gram import sampled_kernel as sk
+    X, flat, u, _ = _rows_problem(cuda_device, dtype, 300, n, m, m)
+    auto = sk.rows_packet_geometry(m, n, dtype, bk)
+    want = gk.gram_packet_sampled_rows(X, flat, u, scale=0.5, reg=0.25,
+                                       scale_r=2.0, bk=bk)
+    for bm, tm, tn in gkk.GATHERED_TILES[dtype]:
+        geom = sk.rows_packet_geometry(m, n, dtype, bk, bm=bm,
+                                       micro=(tm, tn))
+        assert geom.chunk == auto.chunk
+        G, r = gkk.launch_dense(gk.ROWS_PACKET, X, u, geom, 0.5, 0.25, 2.0,
+                                flat)
+        assert torch.equal(G, want[0]) and torch.equal(r, want[1]), geom
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("m", [8, 77, 2900, "cg"])
+def test_row_apply_matches_plain_version_on_card(cuda_device, m, dtype,
+                                                 tol):
+    """K2 against its plain version at the solve's m = 8, ragged m, a long
+    chain with duplicates (m = 2900 > d) and CG's shape (flat = arange(d)),
+    with every geometry it is built for giving the pick's output bit for
+    bit."""
+    from repro_torch.kernels.gram import sampled_kernel as sk
+    d, n = (2900, 2001) if m == "cg" else (300, 2001)
+    X, flat, _, v = _rows_problem(cuda_device, dtype, d, n,
+                                  d if m == "cg" else m, 17)
+    if m == "cg":
+        flat = torch.arange(d, dtype=torch.int32, device=cuda_device)
+    gk.reset_launch_counts()
+    got = gk.panel_apply_rows(X, flat, v, scale=0.5)
+    assert gk.ROWS_APPLY.launches == 1
+    want = tref.panel_apply_ref(X, flat, v, 0.5)
+    assert got.dtype == dtype and got.shape == (n,)
+    assert _rel(got, want) <= tol
+    for threads in sk.APPLY_THREADS:
+        for cols, batch in sk.APPLY_BUILT[dtype]:
+            geom = sk.apply_geometry(flat.shape[0], n, dtype,
+                                     threads=threads, cols=cols, batch=batch)
+            assert torch.equal(sk.launch_apply(X, flat, v, geom, 0.5),
+                               got), geom

@@ -1,8 +1,8 @@
-"""The host side of the dense Gram kernels K7 / K8 (``gram_kernel.py``): the
-launch geometry worked out from the shapes alone, the tile order, and the
-buffers a launch allocates.  No card and no JAX needed: the kernels' own
-arithmetic is held to their plain versions on the card
-(``tests/test_torch_cuda.py``).
+"""The host side of the dense Gram tile (``gram_kernel.py``) that K7 / K8 and
+the row-sampled packet K1 launch: the launch geometry worked out from the
+shapes alone, the tile order, and the buffers a launch allocates.  No card
+and no JAX needed: the kernels' own arithmetic is held to their plain
+versions on the card (``tests/test_torch_cuda.py``).
 """
 import itertools
 import re
@@ -56,6 +56,32 @@ def test_dense_tile_edge_from_m(m, K, dtype):
     assert (geom.bm, geom.tm, geom.tn) in gkk.DENSE_TILES[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 8, 77, 128, 129, 300])
+def test_row_packet_launches_the_dense_pick_at_its_own_chunk(m, dtype):
+    """K1 launches the gathered tile at the geometry K7 would take on its
+    gathered panel (so K1 == K7 bit for bit), at K1's chunk, and that
+    geometry is one the gathered tile is built for."""
+    for n in (72309, 2001):
+        geom = sk.rows_packet_geometry(m, n, dtype)
+        assert geom == gkk.dense_geometry(m, n, dtype)
+        assert geom.chunk == sk.resolve_chunk(m, n, dtype, "rows", None)
+        assert (geom.bm, geom.tm, geom.tn) in gkk.GATHERED_TILES[dtype]
+        assert (geom.stages, geom.steps) == gkk.DENSE_RING
+        assert sk.rows_packet_geometry(m, n, dtype, 64).chunk == 64
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_pick_is_built_gathered(dtype):
+    """Whatever m K1 is given, the dense pick has a gathered instantiation."""
+    for m in list(range(1, 300)) + [1000, 2900, 4096, 20958]:
+        for K in (301, 72309):
+            geom = gkk.dense_geometry(m, K, dtype)
+            assert (geom.bm, geom.tm, geom.tn) in gkk.GATHERED_TILES[dtype]
+    assert {t[0] for t in gkk.GATHERED_TILES[dtype]} == {
+        t[0] for t in gkk.DENSE_TILES[dtype]}
+
+
 def test_dense_tile_edge_at_the_main_shapes():
     f32 = torch.float32
     assert gkk.dense_geometry(20958, 93267, f32).bm == 128     # K8
@@ -94,7 +120,10 @@ def test_ring_bytes_counts_two_operands_and_u(bm, stages, steps, dtype, want):
 @pytest.mark.parametrize("over,err", [
     ({"bm": 48}, ValueError), ({"bm": 128, "micro": (4, 4)}, ValueError),
     ({"stages": 5}, ValueError), ({"steps": 24}, ValueError),
-    ({"group": 0}, ValueError)])
+    ({"group": 0}, ValueError),
+    ({"gathered": True, "bm": 64, "micro": (8, 8)}, ValueError),
+    ({"gathered": True, "stages": 2}, ValueError),
+    ({"gathered": True, "steps": 32}, ValueError)])
 def test_dense_geometry_refuses_what_the_kernel_is_not_built_for(over, err):
     with pytest.raises(err):
         gkk.dense_geometry(128, 1000, torch.float32, **over)
@@ -111,21 +140,35 @@ def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
         gkk.dense_geometry(128, 1000, torch.float32, 48)
 
 
-def test_host_table_matches_what_the_source_builds():
-    """gram_dense.cu's dispatch lists the geometries the host may ask for."""
+def _as_int(t):
+    return tuple(map(int, t))
+
+
+@pytest.mark.parametrize("kernel", ["dense", "gathered"])
+def test_host_table_matches_what_the_source_builds(kernel):
+    """gram_dense.cu's dispatch (K7 / K8) and sampled_rows.cu's (K1) list
+    the geometries the host may ask for."""
+    tile = r"REPRO_TILE\((\d+), (\d+), (\d+), (\d+), (\d+)\)\n"
+    if kernel == "gathered":
+        src = (CSRC / "sampled_rows.cu").read_text()
+        body = src[src.index("int packet_impl("):
+                   src.index("#undef REPRO_TILE")]
+        f32, f64 = body.split("} else {")
+        for dtype, part in ((torch.float32, f32), (torch.float64, f64)):
+            built = {_as_int(t) for t in re.findall(tile, part)}
+            assert built == {t + gkk.DENSE_RING
+                             for t in gkk.GATHERED_TILES[dtype]}
+        return
     src = (CSRC / "gram_dense.cu").read_text()
     rings = set(re.findall(r"REPRO_TILE\(B, M, N, (\d+), (\d+)\)", src))
     f32 = set(re.findall(r"REPRO_RINGS\((\d+), (\d+), (\d+)\)\n", src))
-    f64 = set(re.findall(r"REPRO_TILE\((\d+), (\d+), (\d+), (\d+), (\d+)\)\n",
-                         src))
-
-    def as_int(t):
-        return tuple(map(int, t))
-
-    assert {as_int(t) for t in rings} == set(gkk.DENSE_RINGS[torch.float32])
-    assert {as_int(t) for t in f32} == set(gkk.DENSE_TILES[torch.float32])
-    assert {as_int(t)[:3] for t in f64} == set(gkk.DENSE_TILES[torch.float64])
-    assert {as_int(t)[3:] for t in f64} == set(gkk.DENSE_RINGS[torch.float64])
+    f64 = set(re.findall(tile, src))
+    assert {_as_int(t) for t in rings} == set(gkk.DENSE_RINGS[torch.float32])
+    assert {_as_int(t) for t in f32} == set(gkk.DENSE_TILES[torch.float32])
+    assert {_as_int(t)[:3] for t in f64} == set(
+        gkk.DENSE_TILES[torch.float64])
+    assert {_as_int(t)[3:] for t in f64} == set(
+        gkk.DENSE_RINGS[torch.float64])
 
 
 @pytest.mark.parametrize("nt,group", [(1, 16), (3, 1), (7, 2), (10, 4),

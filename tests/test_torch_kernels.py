@@ -168,7 +168,9 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
     torch.testing.assert_close(
         out, tref.panel_apply_cols_ref(X, flat, X[0, :4]), rtol=0, atol=0)
     gk.gram_packet_sampled_cols(X, flat, X[:, 0])
-    gk.panel_apply_rows(X, flat, X[0, :4])
+    torch.testing.assert_close(
+        gk.panel_apply_rows(X, flat, X[0, :4]),
+        tref.panel_apply_ref(X, flat, X[0, :4]), rtol=0, atol=0)
     torch.testing.assert_close(
         gk.panel_matvec_rows(X, flat, X[:2]),
         tref.panel_matvec_ref(X, flat, X[:2]), rtol=0, atol=0)
@@ -285,6 +287,67 @@ def test_matvec_geometry_within_limits_at_the_packets_chunk(m, K, tenants,
         assert geom.smem >= geom.stages * (geom.rows + geom.group) * (
             geom.steps + 16 // isz) * isz
     assert sk.matvec_geometry(m, K, tenants, dtype, layout, 64).chunk == 64
+
+
+@pytest.mark.parametrize("m,n", [(8, 72309), (20958, 72309), (1, 1),
+                                 (77, 2001), (16, 33), (9, 31),
+                                 (300, 2**31 - 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_apply_geometry_within_limits(m, n, dtype):
+    """The launch geometry of K2, the pick and every override it is built
+    for: whole warps a block, within a block's 1024 threads and the grid's
+    2**31 - 1 blocks, every column owned by one thread; a batch divides the
+    32-sample window, and the pick's is the smallest built one that covers
+    min(m, picked batch), else the largest built."""
+    built = sk.APPLY_BUILT[dtype]
+    auto = sk.apply_geometry(m, n, dtype)
+    assert auto.cols == sk.APPLY_PICK[1]
+    assert auto.threads == (sk.APPLY_WINDOW_THREADS if m <= 32
+                            else sk.APPLY_PICK[0])
+    qs = sorted(q for c, q in built if c == auto.cols)
+    covering = [q for q in qs if q >= min(m, sk.APPLY_PICK[2])]
+    assert auto.batch == (covering[0] if covering else qs[-1])
+    assert auto.batch <= max(sk.APPLY_PICK[2], 8)
+    geoms = [auto] + [sk.apply_geometry(m, n, dtype, threads=t, cols=c,
+                                        batch=q)
+                      for t in sk.APPLY_THREADS for c, q in built]
+    for geom in geoms:
+        assert geom.threads % 32 == 0 and geom.threads <= 256
+        assert 32 % geom.batch == 0 and (geom.cols, geom.batch) in built
+        span = geom.threads * geom.cols
+        assert geom.blocks == -(-n // span) < 2**31
+        assert (geom.blocks - 1) * span < n <= geom.blocks * span
+
+
+@pytest.mark.parametrize("over,err", [
+    ({"threads": 96}, ValueError), ({"threads": 512}, ValueError),
+    ({"batch": 12}, ValueError), ({"batch": 64}, ValueError),
+    ({"cols": 3}, ValueError), ({"cols": 8, "batch": 8}, ValueError),
+    ({"dtype": torch.float64, "cols": 8, "batch": 4}, ValueError),
+    ({"n": 2**31}, ValueError), ({"n": 0}, ValueError),
+    ({"dtype": torch.bfloat16}, TypeError)])
+def test_apply_geometry_refuses_what_the_kernel_is_not_built_for(over, err):
+    args = {"m": 8, "n": 1000, "dtype": torch.float32} | over
+    m, n, dtype = args.pop("m"), args.pop("n"), args.pop("dtype")
+    with pytest.raises(err):
+        sk.apply_geometry(m, n, dtype, **args)
+
+
+def test_apply_host_table_matches_what_the_source_builds():
+    """sampled_rows.cu's K2 dispatch lists the (cols, batch) pairs the host
+    may ask for, per dtype."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1]
+           / "src/repro_torch/csrc/sampled_rows.cu").read_text()
+    body = src[src.index("int apply_impl("):src.index("#undef REPRO_APPLY")]
+    f32, f64 = body.split("} else {")
+    for dtype, part in ((torch.float32, f32), (torch.float64, f64)):
+        built = {tuple(map(int, t)) for t in
+                 re.findall(r"REPRO_APPLY\((\d+), (\d+)\)\n", part)}
+        assert built == set(sk.APPLY_BUILT[dtype])
+    assert set(map(int, re.findall(r"threads != (\d+)", body))) == set(
+        sk.APPLY_THREADS)
 
 
 def test_matvec_geometry_refuses_what_the_kernel_is_not_built_for():
