@@ -16,17 +16,19 @@ Phases (any failure raises; nothing is caught):
      version's time and a library call's time (for K1-K6 also PyTorch's
      gather of the sampled panel that the library call starts from,
      ``gather_ms``, outside the printed kernels line); the packets K1 / K3
-     timed at the solve's m = 128 and m = 8, K1's tile and reduce passes
-     also apart; the matvecs K5/K6 also equal to K3/K1's r and their
-     T-tenant launch to T single launches (torch.equal), and K5/K6 and
-     their library calls timed twice, L2 warm (calls back to back) and L2
-     cold (a 256 MB write before each call); the dense K7 / K8 on a gathered
-     panel, K7 equal to K1 on the same indices and K8 to K7's G
-     (torch.equal); K2 and K6 at CG's shape (flat = arange(d)), both also
-     L2 cold;
+     timed at the solve's m = 128 and m = 8; the matvecs K5/K6 also equal
+     to K3/K1's r and their T-tenant launch to T single launches
+     (torch.equal), K3 equal to K7 on its gathered transposed panel
+     X[:, flat]^T at K3's chunk (torch.equal), and K3, K4, K5/K6 and their
+     library calls timed twice, L2 warm (calls back to back) and L2 cold (a
+     256 MB write before each call), K1's and K3's tile and reduce passes
+     also apart; the dense K7 / K8 on a gathered panel, K7 equal to K1 on
+     the same indices and K8 to K7's G (torch.equal); K2 and K6 at CG's
+     shape (flat = arange(d)), both also L2 cold;
   3. the single solves at real-sim size (counted): CA(16) against
      classical, the kernel path against impl="ref", the objective going
-     down, the launch counts; 3b. the device-idle share from a trace;
+     down, the launch counts; 3b. the device-idle share from a trace, with
+     each of the port's kernels' time and launches in it;
   4. f64 exactness through the kernels at the 8x-cut real-sim shape: CA(s)
      against classical for s in {3, 16} with a ragged tail;
   5. the batched engine at real-sim size (counted): 8 tenants with mixed
@@ -71,7 +73,11 @@ from repro_torch.data import (PAPER_DATASETS, PAPER_DATASETS_FULL,  # noqa: E402
                               make_regression)
 from repro_torch.kernels import gram as gk  # noqa: E402
 from repro_torch.kernels.gram import _build  # noqa: E402
+from repro_torch.kernels.gram.sampled_colmajor import (  # noqa: E402
+    cols_packet_geometry)
 from repro_torch.launch.tile_sweep import (apply_launcher,  # noqa: E402
+                                           cols_apply_launcher,
+                                           cols_packet_launcher,
                                            matvec_launcher)
 from repro_torch.launch.timing import (KERNEL_NAMES, device_ms,  # noqa: E402
                                        event_ms, l2_flush, wall_ms)
@@ -205,6 +211,25 @@ def check_matvec_identities(X, flat, vec, kern, layout: str, tag: str,
                              f"m={flat.shape[0]} ({same_r}, {singles})")
 
 
+def check_cols_packet_identity(X, flat, u, tag: str) -> None:
+    """K3 on (X, flat) against K7 on the gathered transposed panel
+    X[:, flat]^T at K3's chunk, with scale, reg and scale_r, under
+    torch.equal: the two run the same tile over the same sums."""
+    m, d = flat.shape[0], X.shape[0]
+    knobs = {"scale": 0.5, "reg": 0.25, "scale_r": 2.0}
+    G3, r3 = gk.gram_packet_sampled_cols(X, flat, u, **knobs)
+    Y = X[:, flat.long()].T.contiguous()
+    chunk = cols_packet_geometry(m, d, X.dtype).chunk
+    G7, r7 = gk.gram_packet_dense(Y, u, bk=chunk, **knobs)
+    same = torch.equal(G3, G7) and torch.equal(r3, r7)
+    torch.cuda.synchronize()
+    log(f"    {tag} gram_packet_sampled_cols m={m}: equal to K7 on "
+        f"X[:, flat]^T at K3's chunk {chunk} {same}")
+    if not same:
+        raise AssertionError(f"K3 differs from K7 on its gathered panel at "
+                             f"m={m}")
+
+
 def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                   main_m: dict, tenants: int, flush=None) -> dict:
     """Phase 2 on one X: every kernel against its plain version for each m in
@@ -247,6 +272,8 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
             if kind == "matvec":
                 check_matvec_identities(X, flat, vec, kern, layout, tag,
                                         info.name)
+            if kind == "packet" and layout == "cols":
+                check_cols_packet_identity(X, flat, vec, tag)
             timed = main_m.get(kind, ())
             if m not in timed:
                 continue
@@ -268,8 +295,9 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                                    names, reps))
             rec.update(bound(kind, m, uniq, K, X.dtype,
                              tenants if kind == "matvec" else 1))
-            if kind == "packet" and layout == "rows":
-                # K1's two passes apart (at both timed m, several chunks)
+            if kind == "packet":
+                # K1's / K3's two passes apart (at both timed m, several
+                # chunks)
                 for key, part in (("tile_ms", "dense_tile"),
                                   ("reduce_ms", "dense_reduce")):
                     rec[key] = device_ms(lambda: kern(X, flat, vec), reps,
@@ -290,6 +318,9 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                 # model of the traffic, not a measurement: it stays out of the
                 # printed kernels line.
                 rec["sector_ms"] = uniq * K * SECTOR / HBM_BYTES_PER_S * 1e3
+                if kind != "matvec":                  # K3, K4 also L2 cold
+                    rec.update(time_cold(X, flat, vec, kind, layout, reps,
+                                         flush))
             log(f"    device {rec['ms']:.4f} ms (wrapper incl. host checks "
                 f"{rec['wrapper_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
                 f"library {rec['library_ms']:.4f} (gather "
@@ -306,8 +337,9 @@ def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                    f"{rec['library_ms_t1']:.4f} (gather + library "
                    f"{rec['gather_ms_t1'] + rec['library_ms_t1']:.4f}), bound "
                    f"{rec['bound_ms_t1']:.4f}" if kind == "matvec" else ""))
-            if kind == "matvec":
+            if "ms_cold" in rec:
                 log_cold(rec, "")
+            if kind == "matvec":
                 log_cold(rec, "_t1")
             key = info.name if m == timed[0] else f"{info.name}@m{m}"
             out[key] = rec
@@ -456,11 +488,14 @@ def gather_call(X, flat, layout: str):
 
 def time_cold(X, flat, vec, kind: str, layout: str, reps: int,
               flush) -> dict:
-    """A matvec or the row apply (launched as its wrapper launches it, less
-    the operand checks that wait on the device), its library call and
-    PyTorch's gather of the same sampled rows / columns, with the L2 cache
-    flushed before each call."""
-    launch = (apply_launcher(X, flat, vec) if kind == "apply"
+    """A matvec, an apply or the column packet (launched as its wrapper
+    launches it, less the operand checks that wait on the device), its
+    library call and PyTorch's gather of the same sampled rows / columns,
+    with the L2 cache flushed before each call."""
+    launchers = {("apply", "rows"): apply_launcher,
+                 ("apply", "cols"): cols_apply_launcher,
+                 ("packet", "cols"): cols_packet_launcher}
+    launch = (launchers[kind, layout](X, flat, vec) if kind != "matvec"
               else matvec_launcher(X, flat, vec, layout))
     return {"ms_cold": event_ms(launch, reps, flush),
             "library_ms_cold": event_ms(library_call(X, flat, vec, kind,
@@ -470,8 +505,8 @@ def time_cold(X, flat, vec, kind: str, layout: str, reps: int,
 
 
 def log_cold(rec: dict, suffix: str) -> None:
-    """The L2-cold times of a matvec or apply record beside its bound (and,
-    for the column layout, the sector traffic)."""
+    """The L2-cold times of a record beside its bound (and, for the column
+    layout, the sector traffic)."""
     cold, lib = rec[f"ms_cold{suffix}"], rec[f"library_ms_cold{suffix}"]
     b = rec[f"bound_ms{suffix}"]
     log(f"    L2 cold{' (one tenant)' if suffix else ''}: device {cold:.4f} "
@@ -619,17 +654,25 @@ def profile_run(fn, tag: str, top_n: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per_name = {}
+    per_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3)
+            count[e.name] = count.get(e.name, 0) + 1
     busy = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:top_n]
     log(f"  {tag}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
         f"{1 - busy / wall:.1%}")
     for name, ms in top:
         log(f"      {ms:9.3f} ms  {name[:90]}")
+    # the port's own kernels in the trace, each with its launches
+    ours = {name: [ms, count[name]] for name, ms in per_name.items()
+            if any(k in name for names in KERNEL_NAMES.values()
+                   for k in names)}
+    log("    the port's kernels (ms, launches, ms a launch):")
+    for name, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        log(f"      {ms:9.3f} ms  {n:6d}  {ms / n:.4f}  {name[:70]}")
     host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
                    for a in prof.key_averages()), key=lambda r: -r[1])[:top_n]
     log("    host, self CPU time under the profiler:")
@@ -637,6 +680,7 @@ def profile_run(fn, tag: str, top_n: int) -> dict:
         log(f"      {ms:9.3f} ms  {count:6d} calls  {name[:70]}")
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
             "top": [[name[:120], ms] for name, ms in top],
+            "kernels": {name[:160]: v for name, v in ours.items()},
             "host_top": [[name[:120], ms, count] for name, ms, count in host]}
 
 

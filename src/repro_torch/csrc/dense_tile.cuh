@@ -1,6 +1,26 @@
-// The register-blocked Gram tile kernel and its reduce pass, shared by the
-// dense Gram kernels K7 / K8 (gram_dense.cu, rows of a materialised operand
-// A) and the row-sampled packet K1 (sampled_rows.cu, rows X[flat[a]] of X).
+// The register-blocked Gram tile kernel and its reduce pass: the packet of
+// every layout.  The dense Gram kernels K7 / K8 (gram_dense.cu) read rows of
+// a materialised operand A, the row-sampled packet K1 (sampled_rows.cu) the
+// rows X[flat[a]] of X, and the column-sampled packet K3 (sampled_cols.cu)
+// the columns X[:, flat[a]] of X, all in place.
+//
+// Packet contract (every layout): for Y (m, K) the panel,
+//   G = scale * Y Y^T + reg * I   (m, m),   r = scale_r * Y u   (m,).
+// Rows: Y = X[flat, :] (K = n); columns: Y = X[:, flat]^T (K = d), read from
+// X's (d, n) layout with no transposed copy; dense: Y = A, no index.  The
+// Gram alone (K8) is the packet with RESIDUAL = false: no u is read, no r
+// written, and G is summed exactly as the packet's G.
+//
+// Summation order (what every packet, and the matvecs K5 / K6 for r, keep):
+// the contraction is cut into chunks of `chunk` steps, fixed on the host
+// from (m, K, layout) alone (tuning.py).  Per chunk, G[a, b]'s partial is
+// one fma_rn chain from 0 over increasing k, and r[a]'s is
+// residual_pair(even lane, odd lane), each lane one fma_rn chain from 0 over
+// every other step of the chunk in increasing k.  Then G[a, b] = scale *
+// split_sum of the partials in chunk order, plus reg on the diagonal, and
+// r[a] = scale_r * its split sum, each step rounded on its own.  Blocks run
+// in no order, so each (lower tile, chunk) block writes its own partials
+// and a second pass sums them: no float atomics, the same bits every run.
 //
 // Design (dense_tile):
 // * Register-blocked tiles.  A block owns one lower BM x BM tile of G over
@@ -23,12 +43,19 @@
 //   L1 keeps the neighbouring sectors for the next copy) and its shared
 //   writes hit 32 distinct banks (row stride BM + 4 words).  Rows past m
 //   and steps past the chunk are zero-filled (src-size 0).
-// * Where a row lies.  Rows are contiguous in both callers, so only a row's
-//   base address differs: band + r of A (GATHER = false), or flat[band + r]
-//   of X (GATHER = true).  A gathering thread reads the indices of its
-//   copied rows once and keeps each row's 64-bit base in a register; then
-//   it copies exactly as the dense kernel does.  Duplicate indices need
-//   nothing special.
+// * Where a row lies (SRC).  Only a panel row's base address and its step
+//   stride differ: band + r of A (DENSE), or row flat[band + r] of X
+//   (ROWS), both with steps 1 apart; or column flat[band + r] of X (COLS),
+//   its steps a row of X (n elements) apart.  A gathering thread reads the
+//   indices of its copied rows once and keeps each row's 64-bit base in a
+//   register.  The row gather then copies exactly as the dense kernel
+//   does.  A sampled column has no two elements in one sector, so its
+//   copies read no runs: there each thread copies one panel row, a warp 32
+//   rows at one step (32 elements of one row of X; issue_columns).
+//   Duplicate indices need nothing special.
+// * Micro-tiles of 2 x 2 (TM = TN = 2, groups of 2 rows SEG apart, 8-byte
+//   shared loads) serve the column gather's 16-tile at small m, where a
+//   thread's instructions a step bound the block.
 // * Tile order.  The host hands the kernel its list of lower tiles
 //   (gram_kernel.dense_tiles): strips of `group` row bands, column by column
 //   within a strip, so that the blocks resident at one time touch few row
@@ -39,28 +66,29 @@
 //   partial and dense_reduce sums them, over the lower entries only and
 //   with 16 loads in flight.
 //
-// Every sum is the packet's (gram_common.cuh).  G[a, b] is scale *
-// split_sum over the chunks, in index order, of one fma_rn chain per chunk
-// over increasing k; r[a] is scale_r * split_sum of residual_pair(even
-// lane, odd lane), each lane one fma_rn chain over every other step of the
-// chunk (residual_lane's order).  The chunk is the host's pick for
-// (m, K) in the row layout, so K1(X, flat, u) equals K7(X[flat], u), K8(A)
-// equals K7(A, u)'s G and G equals G^T, bit for bit; the geometry (BM,
-// micro-tile, ring, tile order) never moves a sum.  Every offset into the
-// operand is 64-bit (A has 1.95e9 elements at real-sim).
+// The chunk is the host's pick for (m, K) in the packet's layout, so K1(X,
+// flat, u) equals K7(X[flat], u), K3(X, flat, u) equals K7(X[:, flat]^T, u)
+// at K3's chunk, K8(A) equals K7(A, u)'s G and G equals G^T, bit for bit;
+// the geometry (BM, micro-tile, ring, tile order) never moves a sum.  Every
+// offset into the operand is 64-bit (A has 1.95e9 elements at real-sim).
 #pragma once
 
 #include "gram_common.cuh"
 
 namespace repro {
 
+// Where the rows of the panel lie (see the head of this file).
+enum class Source { DENSE, ROWS, COLS };
+
 template <typename T, int BM, int TM, int TN, int STEPS>
 struct Tile {
   static constexpr int NTY = BM / TM;  // threads along the tile's rows
   static constexpr int NTX = BM / TN;  // ... along its columns
   static constexpr int THREADS = NTY * NTX;
-  static constexpr int SEG_M = 4 * NTY;  // rows between a thread's row groups
-  static constexpr int SEG_N = 4 * NTX;
+  static constexpr int GM = TM < 4 ? TM : 4;  // rows of a thread's row group
+  static constexpr int GN = TN < 4 ? TN : 4;
+  static constexpr int SEG_M = GM * NTY;  // rows between a thread's row groups
+  static constexpr int SEG_N = GN * NTX;
   static constexpr int LD = BM + 16 / static_cast<int>(sizeof(T));
   // a stage: operand i [STEPS][LD], operand j [STEPS][LD], u [STEPS]
   static constexpr int STAGE = 2 * STEPS * LD + STEPS;
@@ -68,10 +96,27 @@ struct Tile {
   static constexpr int ROW_COPIES = BM / ROW_STEP;
   static constexpr int COPIES = BM * STEPS / THREADS;  // per operand, thread
   static constexpr int LANES = (2 * BM + THREADS - 1) / THREADS;  // r lanes
-  static_assert(TM % 4 == 0 && TN % 4 == 0 && BM % TM == 0 && BM % TN == 0);
+  // The column gather: a thread copies panel row tid % BM at steps
+  // tid / BM + CSTEP q, q < COPIES (per operand and stage).
+  static constexpr int CSTEP = THREADS / BM;
+  static_assert(THREADS % BM == 0);
+  static_assert((GM == 2 || GM == 4) && (GN == 2 || GN == 4));
+  static_assert(TM % GM == 0 && TN % GN == 0 && BM % TM == 0 && BM % TN == 0);
   static_assert(THREADS % 32 == 0 && BM % ROW_STEP == 0 && STEPS % 8 == 0);
   static_assert(COPIES % ROW_COPIES == 0);
+  static_assert(STEPS <= THREADS);  // one thread copies each step of u
 };
+
+template <typename T>
+__device__ __forceinline__ void load2s(const T* p, T* o) {
+  if constexpr (sizeof(T) == 4) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x; o[1] = v.y;
+  } else {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    o[0] = v.x; o[1] = v.y;
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ void load4s(const T* p, T* o) {
@@ -86,8 +131,8 @@ __device__ __forceinline__ void load4s(const T* p, T* o) {
 }
 
 // The reduce pass's arithmetic, each step rounded on its own as in
-// packet_reduce's machine code (a multiply, then an add on the diagonal:
-// never contracted into one fused multiply-add).
+// the packet's order (a multiply, then an add on the diagonal: never
+// contracted into one fused multiply-add).
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
@@ -161,21 +206,41 @@ __device__ __forceinline__ void issue_gathered(
   }
 }
 
+// The column gather's copies of one stage of one operand (a sampled column
+// has no two elements in one sector, so no copy pattern reads runs): this
+// thread's COPIES elements of panel row tid % BM, steps tid / BM + CSTEP q
+// of the stage, so that a warp copies 32 panel rows at one step (the
+// 16-tile: 16 rows at each of two), i.e. elements of one row of X, and
+// writes consecutive shared words.  `dst`
+// is the thread's first slot, `src` its first element, `step` CSTEP steps
+// in elements of X, `ok` whether its panel row lies inside m, `k0` its
+// first step.
+template <typename D, typename T>
+__device__ __forceinline__ void issue_columns(T* dst, const T* src,
+                                              int64_t step, bool ok, int lim,
+                                              int k0) {
+#pragma unroll
+  for (int q = 0; q < D::COPIES; ++q)
+    cp_async_elem(dst + q * D::CSTEP * D::LD, src + q * step,
+                  ok && k0 + q * D::CSTEP < lim);
+}
+
 // One block: lower tile tiles[blockIdx.x] = (ti << 16 | tj) of G over
-// contraction chunk blockIdx.y.  Row a of the panel is row a of A, or with
-// GATHER row flat[a] of A (then A is X, K its row length; flat is read only
-// then).  At one chunk (Gp null) the block writes G (and r) itself; else
-// its partials Gp[split] (mp x mp, lower tiles only) and rp[split] for
+// contraction chunk blockIdx.y.  Row a of the panel is row a of A (DENSE),
+// row flat[a] of A (ROWS: A is X, K its row length), or column flat[a] of A
+// (COLS: A is X (K, ldx)); flat is read only by the gathers, ldx only by
+// COLS.  At one chunk (Gp null) the block writes G (and r) itself; else its
+// partials Gp[split] (mp x mp, lower tiles only) and rp[split] for
 // dense_reduce.
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
-          bool RESIDUAL, bool GATHER>
+          bool RESIDUAL, Source SRC>
 __global__ void __launch_bounds__(Tile<T, BM, TM, TN, STEPS>::THREADS,
                                   512 / Tile<T, BM, TM, TN, STEPS>::THREADS)
 dense_tile(const T* __restrict__ A, const T* __restrict__ u,
            const int* __restrict__ tiles, int m, int64_t K, int64_t chunk,
            int mp, T scale, T reg, T scale_r, T* __restrict__ Gp,
            T* __restrict__ rp, T* __restrict__ G, T* __restrict__ r,
-           const int* __restrict__ flat) {
+           const int* __restrict__ flat, int64_t ldx) {
   using D = Tile<T, BM, TM, TN, STEPS>;
   extern __shared__ __align__(16) unsigned char dense_smem[];
   T* ring = reinterpret_cast<T*>(dense_smem);
@@ -208,7 +273,7 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   // (A itself for a row past m: its copies read nothing).
   const T* rows_i[D::ROW_COPIES];
   const T* rows_j[D::ROW_COPIES];
-  if constexpr (GATHER) {
+  if constexpr (SRC == Source::ROWS) {
 #pragma unroll
     for (int c = 0; c < D::ROW_COPIES; ++c) {
       const int a = band_i + r0 + D::ROW_STEP * c;
@@ -218,6 +283,15 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
       rows_j[c] = b < m ? A + static_cast<int64_t>(flat[b]) * K + k_begin + klo
                         : A;
     }
+  } else if constexpr (SRC == Source::COLS) {
+    // Gathered columns: element (a, k) is A[k * ldx + flat[a]]; this thread
+    // copies panel row tid % BM from step tid / BM on (issue_columns).
+    const int a = band_i + tid % BM, b = band_j + tid % BM;
+    const int64_t k0 = (k_begin + tid / BM) * ldx;
+    ok_i = a < m;
+    ok_j = b < m;
+    rows_i[0] = ok_i ? A + k0 + flat[a] : A;
+    rows_j[0] = ok_j ? A + k0 + flat[b] : A;
   }
   const int slot0 = klo * D::LD + r0;
   auto issue = [&](int slot, int s) {
@@ -225,11 +299,18 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
     const int64_t off = static_cast<int64_t>(s) * STEPS;
     const int64_t left = k_end - k_begin - off;
     const int lim = left < STEPS ? static_cast<int>(left) : STEPS;
-    if constexpr (GATHER) {
+    if constexpr (SRC == Source::ROWS) {
       issue_gathered<D>(st + slot0, rows_i, off, ok_i, lim, klo);
       if (!diag)
         issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j, lim,
                           klo);
+    } else if constexpr (SRC == Source::COLS) {
+      const int cslot = (tid / BM) * D::LD + tid % BM;
+      issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
+                       ok_i, lim, tid / BM);
+      if (!diag)
+        issue_columns<D>(st + STEPS * D::LD + cslot, rows_j[0] + off * ldx,
+                         D::CSTEP * ldx, ok_j, lim, tid / BM);
     } else {
       issue_operand<D>(st + slot0, src_i + off, rs, ok_i, lim, klo);
       if (!diag)
@@ -268,11 +349,19 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
     for (int kk = 0; kk < STEPS; ++kk) {
       T a[TM], b[TN];
 #pragma unroll
-      for (int g = 0; g < TM / 4; ++g)
-        load4s(si + kk * D::LD + g * D::SEG_M + 4 * ty, a + 4 * g);
+      for (int g = 0; g < TM / D::GM; ++g) {
+        if constexpr (D::GM == 4)
+          load4s(si + kk * D::LD + g * D::SEG_M + 4 * ty, a + 4 * g);
+        else
+          load2s(si + kk * D::LD + g * D::SEG_M + 2 * ty, a + 2 * g);
+      }
 #pragma unroll
-      for (int g = 0; g < TN / 4; ++g)
-        load4s(sj + kk * D::LD + g * D::SEG_N + 4 * tx, b + 4 * g);
+      for (int g = 0; g < TN / D::GN; ++g) {
+        if constexpr (D::GN == 4)
+          load4s(sj + kk * D::LD + g * D::SEG_N + 4 * tx, b + 4 * g);
+        else
+          load2s(sj + kk * D::LD + g * D::SEG_N + 2 * tx, b + 2 * g);
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -298,17 +387,17 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   }
   cp_async_wait<0>();
 
-  // G: this thread's micro-tile, rows a = band_i + g SEG_M + 4 ty + i % 4.
+  // G: this thread's micro-tile, rows a = band_i + g SEG_M + GM ty + i % GM.
   const bool direct = Gp == nullptr;
   T* Gs = direct ? G : Gp + static_cast<size_t>(split) * mp * mp;
   const int ld = direct ? m : mp;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int a = band_i + (i / 4) * D::SEG_M + 4 * ty + i % 4;
+    const int a = band_i + (i / D::GM) * D::SEG_M + D::GM * ty + i % D::GM;
     if (a >= m) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int b = band_j + (j / 4) * D::SEG_N + 4 * tx + j % 4;
+      const int b = band_j + (j / D::GN) * D::SEG_N + D::GN * tx + j % D::GN;
       if (b >= m) continue;
       T v = acc[i][j];
       if (direct) {
@@ -333,12 +422,10 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   }
 }
 
-// Second pass at more than one chunk: packet_reduce's sums (split_sum's
-// order, then scale, then reg on the diagonal; r = scale_r * its split sum)
-// over the lower entries only, each written with its mirror, and the loads
-// DEPTH deep in flight.  packet_reduce (K3's) sums every entry of the
-// square with its loads 8 deep: about 1.5 times this pass's time over
-// K1's 252 partials at m = 8 (PERF.md).
+// Second pass at more than one chunk: the packet's sums (split_sum's order,
+// then scale, then reg on the diagonal; r = scale_r * its split sum) over
+// the lower entries only, each written with its mirror, and the loads DEPTH
+// deep in flight.
 constexpr int REDUCE_THREADS = 128;
 
 template <typename T, bool RESIDUAL>
@@ -374,17 +461,18 @@ constexpr int ring_bytes() {
 // Launch dense_tile at one geometry on `stream` and, at more than one
 // split, dense_reduce after it.  `smem` is the host's count of the ring's
 // bytes: a geometry whose count disagrees is refused with
-// cudaErrorInvalidValue before anything is launched.
+// cudaErrorInvalidValue before anything is launched.  `ldx` is X's row
+// length for the column gather (unused otherwise).
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
-          bool RESIDUAL, bool GATHER>
+          bool RESIDUAL, Source SRC>
 cudaError_t launch_tile(const T* A, const int* flat, const T* u,
                         const int* tiles, int ntiles, int m, int64_t K,
                         int64_t chunk, int splits, int smem, T scale, T reg,
                         T scale_r, T* Gp, T* rp, T* G, T* r,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int64_t ldx = 0) {
   constexpr int bytes = ring_bytes<T, BM, TM, TN, STAGES, STEPS>();
   if (smem != bytes) return cudaErrorInvalidValue;  // host and kernel disagree
-  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, GATHER>;
+  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, SRC>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -393,7 +481,7 @@ cudaError_t launch_tile(const T* A, const int* flat, const T* u,
   const int mp = (m + TILE - 1) / TILE * TILE;
   kernel<<<dim3(ntiles, splits), Tile<T, BM, TM, TN, STEPS>::THREADS, bytes,
            stream>>>(A, u, tiles, m, K, chunk, mp, scale, reg, scale_r,
-                     splits > 1 ? Gp : nullptr, rp, G, r, flat);
+                     splits > 1 ? Gp : nullptr, rp, G, r, flat, ldx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int64_t total = static_cast<int64_t>(m) * m + (RESIDUAL ? m : 0);

@@ -20,7 +20,7 @@
 //
 // The kernel (dense_tile, dense_reduce) is in dense_tile.cuh, shared with
 // the row-sampled packet K1; here it reads the rows of A in place
-// (GATHER = false).  At CholeskyQR's operand (one chunk) the 128-tile
+// (SRC = DENSE).  At CholeskyQR's operand (one chunk) the 128-tile
 // writes G directly; at K7's gathered panel K1's chunk gives 103 splits,
 // so the 32-tile runs 1030 blocks and dense_reduce sums their partials.
 #include "dense_tile.cuh"
@@ -43,7 +43,8 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(                                                  \
-        repro::launch_tile<T, B, M, N, S, Q, RESIDUAL, false>(                \
+        repro::launch_tile<T, B, M, N, S, Q, RESIDUAL,                        \
+                           repro::Source::DENSE>(                             \
             static_cast<const T*>(A), nullptr, static_cast<const T*>(u),      \
             tiles, ntiles, m, K, chunk, splits, smem, static_cast<T>(scale),  \
             static_cast<T>(reg), static_cast<T>(scale_r),                     \

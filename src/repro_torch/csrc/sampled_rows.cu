@@ -11,7 +11,7 @@
 //   (about 11 us), at its m = 8 both are under 1 us and each block's chain
 //   of round trips is what is left.  Rows of X are contiguous, so the
 //   gather changes only a row's base address: K1 runs the dense Gram tile
-//   (dense_tile.cuh) with GATHER = true, each copying thread holding the
+//   (dense_tile.cuh) with SRC = ROWS, each copying thread holding the
 //   64-bit base X + flat[a] * n of its rows, at the chunk and geometry the
 //   host picks for the dense kernel K7 at the same (m, n).  So K1(X, flat,
 //   u) equals K7(X[flat], u) bit for bit, and at more than one chunk
@@ -159,7 +159,8 @@ int packet_impl(const void* X, const void* flat, const void* u,
                 double scale, double reg, double scale_r, void* stream) {
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
-    return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true, true>( \
+    return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true,       \
+                                               repro::Source::ROWS>(          \
         static_cast<const T*>(X), static_cast<const int*>(flat),              \
         static_cast<const T*>(u), tiles, ntiles, m, n, chunk, splits, smem,   \
         static_cast<T>(scale), static_cast<T>(reg), static_cast<T>(scale_r),  \

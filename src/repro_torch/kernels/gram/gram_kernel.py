@@ -1,8 +1,10 @@
 """Wrappers of the dense Gram CUDA kernels K7 and K8 (``csrc/gram_dense.cu``),
 on an operand A (m, K) that is already materialised, and the host side of
 their tile kernel ``dense_tile`` (``csrc/dense_tile.cuh``), which the
-row-sampled packet K1 (``sampled_kernel.gram_packet_sampled_rows``) also
-launches on the rows ``X[flat]`` of X in place.
+sampled packets also launch in place: K1
+(``sampled_kernel.gram_packet_sampled_rows``) on the rows ``X[flat]`` of X,
+K3 (``sampled_colmajor.gram_packet_sampled_cols``) on its columns
+``X[:, flat]``.
 
 * :func:`gram_packet_dense` (K7) -- ``(G, r) = (scale * A A^T + reg * I,
   scale_r * A u)``.  Replaces ``gram_packet_pallas`` (``src/repro/kernels/
@@ -47,11 +49,15 @@ DENSE_GRAM = _build.KernelInfo(
 # dense_gram_*(A, tiles, Gp, G, K, m, chunk, splits, bm, tm, tn, stages,
 #              steps, ntiles, smem, scale, reg, stream);
 # rows_packet_*(X, flat, u, tiles, Gp, rp, G, r, n, m, chunk, ...) as
-#               dense_packet_* with flat after X (sampled_rows.cu)
+#               dense_packet_* with flat after X (sampled_rows.cu);
+# cols_packet_*(X, flat, u, tiles, Gp, rp, G, r, d, n, m, chunk, ...) as
+#               rows_packet_* with X's row length n after d (sampled_cols.cu)
 _GEOM_ARGS = (I, I, I, I, I, I, I)
 _PACKET_ARGS = (P,) * 7 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, D, P)
 _GRAM_ARGS = (P,) * 4 + (I64, I, I64, I) + _GEOM_ARGS + (D, D, P)
 _ROWS_PACKET_ARGS = (P,) + _PACKET_ARGS
+_COLS_PACKET_ARGS = (P,) * 8 + (I64, I64, I, I64, I) + _GEOM_ARGS + (D, D, D,
+                                                                     P)
 
 # The geometries dense_tile is built for, per dtype: (tile edge BM, micro-tile
 # rows TM, columns TN) and the rings (stages, steps per stage).
@@ -71,10 +77,28 @@ DENSE_RINGS = {torch.float32: tuple((s, q) for s in (2, 3, 4)
 DENSE_TARGET_BLOCKS = 4 * 132
 DENSE_RING = (3, 16)
 DENSE_GROUP = 16
+# Where dense_tile reads its panel rows (csrc/dense_tile.cuh's Source): a
+# materialised A (K7 / K8), the rows X[flat] of X (K1) or its columns
+# X[:, flat] (K3).  The source fixes the chunk's layout (K3's own for
+# "cols", K1's else) and the geometries built.
+SOURCES = ("dense", "rows", "cols")
 # The geometries the gathered tile (K1, sampled_rows.cu) is built for: the
 # picks alone, every tile edge with its first micro-tile at DENSE_RING.
 GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
                   torch.float64: ((64, 4, 4), (32, 4, 4))}
+# The geometries the gathered-column tile (K3, sampled_cols.cu) is built
+# for, per dtype, as (bm, tm, tn, stages, steps): the picks alone, from
+# launch.tile_sweep's cols sweep (PERF.md).  The tile edge is the narrowest
+# that holds min(m, 32) panel rows: at the solve's m = 8 the 16-tile (2 x 2
+# a thread) sums a chunk in fewer instructions a thread than the 32-tile;
+# past 16 rows the 32-tile, whose blocks read each sampled column from 4
+# tiles at m = 128 (the 64-tile's 39 blocks and the 16-tile's 8 reads a
+# column are slower).  A sampled column has no two elements in one sector;
+# the rings that read best keep few steps in flight, (stages, steps) =
+# (3, 32) at m = 8 and (4, 8) at m = 128 (where deeper and shallower rings
+# alike read up to 2x slower, in no monotone order).
+COLS_BUILT = {dtype: ((16, 2, 2, 3, 32), (32, 4, 4, 4, 8))
+              for dtype in (torch.float32, torch.float64)}
 
 
 class DenseGeometry(NamedTuple):
@@ -82,8 +106,8 @@ class DenseGeometry(NamedTuple):
     ``tm`` x ``tn`` micro-tile a thread (``threads`` a block), a ring of
     ``stages`` stages of ``steps`` contraction steps (``smem`` bytes of
     dynamic shared memory), ``grid`` = (lower tiles, splits), the tiles in
-    strips of ``group`` row bands, and the contraction ``chunk`` with its
-    ``splits``."""
+    strips of ``group`` row bands, the contraction ``chunk`` with its
+    ``splits``, and the ``source`` of the panel rows (:data:`SOURCES`)."""
     bm: int
     tm: int
     tn: int
@@ -95,6 +119,7 @@ class DenseGeometry(NamedTuple):
     group: int
     chunk: int
     splits: int
+    source: str
 
 
 def ring_bytes(bm: int, stages: int, steps: int, dtype: torch.dtype) -> int:
@@ -112,23 +137,31 @@ def lower_tiles(m: int, bm: int) -> int:
 def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
                    *, bm: int | None = None, micro: tuple | None = None,
                    stages: int | None = None, steps: int | None = None,
-                   group: int | None = None,
-                   gathered: bool = False) -> DenseGeometry:
-    """The launch geometry of K7 / K8 on an (m, K) operand of ``dtype``, or
-    with ``gathered`` of K1 on m rows of X (K = n), from the shapes alone.
-    The chunk is K1's (:func:`resolve_chunk`), which fixes every sum;
-    ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps`` and ``group``
-    override the picks (for the sweep) and move no sum.  A geometry the
-    kernel is not built for (:data:`DENSE_TILES` and :data:`DENSE_RINGS`;
-    gathered, :data:`GATHERED_TILES` at :data:`DENSE_RING`) raises."""
+                   group: int | None = None, source: str = "dense"
+                   ) -> DenseGeometry:
+    """The launch geometry of dense_tile from the shapes alone: with
+    ``source`` "dense" of K7 / K8 on an (m, K) operand of ``dtype``, "rows"
+    of K1 on m rows of X (K = n), "cols" of K3 on m columns of X (K = d).
+    The chunk is K3's for "cols", else K1's (:func:`resolve_chunk`), and
+    fixes every sum; ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps``
+    and ``group`` override the picks (for the sweep) and move no sum.  A
+    geometry the kernel is not built for (:data:`DENSE_TILES` and
+    :data:`DENSE_RINGS`; rows, :data:`GATHERED_TILES` at
+    :data:`DENSE_RING`; columns, :data:`COLS_BUILT`) raises."""
     if dtype not in DENSE_TILES:
         raise TypeError(f"dense_tile is built for {tuple(DENSE_TILES)}, "
                         f"not {dtype}")
-    chunk = resolve_chunk(m, K, dtype, "rows", bk)
+    if source not in SOURCES:
+        raise ValueError(f"source={source!r} is none of {SOURCES}")
+    chunk = resolve_chunk(m, K, dtype, "cols" if source == "cols" else "rows",
+                          bk)
     splits = -(-K // chunk)
     if splits > tuning.MAX_SPLITS:
         raise ValueError(f"{splits} splits exceed the grid's "
                          f"{tuning.MAX_SPLITS}")
+    if source == "cols":
+        return _cols_geometry(m, chunk, splits, dtype, bm, micro, stages,
+                              steps, group)
     tiles = DENSE_TILES[dtype]
     if bm is None:
         edges = [t[0] for t in tiles]
@@ -141,14 +174,20 @@ def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
     stages = DENSE_RING[0] if stages is None else stages
     steps = DENSE_RING[1] if steps is None else steps
     group = DENSE_GROUP if group is None else group
+    gathered = source == "rows"
     built = GATHERED_TILES[dtype] if gathered else tiles
     rings = (DENSE_RING,) if gathered else DENSE_RINGS[dtype]
     if (bm, tm, tn) not in built or (stages, steps) not in rings:
         raise ValueError(f"bm={bm}, micro={micro}, stages={stages}, "
                          f"steps={steps}: dense_tile is built in "
-                         f"{str(dtype).split('.')[-1]}"
-                         f"{' gathered' if gathered else ''} for tiles "
-                         f"{built} and rings {rings}")
+                         f"{str(dtype).split('.')[-1]} on {source} rows for "
+                         f"tiles {built} and rings {rings}")
+    return _geometry(m, chunk, splits, dtype, bm, tm, tn, stages, steps,
+                     group, source)
+
+
+def _geometry(m, chunk, splits, dtype, bm, tm, tn, stages, steps, group,
+              source) -> DenseGeometry:
     if group < 1:
         raise ValueError(f"group={group} must be positive")
     smem = ring_bytes(bm, stages, steps, dtype)
@@ -157,7 +196,31 @@ def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
                          f"{SMEM_PER_BLOCK}")
     return DenseGeometry(bm, tm, tn, stages, steps, (bm // tm) * (bm // tn),
                          (lower_tiles(m, bm), splits), smem, group, chunk,
-                         splits)
+                         splits, source)
+
+
+def _cols_geometry(m, chunk, splits, dtype, bm, micro, stages, steps,
+                   group) -> DenseGeometry:
+    """K3's geometry at its chunk: the narrowest built tile edge that holds
+    min(m, 32) panel rows, with its micro-tile and ring from
+    :data:`COLS_BUILT`; any field may be overridden with another built
+    one."""
+    built = COLS_BUILT[dtype]
+    if bm is None:
+        edges = sorted({g[0] for g in built})
+        bm = next((e for e in edges if e >= min(m, 32)), edges[-1])
+    _, ptm, ptn, pst, pq = next((g for g in built if g[0] == bm),
+                                (bm,) + (None,) * 4)
+    tm, tn = (ptm, ptn) if micro is None else micro
+    stages = pst if stages is None else stages
+    steps = pq if steps is None else steps
+    if (bm, tm, tn, stages, steps) not in built:
+        raise ValueError(f"bm={bm}, micro={(tm, tn)}, stages={stages}, "
+                         f"steps={steps}: dense_tile is built in "
+                         f"{str(dtype).split('.')[-1]} on cols for "
+                         f"(bm, tm, tn, stages, steps) in {built}")
+    return _geometry(m, chunk, splits, dtype, bm, tm, tn, stages, steps,
+                     DENSE_GROUP if group is None else group, "cols")
 
 
 def tile_order(nt: int, group: int) -> list[tuple[int, int]]:
@@ -209,10 +272,17 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
                  reg: float, scale_r: float | None,
                  flat: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Allocate the outputs (:func:`dense_buffers`), then launch K7 (``u``
-    given), K8, or with ``flat`` K1 on the rows ``A[flat]`` of A = X, at
-    ``geom``.  Returns (G, r), r None for K8."""
-    m, K = A.shape if flat is None else (flat.shape[0], A.shape[1])
+    """Allocate the outputs (:func:`dense_buffers`), then launch, at
+    ``geom``, K7 (``u`` given) or K8 on A, or with ``flat`` K1 on the rows
+    ``A[flat]`` of A = X (``geom.source`` "rows") or K3 on its columns
+    ``A[:, flat]`` ("cols").  Returns (G, r), r None for K8."""
+    if (flat is None) != (geom.source == "dense"):
+        raise ValueError(f"a {geom.source} geometry "
+                         f"{'takes' if flat is None else 'takes no'} flat")
+    if flat is None:
+        m, K = A.shape
+    else:
+        m, K = flat.shape[0], A.shape[1 if geom.source == "rows" else 0]
     G, r, Gp, rp = dense_buffers(m, geom, u is not None, dtype=A.dtype,
                                  device=A.device)
     nt = -(-m // geom.bm)
@@ -242,11 +312,16 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
                                  _PACKET_ARGS)
                 err = fn(A.data_ptr(), u.data_ptr(), *outs, *sizes,
                          *scalars, stream)
-            else:
+            elif geom.source == "rows":
                 fn = _build.bind("sampled_rows.cu", f"rows_packet_{suffix}",
                                  _ROWS_PACKET_ARGS)
                 err = fn(A.data_ptr(), flat.data_ptr(), u.data_ptr(), *outs,
                          *sizes, *scalars, stream)
+            else:
+                fn = _build.bind("sampled_cols.cu", f"cols_packet_{suffix}",
+                                 _COLS_PACKET_ARGS)
+                err = fn(A.data_ptr(), flat.data_ptr(), u.data_ptr(), *outs,
+                         K, A.shape[1], *sizes[1:], *scalars, stream)
     _build.check(err, info.name)
     info.launches += 1
     return G, r

@@ -154,38 +154,6 @@ def resolve_chunk(m: int, K: int, dtype: torch.dtype, layout: str,
     return bk
 
 
-def launch_packet(info: _build.KernelInfo, symbol: str, argtypes: tuple,
-                  inputs: tuple, sizes: tuple, m: int, K: int, chunk: int,
-                  scale: float, reg: float, scale_r: float | None
-                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Allocate the outputs and the split partials, then launch a packet
-    kernel: ``symbol_{f32,f64}(*inputs, Gp, rp, G, r, *sizes, m, chunk,
-    splits, scale, reg, scale_r, stream)``, or for the Gram alone
-    (``scale_r`` None) ``symbol_*(*inputs, Gp, G, *sizes, m, chunk, splits,
-    scale, reg, stream)`` and r None.  ``inputs[0]`` is the operand."""
-    X = inputs[0]
-    splits = -(-K // chunk)
-    mp = -(-m // tuning.TILE) * tuning.TILE
-    opts = {"dtype": X.dtype, "device": X.device}
-    G = torch.empty((m, m), **opts)
-    Gp = torch.empty((splits, mp, mp), **opts)
-    if scale_r is None:
-        r, outs, scalars = None, (Gp, G), (scale, reg)
-    else:
-        r = torch.empty((m,), **opts)
-        rp = torch.empty((splits, mp), **opts)
-        outs, scalars = (Gp, rp, G, r), (scale, reg, scale_r)
-    fn = _build.bind(info.source.split("/")[-1], f"{symbol}_{SUFFIX[X.dtype]}",
-                     argtypes)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs + outs), *sizes, m, chunk,
-                 splits, *map(float, scalars), stream)
-    _build.check(err, info.name)
-    info.launches += 1
-    return G, r
-
-
 class ApplyGeometry(NamedTuple):
     """How a K2 launch is cut: ``threads`` threads a block, ``cols``
     columns a thread (32 apart), ``batch`` samples a load batch, and
@@ -355,10 +323,10 @@ def launch_matvec(info: _build.KernelInfo, symbol: str, argtypes: tuple,
 def rows_packet_geometry(m: int, n: int, dtype: torch.dtype,
                          bk: int | None = None, **over):
     """K1's launch geometry over m rows of X (d, n): the dense tile's pick
-    for (m, n) at K1's chunk (``gram_kernel.dense_geometry`` with
-    ``gathered``); ``over`` overrides it as there (for the tests)."""
+    for (m, n) at K1's chunk (``gram_kernel.dense_geometry`` with ``source``
+    "rows"); ``over`` overrides it as there (for the tests)."""
     from .gram_kernel import dense_geometry   # gram_kernel imports this module
-    return dense_geometry(m, n, dtype, bk, gathered=True, **over)
+    return dense_geometry(m, n, dtype, bk, source="rows", **over)
 
 
 def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,

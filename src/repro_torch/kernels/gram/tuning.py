@@ -1,10 +1,11 @@
 """Tile selection for the Hopper Gram-packet kernels: the contraction chunk
 ``bk`` per ``(m, K, dtype, layout)``.
 
-The CUDA kernels (``csrc/gram_common.cuh``) cut G into tiles of the fixed
-edge :data:`TILE` = 32 and the contraction K (n for the row layout, d for
-the column layout) into ``ceil(K / bk)`` chunks of length ``bk``, one block
-per (lower G tile, chunk).  ``bk`` is a multiple of :data:`BK`.
+The CUDA packet kernels (``csrc/dense_tile.cuh``) cut the contraction K (n
+for the row layout, d for the column layout) into ``ceil(K / bk)`` chunks
+of length ``bk``, one block per (lower G tile, chunk); the chunk count is
+reckoned here in tiles of :data:`TILE` = 32, whatever tile the kernel
+runs.  ``bk`` is a multiple of :data:`BK`.
 
 The default ``bk`` fills the card: it aims at :data:`TARGET_BLOCKS` blocks
 for the layout but keeps at least :data:`MIN_STEPS` shared-memory steps per

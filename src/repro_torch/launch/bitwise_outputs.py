@@ -1,4 +1,4 @@
-"""Outputs of the row-sampled kernels and of the solves that run through them,
+"""Outputs of the sampled kernels and of the solves that run through them,
 made from a seed and saved to a file; or two such files compared under
 ``torch.equal``.
 
@@ -14,7 +14,12 @@ shape of the paper's Table 3 in f32 (X from ``make_regression`` at
 * K6's output at m = 128 (one vector);
 * the primal single solves (CA-BCD) at s = 1 and s = 16 through the
   kernels, ``--iters`` iterations (w, alpha and the objective history);
-* CG through the kernels (``impl="cuda"``): w and the iteration count.
+* CG through the kernels (``impl="cuda"``): w and the iteration count;
+* then, drawn after all of the above (so that the primal's index stream is
+  the same with or without them): K3's (G, r) at m = 8 and m = 128, with
+  scale, reg and scale_r; K4's output at m = 8 and 128; K5's output at
+  m = 128 (one vector); the dual single solves (CA-BDCD) at s = 1 and
+  s = 16 (w, alpha and the objective history).
 
 Run on a GPU, from the repository root:
     PYTHONPATH=<commit>/src python src/repro_torch/launch/bitwise_outputs.py \\
@@ -64,6 +69,23 @@ def outputs(iters: int, seed: int) -> dict:
         out[f"primal s={s} objective"] = res.history["objective"]
     res = core.cg_ridge(X, y, lam, max_iters=100, impl="cuda")
     out["CG w"], out["CG iters"] = res.w, torch.tensor(res.iters)
+    for m in (8, 128):
+        flat = torch.randperm(n, generator=gen, device=dev)[:m].to(
+            torch.int32)
+        flat[-1] = flat[0]                         # a duplicate index
+        u = torch.randn((d,), generator=gen, device=dev)
+        v = torch.randn((m,), generator=gen, device=dev)
+        G, r = gk.gram_packet_sampled_cols(X, flat, u, scale=0.5, reg=0.25,
+                                           scale_r=2.0)
+        out[f"K3 G m={m}"], out[f"K3 r m={m}"] = G, r
+        out[f"K4 m={m}"] = gk.panel_apply_cols(X, flat, v, scale=0.5)
+        if m == 128:
+            out[f"K5 m={m}"] = gk.panel_matvec_cols(X, flat, u)
+    idx = core.sample_blocks(gen, n, 8, iters)
+    for s in (1, 16):
+        res = core.ca_bdcd(X, y, lam, 8, s, iters, idx=idx)
+        out[f"dual s={s} w"], out[f"dual s={s} alpha"] = res.w, res.alpha
+        out[f"dual s={s} objective"] = res.history["objective"]
     torch.cuda.synchronize()
     return {key: val.cpu() for key, val in out.items()}
 

@@ -12,9 +12,9 @@ Needs the CUDA toolkit's ``cuobjdump`` (and ``c++filt`` or ``cu++filt``);
 builds the library first if it is missing.  On a GPU machine, from the
 repository root:
 
-    PYTHONPATH=src python -m repro_torch.launch.sass_mix gram_dense.cu \\
-        "dense_tile<float, 128, 8, 8, 3, 16, false>" \\
-        "packet_reduce<float, true>"
+    PYTHONPATH=src python -m repro_torch.launch.sass_mix sampled_cols.cu \\
+        "dense_tile<float, 16, 2, 2, 3, 32" \\
+        "dense_reduce<float, true>" "cols_apply<float, 8>"
 """
 from __future__ import annotations
 

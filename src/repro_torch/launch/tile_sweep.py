@@ -9,6 +9,12 @@ solve's shapes (real-sim: d = 20958, n = 72309, f32).
   consecutive, 7 apart (one 2 MB page apart at real-sim), and random with
   only m/2 or m/4 distinct rows -- beside K7 on the random rows gathered
   beforehand: what the row addresses cost the gathered tile.
+* ``cols``: the dual's column kernels at the solve's m = 8 and m = 128, on
+  three random index sets each: the column-sampled packet K3 at every
+  geometry it is built for (``gram_kernel.COLS_BUILT``, K3's own chunk),
+  and the column apply K4 at every segment width it is built for
+  (``sampled_colmajor.apply_cols_geometry``); timed warm (K3 also
+  its ``dense_tile`` alone) and cold as the matvecs.
 * ``apply``: block size, columns a thread and load batch of the row apply K2
   (``sampled_kernel.apply_geometry``), every geometry it is built for, at
   the solve's m = 8 and at CG's shape (flat = arange(d)); timed warm and
@@ -35,7 +41,7 @@ kernel's work depends on the values, but the card's power draw does, and
 with it the clock under the power cap (PERF.md, K8).
 
 Run on a GPU:  PYTHONPATH=src python -m repro_torch.launch.tile_sweep
-               [--only packet|gather|apply|matvec|dense] [--reps N]
+               [--only packet|gather|cols|apply|matvec|dense] [--reps N]
 """
 from __future__ import annotations
 
@@ -108,6 +114,82 @@ def sweep_gather(X, g, reps: int) -> list:
             print(f"gather m={m:4d} {name:32s}: warm {warm:.4f} ms (tile "
                   f"{tile:.4f}), cold {cold:.4f} ms", flush=True)
             out.append(("gather", m, name, warm, tile, cold))
+    return out
+
+
+def cols_packet_launcher(X, flat, u, geom=None):
+    """A call that launches K3 on (X, flat, u) at ``geom`` (default: the
+    wrapper's pick), without the wrapper's operand checks, which wait on
+    the device: for timing."""
+    geom = geom or sc.cols_packet_geometry(flat.shape[0], X.shape[0],
+                                           X.dtype)
+    return lambda: gkk.launch_dense(sc.COLS_PACKET, X, u, geom, 1.0, 0.0,
+                                    None, flat)
+
+
+def cols_apply_launcher(X, flat, v, geom=None):
+    """A call that launches K4 on (X, flat, v) at ``geom`` (default: the
+    wrapper's pick), without the wrapper's operand checks."""
+    geom = geom or sc.apply_cols_geometry(flat.shape[0], X.shape[0], X.dtype)
+    return lambda: sc.launch_apply_cols(X, flat, v, geom, 1.0)
+
+
+def sweep_cols(X, g, reps: int, sets: int = 3) -> list:
+    """K3 at every geometry, and K4 at every segment width, it is built
+    for, at the solve's m = 8 and 128, on ``sets``
+    random index sets each (the means and each set's time are printed);
+    every geometry held to the pick under torch.equal; warm and cold."""
+    d, n = X.shape
+    flush = l2_flush(X.device)
+    out = []
+
+    def timed(kind, m, label, launches, names, auto):
+        warm = [device_ms(f, reps, names) for f in launches]
+        cold = [event_ms(f, reps, flush) for f in launches]
+        extra = ""
+        if kind == "cols_packet":
+            tile = [device_ms(f, reps, ("dense_tile",)) for f in launches]
+            extra = f" (tile {sum(tile) / sets:.4f})"
+        mark = "  <- default" if auto else ""
+        print(f"{kind} m={m:4d} {label}: warm {sum(warm) / sets:.4f} ms"
+              f"{extra}, cold {sum(cold) / sets:.4f} ms; warm by set "
+              + " ".join(f"{t:.4f}" for t in warm) + mark, flush=True)
+        out.append((kind, m, label, sum(warm) / sets, sum(cold) / sets))
+
+    for m in (8, 128):
+        flats = [torch.randperm(n, generator=g, device=X.device)[:m].to(
+            torch.int32) for _ in range(sets)]
+        u = torch.randn((d,), generator=g, device=X.device)
+        v = torch.randn((m,), generator=g, device=X.device)
+        auto = sc.cols_packet_geometry(m, d, X.dtype)
+        want = [cols_packet_launcher(X, f, u, auto)() for f in flats]
+        for bm, tm, tn, st, q in gkk.COLS_BUILT[X.dtype]:
+            geom = sc.cols_packet_geometry(m, d, X.dtype, bm=bm,
+                                           micro=(tm, tn), stages=st, steps=q)
+            launches = [cols_packet_launcher(X, f, u, geom) for f in flats]
+            for launch, w in zip(launches, want):
+                if not all(torch.equal(a, b) for a, b in zip(launch(), w)):
+                    raise AssertionError(f"cols_packet m={m}: {geom} changed "
+                                         f"a sum")
+            timed("cols_packet", m,
+                  f"chunk={geom.chunk:5d} bm={bm:3d} stages={st:2d} "
+                  f"steps={q:2d} blocks={geom.grid[0] * geom.grid[1]:5d} "
+                  f"smem={geom.smem:6d}", launches,
+                  KERNEL_NAMES["cols_packet"], geom == auto)
+        auto = sc.apply_cols_geometry(m, d, X.dtype)
+        want = [cols_apply_launcher(X, f, v, auto)() for f in flats]
+        for seg in sc.APPLY_COLS_SEGS:
+            if seg < min(m, 32):
+                continue
+            geom = sc.apply_cols_geometry(m, d, X.dtype, seg=seg)
+            launches = [cols_apply_launcher(X, f, v, geom) for f in flats]
+            if not all(torch.equal(launch(), w)
+                       for launch, w in zip(launches, want)):
+                raise AssertionError(f"cols_apply m={m}: {geom} changed a "
+                                     f"sum")
+            timed("cols_apply", m,
+                  f"seg={seg:2d} blocks={geom.blocks:5d}",
+                  launches, KERNEL_NAMES["cols_apply"], geom == auto)
     return out
 
 
@@ -277,12 +359,14 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
     dev = check_device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    if only in (None, "packet", "gather", "apply", "matvec"):
+    if only in (None, "packet", "gather", "cols", "apply", "matvec"):
         X = torch.randn((d, n), generator=g, device=dev)
         if only in (None, "packet"):
             rows += sweep_packets(X, g, reps)
         if only in (None, "gather"):
             rows += sweep_gather(X, g, reps)
+        if only in (None, "cols"):
+            rows += sweep_cols(X, g, reps)
         if only in (None, "apply"):
             rows += sweep_applies(X, g, reps)
         if only in (None, "matvec"):
@@ -296,8 +380,8 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("packet", "gather", "apply", "matvec",
-                                       "dense"),
+    ap.add_argument("--only", choices=("packet", "gather", "cols", "apply",
+                                       "matvec", "dense"),
                     default=None)
     args = ap.parse_args()
     main(reps=args.reps, only=args.only)

@@ -106,7 +106,7 @@ def wall_ms(fn, reps: int) -> float:
 
 
 KERNEL_NAMES = {"rows_packet": ("dense_tile", "dense_reduce"),
-                "cols_packet": ("packet_partial", "packet_reduce"),
+                "cols_packet": ("dense_tile", "dense_reduce"),
                 "dense": ("dense_tile", "dense_reduce"),
                 "matvec": ("matvec_ring",),
                 "rows_apply": ("rows_apply",), "cols_apply": ("cols_apply",)}

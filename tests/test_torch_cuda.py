@@ -12,11 +12,13 @@ CA(s) against classical through the kernels, relative 1e-10 in f64.  The
 matvec kernels K5/K6 sum in the packet's residual order, so they are held to
 K3/K1's r, to their own single-tenant launches and, in the batched engine,
 to the single solves under ``torch.equal``: no tolerance.  So are the dense
-kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, and
+kernels K7 / K8: K7 on a gathered panel equals K1 on the same indices, K7
+on the gathered transposed panel X[:, flat]^T at K3's chunk equals K3, and
 K8's G equals K7's.  Neither the matvecs' output nor the dense kernels' nor
-K1's nor K2's depends on their launch geometry (rows per block, ring depth;
-tile edge, micro-tile, ring, tile order; columns a block and load batch),
-also under ``torch.equal``.  The
+K1's, K2's, K3's or K4's depends on their launch geometry (rows per block,
+ring depth; tile edge, micro-tile, ring, tile order; columns a block and
+load batch; lanes a row), also under ``torch.equal``.
+The
 baselines through the kernels: CholeskyQR and CG against the direct solve in
 f64, relative 1e-9 (CholeskyQR squares the operand's condition; CG stops at
 tol 1e-13).
@@ -92,6 +94,12 @@ def test_kernel_refuses_bad_indices_on_card(cuda_device):
                                                          device=cuda_device))
     with pytest.raises(IndexError):
         gk.panel_apply_rows(X, flat, torch.zeros(2, device=cuda_device))
+    cols = torch.tensor([0, 7], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(IndexError):
+        gk.gram_packet_sampled_cols(X, cols, torch.zeros(5,
+                                                         device=cuda_device))
+    with pytest.raises(IndexError):
+        gk.panel_apply_cols(X, cols, torch.zeros(2, device=cuda_device))
     with pytest.raises(TypeError, match="bf16"):
         gk.panel_apply_cols(X.to(torch.bfloat16), flat[:1],
                             torch.zeros(1, device=cuda_device,
@@ -483,3 +491,99 @@ def test_row_apply_matches_plain_version_on_card(cuda_device, m, dtype,
                                      threads=threads, cols=cols, batch=batch)
             assert torch.equal(sk.launch_apply(X, flat, v, geom, 0.5),
                                got), geom
+
+
+def _cols_problem(device, dtype, d, n, m, seed):
+    """X (d, n), m column indices with duplicates (one forced), u (d,),
+    v (m,)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((d, n), generator=g, device=device, dtype=dtype)
+    flat = torch.randint(0, n, (m,), generator=g, device=device,
+                         dtype=torch.int32)
+    flat[-1] = flat[0]
+    u = torch.randn((d,), generator=g, device=device, dtype=dtype)
+    v = torch.randn((m,), generator=g, device=device, dtype=dtype)
+    return X, flat, u, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [2001, 2000])
+@pytest.mark.parametrize("m", [1, 8, 77, 129, 300])
+def test_col_packet_equals_dense_packet_on_gathered_columns_on_card(
+        cuda_device, m, d, dtype):
+    """K3 on (X, flat) equals K7 on the gathered transposed panel
+    X[:, flat]^T at K3's chunk, and K5 equals K3's r, under torch.equal, at
+    ragged m with duplicate indices, odd and even d, scale and reg."""
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    X, flat, u, _ = _cols_problem(cuda_device, dtype, d, 301, m, m + d)
+    knobs = {"scale": 0.5, "reg": 0.25}
+    gk.reset_launch_counts()
+    G3, r3 = gk.gram_packet_sampled_cols(X, flat, u, scale_r=2.0, **knobs)
+    assert gk.COLS_PACKET.launches == 1
+    chunk = sc.cols_packet_geometry(m, d, dtype).chunk
+    G7, r7 = gk.gram_packet_dense(X[:, flat.long()].T.contiguous(), u,
+                                  scale_r=2.0, bk=chunk, **knobs)
+    assert torch.equal(G3, G7) and torch.equal(r3, r7)
+    assert torch.equal(G3, G3.T)
+    _, r = gk.gram_packet_sampled_cols(X, flat, u, scale=1.0, scale_r=1.0)
+    assert torch.equal(gk.panel_matvec_cols(X, flat, u), r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,d,bk", [(8, 2001, None), (77, 2001, None),
+                                    (129, 2001, None), (300, 301, 320)])
+def test_col_packet_geometry_changes_no_sum_on_card(cuda_device, m, d, bk,
+                                                    dtype):
+    """Every geometry K3's gathered-column tile is built for gives the
+    pick's G and r bit for bit, at several splits and at one (bk = 320 >=
+    d)."""
+    from repro_torch.kernels.gram import gram_kernel as gkk
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    X, flat, u, _ = _cols_problem(cuda_device, dtype, d, 1999, m, m)
+    auto = sc.cols_packet_geometry(m, d, dtype, bk)
+    want = gk.gram_packet_sampled_cols(X, flat, u, scale=0.5, reg=0.25,
+                                       scale_r=2.0, bk=bk)
+    for bm, tm, tn, st, q in gkk.COLS_BUILT[dtype]:
+        geom = sc.cols_packet_geometry(m, d, dtype, bk, bm=bm, micro=(tm, tn),
+                                       stages=st, steps=q)
+        assert geom.chunk == auto.chunk
+        G, r = gkk.launch_dense(gk.COLS_PACKET, X, u, geom, 0.5, 0.25, 2.0,
+                                flat)
+        assert torch.equal(G, want[0]) and torch.equal(r, want[1]), geom
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("m", [1, 8, 77, 128, 300])
+def test_col_apply_matches_plain_version_on_card(cuda_device, m, dtype, tol):
+    """K4 against its plain version at m = 1, the solve's m = 8, ragged m,
+    m = 128 and two windows of samples (m = 300), with duplicates, and every
+    segment width (>= min(m, 32)) it is built for giving the pick's output
+    bit for bit."""
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    X, flat, _, v = _cols_problem(cuda_device, dtype, 1001, 2001, m, 19 + m)
+    gk.reset_launch_counts()
+    got = gk.panel_apply_cols(X, flat, v, scale=0.5)
+    assert gk.COLS_APPLY.launches == 1
+    want = tref.panel_apply_cols_ref(X, flat, v, 0.5)
+    assert got.dtype == dtype and got.shape == (1001,)
+    assert _rel(got, want) <= tol
+    for seg in sc.APPLY_COLS_SEGS:
+        if seg < min(m, 32):
+            continue
+        geom = sc.apply_cols_geometry(m, 1001, dtype, seg=seg)
+        assert torch.equal(sc.launch_apply_cols(X, flat, v, geom, 0.5),
+                           got), geom
+
+
+def test_col_apply_refuses_a_geometry_it_is_not_built_for_on_card(
+        cuda_device):
+    """The C entry point refuses a segment too narrow for m, and a block
+    size or segment width it is not built for, before a launch."""
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    X, flat, _, v = _cols_problem(cuda_device, torch.float32, 50, 70, 8, 3)
+    geom = sc.apply_cols_geometry(8, 50, X.dtype)
+    for bad in (geom._replace(seg=4), geom._replace(seg=64),
+                geom._replace(seg=12), geom._replace(threads=128)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            sc.launch_apply_cols(X, flat, v, bad, 1.0)

@@ -1,6 +1,7 @@
 """The host side of the dense Gram tile (``gram_kernel.py``) that K7 / K8 and
-the row-sampled packet K1 launch: the launch geometry worked out from the
-shapes alone, the tile order, and the buffers a launch allocates.  No card
+the sampled packets K1 (rows) and K3 (columns) launch: the launch geometry
+worked out from the shapes alone, the tile order, and the buffers a launch
+allocates.  No card
 and no JAX needed: the kernels' own arithmetic is held to their plain
 versions on the card (``tests/test_torch_cuda.py``).
 """
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.gram import gram_kernel as gkk
+from repro_torch.kernels.gram import sampled_colmajor as sc
 from repro_torch.kernels.gram import sampled_kernel as sk
 from repro_torch.kernels.gram import tuning
 
@@ -64,7 +66,8 @@ def test_row_packet_launches_the_dense_pick_at_its_own_chunk(m, dtype):
     geometry is one the gathered tile is built for."""
     for n in (72309, 2001):
         geom = sk.rows_packet_geometry(m, n, dtype)
-        assert geom == gkk.dense_geometry(m, n, dtype)
+        assert geom == gkk.dense_geometry(m, n, dtype)._replace(source="rows")
+        assert geom.source == "rows"
         assert geom.chunk == sk.resolve_chunk(m, n, dtype, "rows", None)
         assert (geom.bm, geom.tm, geom.tn) in gkk.GATHERED_TILES[dtype]
         assert (geom.stages, geom.steps) == gkk.DENSE_RING
@@ -80,6 +83,45 @@ def test_every_pick_is_built_gathered(dtype):
             assert (geom.bm, geom.tm, geom.tn) in gkk.GATHERED_TILES[dtype]
     assert {t[0] for t in gkk.GATHERED_TILES[dtype]} == {
         t[0] for t in gkk.DENSE_TILES[dtype]}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 8, 77, 128, 129, 300])
+def test_col_packet_launches_at_its_own_chunk(m, dtype):
+    """K3 launches the gathered-column tile at K3's own chunk (so K3 equals
+    K7 on X[:, flat]^T at that chunk, and K5 equals K3's r), at a geometry
+    it is built for: the narrowest built tile edge that holds min(m, 32)
+    panel rows."""
+    edges = sorted({g[0] for g in gkk.COLS_BUILT[dtype]})
+    for d in (20958, 301):
+        geom = sc.cols_packet_geometry(m, d, dtype)
+        assert geom.chunk == tuning.default_chunk(m, d, "cols")
+        assert geom.chunk == sk.resolve_chunk(m, d, dtype, "cols", None)
+        assert geom.splits == -(-d // geom.chunk)
+        assert geom[:5] in gkk.COLS_BUILT[dtype]
+        assert geom.source == "cols"
+        assert geom.bm == next(e for e in edges if e >= min(m, 32))
+        assert geom.bm == (16 if m <= 16 else 32)
+        assert geom.grid == (gkk.lower_tiles(m, geom.bm), geom.splits)
+        assert geom.smem == gkk.ring_bytes(geom.bm, geom.stages, geom.steps,
+                                           dtype) <= sk.SMEM_PER_BLOCK
+        assert sc.cols_packet_geometry(m, d, dtype, 64).chunk == 64
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_col_pick_is_built(dtype):
+    """Whatever m K3 is given, its pick is a built gathered-column geometry
+    whose ring fits a block; every built geometry can be asked for by its
+    tile edge alone and launches whole warps."""
+    for m in list(range(1, 300)) + [1000, 2900, 4096, 20958]:
+        for d in (301, 20958):
+            geom = sc.cols_packet_geometry(m, d, dtype)
+            assert geom[:5] in gkk.COLS_BUILT[dtype]
+            assert geom.smem <= sk.SMEM_PER_BLOCK
+    for built in gkk.COLS_BUILT[dtype]:
+        geom = sc.cols_packet_geometry(77, 20958, dtype, bm=built[0])
+        assert geom[:5] == built
+        assert geom.threads % 32 == 0 and geom.threads % geom.bm == 0
 
 
 def test_dense_tile_edge_at_the_main_shapes():
@@ -121,12 +163,31 @@ def test_ring_bytes_counts_two_operands_and_u(bm, stages, steps, dtype, want):
     ({"bm": 48}, ValueError), ({"bm": 128, "micro": (4, 4)}, ValueError),
     ({"stages": 5}, ValueError), ({"steps": 24}, ValueError),
     ({"group": 0}, ValueError),
-    ({"gathered": True, "bm": 64, "micro": (8, 8)}, ValueError),
-    ({"gathered": True, "stages": 2}, ValueError),
-    ({"gathered": True, "steps": 32}, ValueError)])
+    ({"source": "rows", "bm": 64, "micro": (8, 8)}, ValueError),
+    ({"source": "rows", "stages": 2}, ValueError),
+    ({"source": "rows", "steps": 32}, ValueError),
+    ({"source": "cols", "bm": 128, "micro": (8, 8)}, ValueError),
+    ({"source": "cols", "bm": 16, "micro": (4, 4)}, ValueError),
+    ({"source": "cols", "stages": 5}, ValueError),
+    ({"source": "cols", "bm": 32, "steps": 16}, ValueError),
+    ({"source": "gathered"}, ValueError)])
 def test_dense_geometry_refuses_what_the_kernel_is_not_built_for(over, err):
     with pytest.raises(err):
         gkk.dense_geometry(128, 1000, torch.float32, **over)
+
+
+def test_launch_dense_refuses_flat_that_does_not_match_the_source():
+    """The geometry's source decides what launch_dense launches: a dense
+    geometry takes no index vector, a gathered one needs it.  Refused before
+    anything touches a device."""
+    f32 = torch.float32
+    A, u = torch.ones((8, 64)), torch.ones(64)
+    flat = torch.zeros(8, dtype=torch.int32)
+    for geom, f in ((gkk.dense_geometry(8, 64, f32), flat),
+                    (sk.rows_packet_geometry(8, 64, f32), None),
+                    (sc.cols_packet_geometry(8, 8, f32), None)):
+        with pytest.raises(ValueError, match="flat"):
+            gkk.launch_dense(gkk.DENSE_PACKET, A, u, geom, 1.0, 0.0, None, f)
 
 
 def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
@@ -144,11 +205,19 @@ def _as_int(t):
     return tuple(map(int, t))
 
 
-@pytest.mark.parametrize("kernel", ["dense", "gathered"])
+@pytest.mark.parametrize("kernel", ["dense", "gathered", "cols"])
 def test_host_table_matches_what_the_source_builds(kernel):
-    """gram_dense.cu's dispatch (K7 / K8) and sampled_rows.cu's (K1) list
-    the geometries the host may ask for."""
+    """gram_dense.cu's dispatch (K7 / K8), sampled_rows.cu's (K1) and
+    sampled_cols.cu's (K3) list the geometries the host may ask for."""
     tile = r"REPRO_TILE\((\d+), (\d+), (\d+), (\d+), (\d+)\)\n"
+    if kernel == "cols":
+        src = (CSRC / "sampled_cols.cu").read_text()
+        body = src[src.index("int packet_impl("):
+                   src.index("#undef REPRO_TILE")]
+        built = {_as_int(t) for t in re.findall(tile, body)}
+        for dtype in DTYPES:                 # one list for both dtypes
+            assert built == set(gkk.COLS_BUILT[dtype])
+        return
     if kernel == "gathered":
         src = (CSRC / "sampled_rows.cu").read_text()
         body = src[src.index("int packet_impl("):

@@ -25,6 +25,7 @@ from repro.kernels.gram import ref as jref
 from repro_torch.kernels import gram as gk
 from repro_torch.kernels.gram import ref as tref
 from repro_torch.kernels.gram import tuning
+from repro_torch.kernels.gram import sampled_colmajor as sc
 from repro_torch.kernels.gram import sampled_kernel as sk
 from repro_torch.kernels.gram.sampled_kernel import (check_cuda_operands,
                                                      resolve_chunk)
@@ -167,14 +168,22 @@ def test_wrappers_on_cpu_run_plain_versions_without_launching():
     out = gk.panel_apply_cols(X, flat, X[0, :4])
     torch.testing.assert_close(
         out, tref.panel_apply_cols_ref(X, flat, X[0, :4]), rtol=0, atol=0)
-    gk.gram_packet_sampled_cols(X, flat, X[:, 0])
+    G3, r3 = gk.gram_packet_sampled_cols(X, flat, X[:, 0], scale=0.5,
+                                         reg=0.25, scale_r=2.0)
+    W3, w3 = tref.gram_packet_sampled_cols_ref(X, flat, X[:, 0], 0.5, 0.25,
+                                               2.0)
+    torch.testing.assert_close(G3, W3, rtol=0, atol=0)
+    torch.testing.assert_close(r3, w3, rtol=0, atol=0)
     torch.testing.assert_close(
         gk.panel_apply_rows(X, flat, X[0, :4]),
         tref.panel_apply_ref(X, flat, X[0, :4]), rtol=0, atol=0)
     torch.testing.assert_close(
         gk.panel_matvec_rows(X, flat, X[:2]),
         tref.panel_matvec_ref(X, flat, X[:2]), rtol=0, atol=0)
-    gk.panel_matvec_cols(X, flat, X[:, 0])
+    torch.testing.assert_close(
+        gk.panel_matvec_cols(X, flat, X[:, :2].T.contiguous()),
+        tref.panel_matvec_cols_ref(X, flat, X[:, :2].T.contiguous()),
+        rtol=0, atol=0)
     gk.gram_packet_dense(X, X[0])
     gk.gram_dense(X)
     assert len(gk.KERNELS) == 8
@@ -348,6 +357,56 @@ def test_apply_host_table_matches_what_the_source_builds():
         assert built == set(sk.APPLY_BUILT[dtype])
     assert set(map(int, re.findall(r"threads != (\d+)", body))) == set(
         sk.APPLY_THREADS)
+
+
+@pytest.mark.parametrize("m,d", [(8, 20958), (128, 20958), (1, 1), (2, 5),
+                                 (3, 300), (16, 33), (17, 300),
+                                 (77, 2**20), (300, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_apply_cols_geometry_within_limits(m, d, dtype):
+    """The launch geometry of K4: the pick's segment is the smallest power
+    of two >= min(m, 32) lanes, within the block; every row of X owned by
+    one segment, for the pick and every built override."""
+    auto = sc.apply_cols_geometry(m, d, dtype)
+    need = min(m, 32)
+    assert auto.seg == next(w for w in (1, 2, 4, 8, 16, 32) if w >= need)
+    assert auto.seg < 2 * need and auto.seg & (auto.seg - 1) == 0
+    geoms = [auto] + [sc.apply_cols_geometry(m, d, dtype, seg=w)
+                      for w in sc.APPLY_COLS_SEGS if w >= need]
+    for geom in geoms:
+        assert geom.threads == sc.APPLY_COLS_THREADS == 256
+        assert geom.threads % geom.seg == 0 and geom.seg <= 32
+        span = geom.threads // geom.seg                  # rows of X a block
+        assert geom.blocks == -(-d // span) < 2**31
+        assert (geom.blocks - 1) * span < d <= geom.blocks * span
+
+
+@pytest.mark.parametrize("over,err", [
+    ({"seg": 4}, ValueError), ({"seg": 64}, ValueError),
+    ({"seg": 12}, ValueError), ({"seg": 0}, ValueError),
+    ({"m": 2, "seg": 3}, ValueError), ({"m": 33, "seg": 16}, ValueError),
+    ({"m": 0}, ValueError), ({"d": 0}, ValueError),
+    ({"dtype": torch.bfloat16}, TypeError)])
+def test_apply_cols_geometry_refuses_what_the_kernel_is_not_built_for(over,
+                                                                       err):
+    args = {"m": 8, "d": 1000, "dtype": torch.float32} | over
+    m, d, dtype = args.pop("m"), args.pop("d"), args.pop("dtype")
+    with pytest.raises(err):
+        sc.apply_cols_geometry(m, d, dtype, **args)
+
+
+def test_apply_cols_host_table_matches_what_the_source_builds():
+    """sampled_cols.cu's K4 dispatch lists the segment widths and the block
+    size the host may ask for."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1]
+           / "src/repro_torch/csrc/sampled_cols.cu").read_text()
+    body = src[src.index("int apply_impl("):src.index("#undef REPRO_APPLY\n")]
+    segs = [int(w) for w in re.findall(r"REPRO_APPLY\((\d+)\)\n", body)]
+    assert sorted(segs) == sorted(set(segs)) == list(sc.APPLY_COLS_SEGS)
+    assert int(re.search(r"constexpr int APPLY_THREADS = (\d+);",
+                         src).group(1)) == sc.APPLY_COLS_THREADS
 
 
 def test_matvec_geometry_refuses_what_the_kernel_is_not_built_for():
