@@ -3,8 +3,9 @@
 
 Drives the port's paths -- the single-device s-step solve of CA-BCD
 (primal) and CA-BDCD (dual), the tenant-batched engine (primal, dual,
-proximal), the continuous-batching solve service and the baselines (CG,
-CholeskyQR and TSQR) -- at the full real-sim shape of the paper's Table 3
+proximal), the continuous-batching solve service, the baselines (CG,
+CholeskyQR and TSQR), and the accelerated solve with the health guards,
+fault injection and the supervised restart -- at the full real-sim shape of the paper's Table 3
 (d = 20958 features, n = 72309 points, X = 6.06 GB in f32), through the
 eight hand-written CUDA kernels K1-K8, and checks each kernel against its
 plain PyTorch version on the card.
@@ -44,7 +45,20 @@ Phases (any failure raises; nothing is caught):
      the dense products, CG's history, TSQR and CholeskyQR in f64 on the
      8x-cut real-sim (primal) and news20 (dual), K7 on a gathered panel;
      each solve against the direct one; the solve's time split; the
-     device-idle share of a CG solve.
+     device-idle share of a CG solve;
+  8. accelerated, guards, faults and recovery at real-sim size (counted):
+     the accelerated solve at beta = 0 equal to the primal (torch.equal)
+     and at beta = 0.9 against impl="ref", timed beside the primal; guarded
+     clean primal and dual solves equal to unguarded ones (torch.equal, same
+     launches); the fault matrix {nan_packet, bitflip, drop_shard} x
+     {primal, dual} at s = 16, each tripping at its step with its reason
+     bit and finishing on the s = 1 tail near the clean objective; the
+     jitter rescue of a singular duplicate-row block at lam = 0; the
+     supervised restart after a device loss (f32, and f64 on the 8x cut)
+     against the uninterrupted solve, with the snapshot's write time and
+     size; 8b. the guard's and the momentum's cost: guarded and
+     accelerated primal solves against unguarded ones at s = 1 and 16 in
+     profiler traces.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -67,6 +81,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch import core  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.subproblem import cholesky_nan  # noqa: E402
 from repro_torch.core.tsqr import ridge_operand  # noqa: E402
 from repro_torch.data import (PAPER_DATASETS, PAPER_DATASETS_FULL,  # noqa: E402
@@ -111,6 +126,18 @@ TOL_BASELINE_F32 = 1e-4
 TOL_BASELINE_F64 = 1e-8
 CG_MAX_ITERS = 100
 HISTORY_ITERS = 20
+# Phase 8: the fault matrix (kind, outer step, reason bit; the divergence
+# and magnitude guards arm off one clean step, so the bit flip fires at 1),
+# its solves' length, and the supervised restart's length and gates (w
+# against the uninterrupted solve: the restart re-derives X^T w from the
+# snapshot, which rounds apart from the recurrence's alpha).
+FAULTS = (("nan_packet", 2, engine.GUARD_NONFINITE),
+          ("bitflip", 1, engine.GUARD_MAGNITUDE),
+          ("drop_shard", 2, engine.GUARD_SHARD_LOSS))
+FAULT_ITERS = 256
+SUPERVISED_ITERS = 512
+TOL_SUPERVISED_F32 = 1e-5
+TOL_SUPERVISED_F64 = 1e-10
 
 
 def log(msg: str) -> None:
@@ -1122,6 +1149,234 @@ def baselines(X, y, lam: float, cut, gen, stats: dict) -> dict:
     return counts
 
 
+def launches() -> dict:
+    return {k.name: k.launches for k in gk.KERNELS}
+
+
+def ran_since(before: dict) -> dict:
+    return {name: n - before[name] for name, n in launches().items()}
+
+
+def timed(fn) -> tuple:
+    """``fn()`` and its wall time in seconds, to a synchronisation."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_result(a, b) -> bool:
+    """w, alpha and every history series equal under torch.equal."""
+    return (torch.equal(a.w, b.w) and torch.equal(a.alpha, b.alpha)
+            and sorted(a.history) == sorted(b.history)
+            and all(torch.equal(a.history[k], b.history[k])
+                    for k in a.history))
+
+
+def host_metrics(res) -> dict:
+    return {k: (v.item() if isinstance(v, torch.Tensor) else v)
+            for k, v in res.metrics.items()}
+
+
+def recovery_run(X, y, lam, cut, gen, iters: int, stats: dict) -> dict:
+    """Phase 8: the accelerated formulation, the guards, fault injection and
+    the supervised restart at real-sim size, counted; then, off the count,
+    the impl="ref" comparisons and the guard's overhead from traces.
+    Returns the launch counts of the path."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.faults import FaultPlan, solve_supervised
+    d, n = X.shape
+    b = 8
+    f_iters, sup_iters = FAULT_ITERS, SUPERVISED_ITERS
+    longest = max(iters, f_iters, sup_iters)
+    stream_p = core.sample_blocks(gen, d, b, longest)
+    stream_d = core.sample_blocks(gen, n, b, longest)
+    idx_p, idx_d = stream_p[:iters], stream_d[:iters]
+    runs = {}
+    gk.reset_launch_counts()                          # recovery path starts
+    # (a) accelerated: beta = 0 against the primal, beta = 0.9 timed
+    for s in (1, 16):
+        runs["primal", s], wall_p = timed(
+            lambda: core.ca_bcd(X, y, lam, b, s, iters, idx=idx_p))
+        runs["beta0", s], _ = timed(lambda: core.ca_accelerated_bcd(
+            X, y, lam, b, s, iters, idx=idx_p, beta=0.0))
+        before = launches()
+        runs["beta.9", s], wall_a = timed(lambda: core.ca_accelerated_bcd(
+            X, y, lam, b, s, iters, idx=idx_p, beta=0.9))
+        ran = ran_since(before)
+        outer = -(-iters // s)
+        if (ran["gram_packet_sampled_rows"], ran["panel_apply_rows"]) != (
+                outer, iters):
+            raise AssertionError(f"accelerated s={s}: launches {ran}")
+        stats[f"accelerated_s{s}"] = {
+            "wall_s": wall_a, "ms_per_inner": wall_a / iters * 1e3,
+            "primal_wall_s": wall_p,
+            "primal_ms_per_inner": wall_p / iters * 1e3}
+        log(f"  accelerated beta=0.9 s={s:2d}: {wall_a / iters * 1e3:.3f} ms "
+            f"an inner iteration (primal {wall_p / iters * 1e3:.3f}); "
+            f"beta=0 equals the primal (torch.equal on w, alpha, history) "
+            f"{same_result(runs['beta0', s], runs['primal', s])}")
+        if not same_result(runs["beta0", s], runs["primal", s]):
+            raise AssertionError(f"accelerated beta=0 s={s} differs from "
+                                 "the primal")
+    # (b) the guard on clean solves: equal to the unguarded, same launches
+    for form, solve, idx in (("primal", core.ca_bcd, idx_p),
+                             ("dual", core.ca_bdcd, idx_d)):
+        before = launches()
+        runs[form, "plain"], _ = timed(
+            lambda: solve(X, y, lam, b, 16, iters, idx=idx))
+        mid = launches()
+        runs[form, "guarded"], _ = timed(
+            lambda: solve(X, y, lam, b, 16, iters, idx=idx, guard=True))
+        plain_ran = {k: mid[k] - before[k] for k in mid}
+        guard_ran = ran_since(mid)
+        res = runs[form, "guarded"]
+        m = host_metrics(res)
+        equal = (torch.equal(res.w, runs[form, "plain"].w)
+                 and torch.equal(res.alpha, runs[form, "plain"].alpha))
+        log(f"  guarded {form:6s} s=16: equal to unguarded (torch.equal on "
+            f"w, alpha) {equal}; {m}; launches equal {plain_ran == guard_ran}")
+        if not (equal and m["guard_trips"] == 0
+                and m["guard_first_trip"] == -1 and plain_ran == guard_ran):
+            raise AssertionError(f"guarded clean {form} solve: {equal}, {m}, "
+                                 f"{plain_ran} vs {guard_ran}")
+    # (c) the fault matrix at s = 16
+    faults = {}
+    for form, solve, idx in (("primal", core.ca_bcd, stream_p[:f_iters]),
+                             ("dual", core.ca_bdcd, stream_d[:f_iters])):
+        runs[form, "clean"] = solve(X, y, lam, b, 16, f_iters, idx=idx)
+        for kind, step, reason in FAULTS:
+            faults[form, kind], wall = timed(lambda: solve(
+                X, y, lam, b, 16, f_iters, idx=idx, guard=True,
+                fault=FaultPlan(kind, step=step)))
+            stats[f"fault_{form}_{kind}_wall_s"] = wall
+    # (d) the rescue of a singular block: lam = 0, duplicate rows
+    rows = torch.nonzero(torch.linalg.vector_norm(X, dim=1) > 0).flatten()[
+        :2].tolist()
+    dup = torch.tensor([[rows[0]] * 2, [rows[1]] * 2], dtype=torch.int32,
+                       device=X.device).repeat(6, 1)
+    rescue_plain = core.ca_bcd(X, y, 0.0, 2, 4, 12, idx=dup)
+    rescue_guard = core.ca_bcd(X, y, 0.0, 2, 4, 12, idx=dup, guard=True)
+    # (e) the supervised restart, f32 real-sim and f64 on the 8x cut
+    sup = {}
+    Xc, yc = cut[:2]
+    lam_c = 1e-6 * float(torch.linalg.norm(Xc) ** 2)
+    idx_c = core.sample_blocks(gen, Xc.shape[0], b, sup_iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, (Xs, ys, lam_s, idx_s) in (
+                ("f32", (X, y, lam, stream_p[:sup_iters])),
+                ("f64", (Xc, yc, lam_c, idx_c))):
+            sup[tag], wall = timed(lambda: solve_supervised(
+                "primal", "local", Xs, ys, lam_s, b, 16, sup_iters,
+                idx=idx_s, ckpt_dir=f"{tmp}/{tag}",
+                fault=FaultPlan("device_loss", step=4)))
+            sup[tag, "clean"] = core.ca_bcd(Xs, ys, lam_s, b, 16, sup_iters,
+                                            idx=idx_s)
+            stats[f"supervised_{tag}_wall_s"] = wall
+        counts = launches()                           # recovery path ends
+        # one snapshot of the f32 iterate, as the supervisor writes it
+        mgr = CheckpointManager(f"{tmp}/timing", async_save=False)
+        writes = []
+        for k in range(5):
+            _, wall = timed(lambda: mgr.save(k, {"x0": sup["f32"].w},
+                                             block=True))
+            writes.append(wall)
+        snap = Path(tmp) / "timing" / "step_0000000004"
+        nbytes = sum(f.stat().st_size for f in snap.iterdir())
+    stats["snapshot"] = {"write_ms": sorted(writes)[2] * 1e3,
+                         "writes_ms": [w * 1e3 for w in writes],
+                         "bytes": nbytes}
+    log(f"  snapshot of the f32 iterate (d = {d}): {nbytes} bytes on disk, "
+        f"write {sorted(writes)[2] * 1e3:.3f} ms (median of 5)")
+    log(f"  launches {counts}")
+    for name in ("gram_packet_sampled_rows", "panel_apply_rows",
+                 "gram_packet_sampled_cols", "panel_apply_cols"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name} never ran on the recovery path")
+
+    # -- checks off the count ------------------------------------------
+    f0 = float(0.5 / n * (y @ y))
+    for s in (1, 16):
+        before = launches()
+        ref = core.ca_accelerated_bcd(X, y, lam, b, s, iters, idx=idx_p,
+                                      beta=0.9, impl="ref")
+        if launches() != before:
+            raise AssertionError("impl='ref' launched a CUDA kernel")
+        got = runs["beta.9", s]
+        hist = got.history["objective"]
+        first, last = float(hist[0]), float(hist[-1])
+        kr = rel(got.w, ref.w)
+        log(f"  accelerated beta=0.9 s={s:2d}: objective {f0:.6e} -> "
+            f"{first:.6e} -> {last:.6e}; |w_cuda - w_ref|/|w| {kr:.2e} "
+            f"(tol {TOL_SOLVE_F32:.0e})")
+        stats[f"accelerated_s{s}"]["cuda_vs_ref"] = kr
+        if not (math.isfinite(last) and last < first < f0
+                and kr <= TOL_SOLVE_F32):
+            raise AssertionError(f"accelerated s={s}: {f0}, {first}, {last}, "
+                                 f"{kr}")
+    for (form, kind), res in faults.items():
+        step, reason = next((st, r) for k, st, r in FAULTS if k == kind)
+        m = host_metrics(res)
+        o_clean = float(core.objective(X, runs[form, "clean"].w, y, lam))
+        o_fault = float(core.objective(X, res.w, y, lam))
+        log(f"  fault {kind:10s} at step {step} in the {form:6s}: first trip "
+            f"{m['guard_first_trip']}, reason {m['guard_first_reason']}, "
+            f"trips {m['guard_trips']}, s=1 tail from outer step "
+            f"{m.get('s1_tail_from_outer')} (iteration "
+            f"{m.get('s1_tail_from_iter')}, {m.get('s1_tail_trips')} trips "
+            f"in it); objective {o_fault:.6e} (clean {o_clean:.6e}); "
+            f"{stats[f'fault_{form}_{kind}_wall_s']:.3f} s")
+        stats[f"fault_{form}_{kind}"] = {"metrics": m, "objective": o_fault,
+                                         "clean_objective": o_clean}
+        if not (m["guard_first_trip"] == step
+                and int(m["guard_first_reason"]) & reason
+                and m.get("s1_tail_from_outer") == step
+                and math.isfinite(o_fault)
+                and o_fault <= o_clean * 1.25 + 1e-6):
+            raise AssertionError(f"fault {kind} in the {form}: {m}, "
+                                 f"{o_fault} vs {o_clean}")
+    m = host_metrics(rescue_guard)
+    plain_finite = bool(torch.isfinite(rescue_plain.w).all())
+    guard_finite = bool(torch.isfinite(rescue_guard.w).all())
+    log(f"  rescue, rows {rows} duplicated at lam = 0, s = 4: unguarded "
+        f"finite {plain_finite}, guarded finite {guard_finite}, {m}")
+    stats["rescue"] = {"rows": rows, "unguarded_finite": plain_finite,
+                       "metrics": m}
+    if plain_finite or not guard_finite or not m["guard_max_jitter"] > 0:
+        raise AssertionError(f"rescue: unguarded finite {plain_finite}, "
+                             f"guarded finite {guard_finite}, {m}")
+    for tag, tol in (("f32", TOL_SUPERVISED_F32),
+                     ("f64", TOL_SUPERVISED_F64)):
+        res, clean = sup[tag], sup[tag, "clean"]
+        err = float((res.w - clean.w).abs().max())
+        log(f"  supervised {tag} primal s=16, {sup_iters} iterations, device "
+            f"lost at outer step 4: {res.metrics}; max |w - w_uninterrupted| "
+            f"{err:.2e} (tol {tol:.0e}); {stats[f'supervised_{tag}_wall_s']:.3f}"
+            " s")
+        stats[f"supervised_{tag}"] = {"metrics": res.metrics, "max_abs": err}
+        if not (res.metrics["restarts"] == 1 and err <= tol):
+            raise AssertionError(f"supervised {tag}: {res.metrics}, {err}")
+    log("== 8b. the guard's and the momentum's cost (profiler traces, 64 "
+        "iterations; primal, guarded, accelerated beta = 0.9 in turns)")
+    variants = {"primal": {}, "guarded": {"guard": True},
+                "accelerated": {"beta": 0.9}}
+    for s in (1, 16):
+        for name in ("primal", "guarded", "accelerated", "accelerated",
+                     "guarded", "primal"):
+            solve = core.ca_accelerated_bcd if name == "accelerated" else (
+                core.ca_bcd)
+            rec = profile_run(
+                lambda: solve(X, y, lam, b, s, 64, idx=stream_p[:64],
+                              **variants[name]),
+                f"{name} s={s:2d}", 4)
+            stats.setdefault(f"phase8_{name}_s{s}", []).append(
+                {k: rec[k] for k in ("wall_ms", "busy_ms", "idle")})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -1224,6 +1479,12 @@ def main() -> int:
         "K2 / K6, TSQR; f64 on the 8x cuts")
     records["gram_dense"] = k8_full_shape(X, lam, 2)
     paths["baselines"] = baselines(X, y, lam, cut, gen, stats)
+
+    # -- 8. accelerated, guards, faults and recovery ----------------------
+    log(f"== 8. accelerated, guards, faults and recovery, real-sim, b = 8, "
+        f"{args.iters} iterations ({FAULT_ITERS} for the fault matrix, "
+        f"{SUPERVISED_ITERS} supervised)")
+    paths["recovery"] = recovery_run(X, y, lam, cut, gen, args.iters, stats)
     del X, y, cut
 
     # Each path's own kernels must have run on it; the line counts the
@@ -1233,7 +1494,8 @@ def main() -> int:
                "service": [k.name for k in gk.KERNELS[:6]],
                "baselines": [k.name for k in (gk.ROWS_APPLY, gk.ROWS_MATVEC,
                                                gk.DENSE_PACKET,
-                                               gk.DENSE_GRAM)]}
+                                               gk.DENSE_GRAM)],
+               "recovery": [k.name for k in gk.KERNELS[:4]]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:

@@ -1,8 +1,9 @@
-"""repro_torch.core -- CA-BCD / CA-BDCD / CA proximal BCD for regularized
-least squares on one device, in PyTorch: the s-step engine and its
-tenant-batched driver, the ridge and elastic-net formulations, sampling, the
-block subproblem solves, the direct ground truth and the baselines the paper
-compares against (CG, TSQR and CholeskyQR)."""
+"""repro_torch.core -- CA-BCD / CA-BDCD / CA proximal and accelerated BCD
+for regularized least squares on one device, in PyTorch: the s-step engine
+with its health guards and its tenant-batched driver, the ridge,
+elastic-net and momentum formulations, sampling, the block subproblem
+solves, the direct ground truth and the baselines the paper compares
+against (CG, TSQR and CholeskyQR)."""
 from repro_torch.kernels.gram import gram, gram_packet, normal_matvec
 from .engine import (FORMULATIONS, BatchedSolveResult, DualRidge,
                      PrimalRidge, SolveResult, SolverPlan, TenantBatch,
@@ -16,6 +17,8 @@ from .krylov import CGResult, cg_ridge, cg_ridge_history
 from .proximal import (ProximalElasticNet, ca_proximal_bcd,
                        elastic_net_objective, proximal_bcd,
                        proximal_bcd_reference)
+from .accelerated import (MomentumWrapper, accelerated_bcd,
+                          ca_accelerated_bcd)
 from .sampling import overlap_matrix, sample_blocks
 from .subproblem import (block_forward_substitution,
                          block_forward_substitution_prox, soft_threshold,
@@ -30,6 +33,7 @@ __all__ = [
     "bcd", "ca_bcd", "objective", "bdcd", "ca_bdcd", "ridge_exact",
     "ProximalElasticNet", "ca_proximal_bcd", "proximal_bcd",
     "proximal_bcd_reference", "elastic_net_objective",
+    "MomentumWrapper", "accelerated_bcd", "ca_accelerated_bcd",
     "overlap_matrix", "sample_blocks", "block_forward_substitution",
     "block_forward_substitution_prox", "soft_threshold", "solve_spd",
     "CGResult", "cg_ridge", "cg_ridge_history", "tsqr", "cholqr_r",

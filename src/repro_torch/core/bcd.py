@@ -47,13 +47,17 @@ def ca_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, s: int,
            iters: int, generator: torch.Generator | None = None, *,
            w0: torch.Tensor | None = None, idx: torch.Tensor | None = None,
            w_ref: torch.Tensor | None = None, track_cond: bool = False,
-           impl: str | None = None,
-           tiles: int | None = None) -> SolveResult:
+           impl: str | None = None, tiles: int | None = None,
+           guard: bool = False, fault=None, step0: int = 0) -> SolveResult:
     """CA-BCD, Algorithm 2: the engine at s > 1.  ``iters`` counts inner
-    iterations; a non-multiple of ``s`` runs a ragged final outer step."""
-    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond)
+    iterations; a non-multiple of ``s`` runs a ragged final outer step.
+    ``guard`` arms the health guard and the degradation ladder, ``fault``
+    injects a test-only :class:`repro_torch.faults.FaultPlan`, and ``step0``
+    offsets the outer-step numbering of a segmented solve."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond,
+                      guard=guard, fault=fault)
     return s_step_solve(PRIMAL, plan, X, y, lam, iters, generator, x0=w0,
-                        idx=idx, w_ref=w_ref)
+                        idx=idx, w_ref=w_ref, step0=step0)
 
 
 # ca_bcd at s=1 is classical bcd, so it is the canonical registry entry.

@@ -39,13 +39,15 @@ def ca_bdcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int, s: int,
             alpha0: torch.Tensor | None = None,
             idx: torch.Tensor | None = None,
             w_ref: torch.Tensor | None = None, track_cond: bool = False,
-            impl: str | None = None,
-            tiles: int | None = None) -> SolveResult:
+            impl: str | None = None, tiles: int | None = None,
+            guard: bool = False, fault=None, step0: int = 0) -> SolveResult:
     """CA-BDCD, Algorithm 4: the engine at s > 1; same index stream as
-    :func:`bdcd` gives the same iterates in exact arithmetic."""
-    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond)
+    :func:`bdcd` gives the same iterates in exact arithmetic.  ``guard``,
+    ``fault`` and ``step0`` as in :func:`~.bcd.ca_bcd`."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond,
+                      guard=guard, fault=fault)
     return s_step_solve(DUAL, plan, X, y, lam, iters, generator, x0=alpha0,
-                        idx=idx, w_ref=w_ref)
+                        idx=idx, w_ref=w_ref, step0=step0)
 
 
 # ca_bdcd at s=1 is classical bdcd, so it is the canonical registry entry.

@@ -18,6 +18,16 @@ divisions (by a device tensor, so that no backend turns them into a
 reciprocal multiply).  ``iters`` need not be a multiple of ``s``: a ragged
 final outer step of ``iters % s`` blocks runs through the same body.
 
+With ``SolverPlan.guard`` the engine checks a health word every outer
+step and degrades instead of corrupting (DESIGN.md section 7): a nonfinite,
+lost or bit-flipped packet skips the step's update, a divergent or
+ill-conditioned one is rescued with a diagonal jitter, and a trip at
+``s > 1`` finishes the solve at ``s = 1``.  The host reads the health word
+and two statistics of the step in one read a step and decides there.
+``SolverPlan.fault`` injects a test-only fault
+(:class:`repro_torch.faults.FaultPlan`) into the raw packet.  Without guard
+and fault the path runs no extra operation.
+
 The tenant-batched driver (:func:`s_step_solve_batched`) runs T solves over
 one X and one index stream: one shared Gram packet per outer step, one
 residual-direction launch for all tenants, and then each tenant's assembly,
@@ -29,6 +39,7 @@ import dataclasses
 import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.gram import (ColMajorOperand, PacketOperand,
@@ -38,14 +49,14 @@ from repro_torch.kernels.gram import (ColMajorOperand, PacketOperand,
 from repro_torch.kernels.gram.ops import check_positive_int
 
 from .sampling import overlap_matrix, sample_blocks
-from .subproblem import block_forward_substitution
+from .subproblem import block_forward_substitution, choose_jitter
 
 
 class SolveResult(NamedTuple):
     w: torch.Tensor        # (d,) primal iterate
     alpha: torch.Tensor    # (n,) auxiliary iterate (X^T w primal; dual vector)
     history: dict          # metric name -> (iters,) tensor, per inner iteration
-    metrics: dict = {}     # end-of-solve scalars (none on this path yet)
+    metrics: dict = {}     # end-of-solve scalars (guard / recovery telemetry)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,17 +70,44 @@ class SolverPlan:
     cond(scale * G + reg * I) per outer step in the history.  ``tenants``
     pins the tenant count of a batched solve (``None``: whatever the
     :class:`TenantBatch` holds); a batch of another width is refused.
+
+    ``guard`` arms the per-outer-step health guard and the degradation
+    ladder.  ``guard_boost`` is the envelope margin of the divergence and
+    magnitude guards (trip when the tracked quantity exceeds ``boost`` times
+    its running floor); ``guard_cond_max`` caps the Gram-diagonal ratio
+    (``None``: ``0.1 / eps`` of the dtype).  ``fault`` is a test-only
+    :class:`repro_torch.faults.FaultPlan` (anything with ``apply_packet`` and
+    ``apply_health``) injected into every outer step.
     """
     b: int
     s: int = 1
     impl: str | None = None
     tiles: int | None = None
     track_cond: bool = False
+    guard: bool = False
+    guard_boost: float = 1e4
+    guard_cond_max: float | None = None
+    fault: object | None = None
     tenants: int | None = None
 
     def __post_init__(self):
         for name in ("b", "s"):
             check_positive_int(f"SolverPlan.{name}", getattr(self, name))
+        if not isinstance(self.guard, bool):
+            raise ValueError(f"SolverPlan.guard={self.guard!r} must be a bool")
+        if not self.guard_boost > 1:
+            raise ValueError(
+                f"SolverPlan.guard_boost={self.guard_boost!r} must be > 1")
+        if self.guard_cond_max is not None and not self.guard_cond_max > 1:
+            raise ValueError(
+                f"SolverPlan.guard_cond_max={self.guard_cond_max!r} must be "
+                "> 1 (or None for the dtype default)")
+        if self.fault is not None and not (
+                hasattr(self.fault, "apply_packet")
+                and hasattr(self.fault, "apply_health")):
+            raise ValueError(
+                f"SolverPlan.fault={self.fault!r} must provide apply_packet "
+                "and apply_health (see repro_torch.faults.FaultPlan)")
         if self.tenants is not None:
             check_positive_int("SolverPlan.tenants", self.tenants)
         self.packet  # PacketPlan validates impl and the tile values
@@ -301,6 +339,134 @@ def register_formulation(form):
 
 
 # --------------------------------------------------------------------------
+# Health guards (DESIGN.md section 7)
+# --------------------------------------------------------------------------
+
+# Guard-trip reason bits (``SolveResult.metrics["guard_first_reason"]``).
+GUARD_NONFINITE = 1    # NaN/Inf in the packet or the solver carry
+GUARD_SHARD_LOSS = 2   # a shard's presence flag missing from the packet
+GUARD_DIVERGENCE = 4   # packet-vector norm blew past its running envelope
+GUARD_MAGNITUDE = 8    # packet magnitude blew past its envelope (bit flips)
+GUARD_COND = 16        # Gram-diagonal condition proxy tripped
+GUARD_BREAKDOWN = 32   # the inner sweep itself produced nonfinite updates
+
+
+class GuardState(NamedTuple):
+    """Guard telemetry carried across outer steps, on the host.  The
+    envelopes are running minima of ``1 + ||u||^2`` and ``1 + max |G|`` (the
+    +1 keeps an iterate growing from exactly zero, the dual's cold w, from
+    arming a zero envelope), so the divergence and magnitude guards need
+    one clean outer step to arm.  The envelopes and the jitter are numpy
+    scalars of the solve's dtype, so that every verdict rounds as the
+    device would."""
+    env_r: np.floating      # running floor of 1 + packet-vector norm^2
+    env_g: np.floating      # running floor of 1 + max |G|
+    trips: int              # count of tripped outer steps
+    first_trip: int         # outer index of the first trip (-1: clean)
+    first_reason: int       # GUARD_* bits at the first trip
+    max_jitter: np.floating  # largest diagonal jitter of a rescue
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.dtype(str(dtype).removeprefix("torch.")).type
+
+
+def _guard_init(dtype: torch.dtype) -> GuardState:
+    f = _np_dtype(dtype)
+    return GuardState(f(np.inf), f(np.inf), 0, -1, 0, f(0))
+
+
+def _guard_metrics(gstate: GuardState) -> dict:
+    return {"guard_trips": gstate.trips,
+            "guard_first_trip": gstate.first_trip,
+            "guard_first_reason": gstate.first_reason,
+            "guard_max_jitter": float(gstate.max_jitter)}
+
+
+def _nonfinite(x, dtype):
+    """The count of x's NaN and Inf entries, in ``dtype``: x - x is exactly
+    0 where x is finite and NaN elsewhere.  Three launches, where
+    ``torch.isfinite`` alone takes four."""
+    return (x - x).ne(0).sum(dtype=dtype)
+
+
+def _health_local(G, r, carry, u):
+    """The health word of one packet, five entries in G's dtype: [nonfinite
+    count in (G, r); nonfinite count over every carry leaf; packet-vector
+    squared norm; presence (1); max |G|].  All are sums, so that a
+    reduction over shards would give the global verdicts."""
+    dtype = G.dtype
+    nonfinite = _nonfinite(G, dtype) + _nonfinite(r, dtype)
+    counts = [_nonfinite(leaf, dtype) for leaf in carry]
+    carry_bad = sum(counts[1:], counts[0])
+    r2 = torch.sum(u * u)
+    present = torch.ones((), dtype=dtype, device=G.device)
+    gmax = torch.max(torch.abs(G))
+    return torch.stack([nonfinite, carry_bad, r2, present, gmax])
+
+
+def _guarded_sweep(bound, plan, A, base, s_k, b, flat, carry, O, h,
+                   gstate: GuardState, step: int):
+    """Check the health word ``h``, then solve, degrading instead of
+    corrupting.  Rung one of the degradation ladder: a nonfinite packet, a
+    missing shard or a bit-flip-sized magnitude SKIPS the update (dxs = 0,
+    one outer step of progress lost, the carry untouched); divergence, the
+    condition proxy and a breakdown of the inner sweep RESCUE it (sanitise,
+    take the smallest working diagonal jitter, sweep again).
+
+    The health word, diag(A)'s extremes and dxs's nonfinite count reach the
+    host in ONE read; the verdicts are computed there in the solve's dtype
+    (numpy scalars round as the device does), so a clean step adds no
+    launch after that read.  Returns ``(dxs, gstate, ginfo)``."""
+    f = _np_dtype(A.dtype)
+    dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
+    dmin, dmax = torch.aminmax(torch.diagonal(A))
+    stats = torch.cat([h, torch.stack([dmin, dmax,
+                                       _nonfinite(dxs, A.dtype)])])
+    h0, h1, h2, h3, h4, dmin, dmax, bad_dxs = (f(v) for v in stats.tolist())
+    with np.errstate(all="ignore"):      # inf and NaN are verdicts here
+        boost = f(plan.guard_boost)
+        r_now, g_now = f(1) + h2, f(1) + h4
+        cond_max = f(plan.guard_cond_max if plan.guard_cond_max is not None
+                      else 0.1 / np.finfo(f).eps)
+        bad_nonfinite = bool(h0 + h1 > 0)
+        bad_shard = bool(h3 != 1)           # the one shard's presence
+        bad_div = bool(r_now > boost * gstate.env_r)
+        bad_mag = bool(g_now > boost * gstate.env_g)
+        bad_cond = bool((dmin <= 0) | (
+            dmax / np.maximum(dmin, np.finfo(f).tiny) > cond_max))
+    bad_solve = bool(bad_dxs > 0)
+    skip = bad_nonfinite or bad_shard or bad_mag
+    rescue = (bad_div or bad_cond or bad_solve) and not skip
+    jitter = f(0)
+    if rescue:
+        As = torch.nan_to_num(A, nan=0.0, posinf=0.0, neginf=0.0)
+        bs = torch.nan_to_num(base, nan=0.0, posinf=0.0, neginf=0.0)
+        jit, _ = choose_jitter(As)
+        eye = torch.eye(s_k * b, dtype=A.dtype, device=A.device)
+        dj = bound.inner_sweep(As + jit * eye, bs, s_k, b, flat, carry, O)
+        dxs = torch.where(torch.isfinite(dj), dj, torch.zeros_like(dj))
+        jitter = f(jit.item())
+    if skip:
+        dxs = torch.zeros_like(dxs)
+    tripped = skip or rescue
+    reason = (GUARD_NONFINITE * bad_nonfinite + GUARD_SHARD_LOSS * bad_shard
+              + GUARD_DIVERGENCE * bad_div + GUARD_MAGNITUDE * bad_mag
+              + GUARD_COND * bad_cond + GUARD_BREAKDOWN * bad_solve)
+    first = gstate.first_trip < 0 and tripped
+    gstate = GuardState(
+        env_r=min(gstate.env_r, r_now) if np.isfinite(r_now) else gstate.env_r,
+        env_g=min(gstate.env_g, g_now) if np.isfinite(g_now) else gstate.env_g,
+        trips=gstate.trips + tripped,
+        first_trip=step if first else gstate.first_trip,
+        first_reason=reason if first else gstate.first_reason,
+        max_jitter=max(gstate.max_jitter, jitter))
+    ginfo = {"guard_tripped": float(tripped), "guard_reason": float(reason),
+             "guard_jitter": float(jitter)}
+    return dxs, gstate, ginfo
+
+
+# --------------------------------------------------------------------------
 # The one s-step body and the loop over outer steps
 # --------------------------------------------------------------------------
 
@@ -317,10 +483,13 @@ def _assemble_subproblem(bound, G0, r, carry, flat, O, sb: int):
     return A, bound.base(scale_r * r, carry, flat)
 
 
-def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k):
+def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k,
+                step: int = 0, gstate: GuardState | None = None):
     """ONE outer iteration: ``s_k`` inner blocks (``plan.s``, or
-    ``iters % s`` for the ragged tail).  Returns the carry after the s_k
-    deferred updates and the per-inner-iteration metrics."""
+    ``iters % s`` for the ragged tail).  ``step`` is the outer step's global
+    index, read only by the guard and the fault hooks; ``gstate`` the guard
+    state.  Returns the carry after the s_k deferred updates, the guard
+    state and the per-inner-iteration metrics."""
     b = plan.b
     sb = s_k * b
     pp = plan.packet
@@ -330,9 +499,20 @@ def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k):
     # scales and the regulariser are applied in _assemble_subproblem.
     G, r = gram_packet_sampled(bound.operand, flat, u, scale=1.0,
                                scale_r=1.0, reg=0.0, plan=pp)
+    if plan.fault is not None:
+        G, r = plan.fault.apply_packet(G, r, step=step)
     O = overlap_matrix(flat).to(G.dtype) if s_k > 1 else None
     A, base = _assemble_subproblem(bound, G, r, carry, flat, O, sb)
-    dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
+    if plan.guard:
+        # after the fault, so that injected damage is seen as real damage
+        h = _health_local(G, r, carry, u)
+        if plan.fault is not None:
+            h = plan.fault.apply_health(h, step=step)
+        dxs, gstate, ginfo = _guarded_sweep(bound, plan, A, base, s_k, b,
+                                            flat, carry, O, h, gstate, step)
+    else:
+        dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
+        ginfo = {}
 
     # Reconstruct the per-inner-iteration trajectory: one deferred update
     # (and one metric evaluation) per block.
@@ -340,7 +520,7 @@ def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k):
     for j in range(s_k):
         carry = bound.update(carry, flat[j * b:(j + 1) * b],
                              dxs[j * b:(j + 1) * b], pp)
-        hist.append(bound.metrics(carry))
+        hist.append(bound.metrics(carry) | ginfo)
     if plan.track_cond:
         # cond of the scaled packet with its ridge diagonal (A is not it: its
         # off-diagonal overlap entries shift the spectrum at s > 1).
@@ -349,12 +529,16 @@ def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k):
         cond = torch.linalg.cond(Greg)
         for h in hist:
             h["gram_cond"] = cond
-    return carry, hist
+    return carry, gstate, hist
 
 
 def _resolve_form(formulation):
+    """Resolve a formulation name (or pass an instance through), importing
+    the sibling modules that register themselves on first use."""
     if not isinstance(formulation, str):
         return formulation
+    if formulation not in FORMULATIONS:
+        from . import accelerated, proximal  # noqa: F401
     try:
         return FORMULATIONS[formulation]
     except KeyError:
@@ -379,17 +563,27 @@ def _outer_steps(idx, s: int) -> list:
     return steps
 
 
-def _drive(bound, plan: SolverPlan, idx):
-    """Every outer step of :func:`_outer_steps`.  Returns
-    ``(carry, history)``."""
+def _drive(bound, plan: SolverPlan, idx, step0: int = 0):
+    """Every outer step of :func:`_outer_steps`, outer step k under the
+    global index ``k + step0`` (a segmented solve keeps its numbering).
+    Returns ``(carry, history, gstate)``, ``gstate`` None without guard."""
+    X = bound.operand.array
     carry = bound.init_carry()
+    gstate = _guard_init(X.dtype) if plan.guard else None
     hist = []
-    for s_k, idx_k in _outer_steps(idx, plan.s):
-        carry, h = _outer_step(bound, plan, s_k, carry, idx_k)
+    for k, (s_k, idx_k) in enumerate(_outer_steps(idx, plan.s)):
+        carry, gstate, h = _outer_step(bound, plan, s_k, carry, idx_k,
+                                       step=k + step0, gstate=gstate)
         hist.extend(h)
-    history = ({key: torch.stack([h[key] for h in hist]) for key in hist[0]}
+
+    def series(values):
+        # the guard's telemetry is host numbers, every metric a 0-d tensor
+        if isinstance(values[0], torch.Tensor):
+            return torch.stack(values)
+        return torch.tensor(values, dtype=X.dtype, device=X.device)
+    history = ({key: series([h[key] for h in hist]) for key in hist[0]}
                if hist else {})
-    return carry, history
+    return carry, history, gstate
 
 
 def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
@@ -397,7 +591,8 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
                  generator: torch.Generator | None = None, *,
                  x0: torch.Tensor | None = None,
                  idx: torch.Tensor | None = None,
-                 w_ref: torch.Tensor | None = None) -> SolveResult:
+                 w_ref: torch.Tensor | None = None,
+                 step0: int = 0) -> SolveResult:
     """Single-device s-step solve on X's device.  ``plan.s == 1`` IS the
     classical variant; larger ``s`` gives the same iterates in exact
     arithmetic.
@@ -405,7 +600,12 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
     ``x0`` warm-starts the formulation's own iterate (w primal, alpha dual).
     ``idx`` (int (iters, b)) overrides the index stream, which is otherwise
     drawn from ``generator``; the classical and CA runs that share it give
-    identical iterates in exact arithmetic.
+    identical iterates in exact arithmetic.  ``step0`` offsets the outer-step
+    numbering that the guard and the fault hooks see (segmented solves).
+
+    With ``plan.guard`` the result's ``metrics`` hold the guard telemetry,
+    and a trip at ``s > 1`` takes rung two of the degradation ladder
+    (:func:`_degrade_to_s1_tail`).
     """
     form = _resolve_form(formulation)
     d, n = X.shape
@@ -417,8 +617,47 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
         _check_idx(idx, iters, plan.b)
     idx = idx.to(device=X.device, dtype=torch.int32)
     bound = form.bind(X, y, lam, x0=x0, w_ref=w_ref)
-    (w, alpha), history = _drive(bound, plan, idx)
-    return SolveResult(w, alpha, history, {})
+    # A formulation may carry more than (w, alpha): the accelerated
+    # velocity rides at carry[2].
+    carry, history, gstate = _drive(bound, plan, idx, step0)
+    metrics = {}
+    if plan.guard:
+        metrics = _guard_metrics(gstate)
+        if plan.s > 1 and gstate.first_trip >= 0:
+            return _degrade_to_s1_tail(form, plan, X, y, lam, idx,
+                                       gstate.first_trip, step0, x0, w_ref,
+                                       metrics)
+    return SolveResult(carry[0], carry[1], history, metrics)
+
+
+def _degrade_to_s1_tail(form, plan, X, y, lam, idx, first, step0, x0, w_ref,
+                        metrics):
+    """Rung two of the degradation ladder: a guard tripped at outer step
+    ``first`` of an ``s > 1`` solve.  Replay the clean prefix at ``s`` (the
+    same index stream over the same data gives the same clean steps),
+    warm-start from its iterate and run the remaining iterations at
+    ``s = 1``, so that a further breakdown poisons one iteration's update
+    instead of ``s``.  The tail keeps the guard and the fault, numbered from
+    ``first``, so that the fault fires again inside it."""
+    n_clean = (first - step0) * plan.s
+    hists = []
+    if n_clean > 0:
+        pre = s_step_solve(form, plan, X, y, lam, n_clean, x0=x0,
+                           idx=idx[:n_clean], w_ref=w_ref, step0=step0)
+        hists.append(pre.history)
+        x0 = pre.w if form.operand_layout == "rows" else pre.alpha
+    tail = s_step_solve(form, dataclasses.replace(plan, s=1), X, y, lam,
+                        idx.shape[0] - n_clean, x0=x0, idx=idx[n_clean:],
+                        w_ref=w_ref, step0=first)
+    hists.append(tail.history)
+    history = {k: torch.cat([h[k] for h in hists]) for k in tail.history}
+    metrics = dict(metrics)
+    metrics["s1_tail_from_outer"] = first
+    metrics["s1_tail_from_iter"] = n_clean
+    metrics["s1_tail_trips"] = tail.metrics["guard_trips"]
+    metrics["guard_max_jitter"] = max(metrics["guard_max_jitter"],
+                                      tail.metrics["guard_max_jitter"])
+    return SolveResult(tail.w, tail.alpha, history, metrics)
 
 
 # --------------------------------------------------------------------------
@@ -546,9 +785,12 @@ def _check_batched(form, plan: SolverPlan, batch: TenantBatch) -> None:
     if not getattr(form, "tenant_batched", False):
         raise ValueError(f"formulation {form.name!r} does not support the "
                          "tenant-batched engine (tenant_batched is not set)")
-    if plan.track_cond:
-        raise ValueError("batched solves do not support "
-                         "SolverPlan.track_cond")
+    for knob in ("guard", "track_cond"):
+        if getattr(plan, knob):
+            raise ValueError(f"batched solves do not support "
+                             f"SolverPlan.{knob}")
+    if plan.fault is not None:
+        raise ValueError("batched solves do not support SolverPlan.fault")
     if plan.tenants is not None and plan.tenants != batch.tenants:
         raise ValueError(f"SolverPlan.tenants={plan.tenants} != batch width "
                          f"{batch.tenants}")
@@ -637,7 +879,8 @@ _REGISTRY: dict[tuple[str, str], Callable] = {}
 
 def register_solver(formulation: str, backend: str, fn: Callable) -> Callable:
     """Register a solver entry point under ``(formulation, backend)``; the
-    ridge entries are registered by ``repro_torch.core.bcd`` / ``.bdcd``."""
+    built-in entries are registered by ``repro_torch.core.bcd``, ``.bdcd``,
+    ``.proximal`` and ``.accelerated``."""
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -649,7 +892,7 @@ def get_solver(formulation: str, backend: str = "local") -> Callable:
     """Look up a solver.  ``local`` entries have the CA signature
     ``(X, y, lam, b, s, iters, generator, **kw)``."""
     if (formulation, backend) not in _REGISTRY:
-        from . import bcd, bdcd, proximal  # noqa: F401  (self-registering)
+        from . import accelerated, bcd, bdcd, proximal  # noqa: F401
     try:
         return _REGISTRY[(formulation, backend)]
     except KeyError:

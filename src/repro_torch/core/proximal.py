@@ -143,13 +143,16 @@ def ca_proximal_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int,
                     idx: torch.Tensor | None = None,
                     w_ref: torch.Tensor | None = None,
                     track_cond: bool = False, impl: str | None = None,
-                    tiles: int | None = None) -> SolveResult:
+                    tiles: int | None = None, guard: bool = False,
+                    fault=None, step0: int = 0) -> SolveResult:
     """CA proximal BCD (arXiv:1712.06047): one sb x sb Gram packet per outer
     step, then ``s`` prox-thresholded block solves.  The same index stream
-    as :func:`proximal_bcd` gives the same iterates in exact arithmetic."""
-    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond)
+    as :func:`proximal_bcd` gives the same iterates in exact arithmetic.
+    ``guard``, ``fault`` and ``step0`` as in :func:`~.bcd.ca_bcd`."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles, track_cond=track_cond,
+                      guard=guard, fault=fault)
     return s_step_solve(ProximalElasticNet(lam1=lam1), plan, X, y, lam, iters,
-                        generator, x0=w0, idx=idx, w_ref=w_ref)
+                        generator, x0=w0, idx=idx, w_ref=w_ref, step0=step0)
 
 
 register_formulation(ProximalElasticNet())

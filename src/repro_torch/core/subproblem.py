@@ -4,6 +4,9 @@ The paper solves each ``b x b`` subproblem by forming its Gram matrix and
 factoring it with Cholesky (section 2.1).  ``solve_spd`` is that single
 choke point; the CA inner loop (block forward substitution) reuses it, and
 so does the proximal sweep, which soft-thresholds each block's candidate.
+:func:`solve_spd_jittered` hardens it for singular or corrupted blocks: the
+guarded engine's rescue picks its diagonal jitter with
+:func:`choose_jitter`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,59 @@ def solve_spd(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = rhs`` for symmetric positive definite ``A`` via Cholesky
     (NaN where ``A`` is not positive definite; :func:`cholesky_nan`)."""
     return torch.cholesky_solve(rhs[:, None], cholesky_nan(A)).squeeze(-1)
+
+
+# Relative diagonal jitter, escalated (DESIGN.md section 7).  Level 0 probes
+# the unmodified matrix, so a healthy block is not perturbed; the ladder ends
+# at max|diag(A)| itself, past which the block carries no usable curvature.
+JITTER_LEVELS = (0.0, 1e-12, 1e-9, 1e-6, 1e-3, 1.0)
+
+
+def choose_jitter(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest relative diagonal jitter that makes ``A`` Cholesky-clean.
+
+    Factors ``A + lev * scale * I`` for every level of :data:`JITTER_LEVELS`
+    in one batched ``cholesky_ex`` (``scale = max(|diag(A)|, 1)``) and
+    returns ``(jitter, ok)``: the smallest absolute jitter whose factor is
+    finite with a strictly positive diagonal, and whether any level was.
+    With no clean level the jitter is the last level's.  Nothing is read
+    back to the host.
+    """
+    sb = A.shape[0]
+    scale = torch.clamp_min(torch.abs(torch.diagonal(A)).max(), 1.0)
+    jitters = scale * torch.tensor(JITTER_LEVELS, dtype=A.dtype,
+                                   device=A.device)
+    eye = torch.eye(sb, dtype=A.dtype, device=A.device)
+    chol, info = torch.linalg.cholesky_ex(A + jitters[:, None, None] * eye)
+    good = ((info == 0) & torch.isfinite(chol).all(dim=(1, 2))
+            & (torch.diagonal(chol, dim1=1, dim2=2) > 0).all(dim=1))
+    ok = good.any()
+    # argmax gives the first clean level; with none, the last level
+    level = torch.where(ok, torch.argmax(good.to(torch.int8)),
+                        len(JITTER_LEVELS) - 1)
+    return jitters[level], ok
+
+
+def solve_spd_jittered(A: torch.Tensor, rhs: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NaN-free SPD solve: :func:`solve_spd` hardened for singular or
+    corrupted ``A``.
+
+    Non-finite entries become 0, the diagonal jitter is escalated through
+    :func:`choose_jitter`, and a solution that is still not finite becomes
+    zeros.  Returns ``(x, jitter, ok)``; ``ok`` is False when no level gave a
+    clean factor or the solution was not finite (the zero update is then
+    the degraded step: skip, don't corrupt).  A rank-deficient block of
+    duplicate sampled indices at ``lam = 0`` is the canonical case: plain
+    :func:`solve_spd` returns NaN there.
+    """
+    A = torch.nan_to_num(A, nan=0.0, posinf=0.0, neginf=0.0)
+    rhs = torch.nan_to_num(rhs, nan=0.0, posinf=0.0, neginf=0.0)
+    jitter, ok = choose_jitter(A)
+    x = solve_spd(A + jitter * torch.eye(A.shape[0], dtype=A.dtype,
+                                         device=A.device), rhs)
+    finite = torch.isfinite(x).all()
+    return torch.where(finite, x, torch.zeros_like(x)), jitter, ok & finite
 
 
 def block_forward_substitution(A: torch.Tensor, base: torch.Tensor, s: int,

@@ -4,7 +4,8 @@ the port.
 The two packages share no code and no random streams, so a comparison hands
 both the same numpy arrays: :func:`problem_from_numpy` turns the reference's
 arrays into the port's tensors in the same layouts, :func:`plan_from_reference`
-maps the reference ``SolverPlan`` fields this port supports, and
+maps the reference ``SolverPlan`` fields this port supports (a reference
+``FaultPlan`` through :func:`fault_from_reference`), and
 :func:`result_to_numpy` converts a port result back.  For the tenant-batched
 engine, :func:`batch_from_numpy` builds a ``TenantBatch`` from numpy arrays
 and :func:`batched_result_to_numpy` converts a batched result back.
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.engine import (BatchedSolveResult, SolveResult,
                                      SolverPlan, TenantBatch)
+from repro_torch.faults import FaultPlan
 
 # Reference impls and their counterparts here: the jnp oracles map to the
 # plain versions, the TPU kernels to the CUDA kernels.
@@ -31,33 +33,54 @@ def problem_from_numpy(X, y, idx, x0=None, *, device, dtype):
     return conv(X), conv(y), idx_t, (None if x0 is None else conv(x0))
 
 
+def fault_from_reference(fault) -> FaultPlan:
+    """The port's :class:`~repro_torch.faults.FaultPlan` with the five fields
+    (kind, step, shard, seed, survivors) of a reference ``FaultPlan``, read
+    by name (or from the dict ``dataclasses.asdict`` makes of one).  Raises
+    ``ValueError`` for an object that lacks one."""
+    names = ("kind", "step", "shard", "seed", "survivors")
+    values = (dict(fault) if isinstance(fault, dict) else
+              {name: getattr(fault, name) for name in names
+               if hasattr(fault, name)})
+    missing = [name for name in names if name not in values]
+    if missing:
+        raise ValueError(f"fault {fault!r} is not supported: it has no "
+                         f"{missing}")
+    return FaultPlan(**{name: values[name] for name in names})
+
+
 def plan_from_reference(**fields) -> SolverPlan:
     """A :class:`SolverPlan` from reference ``SolverPlan`` keyword fields.
 
     Supported: ``b``, ``s``, ``impl`` (``"ref"``, ``"pallas"`` -> ``"cuda"``,
-    ``None``), ``track_cond``, ``tenants``, and ``fuse_packet`` / ``unroll``,
-    which do not change a local solve's arithmetic and are dropped.  Raises
-    on what this port does not have: ``guard``, ``fault``, a ``wire`` other
-    than ``"psum"``, TPU ``tiles``, and any other field.
+    ``None``), ``track_cond``, ``tenants``, ``guard`` (a bool),
+    ``guard_boost``, ``guard_cond_max``, ``fault`` (a reference
+    ``FaultPlan``, converted by :func:`fault_from_reference`), and
+    ``fuse_packet`` / ``unroll``, which do not change a local solve's
+    arithmetic and are dropped.  Raises on what this port does not have: a
+    ``wire`` other than ``"psum"``, TPU ``tiles``, and any other field.
     """
     fields = dict(fields)
     fields.pop("fuse_packet", None)
     fields.pop("unroll", None)
     unsupported = []
-    if fields.pop("guard", False):
-        unsupported.append("guard")
-    for name in ("guard_boost", "guard_cond_max"):
-        fields.pop(name, None)        # meaningless without guard
-    for name in ("fault", "tiles"):
-        if fields.pop(name, None) is not None:
-            unsupported.append(name)
+    if not isinstance(fields.get("guard", False), bool):
+        unsupported.append(f"guard={fields.pop('guard')!r}")
+    if fields.get("fault") is not None:
+        try:
+            fields["fault"] = fault_from_reference(fields["fault"])
+        except ValueError:
+            unsupported.append(f"fault={fields.pop('fault')!r}")
+    if fields.pop("tiles", None) is not None:
+        unsupported.append("tiles")
     if fields.pop("wire", "psum") != "psum":
         unsupported.append("wire")
     impl = fields.pop("impl", None)
     if impl not in _IMPL_MAP:
         unsupported.append(f"impl={impl!r}")
-    unsupported.extend(sorted(set(fields)
-                              - {"b", "s", "track_cond", "tenants"}))
+    unsupported.extend(sorted(set(fields) - {
+        "b", "s", "track_cond", "tenants", "guard", "guard_boost",
+        "guard_cond_max", "fault"}))
     if unsupported:
         raise ValueError(f"reference plan fields not supported by the port: "
                          f"{unsupported}")
@@ -70,7 +93,8 @@ def result_to_numpy(res: SolveResult) -> SolveResult:
         return t.detach().cpu().numpy()
     return SolveResult(conv(res.w), conv(res.alpha),
                        {k: conv(v) for k, v in res.history.items()},
-                       {k: conv(v) for k, v in res.metrics.items()})
+                       {k: conv(v) if isinstance(v, torch.Tensor) else v
+                        for k, v in res.metrics.items()})
 
 
 def batch_from_numpy(ys, lams, coeffs=None, x0s=None, tol=None, *, device,

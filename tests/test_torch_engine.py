@@ -162,9 +162,11 @@ def test_registry_and_string_formulations(problem):
     assert T.get_solver("dual", "local") is T.ca_bdcd
     assert set(T.registered_solvers()) >= {("primal", "local"),
                                            ("dual", "local"),
-                                           ("proximal", "local")}
+                                           ("proximal", "local"),
+                                           ("accelerated", "local")}
+    assert T.get_solver("accelerated") is T.ca_accelerated_bcd
     with pytest.raises(KeyError, match="no solver registered"):
-        T.get_solver("accelerated")
+        T.get_solver("kernel")
     with pytest.raises(ValueError, match="unknown backend"):
         T.register_solver("primal", "sharded", T.ca_bcd)
     with pytest.raises(KeyError, match="unknown formulation"):
@@ -214,7 +216,7 @@ def test_plan_from_reference_maps_supported_fields():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("guard", True), ("fault", object()), ("wire", "ring"),
+    ("guard", "yes"), ("fault", object()), ("wire", "ring"),
     ("tiles", (128, 512)), ("impl", "pallas_interpret"), ("colour", 1)])
 def test_plan_from_reference_refuses_unsupported_fields(field, value):
     with pytest.raises(ValueError, match="not supported"):

@@ -32,7 +32,9 @@ def test_every_module_imports_with_jax_blocked():
     assert {"repro_torch.launch.quickstart", "repro_torch.core.proximal",
             "repro_torch.serve.solver_service", "repro_torch.core.krylov",
             "repro_torch.core.tsqr",
-            "repro_torch.kernels.gram.gram_kernel"} <= set(mods)
+            "repro_torch.kernels.gram.gram_kernel",
+            "repro_torch.core.accelerated", "repro_torch.faults.supervisor",
+            "repro_torch.checkpoint.checkpointer"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
