@@ -4,8 +4,9 @@
 Drives the port's paths -- the single-device s-step solve of CA-BCD
 (primal) and CA-BDCD (dual), the tenant-batched engine (primal, dual,
 proximal), the continuous-batching solve service, the baselines (CG,
-CholeskyQR and TSQR), and the accelerated solve with the health guards,
-fault injection and the supervised restart -- at the full real-sim shape of the paper's Table 3
+CholeskyQR and TSQR), the accelerated solve with the health guards,
+fault injection and the supervised restart, and the sharded and pipelined
+backends on a world of ranks -- at the full real-sim shape of the paper's Table 3
 (d = 20958 features, n = 72309 points, X = 6.06 GB in f32), through the
 eight hand-written CUDA kernels K1-K8, and checks each kernel against its
 plain PyTorch version on the card.
@@ -58,7 +59,19 @@ Phases (any failure raises; nothing is caught):
      against the uninterrupted solve, with the snapshot's write time and
      size; 8b. the guard's and the momentum's cost: guarded and
      accelerated primal solves against unguarded ones at s = 1 and 16 in
-     profiler traces.
+     profiler traces;
+  9. the sharded and pipelined backends at real-sim size on a world of four
+     gloo ranks sharing the card (counted, launches summed over the ranks):
+     primal and dual at s in {1, 16}, on the all-reduce and on the ring,
+     each against the local solve on the same stream, with H all-reduces
+     and no hop, or 2 (P - 1) H hops and no all-reduce, and the replicated
+     iterate the same bytes on every rank; the batched primal (T = 8,
+     s = 16) against its single sharded solves on four ranks and, under
+     torch.equal, on two; guarded clean solves equal to unguarded ones;
+     the fault matrix on shard 1; then the supervised restart after a
+     device loss onto 3 survivors (f32, and f64 on the 8x cut) and one
+     NCCL rank.  Wire times are gloo's, host-staged, with the ranks on one
+     card.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -138,6 +151,19 @@ FAULT_ITERS = 256
 SUPERVISED_ITERS = 512
 TOL_SUPERVISED_F32 = 1e-5
 TOL_SUPERVISED_F64 = 1e-10
+# Phase 9: gloo ranks sharing the card, the solves' length (H = 256 outer
+# steps at s = 1, 16 at s = 16), and the gate of a sharded solve against the
+# local one (PERF.md section 2's f32 CA gate: P partial sums and one deferred
+# update of s blocks round apart from the local solve's per-block updates).
+# A batched packet and a single solve's are laid out differently, and gloo
+# sums an element in an order set by its offset, so at four ranks a tenant
+# and its single solve round apart: the gate is a few times the spread read
+# on the H100 (6.77e-8 in each of four runs, PERF.md); at two ranks
+# (one rounding either way) they are equal under torch.equal.
+DIST_RANKS = 4
+DIST_ITERS = 256
+TOL_DIST_F32 = 1e-4
+TOL_BATCHED_DIST_F32 = 5e-7
 
 
 def log(msg: str) -> None:
@@ -1377,6 +1403,257 @@ def recovery_run(X, y, lam, cut, gen, iters: int, stats: dict) -> dict:
     return counts
 
 
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(
+        ).splitlines()[0]
+
+
+def dist_counters(world) -> dict:
+    """The last call's wire counters, summed over ranks, with the host ms
+    a call (gloo with ranks on one card: host-staged)."""
+    cs = world.last["counters"]
+    tot = {k: sum(c[k] for c in cs) for k in ("all_reduces", "hops",
+                                              "reduce_s", "hop_s")}
+    return {"all_reduces": cs[0]["all_reduces"], "hops": cs[0]["hops"],
+            "words": cs[0]["words"], "hop_words": cs[0]["hop_words"],
+            "ms_per_all_reduce": (tot["reduce_s"] / tot["all_reduces"] * 1e3
+                                  if tot["all_reduces"] else None),
+            "ms_per_hop": (tot["hop_s"] / tot["hops"] * 1e3
+                           if tot["hops"] else None),
+            "staged": cs[0]["staged"]}
+
+
+def check_shard_kernels(X, cut, seed: int) -> None:
+    """K1-K6 against their plain versions on the last (zero-padded) rank's
+    shard of each layout, the shapes the sharded path launches them at:
+    X's n axis cut for the primal family (f32, and f64 on the 8x cut for the
+    supervised restart), its d axis for the dual.  A generator of its own
+    leaves the phase's data as it was."""
+    gen = torch.Generator(device=X.device).manual_seed(seed)
+    P = DIST_RANKS
+    for tag, Xs, form in (("f32", X, "primal"), ("f32", X, "dual"),
+                          ("f64", cut[0], "primal")):
+        Xl, _ = engine.FORMULATIONS[form].pad_shards(Xs, None, P, P - 1)
+        log(f"  {form} shard {P - 1} of {P} ({tag}): {tuple(Xl.shape)}")
+        check_kernels(Xl, gen, f"{tag} {form} shard", (8, 128, 77), 0, {},
+                      TENANTS)
+        del Xl
+
+
+def distributed_run(X, y, lam, cut, gen, stats: dict, seed: int) -> dict:
+    """Phase 9: the kernels on the ranks' shards against their plain
+    versions; then the sharded and pipelined backends on a world of
+    ``DIST_RANKS`` gloo ranks sharing the card, at real-sim size, counted
+    (summed over the ranks): primal and dual at s in {1, 16} on both wires
+    against the local solve; the batched engine against single sharded
+    solves; guarded clean solves against unguarded ones; the fault matrix
+    on shard 1.  Then, off the count, the supervised restart onto 3
+    survivors (f32, and f64 on the 8x cut) and one NCCL rank.  Returns the
+    path's launch counts."""
+    from repro_torch.faults import FaultPlan
+    mode = compute_mode()
+    log(f"  compute mode: {mode}")
+    if mode != "Default":
+        raise AssertionError(f"compute mode {mode!r}: {DIST_RANKS} ranks "
+                             "cannot share the card")
+    check_shard_kernels(X, cut, seed)
+    d, n = X.shape
+    b, iters, P = 8, DIST_ITERS, DIST_RANKS
+    idx = {"primal": core.sample_blocks(gen, d, b, iters),
+           "dual": core.sample_blocks(gen, n, b, iters)}
+    local_solve = {"primal": core.ca_bcd, "dual": core.ca_bdcd}
+    local = {}
+    for form in ("primal", "dual"):
+        for s in (1, 16):
+            local[form, s], wall = timed(lambda: local_solve[form](
+                X, y, lam, b, s, iters, idx=idx[form]))
+            stats[f"dist_local_{form}_s{s}"] = {
+                "wall_s": wall, "ms_per_outer": wall / -(-iters // s) * 1e3}
+    world, spawn = timed(lambda: core.SolverWorld(P, backend="gloo",
+                                                  device=X.device))
+    stats["dist_spawn_s"] = spawn
+    log(f"  {P} gloo ranks on {X.device} spawned in {spawn:.2f} s")
+    try:
+        for form in ("primal", "dual"):       # cut the shards, off the count
+            _, wall = timed(lambda: core.get_solver(form, "sharded")(
+                world, X, y, lam, b, 1, 1, idx=idx[form][:1]))
+            stats[f"dist_shard_{form}_s"] = wall
+            log(f"  {form:6s} shards cut in {wall:.2f} s")
+        world.reset_counts()                  # the sharded path starts
+        runs = {}
+        for form in ("primal", "dual"):
+            for wire in ("sharded", "pipelined"):
+                for s in (1, 16):
+                    runs[form, wire, s] = check_sharded(
+                        world, form, wire, s, X, y, lam, idx[form],
+                        local[form, s], stats)
+        batched_sharded(world, X, y, lam, gen, stats)
+        for form in ("primal", "dual"):
+            solve = core.get_solver(form, "sharded")
+            w, alpha, m = solve(world, X, y, lam, b, 16, iters,
+                                idx=idx[form], guard=True)
+            plain = runs[form, "sharded", 16]
+            same = torch.equal(w, plain[0]) and torch.equal(alpha, plain[1])
+            c = dist_counters(world)
+            log(f"  guarded {form:6s} s=16 on {P} ranks: equal to unguarded "
+                f"(torch.equal) {same}; {m}; all-reduces {c['all_reduces']}")
+            if not (same and m["guard_trips"] == 0
+                    and c["all_reduces"] == -(-iters // 16)):
+                raise AssertionError(f"guarded sharded {form}: {same}, {m}, "
+                                     f"{c}")
+            for kind, step, reason in FAULTS:
+                (w, alpha, m), wall = timed(lambda: solve(
+                    world, X, y, lam, b, 16, FAULT_ITERS,
+                    idx=idx[form][:FAULT_ITERS], guard=True,
+                    fault=FaultPlan(kind, step=step, shard=1)))
+                log(f"  fault {kind:10s} on shard 1 of {P} at step {step}, "
+                    f"{form:6s}: first trip {m['guard_first_trip']}, reason "
+                    f"{m['guard_first_reason']}, trips {m['guard_trips']}; "
+                    f"{wall:.3f} s")
+                stats[f"dist_fault_{form}_{kind}"] = {"metrics": m,
+                                                      "wall_s": wall}
+                if not (m["guard_first_trip"] == step
+                        and m["guard_first_reason"] & reason
+                        and bool(torch.isfinite(w).all())):
+                    raise AssertionError(f"sharded fault {kind} {form}: {m}")
+        counts = {k: sum(r[k] for r in world.launches)
+                  for k in world.launches[0]}  # the sharded path ends
+        for r, ran in enumerate(world.launches):
+            log(f"  rank {r} launches {ran}")
+        stats["dist_launches_by_rank"] = [dict(r) for r in world.launches]
+        supervised_sharded(world, X, y, lam, cut, gen, stats)
+    finally:
+        world.close()
+    one_nccl_rank(X, y, lam, idx["primal"], local["primal", 16], stats)
+    return counts
+
+
+def check_sharded(world, form, wire, s, X, y, lam, idx, local, stats):
+    """One sharded solve on the world, held against the local solve on the
+    same stream, with its collectives counted."""
+    iters, b = idx.shape
+    H = -(-iters // s)
+    P = world.size
+    (w, alpha), wall = timed(lambda: core.get_solver(form, wire)(
+        world, X, y, lam, b, s, iters, idx=idx))
+    c = dist_counters(world)
+    rank_s = max(world.last["solve_s"])
+    ew, ea = rel(w, local.w), rel(alpha, local.alpha)
+    want = (H, 0) if wire == "sharded" else (0, 2 * (P - 1) * H)
+    k = {name: n for name, n in world.last["launches"][0].items() if n}
+    log(f"  {form:6s} {wire:9s} s={s:2d}: {rank_s / H * 1e3:.3f} ms/outer "
+        f"step on {P} ranks (local {stats[f'dist_local_{form}_s{s}']['ms_per_outer']:.3f}); "
+        f"all-reduces {c['all_reduces']}, hops {c['hops']} (want {want}); "
+        f"ms a call, gloo host-staged: all-reduce {c['ms_per_all_reduce']}, "
+        f"hop {c['ms_per_hop']}; |dw|/|w| {ew:.2e}, |dalpha|/|alpha| "
+        f"{ea:.2e} (tol {TOL_DIST_F32:.0e}); replicas equal "
+        f"{world.last['replicas_equal']}; rank 0 launches {k}")
+    stats[f"dist_{form}_{wire}_s{s}"] = {
+        "wall_s": wall, "rank_solve_s": rank_s,
+        "ms_per_outer": rank_s / H * 1e3, "rel_w": ew, "rel_alpha": ea,
+        **c}
+    if not ((c["all_reduces"], c["hops"]) == want and ew <= TOL_DIST_F32
+            and ea <= TOL_DIST_F32 and world.last["replicas_equal"]):
+        raise AssertionError(f"sharded {form} {wire} s={s}: {c}, {ew}, {ea}")
+    return w, alpha
+
+
+def batched_sharded(world, X, y, lam, gen, stats) -> None:
+    """The batched primal at T = 8, s = 16 on the world's four ranks and on
+    two of them, each tenant against its single sharded solve."""
+    d = X.shape[0]
+    b, s = 8, 16
+    ys, lams, _ = tenant_problem(X, y, lam, gen, TENANTS)
+    batch = core.TenantBatch(ys=ys, lams=lams)
+    plan = core.SolverPlan(b=b, s=s)
+    idx = core.sample_blocks(gen, d, b, BATCHED_ITERS)
+    H = -(-BATCHED_ITERS // s)
+    for P in (world.size, 2):
+        ranks = world.ranks(P)
+        got, wall = timed(lambda: ranks.solve_batched(
+            "primal", plan, X, batch, BATCHED_ITERS, idx=idx))
+        c = dist_counters(world)
+        errs, equal = [], []
+        for t in range(TENANTS):
+            w, alpha = ranks.solve("primal", plan, X, ys[t], lams[t],
+                                   BATCHED_ITERS, idx=idx)
+            errs.append(max(rel(got.ws[t], w), rel(got.alphas[t], alpha)))
+            equal.append(torch.equal(got.ws[t], w)
+                         and torch.equal(got.alphas[t], alpha))
+        log(f"  batched primal T={TENANTS} s={s} on {P} ranks: {wall:.3f} s, "
+            f"all-reduces {c['all_reduces']} (want {H}) of {c['words']} "
+            f"words; tenants equal to their single sharded solves "
+            f"(torch.equal) {sum(equal)}/{TENANTS}, max rel diff "
+            f"{max(errs):.2e}"
+            + ("" if P <= 2 else f" (tol {TOL_BATCHED_DIST_F32:.0e})"))
+        stats[f"dist_batched_P{P}"] = {"wall_s": wall, "equal": sum(equal),
+                                       "max_rel": max(errs), **c}
+        ok = all(equal) if P <= 2 else max(errs) <= TOL_BATCHED_DIST_F32
+        if not (ok and c["all_reduces"] == H):
+            raise AssertionError(f"batched sharded P={P}: {equal}, {errs}, "
+                                 f"{c}")
+
+
+def supervised_sharded(world, X, y, lam, cut, gen, stats) -> None:
+    """A device loss at outer step 4 of the sharded primal at s = 16: the
+    world respawns on 3 survivors and resumes from the newest snapshot
+    (f32 at real-sim on the phase's world; f64 on the 8x cut, the
+    supervisor's own world)."""
+    import tempfile
+
+    from repro_torch.faults import FaultPlan, solve_supervised
+    b, s = 8, 16
+    Xc, yc = cut[:2]
+    lam_c = 1e-6 * float(torch.linalg.norm(Xc) ** 2)
+    cases = (("f64", Xc, yc, lam_c, TOL_SUPERVISED_F64),
+             ("f32", X, y, lam, TOL_SUPERVISED_F32))
+    idx = {tag: core.sample_blocks(gen, Xs.shape[0], b, SUPERVISED_ITERS)
+           for tag, Xs, *_ in cases}
+    clean = {tag: core.ca_bcd_sharded(world, Xs, ys, lam_s, b, s,
+                                      SUPERVISED_ITERS, idx=idx[tag])
+             for tag, Xs, ys, lam_s, *_ in cases}
+    # f64 on a world of its own first: the f32 run respawns the phase's
+    with tempfile.TemporaryDirectory() as tmp, core.SolverWorld(
+            DIST_RANKS, backend="gloo", device=X.device) as own:
+        for (tag, Xs, ys, lam_s, tol), on in zip(cases, (own, world)):
+            res, wall = timed(lambda: solve_supervised(
+                "primal", "sharded", Xs, ys, lam_s, b, s, SUPERVISED_ITERS,
+                idx=idx[tag], ckpt_dir=f"{tmp}/{tag}", world=on,
+                fault=FaultPlan("device_loss", step=4, survivors=3)))
+            err = float((res.w - clean[tag][0]).abs().max())
+            log(f"  supervised sharded primal {tag} s={s}, "
+                f"{SUPERVISED_ITERS} iterations, device lost at outer step "
+                f"4, resumed on 3 ranks: {res.metrics}; max |w - "
+                f"w_uninterrupted| {err:.2e} (tol {tol:.0e}); {wall:.3f} s")
+            stats[f"dist_supervised_{tag}"] = {"metrics": res.metrics,
+                                               "max_abs": err, "wall_s": wall}
+            if not (res.metrics["restarts"] == 1
+                    and res.metrics["final_n_shards"] == 3 and err <= tol):
+                raise AssertionError(f"supervised sharded {tag}: "
+                                     f"{res.metrics}, {err}")
+
+
+def one_nccl_rank(X, y, lam, idx, local, stats) -> None:
+    """A sharded primal at s = 16 on a world of one NCCL rank."""
+    b, s = 8, 16
+    iters = idx.shape[0]
+    H = -(-iters // s)
+    with core.SolverWorld(1, backend="nccl", device=X.device) as w1:
+        (w, alpha), wall = timed(lambda: core.ca_bcd_sharded(
+            w1, X, y, lam, b, s, iters, idx=idx))
+        c = dist_counters(w1)
+        err = rel(w, local.w)
+    log(f"  one NCCL rank: primal s={s}, {wall:.3f} s, all-reduces "
+        f"{c['all_reduces']} (want {H}), hops {c['hops']}, staged "
+        f"{c['staged']}; |dw|/|w| against the local solve {err:.2e}")
+    stats["dist_nccl"] = {"wall_s": wall, "rel_w": err, **c}
+    if not (c["all_reduces"] == H and c["hops"] == 0 and not c["staged"]
+            and err <= TOL_DIST_F32):
+        raise AssertionError(f"one NCCL rank: {c}, {err}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -1485,6 +1762,14 @@ def main() -> int:
         f"{args.iters} iterations ({FAULT_ITERS} for the fault matrix, "
         f"{SUPERVISED_ITERS} supervised)")
     paths["recovery"] = recovery_run(X, y, lam, cut, gen, args.iters, stats)
+
+    # -- 9. the sharded and pipelined backends -----------------------------
+    log(f"== 9. sharded and pipelined backends, real-sim, {DIST_RANKS} gloo "
+        f"ranks on one card (wire times: gloo, host-staged), b = 8, "
+        f"{DIST_ITERS} iterations")
+    paths["sharded"], stats["phase9_s"] = timed(
+        lambda: distributed_run(X, y, lam, cut, gen, stats, args.seed))
+    log(f"  phase 9 took {stats['phase9_s']:.1f} s")
     del X, y, cut
 
     # Each path's own kernels must have run on it; the line counts the
@@ -1495,7 +1780,8 @@ def main() -> int:
                "baselines": [k.name for k in (gk.ROWS_APPLY, gk.ROWS_MATVEC,
                                                gk.DENSE_PACKET,
                                                gk.DENSE_GRAM)],
-               "recovery": [k.name for k in gk.KERNELS[:4]]}
+               "recovery": [k.name for k in gk.KERNELS[:4]],
+               "sharded": [k.name for k in gk.KERNELS[:6]]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:

@@ -28,8 +28,8 @@ from typing import ClassVar
 import torch
 
 from .engine import (RowMajorOperand, SolveResult, SolverPlan, _BoundPrimal,
-                     panel_apply, register_formulation, register_solver,
-                     s_step_solve)
+                     _ShardedLayout, _by_block, panel_apply,
+                     register_formulation, register_solver, s_step_solve)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,25 +40,28 @@ class _BoundAccelerated(_BoundPrimal):
     applies the momentum step and ``metrics`` drops v."""
     beta: float = 0.0
 
-    def init_carry(self):
-        w, alpha = _BoundPrimal.init_carry(self)
-        # A warm start re-enters with zero velocity: the velocity is not
-        # checkpoint state (DESIGN.md section 7).
+    def init_carry(self, sharded: bool = False):
+        w, alpha = _BoundPrimal.init_carry(self, sharded)
+        # v is laid out as w (replicated on a shard); a warm start re-enters
+        # with zero velocity: the velocity is not checkpoint state (DESIGN.md
+        # section 7).
         return w, alpha, torch.zeros_like(w)
 
-    def update(self, carry, idx, dx, pp):
+    def update(self, carry, idx, dx, pp, block=None):
         w, alpha, v = carry
         if not self.beta:
             # beta = 0 runs the primal update itself: beta * v + dx == dx
             # holds only in exact arithmetic once v has rounded state.
-            w, alpha = _BoundPrimal.update(self, (w, alpha), idx, dx, pp)
+            w, alpha = _BoundPrimal.update(self, (w, alpha), idx, dx, pp,
+                                           block)
             return w, alpha, v
         il = idx.long()
         vi = self.beta * v[il] + dx
-        # sample_blocks draws a block without replacement, so index_copy
-        # sees no duplicate index.
-        v = v.index_copy(0, il, vi)
-        w = w.index_add(0, il, vi)
+        # Block by block (see engine._by_block): where the sharded step's s
+        # blocks repeat an index, its last step sets v, as the reference's
+        # scatter does.
+        v = _by_block(torch.Tensor.index_copy, v, il, vi, block)
+        w = _by_block(torch.Tensor.index_add, w, il, vi, block)
         alpha = alpha + panel_apply(self.operand, idx, vi, plan=pp)
         return w, alpha, v
 
@@ -67,8 +70,9 @@ class _BoundAccelerated(_BoundPrimal):
 
 
 @dataclasses.dataclass(frozen=True)
-class MomentumWrapper:
-    """Accelerated CA-BCD: samples features like the primal.  ``beta`` is
+class MomentumWrapper(_ShardedLayout):
+    """Accelerated CA-BCD: samples features like the primal, in its 1D
+    block-column layout (the velocity replicated like w).  ``beta`` is
     formulation state (the proximal ``lam1`` pattern): the solvers below
     build ``MomentumWrapper(beta=...)`` per call, and the registry's
     instance is what name resolution sees."""
@@ -88,6 +92,10 @@ class MomentumWrapper:
         d, n = X.shape
         return _BoundAccelerated(operand=RowMajorOperand(X), y=y, lam=lam,
                                  n=n, d=d, w0=x0, w_ref=w_ref, beta=self.beta)
+
+    def bind_shard(self, Xl, yl, lam, *, d, n, x0=None):
+        return _BoundAccelerated(operand=RowMajorOperand(Xl), y=yl, lam=lam,
+                                 n=n, d=d, w0=x0, beta=self.beta)
 
 
 def accelerated_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int,
@@ -129,5 +137,45 @@ def ca_accelerated_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int,
                         generator, x0=w0, idx=idx, w_ref=w_ref, step0=step0)
 
 
+def ca_accelerated_bcd_sharded(world, X: torch.Tensor, y: torch.Tensor,
+                               lam: float, b: int, s: int, iters: int,
+                               generator: torch.Generator | None = None, *,
+                               beta: float = 0.9, fuse_packet: bool = True,
+                               idx: torch.Tensor | None = None,
+                               impl: str | None = None,
+                               tiles: int | None = None, guard: bool = False,
+                               fault=None, x0: torch.Tensor | None = None,
+                               step0: int = 0):
+    """Distributed CA momentum BCD on ``world``
+    (:class:`~repro_torch.core.world.SolverWorld`): the primal's layout, ONE
+    packet all-reduce per outer step; the velocity is replicated carry
+    state, so momentum adds no communication.  Returns ``(w, alpha)``, with
+    the guard telemetry as a third item when ``guard`` is set."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles,
+                      fuse_packet=fuse_packet, guard=guard, fault=fault)
+    return world.solve(MomentumWrapper(beta=beta), plan, X, y, lam, iters,
+                       generator, idx=idx, x0=x0, step0=step0)
+
+
+def ca_accelerated_bcd_pipelined(world, X: torch.Tensor, y: torch.Tensor,
+                                 lam: float, b: int, s: int, iters: int,
+                                 generator: torch.Generator | None = None, *,
+                                 beta: float = 0.9, fuse_packet: bool = True,
+                                 idx: torch.Tensor | None = None,
+                                 impl: str | None = None,
+                                 tiles: int | None = None,
+                                 guard: bool = False, fault=None,
+                                 x0: torch.Tensor | None = None,
+                                 step0: int = 0):
+    """:func:`ca_accelerated_bcd_sharded` on the pipelined ring wire."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles,
+                      fuse_packet=fuse_packet, guard=guard, fault=fault,
+                      wire="ring")
+    return world.solve(MomentumWrapper(beta=beta), plan, X, y, lam, iters,
+                       generator, idx=idx, x0=x0, step0=step0)
+
+
 register_formulation(MomentumWrapper())
 register_solver("accelerated", "local", ca_accelerated_bcd)
+register_solver("accelerated", "sharded", ca_accelerated_bcd_sharded)
+register_solver("accelerated", "pipelined", ca_accelerated_bcd_pipelined)

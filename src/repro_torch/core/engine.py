@@ -32,11 +32,26 @@ The tenant-batched driver (:func:`s_step_solve_batched`) runs T solves over
 one X and one index stream: one shared Gram packet per outer step, one
 residual-direction launch for all tenants, and then each tenant's assembly,
 sweep and updates through the very calls its single solve makes.
+
+The distributed backends run the same body on one shard per rank of a
+``torch.distributed`` group (:class:`Comm`): the primal family shards X's
+n axis (w replicated, alpha local), the dual its d axis (alpha replicated, w
+local).  :func:`s_step_solve_sharded` inserts ONE packet all-reduce per outer
+step (:func:`_packet_reduce`) and applies the ``s_k`` blocks in one deferred
+update; ``SolverPlan.wire == "ring"`` turns that reduction into a two-phase
+ring of point-to-point hops with the next step's Gram contracted between the
+phases (:func:`_drive_pipelined`).  Every rank runs the same subproblem on
+the same reduced bytes, so the replicated iterate stays identical bytes on
+every rank.  :func:`s_step_solve_batched_sharded` shares one packet
+reduction among T tenants.  The process world around these SPMD functions
+is :class:`repro_torch.core.world.SolverWorld`.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -78,6 +93,12 @@ class SolverPlan:
     (``None``: ``0.1 / eps`` of the dtype).  ``fault`` is a test-only
     :class:`repro_torch.faults.FaultPlan` (anything with ``apply_packet`` and
     ``apply_health``) injected into every outer step.
+
+    ``fuse_packet`` and ``wire`` concern the distributed backends only:
+    ``fuse_packet`` lays the reduced packet out as one ``sb x (sb + 1)``
+    Gram||residual operand (True) or as the two operands back to back
+    (False); ``wire`` is ``"psum"`` (one all-reduce per outer step) or
+    ``"ring"`` (the pipelined backend's two-phase ring).
     """
     b: int
     s: int = 1
@@ -89,12 +110,19 @@ class SolverPlan:
     guard_cond_max: float | None = None
     fault: object | None = None
     tenants: int | None = None
+    fuse_packet: bool = True
+    wire: str = "psum"
 
     def __post_init__(self):
         for name in ("b", "s"):
             check_positive_int(f"SolverPlan.{name}", getattr(self, name))
-        if not isinstance(self.guard, bool):
-            raise ValueError(f"SolverPlan.guard={self.guard!r} must be a bool")
+        for name in ("guard", "fuse_packet"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"SolverPlan.{name}={getattr(self, name)!r}"
+                                 " must be a bool")
+        if self.wire not in ("psum", "ring"):
+            raise ValueError(
+                f"SolverPlan.wire={self.wire!r} must be 'psum' or 'ring'")
         if not self.guard_boost > 1:
             raise ValueError(
                 f"SolverPlan.guard_boost={self.guard_boost!r} must be > 1")
@@ -115,6 +143,24 @@ class SolverPlan:
     @property
     def packet(self) -> PacketPlan:
         return PacketPlan(impl=self.impl, bk=self.tiles)
+
+
+def _by_block(op, x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              block: int | None = None) -> torch.Tensor:
+    """``op(x, 0, idx, vals)`` (``torch.Tensor.index_add`` or
+    ``index_copy``) one ``block`` of indices at a time.  A block is drawn
+    without replacement, so each call sees distinct indices and acts alike
+    on every device (CUDA's ``index_add`` adds a repeated index atomically,
+    in no fixed order).  A sharded step's one deferred update spans s blocks
+    whose indices may repeat: block by block, a repeated index is added to,
+    or set, in the order of ``idx``, as the reference's scatter does, and
+    every rank gets the same bytes."""
+    il = idx.long()
+    if block is None or block >= il.numel():
+        return op(x, 0, il, vals)
+    for j in range(0, il.numel(), block):
+        x = op(x, 0, il[j:j + block], vals[j:j + block])
+    return x
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -156,12 +202,14 @@ class _BoundPrimal:
 
     Packet: Gamma = Y Y^T / n + lam I with Y = X[flat, :] and the residual
     Y (y - alpha) / n of the Eq. (7)/(8) rhs; base subtracts lam w; the
-    update is w[idx] += dw, alpha += Y_j^T dw (Eqs. 5, 9-10).
+    update is w[idx] += dw, alpha += Y_j^T dw (Eqs. 5, 9-10).  On a column
+    shard (y and alpha local, w replicated) the same expressions compute
+    the shard's contribution.
     """
     operand: PacketOperand
     y: torch.Tensor
     lam: float
-    n: int
+    n: int          # the global data-point count (the scales use it)
     d: int
     w0: torch.Tensor | None = None
     w_ref: torch.Tensor | None = None
@@ -178,8 +226,16 @@ class _BoundPrimal:
     def reg(self):
         return self.lam
 
-    def init_carry(self):
+    def init_carry(self, sharded: bool = False):
         X = self.operand.array
+        if sharded:
+            # w replicated, alpha this shard's slice of R^n: a warm start
+            # derives it as w0 @ Xl, no transpose, no gather.
+            if self.w0 is None:
+                return (torch.zeros((self.d,), dtype=X.dtype, device=X.device),
+                        torch.zeros(self.y.shape, dtype=X.dtype,
+                                    device=X.device))
+            return self.w0, self.w0 @ X
         if self.w0 is None:
             return (torch.zeros((self.d,), dtype=X.dtype, device=X.device),
                     torch.zeros((self.n,), dtype=X.dtype, device=X.device))
@@ -194,10 +250,10 @@ class _BoundPrimal:
     def inner_sweep(self, A, base, s_k, b, flat, carry, overlap=None):
         return block_forward_substitution(A, base, s_k, b)
 
-    def update(self, carry, idx, dx, pp):
+    def update(self, carry, idx, dx, pp, block=None):
         w, alpha = carry
-        # index_add, never w[idx] += dx: duplicate indices must accumulate.
-        w = w.index_add(0, idx.long(), dx)                  # Eq. (9)
+        # index_add, never w[idx] += dx: duplicate indices accumulate
+        w = _by_block(torch.Tensor.index_add, w, idx, dx, block)  # Eq. (9)
         alpha = alpha + panel_apply(self.operand, idx, dx, plan=pp)  # (5)/(10)
         return w, alpha
 
@@ -210,8 +266,58 @@ class _BoundPrimal:
         return m
 
 
-class PrimalRidge:
-    """(CA-)BCD: samples features (rows of X)."""
+def _shard(x: torch.Tensor, n_shards: int, rank: int,
+           axis: int | None) -> torch.Tensor:
+    """Rank ``rank``'s block of ``x`` along ``axis`` once that axis is
+    zero-padded to a multiple of ``n_shards``, as its own contiguous tensor
+    (a view where the block is contiguous and needs no padding); ``axis``
+    None: ``x`` itself, replicated.  Zero rows and columns of X add nothing
+    to a Gram, a residual or an update, and the sampler only draws indices
+    of the true size, so the padding is exact."""
+    if axis is None:
+        return x
+    size = x.shape[axis]
+    per = -(-size // n_shards)
+    lo, hi = min(rank * per, size), min((rank + 1) * per, size)
+    part = x.narrow(axis, lo, hi - lo)
+    if hi - lo == per:
+        return part.contiguous()
+    shape = list(x.shape)
+    shape[axis] = per
+    out = x.new_zeros(shape)
+    out.narrow(axis, 0, hi - lo).copy_(part)
+    return out
+
+
+class _ShardedLayout:
+    """A formulation's 1D layout on the distributed backends.
+    ``shard_axes`` is (the sharded axis of X, the sharded axis of y or None
+    for a replicated y): the primal family shards X's n axis (w replicated,
+    alpha local), the dual its d axis (alpha replicated, w local)."""
+    shard_axes = (1, 0)
+
+    def pad_shards(self, X, y, n_shards: int, rank: int) -> tuple:
+        """Rank ``rank``'s contiguous, zero-padded ``(Xl, yl)`` of
+        ``n_shards`` (an operand passed as None comes back None; ``y`` may
+        stack tenants in front and is cut along its last axis).  Concatenated
+        over the ranks along the sharded axes, the shards are the
+        reference's padded operands."""
+        ax, ay = self.shard_axes
+        Xl = None if X is None else _shard(X, n_shards, rank, ax)
+        yl = None if y is None else _shard(
+            y, n_shards, rank, None if ay is None else y.dim() - 1)
+        return Xl, yl
+
+    def dist_finalize(self, w, alpha, d: int, n: int) -> tuple:
+        """The logical ``(w, alpha)`` from the gathered, padded halves
+        (stacked tenants lead, in a batched solve)."""
+        if self.shard_axes[0] == 1:
+            return w, alpha[..., :n]
+        return w[..., :d], alpha
+
+
+class PrimalRidge(_ShardedLayout):
+    """(CA-)BCD: samples features (rows of X); 1D block-column layout."""
     name = "primal"
     operand_layout = "rows"
     tenant_batched = True       # per-tenant y and lam; the Gram is shared
@@ -223,6 +329,10 @@ class PrimalRidge:
         d, n = X.shape
         return _BoundPrimal(operand=RowMajorOperand(X), y=y, lam=lam, n=n,
                             d=d, w0=x0, w_ref=w_ref)
+
+    def bind_shard(self, Xl, yl, lam, *, d, n, x0=None):
+        return _BoundPrimal(operand=RowMajorOperand(Xl), y=yl, lam=lam, n=n,
+                            d=d, w0=x0)
 
 
 # --------------------------------------------------------------------------
@@ -236,13 +346,15 @@ class _BoundDual:
 
     Packet: Theta = Y^T Y / (lam n^2) + I/n with Y = X[:, flat] plus the raw
     projection Y^T w (scale_r = 1); base assembles Eq. (17)/(18); the update
-    is alpha[idx] += da, w -= Y_j da / (lam n) (Eqs. 15, 19-20).
+    is alpha[idx] += da, w -= Y_j da / (lam n) (Eqs. 15, 19-20).  On a row
+    shard (w local, alpha and y replicated; ``X`` None) the same
+    expressions compute the shard's contribution.
     """
     operand: PacketOperand
     y: torch.Tensor
     lam: float
     n: int
-    X: torch.Tensor
+    X: torch.Tensor | None      # the full X, for init and metrics (local)
     alpha0: torch.Tensor | None = None
     w_ref: torch.Tensor | None = None
 
@@ -261,13 +373,23 @@ class _BoundDual:
     @functools.cached_property
     def _lam_n(self):
         """The Eq. (15)/(19) divisor lam*n, for true divisions."""
-        return _scalar(self.lam * self.n, self.X)
+        return _scalar(self.lam * self.n, self.operand.array)
 
     @functools.cached_property
     def _n(self):
-        return _scalar(self.n, self.X)
+        return _scalar(self.n, self.operand.array)
 
-    def init_carry(self):
+    def init_carry(self, sharded: bool = False):
+        if sharded:
+            # w this shard's slice of R^d, alpha replicated; a warm start
+            # derives the slice from the original (dl, n) layout.
+            Xl = self.operand.array
+            if self.alpha0 is None:
+                return (torch.zeros((self.operand.contraction,),
+                                    dtype=Xl.dtype, device=Xl.device),
+                        torch.zeros((self.n,), dtype=Xl.dtype,
+                                    device=Xl.device))
+            return -(Xl @ self.alpha0) / self._lam_n, self.alpha0
         X = self.X
         alpha = (torch.zeros((self.n,), dtype=X.dtype, device=X.device)
                  if self.alpha0 is None else self.alpha0)
@@ -285,9 +407,10 @@ class _BoundDual:
     def inner_sweep(self, A, base, s_k, b, flat, carry, overlap=None):
         return block_forward_substitution(A, base, s_k, b)
 
-    def update(self, carry, idx, dx, pp):
+    def update(self, carry, idx, dx, pp, block=None):
         w, alpha = carry
-        alpha = alpha.index_add(0, idx.long(), dx)          # Eq. (20)
+        alpha = _by_block(torch.Tensor.index_add, alpha, idx, dx,
+                          block)                           # Eq. (20)
         # Eq. (15)/(19): w -= X[:, idx] @ dx / (lam n), gather-apply, then
         # divide, then subtract.
         ap = panel_apply(self.operand, idx, dx, plan=pp)
@@ -309,11 +432,12 @@ class _BoundDual:
         return m
 
 
-class DualRidge:
+class DualRidge(_ShardedLayout):
     """(CA-)BDCD: samples data points (columns of X) from the original
-    (d, n) layout through the column-major operand."""
+    (d, n) layout through the column-major operand; 1D block-row layout."""
     name = "dual"
     operand_layout = "cols"
+    shard_axes = (0, None)
     # The Gram scale 1/(lam n^2) is per tenant: the packet stays raw and each
     # tenant scales it in _assemble_subproblem, as its single solve does.
     # lam stays a python float per tenant, so every derived constant is the
@@ -327,6 +451,11 @@ class DualRidge:
         return _BoundDual(operand=ColMajorOperand(X), y=y, lam=lam,
                           n=X.shape[1], X=X, alpha0=x0, w_ref=w_ref)
 
+    def bind_shard(self, Xl, yl, lam, *, d, n, x0=None):
+        # the original (dl, n) shard, gathered in place: no transpose
+        return _BoundDual(operand=ColMajorOperand(Xl), y=yl, lam=lam, n=n,
+                          X=None, alpha0=x0)
+
 
 FORMULATIONS = {"primal": PrimalRidge(), "dual": DualRidge()}
 
@@ -336,6 +465,195 @@ def register_formulation(form):
     and the batched driver); returns it."""
     FORMULATIONS[form.name] = form
     return form
+
+
+# --------------------------------------------------------------------------
+# The communication point
+# --------------------------------------------------------------------------
+
+HEALTH_WORDS = 5    # the guard's health word (see _health_local)
+
+
+class Comm:
+    """One rank's handle on a ``torch.distributed`` group: the group, this
+    rank's index and the group's size, the device the rank computes on, and
+    counters of its own collective calls (the port counts its calls; there
+    is no compiled program to read them from).
+
+    ``staged`` is True exactly when the group is gloo and the device is a
+    GPU: gloo's point-to-point calls take host tensors only, so each ring
+    hop's chunk is copied through a host buffer (gloo's all-reduce takes the
+    device tensor itself and stages it internally).  On a staged rank the
+    host waits for its device before a call, as the staging does anyway, so
+    that ``reduce_s`` / ``hop_s`` time the wire, its copies and the wait for
+    the group's slowest rank."""
+
+    def __init__(self, group=None, device="cpu"):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.device = torch.device(device)
+        self.backend = dist.get_backend(group)
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        members = dist.get_process_group_ranks(
+            dist.group.WORLD if group is None else group)
+        self._next = members[(self.rank + 1) % self.size]
+        self._prev = members[(self.rank - 1) % self.size]
+        self.reset()
+
+    def reset(self) -> None:
+        self.all_reduces = 0    # all-reduce calls
+        self.words = 0          # elements all-reduced, summed over calls
+        self.hops = 0           # ring hops (one send and one receive each)
+        self.hop_words = 0      # elements sent by the hops
+        self.reduce_s = 0.0     # host seconds inside all-reduce calls
+        self.hop_s = 0.0        # host seconds inside hops
+
+    def counters(self) -> dict:
+        return {k: getattr(self, k) for k in (
+            "all_reduces", "words", "hops", "hop_words", "reduce_s",
+            "hop_s", "staged", "backend", "size")}
+
+    def _wait_device(self) -> None:
+        if self.staged:
+            torch.cuda.synchronize(self.device)
+
+    def all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """Sum ``flat`` over the group in place (one collective)."""
+        self._wait_device()
+        t0 = time.perf_counter()
+        self._dist.all_reduce(flat, group=self.group)
+        self.reduce_s += time.perf_counter() - t0
+        self.all_reduces += 1
+        self.words += flat.numel()
+        return flat
+
+    def hop(self, send: torch.Tensor) -> torch.Tensor:
+        """One ring hop: send ``send`` to the next rank and return what the
+        previous rank sent (same shape and dtype)."""
+        dist = self._dist
+        self._wait_device()
+        t0 = time.perf_counter()
+        out = send.to("cpu") if self.staged else send.contiguous()
+        recv = torch.empty_like(out)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, out, self._next, self.group),
+            dist.P2POp(dist.irecv, recv, self._prev, self.group)])
+        for req in reqs:
+            req.wait()
+        if self.staged:
+            recv = recv.to(self.device)
+        self.hop_s += time.perf_counter() - t0
+        self.hops += 1
+        self.hop_words += send.numel()
+        return recv
+
+
+def _split(flat: torch.Tensor, shapes: list) -> list:
+    out, off = [], 0
+    for shape in shapes:
+        size = math.prod(shape)
+        out.append(flat[off:off + size].reshape(shape))
+        off += size
+    return out
+
+
+def all_reduce_variadic(leaves: list, comm: Comm) -> list:
+    """ONE all-reduce for any list of same-dtype tensors: ravel,
+    concatenate, all-reduce, split (the reference's ``psum_variadic``)."""
+    shapes = [tuple(x.shape) for x in leaves]
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    return _split(comm.all_reduce(flat), shapes)
+
+
+def ring_hops(sizes) -> int:
+    """Ring hops per reduction on the pipelined wire: ``2 (P - 1)`` for each
+    group size P (a reduce-scatter and an all-gather of ``P - 1`` hops
+    each; a group of one makes none)."""
+    return sum(2 * (p - 1) for p in sizes)
+
+
+def _ring_reduce_scatter(flat: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Phase one of the ring: ``P - 1`` hops of one chunk each, summing
+    around the ring; afterwards this rank owns the reduced chunk
+    ``(rank + 1) % P``.  Each chunk is summed along one fixed chain, so the
+    reduced chunks are the same bytes whichever rank owns them."""
+    P, me = comm.size, comm.rank
+    pad = (-flat.numel()) % P
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    buf = flat.reshape(P, -1)
+    for t in range(P - 1):
+        recv = comm.hop(buf[(me - t) % P])
+        k = (me - t - 1) % P
+        buf[k] = buf[k] + recv
+    return buf
+
+
+def _ring_all_gather(buf: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Phase two: circulate the reduced chunks ``P - 1`` more hops, storing
+    each received chunk verbatim, so every rank ends with the same bytes."""
+    P, me = comm.size, comm.rank
+    for t in range(P - 1):
+        buf[(me - t) % P] = comm.hop(buf[(me + 1 - t) % P])
+    return buf.reshape(-1)
+
+
+def ring_reduce_variadic(leaves: list, comm: Comm, overlap_fn=None) -> tuple:
+    """The pipelined wire: the same variadic packet as
+    :func:`all_reduce_variadic`, summed by a two-phase ring of ``2 (P - 1)``
+    hops and no all-reduce.  ``overlap_fn`` (nullary) runs between the two
+    phases; its result is returned beside the reduced leaves.  The chain
+    order differs from the all-reduce's, so the two wires agree to rounding,
+    not bit for bit."""
+    shapes = [tuple(x.shape) for x in leaves]
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    size = flat.numel()
+    extra = None
+    if comm.size > 1:
+        buf = _ring_reduce_scatter(flat, comm)
+        if overlap_fn is not None:
+            extra = overlap_fn()
+        flat = _ring_all_gather(buf, comm)[:size]
+    elif overlap_fn is not None:
+        extra = overlap_fn()            # a group of one: no hops
+    return _split(flat, shapes), extra
+
+
+def _packet_leaves(G, r, fuse: bool, health) -> list:
+    """The wire layout of one packet: ``G || r`` as one ``sb x (sb + 1)``
+    operand (``fuse``) or ``G`` and ``r`` back to back, then the health
+    word's five slots, zero without the guard.  Guarded and unguarded
+    packets thus have one layout and one length: an all-reduce may sum an
+    element in an order set by its offset and the buffer's length (gloo's
+    ring does), and one layout is what keeps a guarded clean solve bit for
+    bit the unguarded one at any group size."""
+    if health is None:
+        health = torch.zeros((HEALTH_WORDS,), dtype=G.dtype, device=G.device)
+    if fuse:
+        return [torch.cat([G, r[:, None]], dim=1), health]
+    return [G, r, health]
+
+
+def _packet_unpack(red: list, fuse: bool) -> tuple:
+    if fuse:
+        packet, h = red
+        sb = packet.shape[0]
+        return packet[:, :sb], packet[:, sb], h
+    return tuple(red)
+
+
+def _packet_reduce(G, r, comm: Comm | None, fuse: bool, health=None):
+    """THE sync point: one all-reduce per outer step of the packet
+    ``(G, r)`` and the health word (see :func:`_packet_leaves`).  Returns
+    ``(G, r, health)``, ``health`` None when none was handed in."""
+    if comm is None:
+        return G, r, health
+    G, r, h = _packet_unpack(
+        all_reduce_variadic(_packet_leaves(G, r, fuse, health), comm), fuse)
+    return G, r, (h if health is not None else None)
 
 
 # --------------------------------------------------------------------------
@@ -406,7 +724,7 @@ def _health_local(G, r, carry, u):
 
 
 def _guarded_sweep(bound, plan, A, base, s_k, b, flat, carry, O, h,
-                   gstate: GuardState, step: int):
+                   gstate: GuardState, step: int, n_shards: int = 1):
     """Check the health word ``h``, then solve, degrading instead of
     corrupting.  Rung one of the degradation ladder: a nonfinite packet, a
     missing shard or a bit-flip-sized magnitude SKIPS the update (dxs = 0,
@@ -417,7 +735,10 @@ def _guarded_sweep(bound, plan, A, base, s_k, b, flat, carry, O, h,
     The health word, diag(A)'s extremes and dxs's nonfinite count reach the
     host in ONE read; the verdicts are computed there in the solve's dtype
     (numpy scalars round as the device does), so a clean step adds no
-    launch after that read.  Returns ``(dxs, gstate, ginfo)``."""
+    launch after that read.  On a shard ``h`` is the REDUCED word and A the
+    replicated system, the same bytes on every rank, so every rank reaches
+    the same verdicts; the presence entry must sum to ``n_shards``.
+    Returns ``(dxs, gstate, ginfo)``."""
     f = _np_dtype(A.dtype)
     dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
     dmin, dmax = torch.aminmax(torch.diagonal(A))
@@ -430,7 +751,7 @@ def _guarded_sweep(bound, plan, A, base, s_k, b, flat, carry, O, h,
         cond_max = f(plan.guard_cond_max if plan.guard_cond_max is not None
                       else 0.1 / np.finfo(f).eps)
         bad_nonfinite = bool(h0 + h1 > 0)
-        bad_shard = bool(h3 != 1)           # the one shard's presence
+        bad_shard = bool(h3 != n_shards)    # every shard's presence
         bad_div = bool(r_now > boost * gstate.env_r)
         bad_mag = bool(g_now > boost * gstate.env_g)
         bad_cond = bool((dmin <= 0) | (
@@ -484,35 +805,51 @@ def _assemble_subproblem(bound, G0, r, carry, flat, O, sb: int):
 
 
 def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k,
-                step: int = 0, gstate: GuardState | None = None):
+                step: int = 0, gstate: GuardState | None = None,
+                comm: Comm | None = None):
     """ONE outer iteration: ``s_k`` inner blocks (``plan.s``, or
     ``iters % s`` for the ragged tail).  ``step`` is the outer step's global
     index, read only by the guard and the fault hooks; ``gstate`` the guard
     state.  Returns the carry after the s_k deferred updates, the guard
-    state and the per-inner-iteration metrics."""
+    state and the per-inner-iteration metrics.
+
+    With ``comm`` (a shard of a distributed solve) the local packet and the
+    health word ride ONE all-reduce, the overlap matrix is built even at
+    s_k = 1 (as in the reference), and the s_k blocks are applied in one
+    deferred update (``sum_j Y_j^T dx_j == Y^T dxs``) with no metric
+    pass."""
     b = plan.b
     sb = s_k * b
     pp = plan.packet
     flat = idx_k.reshape(sb)
+    rank = None if comm is None else comm.rank
     u = bound.packet_vector(carry)
     # The packet leaves the kernel raw (scale = 1, scale_r = 1, reg = 0); the
     # scales and the regulariser are applied in _assemble_subproblem.
     G, r = gram_packet_sampled(bound.operand, flat, u, scale=1.0,
                                scale_r=1.0, reg=0.0, plan=pp)
     if plan.fault is not None:
-        G, r = plan.fault.apply_packet(G, r, step=step)
-    O = overlap_matrix(flat).to(G.dtype) if s_k > 1 else None
-    A, base = _assemble_subproblem(bound, G, r, carry, flat, O, sb)
+        G, r = plan.fault.apply_packet(G, r, step=step, rank=rank)
+    h = None
     if plan.guard:
         # after the fault, so that injected damage is seen as real damage
         h = _health_local(G, r, carry, u)
         if plan.fault is not None:
-            h = plan.fault.apply_health(h, step=step)
-        dxs, gstate, ginfo = _guarded_sweep(bound, plan, A, base, s_k, b,
-                                            flat, carry, O, h, gstate, step)
+            h = plan.fault.apply_health(h, step=step, rank=rank)
+    if comm is not None:
+        G, r, h = _packet_reduce(G, r, comm, plan.fuse_packet, h)
+    O = (overlap_matrix(flat).to(G.dtype) if comm is not None or s_k > 1
+         else None)
+    A, base = _assemble_subproblem(bound, G, r, carry, flat, O, sb)
+    if plan.guard:
+        dxs, gstate, ginfo = _guarded_sweep(
+            bound, plan, A, base, s_k, b, flat, carry, O, h, gstate, step,
+            1 if comm is None else comm.size)
     else:
         dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
         ginfo = {}
+    if comm is not None:
+        return bound.update(carry, flat, dxs, pp, block=b), gstate, []
 
     # Reconstruct the per-inner-iteration trajectory: one deferred update
     # (and one metric evaluation) per block.
@@ -530,6 +867,83 @@ def _outer_step(bound, plan: SolverPlan, s_k: int, carry, idx_k,
         for h in hist:
             h["gram_cond"] = cond
     return carry, gstate, hist
+
+
+def _gram_only(operand, flat, pp):
+    """The Gram half of a future outer step's packet: ``u = 0`` and
+    ``scale_r = 0`` make the residual a don't-care, so this runs the fused
+    packet's contraction (K1 / K3) and depends on the index stream alone,
+    never on the carry: the ring contracts step k+1's Gram while step k's
+    reduction is on the wire."""
+    X = operand.array
+    u0 = torch.zeros((operand.contraction,), dtype=X.dtype, device=X.device)
+    G, _ = gram_packet_sampled(operand, flat, u0, scale=1.0, scale_r=0.0,
+                               reg=0.0, plan=pp)
+    return G
+
+
+def _outer_step_pipelined(bound, plan: SolverPlan, s_k: int, carry, Gl,
+                          flat, flat_next, comm: Comm, step: int = 0,
+                          gstate: GuardState | None = None):
+    """ONE outer iteration on the ring (``plan.wire == "ring"``).  ``Gl`` is
+    this step's local Gram, contracted one step ahead; the residual
+    direction, which depends on the carry, comes from K6 / K5
+    (``panel_matvec``, the same sums as the fused packet's r).  The packet
+    and the health word ride the ring, and the next step's Gram
+    (``flat_next``; None for the last step) is contracted between the
+    ring's phases.  Fault hooks apply where the psum backend applies them.
+    Returns ``(carry, gstate, Gl_next)``."""
+    b = plan.b
+    sb = s_k * b
+    pp = plan.packet
+    u = bound.packet_vector(carry)
+    r = panel_matvec(bound.operand, flat, u, scale=1.0, plan=pp)
+    if plan.fault is not None:
+        Gl, r = plan.fault.apply_packet(Gl, r, step=step, rank=comm.rank)
+    h = None
+    if plan.guard:
+        h = _health_local(Gl, r, carry, u)
+        if plan.fault is not None:
+            h = plan.fault.apply_health(h, step=step, rank=comm.rank)
+    red, Gl_next = ring_reduce_variadic(
+        _packet_leaves(Gl, r, plan.fuse_packet, h), comm,
+        overlap_fn=None if flat_next is None else (
+            lambda: _gram_only(bound.operand, flat_next, pp)))
+    G, r, h = _packet_unpack(red, plan.fuse_packet)
+    O = overlap_matrix(flat).to(G.dtype)
+    A, base = _assemble_subproblem(bound, G, r, carry, flat, O, sb)
+    if plan.guard:
+        dxs, gstate, _ = _guarded_sweep(bound, plan, A, base, s_k, b, flat,
+                                        carry, O, h, gstate, step, comm.size)
+    else:
+        dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
+    return bound.update(carry, flat, dxs, pp, block=b), gstate, Gl_next
+
+
+def _drive_pipelined(bound, plan: SolverPlan, idx, step0: int, comm: Comm):
+    """The software-pipelined outer loop (``plan.wire == "ring"``): the
+    same outer / ragged split as :func:`_drive`.  A prologue contracts the
+    first step's Gram; each step consumes the Gram contracted for it and
+    contracts its successor's between the ring's phases.  The host loop
+    knows which step is the last, so no successor is contracted for it (the
+    reference's fixed-shape scan contracts and discards one).  The ragged
+    tail's packet is narrower and runs its own prologue.  No history is
+    kept.  Returns ``(carry, {}, gstate)``."""
+    pp = plan.packet
+    carry = bound.init_carry(sharded=True)
+    gstate = _guard_init(bound.operand.array.dtype) if plan.guard else None
+    steps = _outer_steps(idx, plan.s)
+    flats = [idx_k.reshape(-1) for _, idx_k in steps]
+    Gl = None
+    for k, (s_k, _) in enumerate(steps):
+        if Gl is None:          # prologue: the first step, or the tail's
+            Gl = _gram_only(bound.operand, flats[k], pp)
+        nxt = (flats[k + 1] if k + 1 < len(steps)
+               and steps[k + 1][0] == s_k else None)
+        carry, gstate, Gl = _outer_step_pipelined(
+            bound, plan, s_k, carry, Gl, flats[k], nxt, comm,
+            step=k + step0, gstate=gstate)
+    return carry, {}, gstate
 
 
 def _resolve_form(formulation):
@@ -563,17 +977,24 @@ def _outer_steps(idx, s: int) -> list:
     return steps
 
 
-def _drive(bound, plan: SolverPlan, idx, step0: int = 0):
+def _drive(bound, plan: SolverPlan, idx, step0: int = 0,
+           comm: Comm | None = None):
     """Every outer step of :func:`_outer_steps`, outer step k under the
     global index ``k + step0`` (a segmented solve keeps its numbering).
-    Returns ``(carry, history, gstate)``, ``gstate`` None without guard."""
+    With ``comm`` the steps run on a shard (no history), through
+    :func:`_drive_pipelined` on the ring.  Returns ``(carry, history,
+    gstate)``, ``gstate`` None without guard."""
+    if comm is not None and plan.wire == "ring":
+        return _drive_pipelined(bound, plan, idx, step0, comm)
     X = bound.operand.array
-    carry = bound.init_carry()
+    carry = (bound.init_carry() if comm is None
+             else bound.init_carry(sharded=True))
     gstate = _guard_init(X.dtype) if plan.guard else None
     hist = []
     for k, (s_k, idx_k) in enumerate(_outer_steps(idx, plan.s)):
         carry, gstate, h = _outer_step(bound, plan, s_k, carry, idx_k,
-                                       step=k + step0, gstate=gstate)
+                                       step=k + step0, gstate=gstate,
+                                       comm=comm)
         hist.extend(h)
 
     def series(values):
@@ -608,6 +1029,7 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
     (:func:`_degrade_to_s1_tail`).
     """
     form = _resolve_form(formulation)
+    _check_local_wire(plan)
     d, n = X.shape
     if idx is None:
         if generator is None:
@@ -628,6 +1050,42 @@ def s_step_solve(formulation, plan: SolverPlan, X: torch.Tensor,
                                        gstate.first_trip, step0, x0, w_ref,
                                        metrics)
     return SolveResult(carry[0], carry[1], history, metrics)
+
+
+def _check_local_wire(plan: SolverPlan) -> None:
+    if plan.wire != "psum":
+        raise ValueError(
+            f"SolverPlan.wire={plan.wire!r} needs a distributed backend; "
+            "the local solve has no reduction to decompose")
+
+
+def s_step_solve_sharded(formulation, plan: SolverPlan, comm: Comm,
+                         Xl: torch.Tensor, yl: torch.Tensor, lam: float,
+                         iters: int, *, d: int, n: int, idx: torch.Tensor,
+                         x0: torch.Tensor | None = None, step0: int = 0):
+    """The distributed s-step solve, an SPMD function: every rank of
+    ``comm``'s group calls it with its own contiguous shard ``(Xl, yl)``
+    (:meth:`PrimalRidge.pad_shards`), the global ``(d, n)`` and the same
+    ``idx``.
+    The same driver as :func:`s_step_solve`, with ONE packet all-reduce per
+    outer step (two-phase ring hops with ``plan.wire == "ring"``) and no
+    metric pass.
+
+    ``x0`` warm-starts the formulation's own replicated iterate (w for the
+    primal family, alpha for the dual); the rank-local half of the carry is
+    derived on the shard.  Returns this rank's ``(w, alpha)`` -- the
+    replicated one whole, the other its padded slice -- and the guard
+    telemetry as a third item with ``plan.guard`` (no s = 1 tail here: the
+    supervisor takes that rung).  :class:`~repro_torch.core.world.
+    SolverWorld` gathers and trims them."""
+    form = _resolve_form(formulation)
+    _check_idx(idx, iters, plan.b)
+    idx = idx.to(device=Xl.device, dtype=torch.int32)
+    bound = form.bind_shard(Xl, yl, lam, d=d, n=n, x0=x0)
+    carry, _, gstate = _drive(bound, plan, idx, step0, comm=comm)
+    if plan.guard:
+        return carry[0], carry[1], _guard_metrics(gstate)
+    return carry[0], carry[1]
 
 
 def _degrade_to_s1_tail(form, plan, X, y, lam, idx, first, step0, x0, w_ref,
@@ -738,7 +1196,7 @@ def _bind_tenants(form, X, batch: TenantBatch, with_x0: bool) -> list:
 
 def _outer_step_batched(bounds: list, plan: SolverPlan, s_k: int,
                         carries: list, active: list, idx_k,
-                        tol: float | None) -> None:
+                        tol: float | None, comm: Comm | None = None) -> None:
     """ONE batched outer step, in place on ``carries`` and ``active``.
 
     The sb x sb Gram leaves K1/K3 once, raw, and serves every tenant; its
@@ -749,7 +1207,11 @@ def _outer_step_batched(bounds: list, plan: SolverPlan, s_k: int,
     the single solve's assembly, sweep and per-block updates, one tenant
     after another: a (T, b, b) Cholesky could take another library path and
     round differently.  A retired tenant is skipped, so its carry stays
-    exactly as it was."""
+    exactly as it was.
+
+    With ``comm`` the shared Gram and every tenant's direction ride ONE
+    reduction (``sb^2 + T sb`` words, the Gram part independent of T), and
+    each tenant applies its s_k blocks in one deferred update."""
     b = plan.b
     sb = s_k * b
     pp = plan.packet
@@ -761,7 +1223,12 @@ def _outer_step_batched(bounds: list, plan: SolverPlan, s_k: int,
                                 reg=0.0, plan=pp)
     U = torch.stack([bd.packet_vector(c) for bd, c in zip(bounds, carries)])
     R = panel_matvec(operand, flat, U, scale=1.0, plan=pp)
-    O = overlap_matrix(flat).to(G0.dtype) if s_k > 1 else None
+    if comm is not None and plan.wire == "ring":
+        (G0, R), _ = ring_reduce_variadic([G0, R], comm)
+    elif comm is not None:
+        G0, R = all_reduce_variadic([G0, R], comm)
+    O = (overlap_matrix(flat).to(G0.dtype) if comm is not None or s_k > 1
+         else None)
     residuals = {}
     for t, bound in enumerate(bounds):
         if not active[t]:
@@ -769,9 +1236,12 @@ def _outer_step_batched(bounds: list, plan: SolverPlan, s_k: int,
         carry = carries[t]
         A, base = _assemble_subproblem(bound, G0, R[t], carry, flat, O, sb)
         dxs = bound.inner_sweep(A, base, s_k, b, flat, carry, O)
-        for j in range(s_k):
-            carry = bound.update(carry, flat[j * b:(j + 1) * b],
-                                 dxs[j * b:(j + 1) * b], pp)
+        if comm is not None:
+            carry = bound.update(carry, flat, dxs, pp, block=b)
+        else:
+            for j in range(s_k):
+                carry = bound.update(carry, flat[j * b:(j + 1) * b],
+                                     dxs[j * b:(j + 1) * b], pp)
         carries[t] = carry
         if tol is not None:
             residuals[t] = bound.metrics(carry)["residual"]
@@ -825,6 +1295,7 @@ def s_step_solve_batched(formulation, plan: SolverPlan, X: torch.Tensor,
     """
     form = _resolve_form(formulation)
     _check_batched(form, plan, batch)
+    _check_local_wire(plan)
     d, n = X.shape
     if idx is None:
         if generator is None:
@@ -857,6 +1328,43 @@ def s_step_solve_batched(formulation, plan: SolverPlan, X: torch.Tensor,
         torch.tensor(active, dtype=torch.bool, device=X.device), {})
 
 
+def s_step_solve_batched_sharded(formulation, plan: SolverPlan, comm: Comm,
+                                 Xl: torch.Tensor, batch: TenantBatch,
+                                 iters: int, *, d: int, n: int,
+                                 idx: torch.Tensor) -> tuple:
+    """The distributed batched solve, an SPMD function like
+    :func:`s_step_solve_sharded`: ``batch.ys`` holds this rank's slices of
+    the targets (the whole targets where y is replicated) and ``batch.x0s``
+    the replicated warm starts.  ONE reduction per outer step serves all T
+    tenants: ``H = ceil(iters / s)`` all-reduces for the whole batch.
+    ``batch.tol`` is refused: a shard cannot see a tenant's residual
+    without a second collective, so retire between chunks on the local
+    backend.  Returns this rank's ``(ws, alphas)``, stacked (T, ...)."""
+    form = _resolve_form(formulation)
+    _check_batched(form, plan, batch)
+    if batch.tol is not None:
+        raise ValueError(
+            "batched sharded solves do not support TenantBatch.tol: in-step "
+            "retirement would need a second collective per outer step; "
+            "retire between chunks on the local backend instead")
+    _check_idx(idx, iters, plan.b)
+    idx = idx.to(device=Xl.device, dtype=torch.int32)
+    bounds = []
+    for t in range(batch.tenants):
+        x0 = None if batch.x0s is None else batch.x0s[t].clone()
+        bound = form.bind_shard(Xl, batch.ys[t].clone(), batch.lams[t], d=d,
+                                n=n, x0=x0)
+        extra = {k: v[t] for k, v in batch.coeffs.items()}
+        bounds.append(dataclasses.replace(bound, **extra) if extra else bound)
+    carries = [bd.init_carry(sharded=True) for bd in bounds]
+    active = [True] * batch.tenants
+    for s_k, idx_k in _outer_steps(idx, plan.s):
+        _outer_step_batched(bounds, plan, s_k, carries, active, idx_k, None,
+                            comm=comm)
+    return (torch.stack([c[0] for c in carries]),
+            torch.stack([c[1] for c in carries]))
+
+
 def batched_residuals(formulation, X: torch.Tensor, batch: TenantBatch,
                       carries) -> torch.Tensor:
     """(T,) ``residual`` metric of each tenant's carry ``(ws, alphas)``,
@@ -873,14 +1381,14 @@ def batched_residuals(formulation, X: torch.Tensor, batch: TenantBatch,
 # Solver registry, keyed on (formulation, backend)
 # --------------------------------------------------------------------------
 
-BACKENDS = ("local",)
+BACKENDS = ("local", "sharded", "pipelined")
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 
 
 def register_solver(formulation: str, backend: str, fn: Callable) -> Callable:
     """Register a solver entry point under ``(formulation, backend)``; the
     built-in entries are registered by ``repro_torch.core.bcd``, ``.bdcd``,
-    ``.proximal`` and ``.accelerated``."""
+    ``.distributed``, ``.proximal`` and ``.accelerated``."""
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -890,9 +1398,11 @@ def register_solver(formulation: str, backend: str, fn: Callable) -> Callable:
 
 def get_solver(formulation: str, backend: str = "local") -> Callable:
     """Look up a solver.  ``local`` entries have the CA signature
-    ``(X, y, lam, b, s, iters, generator, **kw)``."""
+    ``(X, y, lam, b, s, iters, generator, **kw)``; ``sharded`` and
+    ``pipelined`` entries lead with the world:
+    ``(world, X, y, lam, b, s, iters, generator, **kw)``."""
     if (formulation, backend) not in _REGISTRY:
-        from . import accelerated, bcd, bdcd, proximal  # noqa: F401
+        from . import accelerated, bcd, bdcd, distributed, proximal  # noqa: F401
     try:
         return _REGISTRY[(formulation, backend)]
     except KeyError:

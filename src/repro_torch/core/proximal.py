@@ -26,8 +26,9 @@ from typing import ClassVar
 import torch
 
 from .engine import (RowMajorOperand, SolveResult, SolverPlan, _BoundPrimal,
-                     _fit_residual, _objective_from_alpha, _sol_err,
-                     register_formulation, register_solver, s_step_solve)
+                     _ShardedLayout, _fit_residual, _objective_from_alpha,
+                     _sol_err, register_formulation, register_solver,
+                     s_step_solve)
 from .sampling import overlap_matrix
 from .subproblem import (block_forward_substitution,
                          block_forward_substitution_prox, soft_threshold)
@@ -68,10 +69,11 @@ class _BoundProximal(_BoundPrimal):
 
 
 @dataclasses.dataclass(frozen=True)
-class ProximalElasticNet:
-    """CA-PBCD: samples features like the primal.  ``lam1`` is formulation
-    state; the registry's instance (lam1 = 0) is the one the batched engine
-    binds, with each tenant's ``lam1`` from ``TenantBatch.coeffs``."""
+class ProximalElasticNet(_ShardedLayout):
+    """CA-PBCD: samples features like the primal, in its 1D block-column
+    layout.  ``lam1`` is formulation state; the registry's instance
+    (lam1 = 0) is the one the batched engine binds, with each tenant's
+    ``lam1`` from ``TenantBatch.coeffs``."""
     lam1: float = 0.0
     name: ClassVar[str] = "proximal"
     operand_layout: ClassVar[str] = "rows"
@@ -90,6 +92,12 @@ class ProximalElasticNet:
         d, n = X.shape
         return _BoundProximal(operand=RowMajorOperand(X), y=y, lam=lam, n=n,
                               d=d, w0=x0, w_ref=w_ref, lam1=self.lam1)
+
+    def bind_shard(self, Xl, yl, lam, *, d, n, x0=None):
+        # The soft-threshold runs on the replicated reduced packet: the l1
+        # term adds no communication.
+        return _BoundProximal(operand=RowMajorOperand(Xl), y=yl, lam=lam,
+                              n=n, d=d, w0=x0, lam1=self.lam1)
 
 
 def elastic_net_objective(X: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
@@ -155,5 +163,43 @@ def ca_proximal_bcd(X: torch.Tensor, y: torch.Tensor, lam: float, b: int,
                         generator, x0=w0, idx=idx, w_ref=w_ref, step0=step0)
 
 
+def ca_proximal_bcd_sharded(world, X: torch.Tensor, y: torch.Tensor,
+                            lam: float, b: int, s: int, iters: int,
+                            generator: torch.Generator | None = None, *,
+                            lam1: float = 0.0, fuse_packet: bool = True,
+                            idx: torch.Tensor | None = None,
+                            impl: str | None = None, tiles: int | None = None,
+                            guard: bool = False, fault=None,
+                            x0: torch.Tensor | None = None, step0: int = 0):
+    """Distributed CA proximal BCD on ``world``
+    (:class:`~repro_torch.core.world.SolverWorld`): X sharded over columns,
+    ONE packet all-reduce per outer step.  Returns ``(w, alpha)``, with the
+    guard telemetry as a third item when ``guard`` is set; the keywords as
+    in :func:`~repro_torch.core.distributed.ca_bcd_sharded`."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles,
+                      fuse_packet=fuse_packet, guard=guard, fault=fault)
+    return world.solve(ProximalElasticNet(lam1=lam1), plan, X, y, lam, iters,
+                       generator, idx=idx, x0=x0, step0=step0)
+
+
+def ca_proximal_bcd_pipelined(world, X: torch.Tensor, y: torch.Tensor,
+                              lam: float, b: int, s: int, iters: int,
+                              generator: torch.Generator | None = None, *,
+                              lam1: float = 0.0, fuse_packet: bool = True,
+                              idx: torch.Tensor | None = None,
+                              impl: str | None = None,
+                              tiles: int | None = None, guard: bool = False,
+                              fault=None, x0: torch.Tensor | None = None,
+                              step0: int = 0):
+    """:func:`ca_proximal_bcd_sharded` on the pipelined ring wire."""
+    plan = SolverPlan(b=b, s=s, impl=impl, tiles=tiles,
+                      fuse_packet=fuse_packet, guard=guard, fault=fault,
+                      wire="ring")
+    return world.solve(ProximalElasticNet(lam1=lam1), plan, X, y, lam, iters,
+                       generator, idx=idx, x0=x0, step0=step0)
+
+
 register_formulation(ProximalElasticNet())
 register_solver("proximal", "local", ca_proximal_bcd)
+register_solver("proximal", "sharded", ca_proximal_bcd_sharded)
+register_solver("proximal", "pipelined", ca_proximal_bcd_pipelined)

@@ -5,19 +5,19 @@ at and, for a sharded run, its shard.  The engine takes it as
 ``SolverPlan.fault`` and calls its two hooks in every outer step
 (``engine._outer_step``):
 
-* ``apply_packet(G, r, step=)`` damages the raw packet before the
-  health word is computed, so that the guard sees injected damage the way
-  it would see real damage (a NaN packet, a bit-flipped Gram entry, a
-  zeroed contribution);
-* ``apply_health(health, step=)`` damages the health word itself;
+* ``apply_packet(G, r, step=, rank=)`` damages the raw packet (on a shard,
+  this rank's local contribution) before the health word is computed, so
+  that the guard sees injected damage the way it would see real damage (a
+  NaN packet, a bit-flipped Gram entry, a zeroed contribution);
+* ``apply_health(health, step=, rank=)`` damages the health word itself;
   only ``drop_shard`` does (a dropped worker contributes neither data nor
-  presence, so its whole word is zeroed and the presence count comes up
-  short: ``GUARD_SHARD_LOSS``).
+  presence, so its whole word is zeroed and the reduced presence count
+  comes up short: ``GUARD_SHARD_LOSS``).
 
 The port's driver loops on the host, so ``step`` is a python int and a hook
 that does not fire returns its inputs untouched, with no device operation.
-Only the local backend is ported: a sharded run's ``shard`` and axis wait
-for the distributed backend.
+``rank`` is the caller's rank in its group: a sharded run is hit on
+``shard`` only, a local run (``rank`` None) always.
 The bit-flip entry is drawn from a seed-keyed ``random.Random``, keyed as
 in the reference on the packet's shape as a tuple, so that both packages
 flip the same entry.  ``device_loss`` is inert here: losing a device is the
@@ -67,8 +67,8 @@ class FaultPlan:
         if self.shard < 0:
             raise ValueError(f"shard={self.shard} must be >= 0")
 
-    def _fire(self, step: int) -> bool:
-        return int(step) == self.step
+    def _fire(self, step: int, rank: int | None) -> bool:
+        return int(step) == self.step and (rank is None or rank == self.shard)
 
     def bitflip_entry(self, shape) -> tuple[int, int]:
         """The (i, j) of the Gram entry the bit flip hits in a packet of
@@ -78,8 +78,8 @@ class FaultPlan:
         j = rng.randrange(shape[1])
         return i, j
 
-    def apply_packet(self, G, r, *, step):
-        if self.kind == "device_loss" or not self._fire(step):
+    def apply_packet(self, G, r, *, step, rank=None):
+        if self.kind == "device_loss" or not self._fire(step, rank):
             return G, r
         if self.kind == "nan_packet":
             return (torch.full_like(G, float("nan")),
@@ -94,7 +94,7 @@ class FaultPlan:
             return G, r
         return torch.zeros_like(G), torch.zeros_like(r)      # drop_shard
 
-    def apply_health(self, health, *, step):
-        if self.kind == "drop_shard" and self._fire(step):
+    def apply_health(self, health, *, step, rank=None):
+        if self.kind == "drop_shard" and self._fire(step, rank):
             return torch.zeros_like(health)
         return health

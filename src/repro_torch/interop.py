@@ -55,13 +55,13 @@ def plan_from_reference(**fields) -> SolverPlan:
     Supported: ``b``, ``s``, ``impl`` (``"ref"``, ``"pallas"`` -> ``"cuda"``,
     ``None``), ``track_cond``, ``tenants``, ``guard`` (a bool),
     ``guard_boost``, ``guard_cond_max``, ``fault`` (a reference
-    ``FaultPlan``, converted by :func:`fault_from_reference`), and
-    ``fuse_packet`` / ``unroll``, which do not change a local solve's
-    arithmetic and are dropped.  Raises on what this port does not have: a
-    ``wire`` other than ``"psum"``, TPU ``tiles``, and any other field.
+    ``FaultPlan``, converted by :func:`fault_from_reference`),
+    ``fuse_packet`` and ``wire`` (``"psum"`` or ``"ring"``), and
+    ``unroll``, which has no counterpart in a host loop and is dropped.
+    Raises on what this port does not have: another ``wire``, TPU
+    ``tiles``, and any other field.
     """
     fields = dict(fields)
-    fields.pop("fuse_packet", None)
     fields.pop("unroll", None)
     unsupported = []
     if not isinstance(fields.get("guard", False), bool):
@@ -73,14 +73,14 @@ def plan_from_reference(**fields) -> SolverPlan:
             unsupported.append(f"fault={fields.pop('fault')!r}")
     if fields.pop("tiles", None) is not None:
         unsupported.append("tiles")
-    if fields.pop("wire", "psum") != "psum":
-        unsupported.append("wire")
+    if fields.get("wire", "psum") not in ("psum", "ring"):
+        unsupported.append(f"wire={fields.pop('wire')!r}")
     impl = fields.pop("impl", None)
     if impl not in _IMPL_MAP:
         unsupported.append(f"impl={impl!r}")
     unsupported.extend(sorted(set(fields) - {
         "b", "s", "track_cond", "tenants", "guard", "guard_boost",
-        "guard_cond_max", "fault"}))
+        "guard_cond_max", "fault", "fuse_packet", "wire"}))
     if unsupported:
         raise ValueError(f"reference plan fields not supported by the port: "
                          f"{unsupported}")

@@ -168,7 +168,7 @@ def test_registry_and_string_formulations(problem):
     with pytest.raises(KeyError, match="no solver registered"):
         T.get_solver("kernel")
     with pytest.raises(ValueError, match="unknown backend"):
-        T.register_solver("primal", "sharded", T.ca_bcd)
+        T.register_solver("primal", "multipod", T.ca_bcd)
     with pytest.raises(KeyError, match="unknown formulation"):
         T.s_step_solve("lasso", T.SolverPlan(b=2), torch.zeros((3, 4)),
                        torch.zeros(4), 1.0, 2, idx=torch.zeros((2, 2)))
@@ -213,10 +213,12 @@ def test_plan_from_reference_maps_supported_fields():
     assert plan_from_reference(b=2).impl is None
     assert plan_from_reference(b=2, impl="ref", unroll=4).impl == "ref"
     assert plan_from_reference(b=2, tenants=4).tenants == 4
+    ring = plan_from_reference(b=2, wire="ring", fuse_packet=False)
+    assert (ring.wire, ring.fuse_packet) == ("ring", False)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("guard", "yes"), ("fault", object()), ("wire", "ring"),
+    ("guard", "yes"), ("fault", object()), ("wire", "tree"),
     ("tiles", (128, 512)), ("impl", "pallas_interpret"), ("colour", 1)])
 def test_plan_from_reference_refuses_unsupported_fields(field, value):
     with pytest.raises(ValueError, match="not supported"):

@@ -359,7 +359,9 @@ def test_supervised_restart_budget_exhausted(data, tmp_path):
 
 
 def test_supervised_refuses_the_sharded_backend(data, tmp_path):
+    """Without a world the sharded backend is refused (its runs are in
+    test_torch_dist_recovery.py)."""
     X, y = data
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="needs a SolverWorld"):
         solve_supervised("primal", "sharded", _t(X), _t(y), LAM, B, S, ITERS,
                          idx=_t(_idx(D)), ckpt_dir=str(tmp_path))

@@ -34,7 +34,9 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.core.tsqr",
             "repro_torch.kernels.gram.gram_kernel",
             "repro_torch.core.accelerated", "repro_torch.faults.supervisor",
-            "repro_torch.checkpoint.checkpointer"} <= set(mods)
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.core.distributed", "repro_torch.core.world",
+            "repro_torch.launch.distributed_ridge"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

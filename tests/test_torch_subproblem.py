@@ -119,4 +119,6 @@ def test_sample_blocks_rejects_bad_arguments():
     with pytest.raises(ValueError, match="block size"):
         sample_blocks(g, 5, 0, 2)
     with pytest.raises(ValueError, match="sampling mode"):
-        sample_blocks(g, 5, 2, 2, mode="shard_balanced")
+        sample_blocks(g, 5, 2, 2, mode="stratified")
+    with pytest.raises(ValueError, match="shard count"):
+        sample_blocks(g, 6, 2, 2, mode="shard_balanced")
