@@ -71,7 +71,17 @@ Phases (any failure raises; nothing is caught):
      the fault matrix on shard 1; then the supervised restart after a
      device loss onto 3 survivors (f32, and f64 on the 8x cut) and one
      NCCL rank.  Wire times are gloo's, host-staged, with the ranks on one
-     card.
+     card;
+ 10. the contract engine on the card (counted, launches summed over the
+     parent and the ranks): (a) the kernels' shared-memory budget against
+     the card's opt-in limit, and the plan pass; (b) the contract pass on
+     four gloo ranks sharing the card (every registered solver, impl "ref"
+     and "cuda"), then panel-free and operand-copy-free at real-sim size
+     through K1-K6 (the allocator's peak against the sampled panel and the
+     operand, in this process and on each rank); (c) the cost model's ms
+     per outer step against phases 3 and 9 (the gloo wire refitted to this
+     run's all-reduces); (d) the snapshot cadence from this run's snapshot
+     write and step time.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -164,6 +174,10 @@ DIST_RANKS = 4
 DIST_ITERS = 256
 TOL_DIST_F32 = 1e-4
 TOL_BATCHED_DIST_F32 = 5e-7
+# Phase 10: the stated mean time between device losses for the snapshot
+# cadence, in outer steps (1e5 outer steps of the primal at s = 16 are
+# about 15 minutes of solving at phase 3's step time).
+MTBF_OUTER = 1e5
 
 
 def log(msg: str) -> None:
@@ -284,16 +298,20 @@ def check_cols_packet_identity(X, flat, u, tag: str) -> None:
 
 
 def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
-                  main_m: dict, tenants: int, flush=None) -> dict:
-    """Phase 2 on one X: every kernel against its plain version for each m in
-    ``ms`` (the matvecs with ``tenants`` vectors, and held to the packets' r);
-    at the m's in ``main_m[kind]`` also the timings, the matvecs' also with
-    the L2 flushed by ``flush`` before each call.  Returns per-kernel
-    records, the first timed m of each under the kernel's name."""
+                  main_m: dict, tenants: int, flush=None,
+                  kinds=("packet", "apply", "matvec")) -> dict:
+    """Phase 2 on one X: every kernel of ``kinds`` against its plain version
+    for each m in ``ms`` (the matvecs with ``tenants`` vectors, and held to
+    the packets' r); at the m's in ``main_m[kind]`` also the timings, the
+    matvecs' also with the L2 flushed by ``flush`` before each call.
+    Returns per-kernel records, the first timed m of each under the
+    kernel's name."""
     d, n = X.shape
     tol = TOL_KERNEL[str(X.dtype)]
     out = {}
     for kern, info, plain, S, K, kind, layout in kernel_specs(d, n):
+        if kind not in kinds:
+            continue
         for m in ms:
             flat = (blocked_flat(gen, S, 8, m // 8) if m % 8 == 0
                     else ragged_flat(gen, S, m))
@@ -1442,6 +1460,33 @@ def check_shard_kernels(X, cut, seed: int) -> None:
         del Xl
 
 
+def check_sweep_kernels(device, seed: int) -> None:
+    """K1-K6 against their plain versions at every shape the contract pass
+    launches them at on the card: on its problem's X (d = 16 P, n = 32 P)
+    and on the last rank's shard of each layout, in f32 and f64, at the
+    packets' and matvecs' m = sb and the ragged tail's m = b (the applies
+    at b and sb), the matvecs also with each tenant count the batched cases
+    run.  A generator of its own leaves the phase's data as it was."""
+    from repro_torch.analysis import contract_pass as cp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    P = DIST_RANKS
+    ms = (cp.B * (cp.ITERS_RAGGED % cp.S), cp.S * cp.B)
+    X, _ = cp._problem(cp.D_PER_P * P, cp.N_PER_P * P, torch.float32, device)
+    for Xd in (X, X.double()):
+        tag = str(Xd.dtype).removeprefix("torch.")
+        for what, Xs in [("sweep X", Xd)] + [
+                (f"{form} shard {P - 1} of {P}",
+                 engine.FORMULATIONS[form].pad_shards(Xd, None, P, P - 1)[0])
+                for form in ("primal", "dual")]:
+            log(f"  {tag} {what}: {tuple(Xs.shape)}, m in {ms}, tenants "
+                f"{cp.TENANTS_SWEPT}")
+            check_kernels(Xs, gen, f"{tag} {what}", ms, 0, {},
+                          cp.TENANTS_SWEPT[0])
+            for T in cp.TENANTS_SWEPT[1:]:
+                check_kernels(Xs, gen, f"{tag} {what}", ms, 0, {}, T,
+                              kinds=("matvec",))
+
+
 def distributed_run(X, y, lam, cut, gen, stats: dict, seed: int) -> dict:
     """Phase 9: the kernels on the ranks' shards against their plain
     versions; then the sharded and pipelined backends on a world of
@@ -1654,6 +1699,109 @@ def one_nccl_rank(X, y, lam, idx, local, stats) -> None:
         raise AssertionError(f"one NCCL rank: {c}, {err}")
 
 
+def contract_engine(X, y, lam, stats: dict, seed: int) -> dict:
+    """Phase 10: the plan pass against the card's shared-memory limit, the
+    kernels against their plain versions at the contract pass's shapes, the
+    contract pass on four gloo ranks sharing the card with the memory
+    checks at real-sim size, the cost model against phases 3 and 9, and
+    the snapshot cadence.  Any violation raises.  Returns the path's launch
+    counts (this process and the ranks)."""
+    from repro_torch.analysis import (run_contract_pass, run_memory_checks,
+                                      run_plan_pass)
+    from repro_torch.core import cost_model as cm
+    from repro_torch.kernels.gram.sampled_kernel import SMEM_PER_BLOCK
+    d, n = X.shape
+    b = 8
+    # (a) the budget the plan pass checks against, and the pass
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    plan, wall = timed(run_plan_pass)
+    log(f"  (a) SMEM_PER_BLOCK {SMEM_PER_BLOCK}, the card's opt-in limit "
+        f"{optin}: {'equal' if optin == SMEM_PER_BLOCK else 'DIFFERENT'}; "
+        f"plan pass {len(plan.cases)} cases, {len(plan.violations)} "
+        f"violations, {wall:.2f} s")
+    if optin != SMEM_PER_BLOCK or not plan.ok:
+        raise AssertionError(f"plan pass: optin {optin}\n" + plan.to_json())
+    # (b) the kernels at the sweep's shapes (the memory checks' real-sim
+    # shapes are phase 2's and 9's), off the count; then the contract pass
+    # and the memory checks, counted
+    _, wall = timed(lambda: check_sweep_kernels(X.device, seed))
+    log(f"  (b) K1-K6 against their plain versions at the sweep's shapes in "
+        f"{wall:.2f} s")
+    gk.reset_launch_counts()                    # the contracts path starts
+    world, spawn = timed(lambda: core.SolverWorld(DIST_RANKS, backend="gloo",
+                                                  device=X.device))
+    try:
+        world.reset_counts()
+        rep, sweep_s = timed(lambda: run_contract_pass(world))
+        n_sweep = len(rep.cases)
+        _, mem_s = timed(lambda: run_memory_checks(world, X, y, lam, rep))
+        ranks = [dict(r) for r in world.launches]
+    finally:
+        world.close()
+    counts = {k: v + sum(r[k] for r in ranks) for k, v in launches().items()}
+    for case in rep.cases[n_sweep:]:
+        log(f"    {case}")
+    log(f"  (b) {DIST_RANKS} gloo ranks spawned in {spawn:.2f} s; contract "
+        f"pass {n_sweep} cases in {sweep_s:.2f} s, memory checks "
+        f"{len(rep.cases) - n_sweep} cases at real-sim in {mem_s:.2f} s; "
+        f"{len(rep.skipped)} skipped; {len(rep.violations)} violations; "
+        f"launches {counts}")
+    stats["phase10_contracts"] = {
+        "cases": len(rep.cases), "sweep_s": sweep_s, "memory_s": mem_s,
+        "spawn_s": spawn, "skipped": rep.skipped, "launches": counts}
+    if not rep.ok:
+        raise AssertionError("contract pass:\n" + rep.summary())
+    # (c) the cost model against the card: one outer step, the model's
+    # serial step (compute at 67 TFLOP/s f32, FMA = 2 flops, plus the tree
+    # all-reduce), beside the HBM term of the packet alone
+    pts = [(s * b * (s * b + 1) + engine.HEALTH_WORDS,
+            stats[f"dist_{form}_sharded_s{s}"]["ms_per_all_reduce"] / 1e3)
+           for form in ("primal", "dual") for s in (1, 16)]
+    alpha, beta = cm.fit_wire(pts, DIST_RANKS)
+    refit = cm.MachineModel("h100-gloo-1card, this run", cm.H100_GLOO.gamma,
+                            alpha, beta)
+    log(f"  (c) gloo wire on {DIST_RANKS} ranks refitted to this run's "
+        f"all-reduces {[(w, round(t * 1e3, 3)) for w, t in pts]}: alpha "
+        f"{alpha:.4e} s, beta {beta:.4e} s/word (committed alpha "
+        f"{cm.H100_GLOO.alpha:.4e} s, beta {cm.H100_GLOO.beta:.4e}: the "
+        "payload's effect is not resolved on one card)")
+    model = {"alpha": alpha, "beta": beta}
+    for form in ("primal", "dual"):
+        K = n if form == "primal" else d
+        for s in (1, 16):
+            for P, machine, key in (
+                    (1, cm.H100_LOCAL, f"{form}_s{s}"),
+                    (DIST_RANKS, cm.H100_GLOO, f"dist_{form}_sharded_s{s}"),
+                    (DIST_RANKS, refit, f"dist_{form}_sharded_s{s}")):
+                sch = cm.pipeline_schedule(machine, d=d, n=n,
+                                           axis_sizes=(P,), b=b, s=s,
+                                           formulation=form)
+                pred = (sch["t_compute"] + sch["t_wire_psum"]) * 1e3
+                hbm = cm.packet_memory_time(
+                    s * b, -(-K // P), cm.H100_HBM_BYTES_PER_S) * 1e3
+                meas = stats[key]["ms_per_outer"]
+                log(f"      {form:6s} s={s:2d} P={P} {machine.name:26s} "
+                    f"predicted {pred:.4f} ms/outer step (HBM term "
+                    f"{hbm:.4f}), measured {meas:.4f} (phase "
+                    f"{3 if P == 1 else 9}), measured/predicted "
+                    f"{meas / pred:.1f}")
+                model[f"{machine.name}:{form}_s{s}"] = {
+                    "predicted_ms": pred, "hbm_ms": hbm, "measured_ms": meas}
+    # (d) the snapshot cadence from this run's times
+    t_snap = stats["snapshot"]["write_ms"] / 1e3
+    t_step = stats["primal_s16"]["ms_per_outer"] / 1e3
+    cad = cm.snapshot_cadence(cm.H100_LOCAL, d=d, n=n, P=1, b=b, s=16,
+                              mtbf_outer=MTBF_OUTER, t_snap=t_snap,
+                              t_step=t_step)
+    log(f"  (d) snapshot cadence (Young): write {t_snap * 1e3:.3f} ms "
+        f"(phase 8), primal s=16 step {t_step * 1e3:.3f} ms (phase 3), "
+        f"mtbf {MTBF_OUTER:.0e} outer steps: checkpoint every "
+        f"{cad['cadence']} outer steps, overhead {cad['overhead']:.2e}")
+    stats["phase10_model"] = model
+    stats["phase10_cadence"] = cad
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -1770,6 +1918,13 @@ def main() -> int:
     paths["sharded"], stats["phase9_s"] = timed(
         lambda: distributed_run(X, y, lam, cut, gen, stats, args.seed))
     log(f"  phase 9 took {stats['phase9_s']:.1f} s")
+
+    # -- 10. the contract engine --------------------------------------------
+    log(f"== 10. contract engine: plan pass, contract pass on {DIST_RANKS} "
+        "gloo ranks on one card, memory checks at real-sim, cost model")
+    paths["contracts"], stats["phase10_s"] = timed(
+        lambda: contract_engine(X, y, lam, stats, args.seed))
+    log(f"  phase 10 took {stats['phase10_s']:.1f} s")
     del X, y, cut
 
     # Each path's own kernels must have run on it; the line counts the
@@ -1781,7 +1936,8 @@ def main() -> int:
                                                gk.DENSE_PACKET,
                                                gk.DENSE_GRAM)],
                "recovery": [k.name for k in gk.KERNELS[:4]],
-               "sharded": [k.name for k in gk.KERNELS[:6]]}
+               "sharded": [k.name for k in gk.KERNELS[:6]],
+               "contracts": [k.name for k in gk.KERNELS[:4]]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:

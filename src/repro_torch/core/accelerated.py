@@ -27,9 +27,10 @@ from typing import ClassVar
 
 import torch
 
-from .engine import (RowMajorOperand, SolveResult, SolverPlan, _BoundPrimal,
-                     _ShardedLayout, _by_block, panel_apply,
-                     register_formulation, register_solver, s_step_solve)
+from .engine import (RowMajorOperand, SolveResult, SolverContracts,
+                     SolverPlan, _BoundPrimal, _ShardedLayout, _by_block,
+                     panel_apply, register_formulation, register_solver,
+                     s_step_solve)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,14 @@ class MomentumWrapper(_ShardedLayout):
         # A momentum weight outside [0, 1) does not contract.
         if not 0.0 <= self.beta < 1.0:
             raise ValueError(f"beta={self.beta!r} must be in [0, 1)")
+
+    def contracts(self):
+        # The velocity is carry state beside the replicated w: the primal's
+        # wire on both schedules, the health word riding it; checked at
+        # beta > 0 so that the momentum path is the one that runs.  Not
+        # tenant-batched: the batched engine's carry is (w, alpha) pairs.
+        return SolverContracts(sweep_kwargs=(("beta", 0.5),),
+                               health_in_packet=True, tenant_batched=False)
 
     def sample_dim(self, d, n):
         return d

@@ -1,0 +1,165 @@
+"""What a rank put on the wire: summaries of its collective calls, and a
+tap that records every call into ``torch.distributed``.
+
+The reference reads collectives out of compiled HLO text
+(``repro.core.hlo_analysis``).  Nothing is compiled to text here, so the
+record is the calls themselves:
+
+* ``Comm.counters()`` (``core/engine.py``): the communication point's own
+  record of its all-reduces and ring hops, their words, bytes and dtypes.
+  It is what :func:`collective_summary` reads, in place of
+  ``parse_collectives`` over HLO.
+* :class:`WireTap`: every call into ``torch.distributed`` made in one
+  process while the tap is open, wherever it was issued: calls and words
+  by kind, in the same counter form less the bytes and dtypes, which are
+  ``Comm``'s to record.  The contract pass opens it around each solve, so
+  that a collective made outside ``Comm`` is counted too.
+
+The reference's other parsers have no counterpart: ``parse_named_ops``
+(transposes and gathers by result shape) is replaced by the contract pass's
+check of the bound operand and, on the card, by peak allocated bytes
+against the panel's and the operand's sizes; ``collective_dtypes`` by the
+``dtypes`` of ``Comm``'s record.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveSummary:
+    """Calls by kind, their elements and bytes, and the dtypes moved.
+    ``by_kind`` maps a kind (``"all_reduce"``, ``"hop"``, or the name of any
+    other ``torch.distributed`` call a tap saw) to ``(calls, words)``.  A
+    tap's record has no bytes or dtypes: 0 and the empty set."""
+    count: int
+    words: int
+    bytes: int
+    by_kind: dict
+    dtypes: frozenset
+
+    def calls(self, kind: str) -> int:
+        return self.by_kind.get(kind, (0, 0))[0]
+
+    def __str__(self) -> str:
+        parts = [f"{k}: n={v[0]} words={v[1]}"
+                 for k, v in sorted(self.by_kind.items())]
+        moved = (f" bytes={self.bytes} dtypes={sorted(self.dtypes)}"
+                 if self.dtypes else "")
+        return (f"collectives n={self.count} words={self.words}{moved} | "
+                + ("; ".join(parts) or "none"))
+
+
+def _kinds(counters: dict) -> dict:
+    kinds = {"all_reduce": (counters["all_reduces"], counters["words"]),
+             "hop": (counters["hops"], counters["hop_words"])}
+    for name, (n, w) in counters.get("other", {}).items():
+        kinds[name] = (n, w)
+    return {k: v for k, v in kinds.items() if v[0]}
+
+
+def collective_summary(counters: dict) -> CollectiveSummary:
+    """The summary of one counter record (``Comm.counters()`` or
+    ``WireTap.counters()``)."""
+    return summarize([counters])
+
+
+def summarize(records: Iterable[dict]) -> CollectiveSummary:
+    """The summary of several counter records added up (one rank's calls,
+    or several calls of one rank)."""
+    by_kind: dict[str, list] = {}
+    nbytes = 0
+    dtypes: set = set()
+    for c in records:
+        for k, (n, w) in _kinds(c).items():
+            ent = by_kind.setdefault(k, [0, 0])
+            ent[0] += n
+            ent[1] += w
+        nbytes += c.get("bytes", 0)
+        dtypes.update(c.get("dtypes", ()))
+    return CollectiveSummary(
+        count=sum(n for n, _ in by_kind.values()),
+        words=sum(w for _, w in by_kind.values()),
+        bytes=nbytes, by_kind={k: tuple(v) for k, v in by_kind.items()},
+        dtypes=frozenset(dtypes))
+
+
+# The calls a tap wraps: every collective and point-to-point entry of
+# torch.distributed.  isend / irecv are left alone: P2POp checks its op
+# against them by identity; batch_isend_irecv sees their sends.
+TAPPED = ("all_reduce", "all_gather", "all_gather_into_tensor",
+          "all_gather_object", "all_to_all", "all_to_all_single", "barrier",
+          "batch_isend_irecv", "broadcast", "broadcast_object_list", "gather",
+          "recv", "reduce", "reduce_scatter", "reduce_scatter_tensor",
+          "scatter", "send")
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _tensors(item)]
+    return []
+
+
+class WireTap:
+    """A context manager that counts every call into ``torch.distributed``
+    made in this process while it is open (:data:`TAPPED`), whoever made
+    it.  ``all_reduce`` counts as the kind ``"all_reduce"``, each send of
+    ``batch_isend_irecv`` and each ``send`` as a ``"hop"``, any other call
+    under its own name.  :meth:`counters` has ``Comm.counters()``'s call
+    and word keys (and ``"other"``)."""
+
+    def __init__(self):
+        self.all_reduces = self.words = 0
+        self.hops = self.hop_words = 0
+        self.other: dict[str, list] = {}
+        self._saved = {}
+
+    def _count(self, name: str, args, kwargs) -> None:
+        import torch.distributed as dist
+        if name == "batch_isend_irecv":
+            sent = [op.tensor for op in args[0] if op.op is dist.isend]
+            self.hops += len(sent)
+            self.hop_words += sum(t.numel() for t in sent)
+        else:
+            moved = _tensors(list(args) + list(kwargs.values()))
+            words = sum(t.numel() for t in moved)
+            if name == "all_reduce":
+                self.all_reduces += 1
+                self.words += words
+            elif name == "send":
+                self.hops += 1
+                self.hop_words += words
+            else:
+                ent = self.other.setdefault(name, [0, 0])
+                ent[0] += 1
+                ent[1] += words
+
+    def __enter__(self):
+        import torch.distributed as dist
+        for name in TAPPED:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def tapped(*args, _name=name, _fn=fn, **kwargs):
+                self._count(_name, args, kwargs)
+                return _fn(*args, **kwargs)
+            setattr(dist, name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        self._saved = {}
+
+    def counters(self) -> dict:
+        return {"all_reduces": self.all_reduces, "words": self.words,
+                "hops": self.hops, "hop_words": self.hop_words,
+                "other": {k: tuple(v) for k, v in self.other.items()}}

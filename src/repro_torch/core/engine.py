@@ -75,6 +75,56 @@ class SolveResult(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
+class SolverContracts:
+    """The communication and memory guarantees a formulation DECLARES, which
+    the contract pass (``repro_torch.analysis.contract_pass``) checks by
+    running every registered ``(formulation, backend)`` solver and reading
+    each rank's record of its collective calls (``Comm.counters``).  A
+    formulation without a ``contracts()`` hook FAILS the sweep: declaring
+    is mandatory.
+
+    * ``sync_per_outer``: all-reduces per outer step on the sharded backend
+      (1 for every paper formulation: the single packet all-reduce).
+    * ``collective_kinds``: the only ``Comm`` calls allowed in a sharded
+      solve at all.
+    * ``local_collective_free``: a local solve makes ZERO collective calls.
+    * ``operand_transpose_free``: the shard binds in X's original layout,
+      no transposed or other copy of the local operand (the dual's
+      guarantee).
+    * ``panel_free_impls``: kernel backends that must never allocate the
+      sampled ``(sb, contraction)`` panel (``impl="ref"`` gathers it by
+      design, so it is not listed); checked on the card.
+    * ``f64_packet``: an f64 solve moves only f64 words.
+    * ``health_in_packet``: the guard's health word rides the ONE packet
+      reduction, so a guarded solve makes exactly as many calls.
+    * ``sweep_kwargs``: formulation fields ((key, value) pairs) the contract
+      pass sets when it runs this formulation, so that formulation-specific
+      code paths (the proximal soft-threshold at ``lam1 > 0``) are the ones
+      checked; a tenant-batched case carries them as per-tenant coeffs.
+    * ``tenant_batched``: the batched sharded solve keeps
+      ``sync_per_outer`` all-reduces per outer step for every tenant count,
+      with the Gram part of the payload not scaled by T.
+    * ``pipelined_collective_kinds`` / ``pipelined_hops``: the pipelined
+      backend's wire.  The kinds are the only calls allowed there;
+      ``pipelined_hops`` is the hops per reduction as an affine law
+      ``(a, c)`` meaning ``sum_i (a * P_i + c)`` over the group sizes
+      (:func:`ring_hops`): ``(2, -2)`` is the two-phase ring's
+      ``2 (P - 1)``.
+    """
+    sync_per_outer: int = 1
+    collective_kinds: tuple = ("all_reduce",)
+    local_collective_free: bool = True
+    operand_transpose_free: bool = True
+    panel_free_impls: tuple = ("cuda",)
+    f64_packet: bool = True
+    health_in_packet: bool = False
+    sweep_kwargs: tuple = ()
+    tenant_batched: bool = False
+    pipelined_collective_kinds: tuple = ("hop",)
+    pipelined_hops: tuple = (2, -2)
+
+
+@dataclasses.dataclass(frozen=True)
 class SolverPlan:
     """Everything the engine needs besides the problem data.
 
@@ -239,7 +289,8 @@ class _BoundPrimal:
         if self.w0 is None:
             return (torch.zeros((self.d,), dtype=X.dtype, device=X.device),
                     torch.zeros((self.n,), dtype=X.dtype, device=X.device))
-        return self.w0, X.T @ self.w0
+        # a warm start's alpha, one product, no copy of X
+        return self.w0, X.T @ self.w0  # contract: allow-transpose
 
     def packet_vector(self, carry):
         return self.y - carry[1]
@@ -321,6 +372,12 @@ class PrimalRidge(_ShardedLayout):
     name = "primal"
     operand_layout = "rows"
     tenant_batched = True       # per-tenant y and lam; the Gram is shared
+
+    def contracts(self):
+        # Theorems 1/6: ONE packet all-reduce per outer step, nothing else
+        # on the wire; the row-major operand bound in place; the health
+        # word rides that all-reduce; the batched engine shares the Gram.
+        return SolverContracts(health_in_packet=True, tenant_batched=True)
 
     def sample_dim(self, d, n):
         return d
@@ -422,7 +479,7 @@ class _BoundDual:
         # is one pass over X per inner iteration, as in the reference.
         w, alpha = carry
         n = self.n
-        r = self.X.T @ w - self.y
+        r = self.X.T @ w - self.y  # contract: allow-transpose (metric)
         m = {"objective": 0.5 / n * (r @ r) + 0.5 * self.lam * (w @ w),
              # ||X^T w - alpha - y|| -> 0 at the dual optimum.
              "residual": torch.linalg.norm(r - alpha)
@@ -443,6 +500,13 @@ class DualRidge(_ShardedLayout):
     # lam stays a python float per tenant, so every derived constant is the
     # single solve's; no per-tenant pinning is needed.
     tenant_batched = True
+
+    def contracts(self):
+        # Theorems 2/7, plus the guarantee this formulation exists to keep:
+        # the shard binds X's original (d, n) layout, never a transposed
+        # copy.  The health word rides the one packet all-reduce; the raw
+        # Gram is shared by the batched engine and scaled per tenant.
+        return SolverContracts(health_in_packet=True, tenant_batched=True)
 
     def sample_dim(self, d, n):
         return n
@@ -488,7 +552,7 @@ class Comm:
     that ``reduce_s`` / ``hop_s`` time the wire, its copies and the wait for
     the group's slowest rank."""
 
-    def __init__(self, group=None, device="cpu"):
+    def __init__(self, group, device):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
@@ -508,13 +572,23 @@ class Comm:
         self.words = 0          # elements all-reduced, summed over calls
         self.hops = 0           # ring hops (one send and one receive each)
         self.hop_words = 0      # elements sent by the hops
+        self.bytes = 0          # bytes all-reduced and sent, summed
+        self.dtypes = set()     # dtype names the calls moved
         self.reduce_s = 0.0     # host seconds inside all-reduce calls
         self.hop_s = 0.0        # host seconds inside hops
 
     def counters(self) -> dict:
-        return {k: getattr(self, k) for k in (
-            "all_reduces", "words", "hops", "hop_words", "reduce_s",
+        """This rank's record of its calls since :meth:`reset`
+        (``dtypes`` as a sorted tuple)."""
+        out = {k: getattr(self, k) for k in (
+            "all_reduces", "words", "hops", "hop_words", "bytes", "reduce_s",
             "hop_s", "staged", "backend", "size")}
+        out["dtypes"] = tuple(sorted(self.dtypes))
+        return out
+
+    def _record(self, t: torch.Tensor) -> None:
+        self.bytes += t.numel() * t.element_size()
+        self.dtypes.add(str(t.dtype).removeprefix("torch."))
 
     def _wait_device(self) -> None:
         if self.staged:
@@ -528,6 +602,7 @@ class Comm:
         self.reduce_s += time.perf_counter() - t0
         self.all_reduces += 1
         self.words += flat.numel()
+        self._record(flat)
         return flat
 
     def hop(self, send: torch.Tensor) -> torch.Tensor:
@@ -548,6 +623,7 @@ class Comm:
         self.hop_s += time.perf_counter() - t0
         self.hops += 1
         self.hop_words += send.numel()
+        self._record(send)
         return recv
 
 
@@ -568,11 +644,14 @@ def all_reduce_variadic(leaves: list, comm: Comm) -> list:
     return _split(comm.all_reduce(flat), shapes)
 
 
-def ring_hops(sizes) -> int:
-    """Ring hops per reduction on the pipelined wire: ``2 (P - 1)`` for each
-    group size P (a reduce-scatter and an all-gather of ``P - 1`` hops
-    each; a group of one makes none)."""
-    return sum(2 * (p - 1) for p in sizes)
+def ring_hops(sizes, law: tuple = SolverContracts.pipelined_hops) -> int:
+    """Ring hops per reduction on the pipelined wire: the affine law
+    ``sum_i (a * P_i + c)`` over the group sizes that a formulation declares
+    as ``SolverContracts.pipelined_hops``.  The default ``(2, -2)`` is the
+    two-phase ring's ``2 (P - 1)`` (a reduce-scatter and an all-gather of
+    ``P - 1`` hops each; a group of one makes none)."""
+    a, c = law
+    return sum(a * p + c for p in sizes)
 
 
 def _ring_reduce_scatter(flat: torch.Tensor, comm: Comm) -> torch.Tensor:

@@ -25,10 +25,10 @@ from typing import ClassVar
 
 import torch
 
-from .engine import (RowMajorOperand, SolveResult, SolverPlan, _BoundPrimal,
-                     _ShardedLayout, _fit_residual, _objective_from_alpha,
-                     _sol_err, register_formulation, register_solver,
-                     s_step_solve)
+from .engine import (RowMajorOperand, SolveResult, SolverContracts,
+                     SolverPlan, _BoundPrimal, _ShardedLayout, _fit_residual,
+                     _objective_from_alpha, _sol_err, register_formulation,
+                     register_solver, s_step_solve)
 from .sampling import overlap_matrix
 from .subproblem import (block_forward_substitution,
                          block_forward_substitution_prox, soft_threshold)
@@ -84,6 +84,14 @@ class ProximalElasticNet(_ShardedLayout):
         # that diverges instead of sparsifying.
         if not self.lam1 >= 0:
             raise ValueError(f"lam1={self.lam1!r} must be >= 0")
+
+    def contracts(self):
+        # The soft-threshold runs on the replicated reduced packet, so the
+        # l1 term adds no communication: the primal's contract, checked at
+        # lam1 > 0 so that the prox sweep is the path that runs.  lam1 rides
+        # TenantBatch.coeffs in a batched solve.
+        return SolverContracts(sweep_kwargs=(("lam1", 1e-3),),
+                               health_in_packet=True, tenant_batched=True)
 
     def sample_dim(self, d, n):
         return d

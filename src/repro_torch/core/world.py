@@ -22,7 +22,11 @@ respawn per solve would cost seconds each.
   rank (a rank whose replica differs is a fault: it raises), and trims the
   padding (``dist_finalize``).  ``last`` holds the call's per-rank
   counters, kernel launches and solve times; ``launches`` sums each rank's
-  kernel launches over calls.
+  kernel launches over calls.  With ``tap_wire`` set, each rank also
+  records every call it made into ``torch.distributed`` during the solve
+  (``collectives.WireTap``; ``last["wire"]``), and with ``track_peak`` the
+  peak bytes its device allocator held above the solve's start
+  (``last["peak_bytes"]``, CUDA only): the contract pass reads both.
 
 The backend rule: ``"nccl"`` needs one card per rank (rank r computes on
 ``cuda:r``) and raises for more ranks than cards; ``"gloo"`` lets every rank
@@ -52,7 +56,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import engine
+from . import collectives, engine
 
 _LOOPBACK_ENV = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
 
@@ -110,7 +114,27 @@ class _Rank:
         idx = torch.as_tensor(p["idx"], device=dev)
         before = _launches()
         _sync(dev)
+        peak = p.get("peak") and dev.type == "cuda"
+        if peak:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        tap = collectives.WireTap() if p.get("tap") else None
         t0 = time.perf_counter()
+        with tap or contextlib.nullcontext():
+            w, alpha, metrics = self._solve(p, form, plan, comm, Xl, idx,
+                                            tensor)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        after = _launches()
+        return {"w": _numpy(w), "alpha": _numpy(alpha), "metrics": metrics,
+                "counters": comm.counters(), "solve_s": wall,
+                "launches": {k: after[k] - before[k] for k in after},
+                "wire": None if tap is None else tap.counters(),
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev) - base
+                               if peak else None)}
+
+    def _solve(self, p, form, plan, comm, Xl, idx, tensor) -> tuple:
+        P = p["P"]
         metrics = None
         if p["kind"] == "single":
             _, yl = form.pad_shards(None, tensor(p["y"]), P, self.rank)
@@ -128,12 +152,7 @@ class _Rank:
             w, alpha = engine.s_step_solve_batched_sharded(
                 form, plan, comm, Xl, batch, p["iters"], d=p["d"], n=p["n"],
                 idx=idx)
-        _sync(dev)
-        wall = time.perf_counter() - t0
-        after = _launches()
-        return {"w": _numpy(w), "alpha": _numpy(alpha), "metrics": metrics,
-                "counters": comm.counters(), "solve_s": wall,
-                "launches": {k: after[k] - before[k] for k in after}}
+        return w, alpha, metrics
 
 
 def _rank_main(rank: int, size: int, init: str, backend: str, device: str,
@@ -225,6 +244,8 @@ class SolverWorld:
         self._held = {}
         self.last = {}
         self.launches = []
+        self.tap_wire = False
+        self.track_peak = False
         self._start(n_ranks)
 
     # -- process management ------------------------------------------------
@@ -367,7 +388,9 @@ class SolverWorld:
         self.last = {"ranks": P, "replicas_equal": equal,
                      "counters": [o["counters"] for o in outs],
                      "launches": [o["launches"] for o in outs],
-                     "solve_s": [o["solve_s"] for o in outs]}
+                     "solve_s": [o["solve_s"] for o in outs],
+                     "wire": [o["wire"] for o in outs],
+                     "peak_bytes": [o["peak_bytes"] for o in outs]}
         if not equal:
             self._fail("the replicated iterate differs between ranks")
         local = np.concatenate([h[1 - rep] for h in halves], axis=-1)
@@ -393,7 +416,7 @@ class SolverWorld:
                    "key": self._shards(form, X, P), "P": P,
                    "d": d, "n": n, "lam": float(lam), "iters": iters,
                    "y": _numpy(y), "idx": idx, "x0": _numpy(x0),
-                   "step0": step0}
+                   "step0": step0, **self._probes()}
         (w, alpha), metrics = self._run(form, payload, P, d, n, X.device)
         return (w, alpha, metrics) if plan.guard else (w, alpha)
 
@@ -420,11 +443,14 @@ class SolverWorld:
                    "key": self._shards(form, X, P), "P": P,
                    "d": d, "n": n, "iters": iters, "ys": _numpy(batch.ys),
                    "lams": batch.lams, "coeffs": batch.coeffs,
-                   "x0s": _numpy(batch.x0s), "idx": idx}
+                   "x0s": _numpy(batch.x0s), "idx": idx, **self._probes()}
         (ws, alphas), _ = self._run(form, payload, P, d, n, X.device)
         return engine.BatchedSolveResult(
             ws, alphas, torch.ones((batch.tenants,), dtype=torch.bool,
                                    device=X.device), {})
+
+    def _probes(self) -> dict:
+        return {"tap": self.tap_wire, "peak": self.track_peak}
 
     @staticmethod
     def _index(form, plan, d, n, iters, generator, idx) -> np.ndarray:

@@ -18,9 +18,19 @@ for a given ``(m, K, layout)``.
 
 ``_TABLE`` is where measured picks go, keyed on power-of-two buckets of
 ``(m, K)`` with the dtype name and layout.  It starts empty: no Hopper sweep
-has been run yet.
+has been run yet.  :func:`register_table` and :func:`load_table` merge
+entries into it, and a JSON table named by the ``REPRO_TORCH_GRAM_TUNING``
+environment variable is merged at the first pick (the variable is the
+port's own: its entries are one ``bk`` chunk, where the reference's
+``REPRO_GRAM_TUNING`` table holds ``(bm, bk)`` pairs).  One entry serves
+the packet (K1 / K3) and the matvec (K6 / K5) of its key alike, which is
+what keeps the matvec's sums the packet's r; the plan pass
+(``repro_torch.analysis.plan_pass``) checks every entry.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import torch
 
@@ -33,6 +43,8 @@ MAX_SPLITS = 65535    # gridDim.y limit
 LAYOUTS = ("rows", "cols")
 
 _TABLE: dict[tuple[int, int, str, str], int] = {}
+ENV_TABLE = "REPRO_TORCH_GRAM_TUNING"
+_env_loaded = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -70,8 +82,64 @@ def pick_tiles(m: int, K: int, dtype: torch.dtype, layout: str = "rows"
     """``bk`` for an (m samples, K contraction) packet in ``layout``: a
     table hit, else ``default_chunk(m, K, layout)``."""
     _check_layout(layout)
+    if not _env_loaded:
+        _load_env_table()
     key = (_bucket(max(m, 1)), _bucket(max(K, 1)), str(dtype).split(".")[-1],
            layout)
     if key in _TABLE:
         return _TABLE[key]
     return default_chunk(m, K, layout)
+
+
+def register_table(mapping: dict) -> None:
+    """Merge entries into the live table.  Keys are ``(m_bucket, K_bucket,
+    dtype_name, layout)`` tuples or their JSON form ``"m,K,dtype,layout"``;
+    values are the chunk ``bk``.  Nothing is checked here beyond the
+    layout: the plan pass checks the entries."""
+    for k, v in mapping.items():
+        if isinstance(k, str):
+            mb, kb, dt, layout = k.split(",")
+            k = (int(mb), int(kb), dt, layout)
+        _check_layout(k[3])
+        _TABLE[(int(k[0]), int(k[1]), str(k[2]), k[3])] = int(v)
+
+
+def load_table(path: str) -> int:
+    """Merge a JSON table (``{"table": {key: bk}}`` or the bare mapping);
+    returns the number of entries merged."""
+    with open(path) as f:
+        data = json.load(f)
+    table = data.get("table", data)
+    register_table(table)
+    return len(table)
+
+
+def _load_env_table() -> None:
+    """Merge the table named by ``REPRO_TORCH_GRAM_TUNING`` once.  Setting
+    the variable is an explicit opt-in: a path that does not exist raises
+    instead of falling back to the built-in table, and goes on raising at
+    every pick until the variable names a table that loads."""
+    global _env_loaded
+    path = os.environ.get(ENV_TABLE)
+    if path:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{ENV_TABLE}={path!r} does not exist; "
+                                    "unset it or point it at a JSON table")
+        load_table(path)
+    _env_loaded = True
+
+
+def table_snapshot() -> dict[str, int]:
+    """JSON-serialisable copy of the live table."""
+    if not _env_loaded:
+        _load_env_table()
+    return {f"{k[0]},{k[1]},{k[2]},{k[3]}": v
+            for k, v in sorted(_TABLE.items())}
+
+
+def table_entries() -> list[tuple[tuple[int, int, str, str], int]]:
+    """Sorted ``(key, bk)`` pairs of the live table: the built-ins plus
+    whatever :func:`register_table` and the environment's table merged."""
+    if not _env_loaded:
+        _load_env_table()
+    return sorted(_TABLE.items())
