@@ -72,6 +72,13 @@ Phases (any failure raises; nothing is caught):
      device loss onto 3 survivors (f32, and f64 on the 8x cut) and one
      NCCL rank.  Wire times are gloo's, host-staged, with the ranks on one
      card;
+ 2c. (inside phase 2) the bf16 packets K1 / K7 on the real-sim X cast to
+     bf16 at m = 128 and 8: equal under torch.equal to the f32 kernels on
+     the upcast operand, K1 equal to K7 on X[flat], within the reference's
+     2e-2 of the plain version, timed beside their bound (bf16 inputs, f32
+     outputs, the card's bf16 tensor-core rate); then one packet of each
+     at each m through the public entry points (counted: the "bf16
+     packets" path);
  10. the contract engine on the card (counted, launches summed over the
      parent and the ranks): (a) the kernels' shared-memory budget against
      the card's opt-in limit, and the plan pass; (b) the contract pass on
@@ -81,7 +88,24 @@ Phases (any failure raises; nothing is caught):
      operand, in this process and on each rank); (c) the cost model's ms
      per outer step against phases 3 and 9 (the gloo wire refitted to this
      run's all-reduces); (d) the snapshot cadence from this run's snapshot
-     write and step time.
+     write and step time;
+ 11. the LM at llama3.2-3b's published width (28 layers, d_model 3072,
+     GQA 24 / 8 heads, vocab 128256, random weights from --seed), after
+     phases 1-10's operands are freed: (a) prefill of 63 tokens and one
+     decode step against forward (B = 2, rtol / atol 1e-3) and the
+     engine's greedy tokens (2 slots, 2 prompts, 8 tokens) against the
+     step-by-step greedy forward, in f32 at 2 layers and in f64 at 28,
+     chunked attention against the materialised softmax at a ragged
+     length; (c) the LM probe: features X 3072 x 1024 in f64 from the f32
+     model, K3 / K4 first held against their plain versions on that X at
+     m = b and sb, then (counted: the "lm probe" path) BDCD and CA-BDCD
+     (b = 32, s = 10, 200 iterations) on one index stream through
+     K3 / K4, CA-BDCD within 1e-8 of BDCD; (b) in bf16
+     (6.43 GB of weights), bf16 against f32 last-position logits on eight
+     prompts, then 8 requests of 16-200 prompt tokens x 32 new tokens
+     through 4 slots: prefill ms per bucket, decode ms a step beside the
+     1.918 ms weight-read bound, tokens/s, the decode's device-idle share
+     (profiler trace) and the allocator's peak.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -101,6 +125,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import core  # noqa: E402
@@ -120,10 +145,13 @@ from repro_torch.launch.tile_sweep import (apply_launcher,  # noqa: E402
 from repro_torch.launch.timing import (KERNEL_NAMES, device_ms,  # noqa: E402
                                        event_ms, l2_flush, wall_ms)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f32 / f64 rates
-# of the CUDA cores outside the tensor cores (the kernels use no tensor cores).
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 bandwidth, the
+# f32 / f64 rates of the CUDA cores outside the tensor cores, and the
+# tensor cores' bf16 rate (the card's fastest way to take bf16 operands,
+# whatever the kernel itself uses).
 HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {"torch.float32": 67e12, "torch.float64": 34e12}
+FLOPS_PER_S = {"torch.float32": 67e12, "torch.float64": 34e12,
+               "torch.bfloat16": 989e12}
 SECTOR = 32                     # bytes moved per scattered element read
 # Kernel against plain version, relative Frobenius error of each output and
 # of G's cross terms alone (entries of two different indices, which the sums
@@ -299,18 +327,20 @@ def check_cols_packet_identity(X, flat, u, tag: str) -> None:
 
 def check_kernels(X, gen, tag: str, ms: tuple, reps: int,
                   main_m: dict, tenants: int, flush=None,
-                  kinds=("packet", "apply", "matvec")) -> dict:
-    """Phase 2 on one X: every kernel of ``kinds`` against its plain version
-    for each m in ``ms`` (the matvecs with ``tenants`` vectors, and held to
-    the packets' r); at the m's in ``main_m[kind]`` also the timings, the
-    matvecs' also with the L2 flushed by ``flush`` before each call.
+                  kinds=("packet", "apply", "matvec"),
+                  layouts=("rows", "cols")) -> dict:
+    """Phase 2 on one X: every kernel of ``kinds`` and ``layouts`` against
+    its plain version for each m in ``ms`` (the matvecs with ``tenants``
+    vectors, and held to the packets' r); at the m's in ``main_m[kind]``
+    also the timings, the matvecs' also with the L2 flushed by ``flush``
+    before each call.
     Returns per-kernel records, the first timed m of each under the
     kernel's name."""
     d, n = X.shape
     tol = TOL_KERNEL[str(X.dtype)]
     out = {}
     for kern, info, plain, S, K, kind, layout in kernel_specs(d, n):
-        if kind not in kinds:
+        if kind not in kinds or layout not in layouts:
             continue
         for m in ms:
             flat = (blocked_flat(gen, S, 8, m // 8) if m % 8 == 0
@@ -486,6 +516,115 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
     return out
 
 
+# bf16 packets (K1, K7): against the plain version at the reference's bf16
+# tolerance (tests/test_kernels.py, 2e-2), and under torch.equal against the
+# f32 kernel on the upcast operand (a bf16 element lands widened in the f32
+# ring, so the sums are the f32 kernel's).
+TOL_BF16 = 2e-2
+
+
+def bf16_bound(m: int, uniq: int, K: int, indexed: bool) -> dict:
+    """The packet's bound with bf16 inputs (2 bytes: the sampled rows and u)
+    and f32 outputs (4 bytes: G and r), against the operations at the
+    card's bf16 tensor-core rate.  ``fma_ms``: the operations at the f32
+    CUDA-core rate, the floor of the kernel's own design (f32 FMAs on the
+    widened elements), which is not the card's limit for the function."""
+    nbytes = 2 * (uniq * K + K) + 4 * (m * m + m) + (4 * m if indexed else 0)
+    flops = 2 * (m * (m + 1) // 2 * K + m * K)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S["torch.bfloat16"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fma_ms": flops / FLOPS_PER_S["torch.float32"] * 1e3}
+
+
+def check_bf16_packets(X, gen, reps: int) -> tuple[dict, dict]:
+    """Phase 2c: K1 and K7 on the real-sim X cast to bf16 at m = 128 and 8:
+    each equal to the f32 kernel on the upcast operand and K1 equal to K7 on
+    X[flat] (torch.equal), each within 2e-2 of its plain version; timed
+    beside its bound, the plain version and a library call (a bf16 product
+    on the tensor cores, f32 sums, bf16 output, on the gathered panel).
+    Then the counted path: one packet of each through the public entry
+    points at each m.  Returns (records, the path's launch counts)."""
+    d, n = X.shape
+    Xb = X.to(torch.bfloat16)
+    Xup = Xb.float()
+    recs, cases = {}, []
+    for m in (128, 8):
+        flat = blocked_flat(gen, d, 8, m // 8)
+        u = torch.randn((n,), generator=gen, device=X.device,
+                        dtype=torch.bfloat16)
+        Yb = Xb[flat.long()].contiguous()
+        G1, r1 = gk.gram_packet_sampled_rows(Xb, flat, u)
+        G7, r7 = gk.gram_packet_dense(Yb, u)
+        F1 = gk.gram_packet_sampled_rows(Xup, flat, u.float())
+        F7 = gk.gram_packet_dense(Yb.float(), u.float())
+        want = gk.gram_packet_sampled_ref(Xb, flat, u)
+        torch.cuda.synchronize()
+        eq_f32 = (torch.equal(G1, F1[0]) and torch.equal(r1, F1[1])
+                  and torch.equal(G7, F7[0]) and torch.equal(r7, F7[1]))
+        eq_k7 = torch.equal(G1, G7) and torch.equal(r1, r7)
+        errs = [rel(G1, want[0]), rel(r1, want[1]),
+                rel(cross_terms(G1, flat), cross_terms(want[0], flat))]
+        max_abs = max(float((a - b).abs().max())
+                      for a, b in ((G1, want[0]), (r1, want[1])))
+        log(f"  bf16 K1 / K7 m={m:4d}: out {G1.dtype}; rel err G, r, G cross "
+            f"terms " + " ".join(f"{e:.2e}" for e in errs)
+            + f" (tol {TOL_BF16:.0e}), max abs {max_abs:.2e}; equal to the "
+            f"f32 kernels on the upcast operand {eq_f32}; K1 == K7 on "
+            f"X[flat] {eq_k7}")
+        if G1.dtype != torch.float32 or not all(
+                math.isfinite(e) and e <= TOL_BF16 for e in errs):
+            raise AssertionError(f"bf16 K1 disagrees with its plain version "
+                                 f"at m={m}: {errs}")
+        if not (eq_f32 and eq_k7):
+            raise AssertionError(f"bf16 identities fail at m={m}: "
+                                 f"{eq_f32}, {eq_k7}")
+        uniq = int(torch.unique(flat).numel())
+        names = KERNEL_NAMES["dense"]
+        rhs = torch.cat([Yb.T, u[:, None]], dim=1).contiguous()
+        for info, kern, plain, indexed in (
+                (gk.ROWS_PACKET_BF16,
+                 lambda: gk.gram_packet_sampled_rows(Xb, flat, u),
+                 lambda: gk.gram_packet_sampled_ref(Xb, flat, u), True),
+                (gk.DENSE_PACKET_BF16, lambda: gk.gram_packet_dense(Yb, u),
+                 lambda: gk.gram_packet_ref(Yb, u), False)):
+            rec = {"name": info.name, "route": "cuda",
+                   "source": info.source, "replaces": info.replaces,
+                   "max_abs_err": max_abs, "m": m, "K": n,
+                   "dtype": "bfloat16",
+                   "ms": device_ms(kern, reps, names),
+                   "plain_ms": device_ms(plain, reps),
+                   "library_ms": device_ms(lambda: torch.mm(Yb, rhs), reps),
+                   "f32_ms": device_ms(
+                       lambda: gk.gram_packet_sampled_rows(Xup, flat,
+                                                           u.float())
+                       if indexed else gk.gram_packet_dense(Yb.float(),
+                                                            u.float()),
+                       reps, names)}
+            rec.update(bf16_bound(m, uniq if indexed else m, n, indexed))
+            log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 "
+                f"kernel on the upcast operand {rec['f32_ms']:.4f}), plain "
+                f"{rec['plain_ms']:.4f}, library (bf16 mm on [Y^T | u]) "
+                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; device / bound "
+                f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
+                f"{rec['ms'] / rec['library_ms']:.2f}); f32 FMAs at "
+                f"67 TFLOP/s {rec['fma_ms']:.4f} ms")
+            recs[info.name if m == 128 else f"{info.name}@m{m}"] = rec
+        cases.append((flat, u, Yb))
+    # the counted path: the packets through the public entry points
+    gk.reset_launch_counts()
+    for flat, u, Yb in cases:
+        gk.gram_packet_sampled(Xb, flat, u)
+        gk.gram_packet(Yb, u)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"  bf16 packets path: launches {counts}")
+    del Xb, Xup
+    return recs, counts
+
+
 def check_cg_shape(X, gen, reps: int, flush) -> dict:
     """Phase 2 for K2 and K6 at the shape CG gives them: flat = arange(d),
     m = d, one vector; against their plain versions, timed, also with the
@@ -634,19 +773,19 @@ def run_solves(X, y, lam, idx_p, idx_d, iters: int,
     for form, solve, idx in (("primal", core.ca_bcd, idx_p),
                              ("dual", core.ca_bdcd, idx_d)):
         for s in (1, 16):
-            before = {k.name: k.launches for k in gk.KERNELS}
+            before = launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = solve(X, y, lam, b, s, iters, idx=idx)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            ran = {k.name: k.launches - before[k.name] for k in gk.KERNELS}
+            ran = ran_since(before)
             outer = -(-iters // s)
             packet, apply = (("gram_packet_sampled_rows", "panel_apply_rows")
                              if form == "primal" else
                              ("gram_packet_sampled_cols", "panel_apply_cols"))
-            want = {k.name: 0 for k in gk.KERNELS}
+            want = dict.fromkeys(launches(), 0)
             want[packet], want[apply] = outer, iters
             if ran != want:
                 raise AssertionError(f"{form} s={s}: launches {ran}, "
@@ -661,7 +800,7 @@ def run_solves(X, y, lam, idx_p, idx_d, iters: int,
                                      "inner_it_per_s": iters / wall,
                                      "peak_gib": peak}
             runs[(form, s)] = res
-    counts = {k.name: k.launches for k in gk.KERNELS}   # main path ends here
+    counts = launches()   # main path ends here
 
     for form, solve, idx in (("primal", core.ca_bcd, idx_p),
                              ("dual", core.ca_bdcd, idx_d)):
@@ -676,12 +815,12 @@ def run_solves(X, y, lam, idx_p, idx_d, iters: int,
             raise AssertionError(f"{form}: objective did not go down: "
                                  f"{f0} -> {first} -> {last}")
         ca = rel(runs[(form, 16)].w, runs[(form, 1)].w)
-        before = [k.launches for k in gk.KERNELS]
+        before = launches()
         t0 = time.perf_counter()
         ref = solve(X, y, lam, b, 16, iters, idx=idx, impl="ref")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if [k.launches for k in gk.KERNELS] != before:
+        if launches() != before:
             raise AssertionError("impl='ref' launched a CUDA kernel")
         kr = rel(runs[(form, 16)].w, ref.w)
         log(f"  {form:6s}: objective {f0:.6e} -> {first:.6e} -> "
@@ -817,8 +956,8 @@ def batched_engine(X, y, lam, gen, iters: int, stats: dict) -> dict:
         torch.cuda.synchronize()
         log(f"  {form:8s} T={T}: batched solve {time.perf_counter() - t0:.3f}"
             f" s ({iters} iterations, {outer} outer steps)")
-    counts = {k.name: k.launches for k in gk.KERNELS}  # batched path ends
-    want = {k.name: 0 for k in gk.KERNELS}
+    counts = launches()  # batched path ends
+    want = dict.fromkeys(launches(), 0)
     want.update({"gram_packet_sampled_rows": 2 * outer,
                  "panel_apply_rows": 2 * T * iters,
                  "gram_packet_sampled_cols": outer,
@@ -926,7 +1065,7 @@ def service_run(X, y, lam, gen, stats: dict) -> dict:
                 f"{wall:.3f} s: {requests / wall:.2f} solves/s, "
                 f"{its / wall:.1f} tenant inner it/s")
             runs.append((form, rids, first, tickets, list(chunks)))
-        counts = {k.name: k.launches for k in gk.KERNELS}  # path ends
+        counts = launches()  # path ends
     finally:
         svc_mod.sample_blocks = draw
     log(f"  launches {counts}")
@@ -1117,9 +1256,9 @@ def baselines(X, y, lam: float, cut, gen, stats: dict) -> dict:
                     "exact": core.ridge_exact(Xd, yd, lam_d)}
     G7, r7 = gk.gram_packet(X[flat.long()].contiguous(), u)
     torch.cuda.synchronize()
-    counts = {k.name: k.launches for k in gk.KERNELS}  # baselines path ends
+    counts = launches()  # baselines path ends
     log(f"  launches {counts}")
-    want = {k.name: 0 for k in gk.KERNELS}
+    want = dict.fromkeys(launches(), 0)
     want.update({"gram_dense": 5, "gram_packet_dense": 1,
                  "panel_apply_rows": cg["cuda"][0].iters + HISTORY_ITERS,
                  "panel_matvec_rows": cg["cuda"][0].iters + HISTORY_ITERS})
@@ -1194,7 +1333,7 @@ def baselines(X, y, lam: float, cut, gen, stats: dict) -> dict:
 
 
 def launches() -> dict:
-    return {k.name: k.launches for k in gk.KERNELS}
+    return gk.launch_counts()
 
 
 def ran_since(before: dict) -> dict:
@@ -1738,7 +1877,8 @@ def contract_engine(X, y, lam, stats: dict, seed: int) -> dict:
         ranks = [dict(r) for r in world.launches]
     finally:
         world.close()
-    counts = {k: v + sum(r[k] for r in ranks) for k, v in launches().items()}
+    counts = {k: v + sum(r[k] for r in ranks)
+              for k, v in launches().items()}
     for case in rep.cases[n_sweep:]:
         log(f"    {case}")
     log(f"  (b) {DIST_RANKS} gloo ranks spawned in {spawn:.2f} s; contract "
@@ -1802,6 +1942,378 @@ def contract_engine(X, y, lam, stats: dict, seed: int) -> dict:
     return counts
 
 
+# Phase 11: the LM at llama3.2-3b's full width.  Its random weights follow
+# the reference's init (fan-in = the last-but-one axis: wq / wk scaled by
+# the 24 heads, not the 3072 inputs they contract), so queries are ~11x
+# and attention scores ~200x wider than in a trained model and the depth
+# amplifies any rounding: at full width the f32 forward departs from the
+# f64 forward by 1.9e-6 of the largest logit at 1 layer, 6.2e-6 at 2 and
+# 3.1e-3 at 4 (CPU, llama3.2-3b cut in depth), about 1 at 28.  So the f32
+# exactness gates run at full width cut to LM_EXACT_LAYERS layers, and at
+# full depth the same gates run in f64 (its unit is 2^29 times f32's),
+# with f32's distance from f64 reported.  The gates: logits of prefill +
+# decode against forward, and the engine's greedy tokens against the
+# step-by-step oracle, at the reference's rtol / atol 1e-3
+# (tests/test_decode.py).  Online-softmax attention against the
+# materialised softmax: atol 2e-5 on outputs of order 1.  bf16 against f32
+# logits on the same weights, at the cut depth: the depth amplifies bf16's
+# rounding as it does f32's, so the yardstick is the f32 model with its
+# weights rounded to bf16 (f32 arithmetic): bf16 may depart from f32 by at
+# most BF16_OVER_WEIGHTS times as much as that model does (the CPU at full
+# width, on these prompts, reads 0.174 against 0.087 at 1 layer, 2.0x, and
+# 0.418 against 0.365 at 2 layers, 1.14x); and a top-1 disagreement passes
+# only where the f32 top-2 margin is below twice the measured largest logit
+# error.
+LM_EXACT_LAYERS = 2
+LM_TOL = 1e-3
+ATTN_TOL = 2e-5
+BF16_OVER_WEIGHTS = 3.0
+# bf16 serving: 4 slots, 8 requests of mixed length (prefill buckets 32,
+# 64, 128 and 256 from min_bucket 32; queueing past the 4 slots), 32 new
+# tokens each; weight-read bound of one decode step at 3.35 TB/s.
+SERVE_SLOTS = 4
+SERVE_PROMPTS = (16, 200, 37, 90, 130, 23, 64, 170)
+SERVE_NEW = 32
+SERVE_MAX_SEQ = 256
+
+
+def materialised_attention(q, k, v, causal: bool = True):
+    """softmax(q k^T / sqrt(Dh)) v with the whole score matrix in f32, GQA
+    heads grouped as the reference groups them."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    qr = q.reshape(B, S, Hkv, H // Hkv, Dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) / math.sqrt(Dh)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def top2_margin(logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+LM_BATCH = (2, 64)                # B, S of prefill + decode against forward
+
+
+def lm_batch(cfg, device) -> dict:
+    from repro_torch.data import synthetic_lm_batch
+    B, S = LM_BATCH
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in synthetic_lm_batch(cfg.vocab, S, B).items()}
+
+
+def prefill_decode(cfg, model, batch) -> tuple:
+    """Forward's logits at the last two positions, and the logits of
+    prefill of S - 1 tokens and of one decode step after it."""
+    from repro_torch.models import api
+    B, S = batch["tokens"].shape
+    full, _ = api.forward(model, cfg, batch)
+    pre = dict(batch, tokens=batch["tokens"][:, :S - 1])
+    logits_pre, cache = api.prefill(model, cfg, pre, max_seq=S)
+    logits_dec, _ = api.decode_step(model, cfg, cache, batch["tokens"][:, -1],
+                                    torch.full((B,), S - 1,
+                                               device=model.device))
+    return full[:, S - 2:], logits_pre, logits_dec
+
+
+def check_chunked_attention(cfg, device, gen) -> None:
+    """11a: chunked attention against the materialised softmax at a ragged
+    length, in f32, at the model's head counts."""
+    from repro_torch.models import layers
+    Sr = 333
+    q = torch.randn((1, Sr, cfg.n_heads, cfg.resolved_head_dim),
+                    generator=gen, device=device)
+    k = torch.randn((1, Sr, cfg.n_kv_heads, cfg.resolved_head_dim),
+                    generator=gen, device=device)
+    v = torch.randn_like(k)
+    for causal in (True, False):
+        got = layers.chunked_attention(q, k, v, causal=causal, block_q=64,
+                                       block_kv=128)
+        err = float((got - materialised_attention(q, k, v, causal))
+                    .abs().max())
+        log(f"  11a chunked attention (S={Sr}, blocks 64 x 128, "
+            f"{cfg.n_heads} heads over {cfg.n_kv_heads}, causal {causal}) "
+            f"against the materialised softmax: max abs err {err:.2e} (tol "
+            f"{ATTN_TOL:.0e})")
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"chunked attention: {err}")
+
+
+def lm_exactness(cfg, model) -> tuple:
+    """11a, in the model's dtype: prefill of S - 1 tokens and one decode
+    step against forward (B = 2, S = 64); the engine's greedy tokens
+    against the step-by-step greedy forward.  Returns
+    :func:`prefill_decode`'s logits."""
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    B, S = LM_BATCH
+    dtype = str(cfg.dtype).removeprefix("torch.")
+    full, logits_pre, logits_dec = prefill_decode(
+        cfg, model, lm_batch(cfg, model.device))
+    errs = []
+    for got, want in ((logits_pre, full[:, 0]), (logits_dec, full[:, 1])):
+        bad = (got - want).abs() > LM_TOL + LM_TOL * want.abs()
+        errs.append((float((got - want).abs().max()), int(bad.sum())))
+    log(f"  11a {cfg.n_layers} layers: prefill + decode against forward "
+        f"(B={B}, S={S}, {dtype}): max abs err prefill {errs[0][0]:.2e}, "
+        f"decode {errs[1][0]:.2e} (rtol / atol {LM_TOL:.0e}; entries outside: "
+        f"{errs[0][1]}, {errs[1][1]}; largest logit "
+        f"{float(full.abs().max()):.3f})")
+    if any(n for _, n in errs):
+        raise AssertionError(f"prefill + decode differ from forward: {errs}")
+    prompts, new = [[5, 6, 7, 8], [1, 2, 3]], 8
+    eng = Engine(cfg, model, ServeConfig(max_seq=128, slots=2,
+                                         min_bucket=16))
+    outs = eng.generate(prompts, new)
+    for i, prompt in enumerate(prompts):
+        toks = list(prompt)
+        for step in range(new):
+            logits, _ = api.forward(model, cfg, {"tokens": torch.tensor(
+                [toks], device=model.device)})
+            last = logits[0, -1, :cfg.vocab]
+            oracle = int(torch.argmax(last))
+            if outs[i][step] != oracle:
+                margin = top2_margin(last)
+                tol = LM_TOL + LM_TOL * float(last.abs().max())
+                log(f"  11a request {i} step {step}: engine {outs[i][step]}"
+                    f", oracle {oracle}, the oracle's top-2 margin "
+                    f"{margin:.3e} (logit tolerance {tol:.3e})")
+                if not margin < tol:
+                    raise AssertionError(f"the engine departs from the "
+                                         f"greedy oracle at request {i} "
+                                         f"step {step}")
+                break
+            toks.append(oracle)
+        log(f"  11a engine request {i} (prompt {prompt}): {outs[i]}; greedy "
+            f"oracle agrees on {step + 1 if outs[i][step] == oracle else step}"
+            f" of {new} tokens")
+    return full, logits_pre, logits_dec
+
+
+def lm_full_depth(cfg, model, stats: dict) -> None:
+    """11a at full depth: the gates of :func:`lm_exactness` in f64 on an
+    f64 copy of the weights; then, reported, f32 prefill + decode against
+    forward, each against the f64 forward, beside the f32 forward's own
+    distance from f64 (how far the depth carries f32's rounding)."""
+    model64 = model.cast(torch.float64)
+    full64, _, _ = lm_exactness(model64.cfg, model64)
+    del model64
+    full, pre, dec = prefill_decode(cfg, model, lm_batch(cfg, model.device))
+    top = float(full64.abs().max())
+    d = {"forward32": float((full - full64).abs().max()) / top,
+         "prefill32": float((pre - full64[:, 0]).abs().max()) / top,
+         "decode32": float((dec - full64[:, 1]).abs().max()) / top,
+         "decode_vs_forward32": float((dec - full[:, 1]).abs().max()) / top}
+    log(f"  11a {cfg.n_layers} layers, f32 (reported), relative to the "
+        f"largest f64 logit {top:.3f}: f32 forward against f64 forward "
+        f"{d['forward32']:.3e}; f32 prefill {d['prefill32']:.3e} and decode "
+        f"{d['decode32']:.3e} against f64 forward; f32 decode against f32 "
+        f"forward {d['decode_vs_forward32']:.3e}")
+    stats["lm_depth"] = d
+
+
+def logit_agreement(cfg, model, logits32: dict, tag: str) -> dict:
+    """A model's last-position logits on the serving prompts against the
+    f32 model's: the largest error relative to the largest f32 logit, the
+    worst relative Frobenius error, top-1 agreement and, for each
+    disagreement, the f32 top-2 margin beside the largest error."""
+    from repro_torch.models import api
+    prompts = serve_prompts(cfg.vocab, 11)
+    worst, fro, agree, dis = 0.0, 0.0, 0, []
+    for i, prompt in enumerate(prompts):
+        lg, _ = api.prefill(model, cfg, {"tokens": torch.tensor(
+            [prompt], device=model.device)})
+        lg = lg[0, :cfg.vocab].float()
+        l32 = logits32[i]
+        err = float((lg - l32).abs().max())
+        worst = max(worst, err / float(l32.abs().max()))
+        fro = max(fro, rel(lg, l32))
+        if int(torch.argmax(lg)) == int(torch.argmax(l32)):
+            agree += 1
+        else:
+            dis.append((i, top2_margin(l32), err))
+    log(f"  11b {cfg.n_layers} layers, {tag} against f32 last-position "
+        f"logits over {len(prompts)} prompts: max relative error "
+        f"{worst:.3e} (relative Frobenius, worst prompt {fro:.3e}), top-1 "
+        f"agreement {agree} of {len(prompts)}"
+        + "".join(f"; prompt {i}: f32 top-2 margin {m:.3e}, max abs err "
+                  f"{e:.3e}" for i, m, e in dis))
+    return {"rel_err": worst, "rel_fro": fro, "top1_agree": agree,
+            "disagree": dis}
+
+
+def bf16_agreement(model16, logits32: dict, gate: bool) -> dict:
+    """bf16 against f32 logits, beside the f32 model with bf16-rounded
+    weights; ``gate`` holds bf16 to BF16_OVER_WEIGHTS times the latter and
+    to the margin rule."""
+    model_w = model16.cast(torch.float32)
+    weights = logit_agreement(model_w.cfg, model_w, logits32,
+                              "f32 on bf16-rounded weights")
+    del model_w
+    bf16 = logit_agreement(model16.cfg, model16, logits32, "bf16")
+    bound = BF16_OVER_WEIGHTS * weights["rel_err"]
+    log(f"    bf16 / rounded-weights error {bf16['rel_err'] / weights['rel_err']:.2f}"
+        + (f" (gate {BF16_OVER_WEIGHTS}x: {bound:.3e}); every top-1 "
+           f"disagreement within twice its error of the f32 top-2 margin "
+           f"{all(m < 2 * e for _, m, e in bf16['disagree'])}"
+           if gate else " (not gated)"))
+    if gate and (not bf16["rel_err"] <= bound
+                 or any(m >= 2 * e for _, m, e in bf16["disagree"])):
+        raise AssertionError(f"bf16 logits depart from f32: {bf16}, "
+                             f"rounded weights {weights}")
+    return {"bf16": bf16, "rounded_weights": weights}
+
+
+def f32_logits(cfg, model) -> dict:
+    """The f32 model's last-position logits on the serving prompts."""
+    from repro_torch.models import api
+    out = {}
+    for i, prompt in enumerate(serve_prompts(cfg.vocab, 11)):
+        l32, _ = api.prefill(model, cfg, {"tokens": torch.tensor(
+            [prompt], device=model.device)})
+        out[i] = l32[0, :cfg.vocab]
+    return out
+
+
+def lm_probe_run(cfg, model, gen, stats: dict, seed: int) -> dict:
+    """11c: the LM probe on the f32 model's features (X 3072 x 1024 in
+    f64): first K3 / K4 against their plain versions on that X at the m's
+    the probe launches them at (b and sb), off the count; then the probe
+    through K3 / K4, counted; CA-BDCD against BDCD within 1e-8."""
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import lm_probe
+    batch = synthetic_lm_batch(cfg.vocab, seq_len=128, batch=8, seed=3)
+    X, y = lm_probe.design(cfg, model, batch)
+    check_kernels(X, torch.Generator(device=X.device).manual_seed(seed),
+                  "f64 probe X", (lm_probe.B, lm_probe.S * lm_probe.B), 0,
+                  {}, TENANTS, kinds=("packet", "apply"), layouts=("cols",))
+    gk.reset_launch_counts()
+    out, secs = timed(lambda: lm_probe.fit(X, y, gen))
+    counts = launches()
+    log(f"  11c LM probe: X {out['d']} x {out['n']} (f64), lambda "
+        f"{out['lam']:.3e}, b = {lm_probe.B}, s = {lm_probe.S}, "
+        f"{out['iters']} iterations, {secs:.2f} s")
+    log(f"    CA-BDCD against BDCD: max |w diff| {out['dev']:.2e} (gate "
+        f"1e-8); solution error against ridge_exact {out['err']:.3e}; train "
+        f"accuracy {out['acc']:.3f}; reductions {out['iters']} (classical) "
+        f"against {out['iters'] // out['s']} (CA)")
+    log(f"    launches: K3 {counts[gk.COLS_PACKET.name]}, K4 "
+        f"{counts[gk.COLS_APPLY.name]} (all: {counts})")
+    stats["lm_probe"] = {k: v for k, v in out.items()
+                         if k not in ("classical", "ca")} | {"s_wall": secs}
+    if not out["dev"] < 1e-8:
+        raise AssertionError(f"probe: CA-BDCD differs from BDCD by "
+                             f"{out['dev']:.2e}")
+    return counts
+
+
+def serve_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, size=n)))
+            for n in SERVE_PROMPTS]
+
+
+def lm_serving(cfg16, model16, logits32: dict, stats: dict) -> None:
+    """11b: bf16 serving at full width: bf16 against f32 logits (reported),
+    prefill ms per bucket, decode ms per step beside the weight-read bound,
+    tokens/s, the decode's device-idle share, the allocator's peak."""
+    from repro_torch.models import api
+    from repro_torch.models.module import param_bytes
+    from repro_torch.serve import Engine, ServeConfig
+    weights = param_bytes(api.param_specs(cfg16))
+    bound_ms = weights / HBM_BYTES_PER_S * 1e3
+    prompts = serve_prompts(cfg16.vocab, 11)
+    agreement = bf16_agreement(model16, logits32, gate=False)
+    # serving, timed: a warm-up request first (not timed)
+    eng = Engine(cfg16, model16, ServeConfig(max_seq=SERVE_MAX_SEQ,
+                                             slots=SERVE_SLOTS))
+    eng.generate([prompts[0][:8]], 2)
+    prefill_ms, decode_ms = {}, []
+    inner_prefill, inner_decode = eng._prefill, eng._decode
+
+    def timed_prefill(tokens):
+        out, secs = timed(lambda: inner_prefill(tokens))
+        prefill_ms.setdefault(tokens.shape[1], []).append(secs * 1e3)
+        return out
+
+    def timed_decode(tok, pos):
+        out, secs = timed(lambda: inner_decode(tok, pos))
+        decode_ms.append(secs * 1e3)
+        return out
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    torch.cuda.reset_peak_memory_stats()
+    outs, secs = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    peak = torch.cuda.max_memory_allocated()
+    ntok = sum(len(o) for o in outs)
+    if [len(o) for o in outs] != [SERVE_NEW] * len(prompts):
+        raise AssertionError(f"serving: token counts {[len(o) for o in outs]}")
+    steady = sorted(decode_ms)[len(decode_ms) // 2]
+    log(f"  11b serving (bf16, {cfg16.name}, weights {weights / 1e9:.3f} GB):"
+        f" {len(prompts)} requests (prompts {list(SERVE_PROMPTS)}) x "
+        f"{SERVE_NEW} tokens through {SERVE_SLOTS} slots in {secs:.3f} s: "
+        f"{ntok / secs:.1f} tok/s aggregate; {len(decode_ms)} decode steps")
+    for bucket, ms in sorted(prefill_ms.items()):
+        log(f"    prefill bucket {bucket:4d}: {len(ms)} calls, ms "
+            + ", ".join(f"{t:.2f}" for t in ms))
+    log(f"    decode ms a step (all {SERVE_SLOTS} slots, host clock to a "
+        f"synchronise): median {steady:.3f}, min {min(decode_ms):.3f}, max "
+        f"{max(decode_ms):.3f}; weight-read bound {bound_ms:.3f} ms "
+        f"(median / bound {steady / bound_ms:.2f})")
+    log(f"    peak allocated {peak / 2**30:.2f} GiB")
+    # the decode's device-idle share: eight steps of all slots, traced
+    tok = torch.ones((SERVE_SLOTS,), dtype=torch.long, device=model16.device)
+    pos = torch.full((SERVE_SLOTS,), 100, device=model16.device)
+    cache = api.init_cache(cfg16, SERVE_SLOTS, SERVE_MAX_SEQ, model16.device)
+    prof = profile_run(lambda: [api.decode_step(model16, cfg16, cache, tok,
+                                                pos) for _ in range(8)],
+                       "11b decode, 8 steps of 4 slots (bf16)", 6)
+    stats["lm_serve"] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                         "decode_ms_median": steady, "bound_ms": bound_ms,
+                         "tok_s": ntok / secs, "wall_s": secs,
+                         "peak_bytes": peak, "bf16": agreement,
+                         "decode_profile": prof}
+
+
+def lm_phase(seed: int, stats: dict) -> dict:
+    """Phase 11: llama3.2-3b at its published width, random weights from
+    ``seed``.  At LM_EXACT_LAYERS layers: (a) the f32 exactness gates and
+    the bf16 logit gate.  At full depth: (a) the exactness gates in f64,
+    and f32 reported against the f64 forward, (c) the LM probe through
+    K3 / K4, then (b) bf16 serving.  Returns the probe's launch counts."""
+    import dataclasses
+
+    from repro_torch.launch.lm_probe import probe_config
+    from repro_torch.models import DecoderLM
+    dev = torch.device("cuda")
+    cfg = probe_config(full=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cut = dataclasses.replace(cfg, n_layers=LM_EXACT_LAYERS)
+    model = DecoderLM.init(cut, gen)
+    check_chunked_attention(cut, dev, gen)
+    lm_exactness(cut, model)
+    model16 = model.cast(torch.bfloat16)
+    stats["lm_bf16_cut"] = bf16_agreement(model16,
+                                          f32_logits(cut, model), gate=True)
+    del model, model16
+    model, secs = timed(lambda: DecoderLM.init(cfg, gen))
+    log(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, f32 {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, initialised in {secs:.2f} s")
+    lm_full_depth(cfg, model, stats)
+    counts = lm_probe_run(cfg, model, gen, stats, seed)
+    logits32 = f32_logits(cfg, model)
+    model16 = model.cast(torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    lm_serving(model16.cfg, model16, logits32, stats)
+    return counts
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -1862,6 +2374,7 @@ def main() -> int:
     # packets and matvecs also at m = 8 (s = 1, 1024 of the single solves'
     # 1088 packets), the matvecs with the batched engine's 8 tenants.
     main_m = {"packet": (128, 8), "apply": (8,), "matvec": (128, 8)}
+    paths = {}
     flush = l2_flush(dev)
     records = check_kernels(X, gen, "f32", (8, 128, 77), args.reps, main_m,
                             TENANTS, flush)
@@ -1869,6 +2382,9 @@ def main() -> int:
                                        args.reps, 128))
     records.update(check_cg_shape(X, gen, max(1, args.reps // 5), flush))
     del flush
+    log("== 2c. bf16 packets K1 / K7 on the real-sim X cast to bf16")
+    bf16_recs, paths["bf16 packets"] = check_bf16_packets(X, gen, args.reps)
+    records.update(bf16_recs)
     check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
     check_dense_kernels(cut[0], gen, "f64", (8, 128, 77), 0, None)
 
@@ -1879,8 +2395,8 @@ def main() -> int:
     idx_p = core.sample_blocks(gen, d, 8, args.iters)
     idx_d = core.sample_blocks(gen, n, 8, args.iters)
     stats = {}
-    paths = {"single solves": run_solves(X, y, lam, idx_p, idx_d,
-                                         args.iters, stats)}
+    paths["single solves"] = run_solves(X, y, lam, idx_p, idx_d, args.iters,
+                                        stats)
     log("== 3b. where a solve's time goes (profiler trace)")
     where_time_goes(X, y, lam, idx_p, idx_d, min(64, args.iters), stats)
 
@@ -1926,6 +2442,14 @@ def main() -> int:
         lambda: contract_engine(X, y, lam, stats, args.seed))
     log(f"  phase 10 took {stats['phase10_s']:.1f} s")
     del X, y, cut
+    torch.cuda.empty_cache()
+
+    # -- 11. the LM at llama3.2-3b's full width -----------------------------
+    log("== 11. the LM: llama3.2-3b at its published width (random weights):"
+        " f32 exactness, the LM probe through K3 / K4, bf16 serving")
+    paths["lm probe"], stats["phase11_s"] = timed(
+        lambda: lm_phase(args.seed, stats))
+    log(f"  phase 11 took {stats['phase11_s']:.1f} s")
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.
@@ -1937,16 +2461,19 @@ def main() -> int:
                                                gk.DENSE_GRAM)],
                "recovery": [k.name for k in gk.KERNELS[:4]],
                "sharded": [k.name for k in gk.KERNELS[:6]],
-               "contracts": [k.name for k in gk.KERNELS[:4]]}
+               "contracts": [k.name for k in gk.KERNELS[:4]],
+               "bf16 packets": [k.name for k in gk.BF16_KERNELS],
+               "lm probe": [gk.COLS_PACKET.name, gk.COLS_APPLY.name]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:
             raise AssertionError(f"{idle} never ran on the {path} path")
     kernels = []
-    for info in gk.KERNELS:
+    for info in gk.KERNELS + gk.BF16_KERNELS:
         rec = dict(records[info.name])
         rec["launches"] = sum(c[info.name] for c in paths.values())
-        rec["launches_by_path"] = {p: c[info.name] for p, c in paths.items()}
+        rec["launches_by_path"] = {p: c[info.name]
+                                   for p, c in paths.items()}
         kernels.append(rec)
     if args.json:                   # every record, with its extra keys
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -6,9 +6,12 @@ backends (:class:`SolverWorld`), the ridge, elastic-net and momentum
 formulations, sampling, the block subproblem solves, the direct ground
 truth and the baselines the paper compares against (CG, TSQR and
 CholeskyQR)."""
-from repro_torch.kernels.gram import gram, gram_packet, normal_matvec
+from repro_torch.kernels.gram import (PacketPlan, gram, gram_packet,
+                                      gram_packet_sampled, normal_matvec,
+                                      panel_apply, panel_matvec)
 from .engine import (FORMULATIONS, BatchedSolveResult, Comm, DualRidge,
-                     PrimalRidge, SolveResult, SolverPlan, TenantBatch,
+                     PrimalRidge, SolveResult, SolverContracts, SolverPlan,
+                     TenantBatch,
                      all_reduce_variadic, batched_residuals, get_solver,
                      register_formulation, register_solver,
                      registered_solvers, ring_hops, ring_reduce_variadic,
@@ -33,6 +36,8 @@ from .subproblem import (block_forward_substitution,
                          block_forward_substitution_prox, soft_threshold,
                          solve_spd)
 from .tsqr import cholqr_r, tsqr, tsqr_ridge
+from .collectives import CollectiveSummary, collective_summary
+from . import cost_model
 
 __all__ = [
     "FORMULATIONS", "DualRidge", "PrimalRidge", "SolveResult", "SolverPlan",
@@ -54,4 +59,7 @@ __all__ = [
     "block_forward_substitution_prox", "soft_threshold", "solve_spd",
     "CGResult", "cg_ridge", "cg_ridge_history", "tsqr", "cholqr_r",
     "tsqr_ridge", "gram", "gram_packet", "normal_matvec",
+    "SolverContracts", "PacketPlan", "gram_packet_sampled",
+    "panel_apply", "panel_matvec", "CollectiveSummary", "collective_summary",
+    "cost_model",
 ]

@@ -71,8 +71,8 @@ def _sync(device: torch.device) -> None:
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.gram import KERNELS
-    return {k.name: k.launches for k in KERNELS}
+    from repro_torch.kernels.gram import launch_counts
+    return launch_counts()
 
 
 class _Rank:

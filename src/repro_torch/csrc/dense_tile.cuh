@@ -66,12 +66,27 @@
 //   partial and dense_reduce sums them, over the lower entries only and
 //   with 16 loads in flight.
 //
+// * bf16 input (In = __nv_bfloat16, T = float; K7 and K1 only).  The ring
+//   holds the accumulation type: each element is widened to f32 as it
+//   lands in shared memory, so the multiply-adds and every sum are the f32
+//   kernel's, and a bf16 packet equals the f32 packet of the upcast operand
+//   bit for bit.  cp.async moves 4, 8 or 16 bytes, not a 2-byte element,
+//   so the copying thread moves a bf16 element itself, through registers:
+//   it loads its elements of stage q + STAGES - 1 before it sums stage q
+//   and widens them into the ring after (fetch_stage, land_stage), so the
+//   loads are in flight while it sums.  The operand's reads are half the
+//   f32 kernel's bytes.
+//
 // The chunk is the host's pick for (m, K) in the packet's layout, so K1(X,
 // flat, u) equals K7(X[flat], u), K3(X, flat, u) equals K7(X[:, flat]^T, u)
 // at K3's chunk, K8(A) equals K7(A, u)'s G and G equals G^T, bit for bit;
 // the geometry (BM, micro-tile, ring, tile order) never moves a sum.  Every
 // offset into the operand is 64-bit (A has 1.95e9 elements at real-sim).
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "gram_common.cuh"
 
@@ -173,6 +188,31 @@ __device__ __forceinline__ T split_sum_deep(const T* __restrict__ p,
   return acc;
 }
 
+// bf16 input: a thread's elements of one stage of one operand, in the
+// copies' order (issue_operand's), loaded into registers (zero where a copy
+// is not valid: nothing is read), then widened into the ring.  `addr(c, kh)`
+// is the element of row tid / 8 + ROW_STEP c at step kh + tid % 8.
+template <typename D, typename In, typename Addr>
+__device__ __forceinline__ void fetch_stage(In* v, Addr addr,
+                                            unsigned rows_ok, int lim,
+                                            int klo) {
+#pragma unroll
+  for (int q = 0; q < D::COPIES; ++q) {
+    const int c = q % D::ROW_COPIES, kh = 8 * (q / D::ROW_COPIES);
+    v[q] = ((rows_ok >> c) & 1u) && kh + klo < lim ? *addr(c, kh) : In{};
+  }
+}
+
+template <typename D>
+__device__ __forceinline__ void land_stage(float* dst,
+                                           const __nv_bfloat16* v) {
+#pragma unroll
+  for (int q = 0; q < D::COPIES; ++q) {
+    const int c = q % D::ROW_COPIES, kh = 8 * (q / D::ROW_COPIES);
+    dst[kh * D::LD + D::ROW_STEP * c] = __bfloat162float(v[q]);
+  }
+}
+
 // Copy one stage of one operand: this thread's COPIES elements, element
 // e = tid + THREADS * q at step 8 (q / ROW_COPIES) + tid % 8 and row
 // tid / 8 + ROW_STEP (q % ROW_COPIES) of the stage.  `dst` is the thread's
@@ -231,12 +271,13 @@ __device__ __forceinline__ void issue_columns(T* dst, const T* src,
 // (COLS: A is X (K, ldx)); flat is read only by the gathers, ldx only by
 // COLS.  At one chunk (Gp null) the block writes G (and r) itself; else its
 // partials Gp[split] (mp x mp, lower tiles only) and rp[split] for
-// dense_reduce.
+// dense_reduce.  A and u are of the input type In (T, or bf16 for T =
+// float); the ring, the sums and the outputs are T.
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
-          bool RESIDUAL, Source SRC>
+          bool RESIDUAL, Source SRC, typename In = T>
 __global__ void __launch_bounds__(Tile<T, BM, TM, TN, STEPS>::THREADS,
                                   512 / Tile<T, BM, TM, TN, STEPS>::THREADS)
-dense_tile(const T* __restrict__ A, const T* __restrict__ u,
+dense_tile(const In* __restrict__ A, const In* __restrict__ u,
            const int* __restrict__ tiles, int m, int64_t K, int64_t chunk,
            int mp, T scale, T reg, T scale_r, T* __restrict__ Gp,
            T* __restrict__ rp, T* __restrict__ G, T* __restrict__ r,
@@ -261,8 +302,8 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   // each operand (row band + tid / 8, step k_begin + tid % 8) and slot.
   const int r0 = tid >> 3, klo = tid & 7;
   const int64_t rs = static_cast<int64_t>(D::ROW_STEP) * K;
-  const T* src_i = A + static_cast<int64_t>(band_i + r0) * K + k_begin + klo;
-  const T* src_j = A + static_cast<int64_t>(band_j + r0) * K + k_begin + klo;
+  const In* src_i = A + static_cast<int64_t>(band_i + r0) * K + k_begin + klo;
+  const In* src_j = A + static_cast<int64_t>(band_j + r0) * K + k_begin + klo;
   unsigned ok_i = 0, ok_j = 0;
 #pragma unroll
   for (int c = 0; c < D::ROW_COPIES; ++c) {
@@ -271,8 +312,8 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   }
   // Gathered rows: the same element of row flat[band + r0 + ROW_STEP c]
   // (A itself for a row past m: its copies read nothing).
-  const T* rows_i[D::ROW_COPIES];
-  const T* rows_j[D::ROW_COPIES];
+  const In* rows_i[D::ROW_COPIES];
+  const In* rows_j[D::ROW_COPIES];
   if constexpr (SRC == Source::ROWS) {
 #pragma unroll
     for (int c = 0; c < D::ROW_COPIES; ++c) {
@@ -294,32 +335,77 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
     rows_j[0] = ok_j ? A + k0 + flat[b] : A;
   }
   const int slot0 = klo * D::LD + r0;
-  auto issue = [&](int slot, int s) {
-    T* st = ring + slot * D::STAGE;
-    const int64_t off = static_cast<int64_t>(s) * STEPS;
+  auto limit = [&](int64_t off) {
     const int64_t left = k_end - k_begin - off;
-    const int lim = left < STEPS ? static_cast<int>(left) : STEPS;
-    if constexpr (SRC == Source::ROWS) {
-      issue_gathered<D>(st + slot0, rows_i, off, ok_i, lim, klo);
-      if (!diag)
-        issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j, lim,
-                          klo);
-    } else if constexpr (SRC == Source::COLS) {
-      const int cslot = (tid / BM) * D::LD + tid % BM;
-      issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
-                       ok_i, lim, tid / BM);
-      if (!diag)
-        issue_columns<D>(st + STEPS * D::LD + cslot, rows_j[0] + off * ldx,
-                         D::CSTEP * ldx, ok_j, lim, tid / BM);
-    } else {
-      issue_operand<D>(st + slot0, src_i + off, rs, ok_i, lim, klo);
-      if (!diag)
-        issue_operand<D>(st + STEPS * D::LD + slot0, src_j + off, rs, ok_j,
-                         lim, klo);
+    return left < STEPS ? static_cast<int>(left) : STEPS;
+  };
+  // bf16 input: the registers that carry one stage (both operands and u).
+  constexpr bool STAGED = !std::is_same_v<T, In>;
+  static_assert(!STAGED || (std::is_same_v<T, float> &&
+                            std::is_same_v<In, __nv_bfloat16> &&
+                            SRC != Source::COLS));
+  In staged[STAGED ? 2 * D::COPIES + 1 : 1];
+  auto fetch = [&](int s) {
+    if constexpr (STAGED) {
+      const int64_t off = static_cast<int64_t>(s) * STEPS;
+      const int lim = limit(off);
+      if constexpr (SRC == Source::ROWS) {
+        fetch_stage<D>(staged, [&](int c, int kh) {
+          return rows_i[c] + off + kh; }, ok_i, lim, klo);
+        if (!diag)
+          fetch_stage<D>(staged + D::COPIES, [&](int c, int kh) {
+            return rows_j[c] + off + kh; }, ok_j, lim, klo);
+      } else {
+        fetch_stage<D>(staged, [&](int c, int kh) {
+          return src_i + off + c * rs + kh; }, ok_i, lim, klo);
+        if (!diag)
+          fetch_stage<D>(staged + D::COPIES, [&](int c, int kh) {
+            return src_j + off + c * rs + kh; }, ok_j, lim, klo);
+      }
+      if (with_r && tid < STEPS)
+        staged[2 * D::COPIES] = tid < lim ? u[k_begin + off + tid] : In{};
     }
-    if (with_r && tid < STEPS)
-      cp_async_elem(st + 2 * STEPS * D::LD + tid, u + k_begin + off + tid,
-                    tid < lim);
+  };
+  auto land = [&](int slot) {
+    if constexpr (STAGED) {
+      T* st = ring + slot * D::STAGE;
+      land_stage<D>(st + slot0, staged);
+      if (!diag) land_stage<D>(st + STEPS * D::LD + slot0, staged + D::COPIES);
+      if (with_r && tid < STEPS)
+        st[2 * STEPS * D::LD + tid] = __bfloat162float(staged[2 * D::COPIES]);
+    }
+  };
+  auto issue = [&](int slot, int s) {
+    if constexpr (STAGED) {
+      fetch(s);
+      land(slot);
+    } else {
+      T* st = ring + slot * D::STAGE;
+      const int64_t off = static_cast<int64_t>(s) * STEPS;
+      const int lim = limit(off);
+      if constexpr (SRC == Source::ROWS) {
+        issue_gathered<D>(st + slot0, rows_i, off, ok_i, lim, klo);
+        if (!diag)
+          issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j,
+                            lim, klo);
+      } else if constexpr (SRC == Source::COLS) {
+        const int cslot = (tid / BM) * D::LD + tid % BM;
+        issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
+                         ok_i, lim, tid / BM);
+        if (!diag)
+          issue_columns<D>(st + STEPS * D::LD + cslot,
+                           rows_j[0] + off * ldx, D::CSTEP * ldx, ok_j, lim,
+                           tid / BM);
+      } else {
+        issue_operand<D>(st + slot0, src_i + off, rs, ok_i, lim, klo);
+        if (!diag)
+          issue_operand<D>(st + STEPS * D::LD + slot0, src_j + off, rs, ok_j,
+                           lim, klo);
+      }
+      if (with_r && tid < STEPS)
+        cp_async_elem(st + 2 * STEPS * D::LD + tid, u + k_begin + off + tid,
+                      tid < lim);
+    }
   };
 
   T acc[TM][TN];
@@ -340,8 +426,13 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
   for (int q = 0; q < slabs; ++q) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage q
     __syncthreads();              // everyone's; stage q - 1 consumed
-    if (q + STAGES - 1 < slabs) issue(nxt, q + STAGES - 1);
-    cp_async_commit();
+    const bool more = q + STAGES - 1 < slabs;
+    if constexpr (STAGED) {
+      if (more) fetch(q + STAGES - 1);  // lands in slot nxt after the sums
+    } else {
+      if (more) issue(nxt, q + STAGES - 1);
+      cp_async_commit();
+    }
 
     const T* si = ring + cur * D::STAGE;
     const T* sj = diag ? si : si + STEPS * D::LD;
@@ -382,6 +473,9 @@ dense_tile(const T* __restrict__ A, const T* __restrict__ u,
         }
       }
     }
+    if constexpr (STAGED) {
+      if (more) land(nxt);  // nxt held stage q - 1, which every thread has
+    }                       // summed: the barrier at the loop's head
     cur = cur + 1 == STAGES ? 0 : cur + 1;
     nxt = nxt + 1 == STAGES ? 0 : nxt + 1;
   }
@@ -462,17 +556,18 @@ constexpr int ring_bytes() {
 // split, dense_reduce after it.  `smem` is the host's count of the ring's
 // bytes: a geometry whose count disagrees is refused with
 // cudaErrorInvalidValue before anything is launched.  `ldx` is X's row
-// length for the column gather (unused otherwise).
+// length for the column gather (unused otherwise).  A and u are of the
+// input type In; the ring's bytes are T's.
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
-          bool RESIDUAL, Source SRC>
-cudaError_t launch_tile(const T* A, const int* flat, const T* u,
+          bool RESIDUAL, Source SRC, typename In = T>
+cudaError_t launch_tile(const In* A, const int* flat, const In* u,
                         const int* tiles, int ntiles, int m, int64_t K,
                         int64_t chunk, int splits, int smem, T scale, T reg,
                         T scale_r, T* Gp, T* rp, T* G, T* r,
                         cudaStream_t stream, int64_t ldx = 0) {
   constexpr int bytes = ring_bytes<T, BM, TM, TN, STAGES, STEPS>();
   if (smem != bytes) return cudaErrorInvalidValue;  // host and kernel disagree
-  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, SRC>;
+  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, SRC, In>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -13,6 +13,8 @@
 //
 // Bound on the H100: m(m+1)/2 * K (+ m * K for r) fused multiply-adds on
 // the f32 CUDA cores, no tensor cores (a TF32 product fails the f32 gate).
+// K7 also takes bf16 A and u (the reference's bf16 packet), summed in f32
+// exactly as the f32 kernel sums the upcast operand (dense_tile.cuh).
 // At CholeskyQR's real-sim operand (m = 20958, K = 93267) that is 0.61 s of
 // operations against 2.3 ms of bytes; at K7's gathered panel (m = 128,
 // K = 72309) about 18 us against 11 us.  So the kernel has to keep the FMA
@@ -32,9 +34,11 @@ namespace {
 // (8 x 8 and 4 x 4) and 32 (4 x 4) with every ring of 2-4 stages of 8, 16
 // or 32 steps; f64, whose 8 x 8 accumulators would not fit beside the rest
 // in 128 registers, the 64 and 32 tiles of 4 x 4 with 3 stages of 16
-// steps.  Anything else is refused with cudaErrorInvalidValue before a
-// launch.
-template <typename T, bool RESIDUAL>
+// steps.  bf16 input (K7 only, In = __nv_bfloat16 with f32 sums and
+// outputs) is built at the picks alone: the 128 (8 x 8), 64 and 32 (4 x 4)
+// tiles at 3 stages of 16 steps.  Anything else is refused with
+// cudaErrorInvalidValue before a launch.
+template <typename T, bool RESIDUAL, typename In = T>
 int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
                void* rp, void* G, void* r, int64_t K, int m, int64_t chunk,
                int splits, int bm, int tm, int tn, int stages, int steps,
@@ -44,8 +48,8 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(                                                  \
         repro::launch_tile<T, B, M, N, S, Q, RESIDUAL,                        \
-                           repro::Source::DENSE>(                             \
-            static_cast<const T*>(A), nullptr, static_cast<const T*>(u),      \
+                           repro::Source::DENSE, In>(                         \
+            static_cast<const In*>(A), nullptr, static_cast<const In*>(u),    \
             tiles, ntiles, m, K, chunk, splits, smem, static_cast<T>(scale),  \
             static_cast<T>(reg), static_cast<T>(scale_r),                     \
             static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),     \
@@ -56,7 +60,11 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
   REPRO_TILE(B, M, N, 3, 16) REPRO_TILE(B, M, N, 3, 32)                       \
   REPRO_TILE(B, M, N, 4, 8) REPRO_TILE(B, M, N, 4, 16)                        \
   REPRO_TILE(B, M, N, 4, 32)
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (!std::is_same_v<T, In>) {
+    REPRO_TILE(128, 8, 8, 3, 16)
+    REPRO_TILE(64, 4, 4, 3, 16)
+    REPRO_TILE(32, 4, 4, 3, 16)
+  } else if constexpr (sizeof(T) == 4) {
     REPRO_RINGS(128, 8, 8)
     REPRO_RINGS(64, 8, 8)
     REPRO_RINGS(64, 4, 4)
@@ -95,6 +103,18 @@ int dense_packet_f64(const void* A, const void* u, const int* tiles, void* Gp,
   return dense_impl<double, true>(A, u, tiles, Gp, rp, G, r, K, m, chunk,
                                   splits, bm, tm, tn, stages, steps, ntiles,
                                   smem, scale, reg, scale_r, stream);
+}
+
+// dense_packet_bf16: as dense_packet_f32 with A and u bf16; Gp, rp, G and
+// r are f32.
+int dense_packet_bf16(const void* A, const void* u, const int* tiles,
+                      void* Gp, void* rp, void* G, void* r, int64_t K, int m,
+                      int64_t chunk, int splits, int bm, int tm, int tn,
+                      int stages, int steps, int ntiles, int smem,
+                      double scale, double reg, double scale_r, void* stream) {
+  return dense_impl<float, true, __nv_bfloat16>(
+      A, u, tiles, Gp, rp, G, r, K, m, chunk, splits, bm, tm, tn, stages,
+      steps, ntiles, smem, scale, reg, scale_r, stream);
 }
 
 // dense_gram_*(A, tiles, Gp, G, K, m, chunk, splits, bm, tm, tn, stages,

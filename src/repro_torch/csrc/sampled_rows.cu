@@ -16,9 +16,11 @@
 //   host picks for the dense kernel K7 at the same (m, n).  So K1(X, flat,
 //   u) equals K7(X[flat], u) bit for bit, and at more than one chunk
 //   dense_reduce sums the partials.  Built only for the geometries the
-//   host can pick (gram_kernel.GATHERED_TILES at the ring (3, 16)).  What
-//   the gather still costs is the rows' addresses: at m = 128 the 1030
-//   blocks read 128 rows scattered over all of X, and the tile then takes
+//   host can pick (gram_kernel.GATHERED_TILES at the ring (3, 16)).  K1
+//   also takes bf16 X and u, summed in f32 as the f32 kernel sums the
+//   upcast rows (dense_tile.cuh).  What the gather still costs is the
+//   rows' addresses: at m = 128 the 1030 blocks read 128 rows scattered
+//   over all of X, and the tile then takes
 //   about 1.7x its time on as many consecutive rows (PERF.md;
 //   launch.tile_sweep --only gather); at m = 8 it costs nothing.
 //
@@ -149,9 +151,10 @@ rows_apply(const T* __restrict__ X, const int* __restrict__ flat,
 
 // K1: the gathered dense tile at the geometries the host can pick (f32
 // tiles of 128 (8 x 8), 64 and 32 (4 x 4); f64 64 and 32 (4 x 4); the ring
-// of 3 stages of 16 steps).  Anything else is refused with
+// of 3 stages of 16 steps; bf16 input, In = __nv_bfloat16 with f32 sums
+// and outputs, at the f32 tiles).  Anything else is refused with
 // cudaErrorInvalidValue before a launch.
-template <typename T>
+template <typename T, typename In = T>
 int packet_impl(const void* X, const void* flat, const void* u,
                 const int* tiles, void* Gp, void* rp, void* G, void* r,
                 int64_t n, int m, int64_t chunk, int splits, int bm, int tm,
@@ -160,9 +163,9 @@ int packet_impl(const void* X, const void* flat, const void* u,
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true,       \
-                                               repro::Source::ROWS>(          \
-        static_cast<const T*>(X), static_cast<const int*>(flat),              \
-        static_cast<const T*>(u), tiles, ntiles, m, n, chunk, splits, smem,   \
+                                               repro::Source::ROWS, In>(      \
+        static_cast<const In*>(X), static_cast<const int*>(flat),             \
+        static_cast<const In*>(u), tiles, ntiles, m, n, chunk, splits, smem,  \
         static_cast<T>(scale), static_cast<T>(reg), static_cast<T>(scale_r),  \
         static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),         \
         static_cast<T*>(r), static_cast<cudaStream_t>(stream)));
@@ -256,6 +259,19 @@ int rows_packet_f64(const void* X, const void* flat, const void* u,
   return packet_impl<double>(X, flat, u, tiles, Gp, rp, G, r, n, m, chunk,
                              splits, bm, tm, tn, stages, steps, ntiles, smem,
                              scale, reg, scale_r, stream);
+}
+
+// rows_packet_bf16: as rows_packet_f32 with X and u bf16; Gp, rp, G and r
+// are f32.
+int rows_packet_bf16(const void* X, const void* flat, const void* u,
+                     const int* tiles, void* Gp, void* rp, void* G, void* r,
+                     int64_t n, int m, int64_t chunk, int splits, int bm,
+                     int tm, int tn, int stages, int steps, int ntiles,
+                     int smem, double scale, double reg, double scale_r,
+                     void* stream) {
+  return packet_impl<float, __nv_bfloat16>(
+      X, flat, u, tiles, Gp, rp, G, r, n, m, chunk, splits, bm, tm, tn,
+      stages, steps, ntiles, smem, scale, reg, scale_r, stream);
 }
 
 // rows_apply_*(X, flat, v, out, n, m, threads, cols, batch, scale, stream)

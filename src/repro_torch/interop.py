@@ -8,7 +8,10 @@ maps the reference ``SolverPlan`` fields this port supports (a reference
 ``FaultPlan`` through :func:`fault_from_reference`), and
 :func:`result_to_numpy` converts a port result back.  For the tenant-batched
 engine, :func:`batch_from_numpy` builds a ``TenantBatch`` from numpy arrays
-and :func:`batched_result_to_numpy` converts a batched result back.
+and :func:`batched_result_to_numpy` converts a batched result back.  For
+the LM, :func:`lm_params_from_reference` builds the port's model from the
+reference's parameter tree, and :func:`lm_cache_from_reference` /
+:func:`lm_cache_to_numpy` carry a decode cache across.
 """
 from __future__ import annotations
 
@@ -118,3 +121,42 @@ def batched_result_to_numpy(res: BatchedSolveResult) -> BatchedSolveResult:
     return BatchedSolveResult(conv(res.ws), conv(res.alphas),
                               conv(res.active),
                               {k: conv(v) for k, v in res.metrics.items()})
+
+
+def _tree_to_torch(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":          # numpy has no bf16 of its own
+        a = a.astype(np.float32)
+    t = torch.as_tensor(np.array(a), device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def lm_params_from_reference(params_np, cfg, *, device, dtype=None):
+    """The port's :class:`~repro_torch.models.DecoderLM` for ``cfg`` with
+    the reference's parameters: ``params_np`` is the reference's tree (as
+    numpy arrays, the layer axis stacked under ``blocks/sub{j}``), each leaf
+    placed on ``device`` in ``dtype`` (default: ``cfg.param_dtype``).  A
+    bf16 leaf is carried through f32, which holds it exactly."""
+    import dataclasses
+
+    from repro_torch.models import DecoderLM
+    dtype = cfg.param_dtype if dtype is None else dtype
+    if dtype != cfg.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    return DecoderLM(cfg, _tree_to_torch(params_np, device, dtype))
+
+
+def lm_cache_from_reference(cache_np, *, device, dtype):
+    """A reference decode cache (numpy, ``{"blocks": {"sub{j}": {"k",
+    "v"}}}``, layer axis first) as the port's cache on ``device`` in
+    ``dtype``: the two share the layout."""
+    return _tree_to_torch(cache_np, device, dtype)
+
+
+def lm_cache_to_numpy(cache) -> dict:
+    """The port's decode cache as f32 numpy arrays, in the same tree."""
+    if isinstance(cache, dict):
+        return {k: lm_cache_to_numpy(v) for k, v in cache.items()}
+    return cache.detach().float().cpu().numpy()

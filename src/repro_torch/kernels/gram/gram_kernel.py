@@ -11,7 +11,9 @@ K3 (``sampled_colmajor.gram_packet_sampled_cols``) on its columns
   gram/gram_kernel.py``).  It takes K1's chunk for the same (m, K) and sums
   every entry in K1's order, so ``K7(X[flat], u)`` equals
   ``K1(X, flat, u)`` bit for bit.  Bounded by its m(m+1)/2 * K
-  multiply-adds on the f32 CUDA cores.
+  multiply-adds on the f32 CUDA cores.  Like K1 it also takes bf16 A and u
+  (f32 sums and outputs, equal bit for bit to the f32 kernel on the upcast
+  operand; counted apart, :data:`DENSE_PACKET_BF16`).
 * :func:`gram_dense` (K8) -- ``G = scale * A A^T + reg * I``.  Replaces
   ``gram_pallas`` (same file): K7 with the residual statically absent, so
   its G equals K7's G bit for bit.  The R-factor Gram of CholeskyQR
@@ -34,11 +36,14 @@ from typing import NamedTuple
 import torch
 
 from . import _build, ref, tuning
-from .sampled_kernel import (D, I, I64, P, SMEM_PER_BLOCK, SUFFIX,
+from .sampled_kernel import (D, I, I64, P, PACKET_SUFFIX, SMEM_PER_BLOCK,
                              check_matrix, check_vector, resolve_chunk)
 
 DENSE_PACKET = _build.KernelInfo(
     "gram_packet_dense", "src/repro_torch/csrc/gram_dense.cu",
+    "src/repro/kernels/gram/gram_kernel.py:112")
+DENSE_PACKET_BF16 = _build.KernelInfo(
+    "gram_packet_dense_bf16", "src/repro_torch/csrc/gram_dense.cu",
     "src/repro/kernels/gram/gram_kernel.py:112")
 DENSE_GRAM = _build.KernelInfo(
     "gram_dense", "src/repro_torch/csrc/gram_dense.cu",
@@ -61,12 +66,15 @@ _COLS_PACKET_ARGS = (P,) * 8 + (I64, I64, I, I64, I) + _GEOM_ARGS + (D, D, D,
 
 # The geometries dense_tile is built for, per dtype: (tile edge BM, micro-tile
 # rows TM, columns TN) and the rings (stages, steps per stage).
+# bf16 (K7 only) is built at the f32 tile edges' picks alone, at
+# DENSE_RING.
 DENSE_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (64, 8, 8),
                                (32, 4, 4)),
-               torch.float64: ((64, 4, 4), (32, 4, 4))}
+               torch.float64: ((64, 4, 4), (32, 4, 4)),
+               torch.bfloat16: ((128, 8, 8), (64, 4, 4), (32, 4, 4))}
 DENSE_RINGS = {torch.float32: tuple((s, q) for s in (2, 3, 4)
                                     for q in (8, 16, 32)),
-               torch.float64: ((3, 16),)}
+               torch.float64: ((3, 16),), torch.bfloat16: ((3, 16),)}
 # The picks, from launch.tile_sweep's dense sweep (PERF.md).  The tile: the
 # widest whose lower tiles times chunks give at least DENSE_TARGET_BLOCKS
 # blocks (four a SM on 132 SMs: the 128-tile at K8's real-sim operand, the
@@ -83,9 +91,11 @@ DENSE_GROUP = 16
 # "cols", K1's else) and the geometries built.
 SOURCES = ("dense", "rows", "cols")
 # The geometries the gathered tile (K1, sampled_rows.cu) is built for: the
-# picks alone, every tile edge with its first micro-tile at DENSE_RING.
+# picks alone, every tile edge with its first micro-tile at DENSE_RING
+# (bf16 at f32's).
 GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
-                  torch.float64: ((64, 4, 4), (32, 4, 4))}
+                  torch.float64: ((64, 4, 4), (32, 4, 4)),
+                  torch.bfloat16: ((128, 8, 8), (64, 4, 4), (32, 4, 4))}
 # The geometries the gathered-column tile (K3, sampled_cols.cu) is built
 # for, per dtype, as (bm, tm, tn, stages, steps): the picks alone, from
 # launch.tile_sweep's cols sweep (PERF.md).  The tile edge is the narrowest
@@ -124,8 +134,10 @@ class DenseGeometry(NamedTuple):
 
 def ring_bytes(bm: int, stages: int, steps: int, dtype: torch.dtype) -> int:
     """Shared memory of dense_tile's ring: per stage two k-major operands of
-    ``steps`` rows of bm + 16 bytes, and ``steps`` elements of u."""
-    isz = torch.empty((), dtype=dtype).element_size()
+    ``steps`` rows of bm + 16 bytes, and ``steps`` elements of u.  The ring
+    holds the accumulation type: a bf16 operand's 2-byte elements are
+    widened to 4-byte f32 slots as they land (csrc/dense_tile.cuh)."""
+    isz = torch.empty((), dtype=ref.acc_dtype(dtype)).element_size()
     return stages * (2 * steps * (bm + 16 // isz) + steps) * isz
 
 
@@ -153,6 +165,9 @@ def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
                         f"not {dtype}")
     if source not in SOURCES:
         raise ValueError(f"source={source!r} is none of {SOURCES}")
+    if source == "cols" and dtype not in COLS_BUILT:
+        raise TypeError(f"the column-sampled packet K3 (cols_packet) is built "
+                        f"for {tuple(COLS_BUILT)}, not {dtype}")
     chunk = resolve_chunk(m, K, dtype, "cols" if source == "cols" else "rows",
                           bk)
     splits = -(-K // chunk)
@@ -283,7 +298,8 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
         m, K = A.shape
     else:
         m, K = flat.shape[0], A.shape[1 if geom.source == "rows" else 0]
-    G, r, Gp, rp = dense_buffers(m, geom, u is not None, dtype=A.dtype,
+    G, r, Gp, rp = dense_buffers(m, geom, u is not None,
+                                 dtype=ref.acc_dtype(A.dtype),
                                  device=A.device)
     nt = -(-m // geom.bm)
     tiles = dense_tiles(A.device, nt, geom.group)
@@ -296,7 +312,7 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
     scalars = (float(scale), float(reg))
     if u is not None:
         scalars += (float(scale if scale_r is None else scale_r),)
-    suffix = SUFFIX[A.dtype]
+    suffix = PACKET_SUFFIX[A.dtype]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         if u is None:
@@ -327,8 +343,9 @@ def launch_dense(info: _build.KernelInfo, A: torch.Tensor,
     return G, r
 
 
-def _check_operand(A: torch.Tensor, what: str) -> tuple[int, int]:
-    check_matrix(A, what)
+def _check_operand(A: torch.Tensor, what: str, *, bf16: bool = False
+                   ) -> tuple[int, int]:
+    check_matrix(A, what, bf16=bf16)
     if A.numel() == 0:
         raise ValueError(f"{what}: A must be non-empty, got shape "
                          f"{tuple(A.shape)}")
@@ -339,12 +356,14 @@ def gram_packet_dense(A: torch.Tensor, u: torch.Tensor, *,
                       scale: float = 1.0, reg: float = 0.0,
                       scale_r: float | None = None, bk: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7: the packet on a materialised A (m, K) and u (K,)."""
+    """K7: the packet on a materialised A (m, K) and u (K,); A and u
+    float32, float64 or bfloat16 (then G and r are float32)."""
     if A.device.type == "cpu":
         return ref.gram_packet_ref(A, u, scale, reg, scale_r)
-    m, K = _check_operand(A, DENSE_PACKET.name)
-    check_vector(A, u, K, DENSE_PACKET.name, name="u")
-    return launch_dense(DENSE_PACKET, A, u, dense_geometry(m, K, A.dtype, bk),
+    info = DENSE_PACKET_BF16 if A.dtype == torch.bfloat16 else DENSE_PACKET
+    m, K = _check_operand(A, info.name, bf16=True)
+    check_vector(A, u, K, info.name, name="u")
+    return launch_dense(info, A, u, dense_geometry(m, K, A.dtype, bk),
                         scale, reg, scale_r)
 
 

@@ -9,7 +9,10 @@
   dense Gram tile (``csrc/dense_tile.cuh``) on the rows ``X[flat]`` in
   place, at K7's geometry for the same (m, n) (:func:`rows_packet_geometry`,
   ``gram_kernel.launch_dense``), so it equals K7 on the gathered panel bit
-  for bit.
+  for bit.  It also takes bf16 X and u, as the reference's kernel does:
+  each element is widened to f32 as it lands in shared memory and the sums
+  are the f32 kernel's, so the f32 (G, r) equal the f32 kernel's on the
+  upcast operand bit for bit (counted apart, :data:`ROWS_PACKET_BF16`).
 * :func:`panel_apply_rows` (K2) -- ``out(n) = scale * Y^T v``.  Replaces
   ``panel_apply_pallas`` (same file).  Bounded by the m * n bytes of X it
   reads.  One thread per column sums one chain in sample order, with two
@@ -42,6 +45,9 @@ from . import _build, ref, tuning
 ROWS_PACKET = _build.KernelInfo(
     "gram_packet_sampled_rows", "src/repro_torch/csrc/sampled_rows.cu",
     "src/repro/kernels/gram/sampled_kernel.py:136")
+ROWS_PACKET_BF16 = _build.KernelInfo(
+    "gram_packet_sampled_rows_bf16", "src/repro_torch/csrc/sampled_rows.cu",
+    "src/repro/kernels/gram/sampled_kernel.py:136")
 ROWS_APPLY = _build.KernelInfo(
     "panel_apply_rows", "src/repro_torch/csrc/sampled_rows.cu",
     "src/repro/kernels/gram/sampled_kernel.py:209")
@@ -57,6 +63,8 @@ P, I, I64, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _APPLY_ARGS = (P, P, P, P, I64, I, I, I, I, D, P)
 MATVEC_ARGS = (P,) * 6 + (I64, I, I, I64, I, I, I, I, I, I, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# The packets K1 and K7 also take bf16 (f32 sums and outputs).
+PACKET_SUFFIX = SUFFIX | {torch.bfloat16: "bf16"}
 
 # K2 (rows_apply): the block sizes, and per dtype the (columns a thread,
 # batch) pairs it is built for (a batch: the samples whose loads a thread
@@ -91,11 +99,13 @@ MV_PICK = {"rows": (2, 128), "cols": (2, 64)}
 SMEM_PER_BLOCK = 232448         # bytes of shared memory a block may use
 
 
-def check_matrix(X: torch.Tensor, what: str) -> None:
-    """The operand a kernel reads: float32 or float64, 2-D and contiguous
-    (the wrappers never copy it)."""
-    if X.dtype not in SUFFIX:
-        hint = (" (bf16 input is not supported by the CUDA kernels yet)"
+def check_matrix(X: torch.Tensor, what: str, *, bf16: bool = False) -> None:
+    """The operand a kernel reads: float32 or float64 (and bfloat16 where
+    ``bf16``: the packets K1 and K7), 2-D and contiguous (the wrappers never
+    copy it)."""
+    if X.dtype not in (PACKET_SUFFIX if bf16 else SUFFIX):
+        hint = (f" (bf16 input is taken by the packets K1 and K7 only; "
+                f"{what} has no bf16 build)"
                 if X.dtype == torch.bfloat16 else "")
         raise TypeError(f"{what}: X dtype {X.dtype} not in float32/float64"
                         + hint)
@@ -129,11 +139,13 @@ def _check_placement(X, t, name, dims, what) -> None:
 
 def check_cuda_operands(X: torch.Tensor, flat: torch.Tensor,
                         vec: torch.Tensor, vec_len: int, n_index: int,
-                        what: str, *, tenants: bool = False) -> None:
+                        what: str, *, tenants: bool = False,
+                        bf16: bool = False) -> None:
     """Everything a kernel takes on trust, checked before the launch: device,
     dtype, contiguity, shapes and the index range ``0 <= flat < n_index``.
-    ``tenants`` lets the vector carry a leading tenant axis, (T, vec_len)."""
-    check_matrix(X, what)
+    ``tenants`` lets the vector carry a leading tenant axis, (T, vec_len);
+    ``bf16`` admits a bfloat16 X (and vector)."""
+    check_matrix(X, what, bf16=bf16)
     _check_placement(X, flat, "flat", (1,), what)
     check_vector(X, vec, vec_len, what, dims=(1, 2) if tenants else (1,))
     if flat.dtype != torch.int32:
@@ -238,7 +250,11 @@ def matvec_geometry(m: int, K: int, tenants: int, dtype: torch.dtype,
     (m samples, K contraction) panel, from the shapes alone.  The chunk is
     the packet's (:func:`resolve_chunk`), which fixes every sum; rows per
     block, ring depth and stage length only cut the work (``rows``,
-    ``stages`` and ``steps`` override the picks, for the sweep)."""
+    ``stages`` and ``steps`` override the picks, for the sweep).  Built in
+    float32 and float64 only."""
+    if dtype not in SUFFIX:
+        raise TypeError(f"the matvecs K5 / K6 (matvec_ring) are built for "
+                        f"float32 / float64, not {dtype}")
     chunk = resolve_chunk(m, K, dtype, layout, bk)
     splits = -(-K // chunk)
     if splits > tuning.MAX_SPLITS:
@@ -334,14 +350,16 @@ def gram_packet_sampled_rows(X: torch.Tensor, flat: torch.Tensor,
                              reg: float = 0.0, scale_r: float | None = None,
                              bk: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: the row-sampled packet for X (d, n), flat (m,) int32, u (n,)."""
+    """K1: the row-sampled packet for X (d, n), flat (m,) int32, u (n,);
+    X and u float32, float64 or bfloat16 (then G and r are float32)."""
     if X.device.type == "cpu":
         return ref.gram_packet_sampled_ref(X, flat, u, scale, reg, scale_r)
     from .gram_kernel import launch_dense
     d, n = X.shape
-    check_cuda_operands(X, flat, u, n, d, ROWS_PACKET.name)
+    info = ROWS_PACKET_BF16 if X.dtype == torch.bfloat16 else ROWS_PACKET
+    check_cuda_operands(X, flat, u, n, d, info.name, bf16=True)
     geom = rows_packet_geometry(flat.shape[0], n, X.dtype, bk)
-    return launch_dense(ROWS_PACKET, X, u, geom, scale, reg, scale_r, flat)
+    return launch_dense(info, X, u, geom, scale, reg, scale_r, flat)
 
 
 def panel_apply_rows(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,

@@ -86,6 +86,39 @@ def test_kernel_matches_plain_version_on_card(cuda_device, kernel, m, dtype,
                         want[0].masked_fill(same, 0.0)) <= tol
 
 
+
+@pytest.mark.parametrize("m", [1, 8, 77, 200])
+@pytest.mark.parametrize("K", [2001, 72309])
+def test_bf16_packets_equal_f32_on_the_upcast_operand(cuda_device, m, K):
+    """bf16 K1 and K7 (f32 sums and outputs) equal the f32 kernels on the
+    upcast operand under torch.equal (a bf16 element lands widened in the
+    f32 ring, and the chunk and sum order are the f32 kernel's), lie within
+    the reference's bf16 tolerance 2e-2 of the plain version, and K1 == K7
+    on the gathered rows; each counts on its own bf16 counter."""
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    X = torch.randn((300, K), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    u = torch.randn((K,), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    flat = torch.randint(0, 300, (m,), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    flat[-1] = flat[0]
+    knobs = {"scale": 0.5, "reg": 0.25, "scale_r": 2.0}
+    gk.reset_launch_counts()
+    G1, r1 = gk.gram_packet_sampled_rows(X, flat, u, **knobs)
+    Y = X[flat.long()].contiguous()
+    G7, r7 = gk.gram_packet_dense(Y, u, **knobs)
+    assert [k.launches for k in gk.BF16_KERNELS] == [1, 1]
+    assert gk.ROWS_PACKET.launches == gk.DENSE_PACKET.launches == 0
+    assert G1.dtype == r1.dtype == torch.float32
+    F1 = gk.gram_packet_sampled_rows(X.float(), flat, u.float(), **knobs)
+    F7 = gk.gram_packet_dense(Y.float(), u.float(), **knobs)
+    assert torch.equal(G1, F1[0]) and torch.equal(r1, F1[1])
+    assert torch.equal(G7, F7[0]) and torch.equal(r7, F7[1])
+    assert torch.equal(G1, G7) and torch.equal(r1, r7)
+    want = tref.gram_packet_sampled_ref(X, flat, u, **knobs)
+    assert _rel(G1, want[0]) <= 2e-2 and _rel(r1, want[1]) <= 2e-2
+
 def test_kernel_refuses_bad_indices_on_card(cuda_device):
     X = torch.zeros((5, 7), device=cuda_device)
     flat = torch.tensor([0, 5], dtype=torch.int32, device=cuda_device)

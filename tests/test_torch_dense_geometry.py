@@ -124,6 +124,24 @@ def test_every_col_pick_is_built(dtype):
         assert geom.threads % 32 == 0 and geom.threads % geom.bm == 0
 
 
+@pytest.mark.parametrize("m,K", SHAPES)
+def test_bf16_packets_take_the_f32_geometry_and_chunk(m, K):
+    """bf16 K7 / K1 run the f32 pick at the f32 chunk with the f32 ring (a
+    bf16 element lands widened in an f32 slot), so their sums are the f32
+    kernel's on the upcast operand; K3 and the matvecs take no bf16."""
+    for source in ("dense", "rows"):
+        f32 = gkk.dense_geometry(m, K, torch.float32, source=source)
+        bf16 = gkk.dense_geometry(m, K, torch.bfloat16, source=source)
+        assert bf16.chunk == f32.chunk and bf16.bm == f32.bm
+        assert bf16 == gkk.dense_geometry(
+            m, K, torch.float32, source=source, micro=bf16[1:3],
+            stages=gkk.DENSE_RING[0], steps=gkk.DENSE_RING[1])
+        assert (bf16.bm, bf16.tm, bf16.tn) in gkk.GATHERED_TILES[
+            torch.bfloat16]
+    with pytest.raises(TypeError, match="K5 / K6"):
+        sk.matvec_geometry(m, K, 1, torch.bfloat16, "rows")
+
+
 def test_dense_tile_edge_at_the_main_shapes():
     f32 = torch.float32
     assert gkk.dense_geometry(20958, 93267, f32).bm == 128     # K8
@@ -154,7 +172,9 @@ def test_every_built_geometry_fits_a_block(m, K, dtype):
 @pytest.mark.parametrize("bm,stages,steps,dtype,want", [
     (128, 3, 16, torch.float32, 3 * (2 * 16 * 132 + 16) * 4),
     (32, 2, 8, torch.float32, 2 * (2 * 8 * 36 + 8) * 4),
-    (64, 3, 16, torch.float64, 3 * (2 * 16 * 66 + 16) * 8)])
+    (64, 3, 16, torch.float64, 3 * (2 * 16 * 66 + 16) * 8),
+    # bf16 lands in f32 slots: the f32 ring
+    (128, 3, 16, torch.bfloat16, 3 * (2 * 16 * 132 + 16) * 4)])
 def test_ring_bytes_counts_two_operands_and_u(bm, stages, steps, dtype, want):
     assert gkk.ring_bytes(bm, stages, steps, dtype) == want
 
@@ -196,7 +216,13 @@ def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
     with pytest.raises(ValueError):
         gkk.dense_geometry(128, 1000, torch.float64, stages=2, steps=8)
     with pytest.raises(TypeError):
-        gkk.dense_geometry(128, 1000, torch.bfloat16)
+        gkk.dense_geometry(128, 1000, torch.float16)
+    # bf16 is built for the packets K7 and K1 at the picks alone, never for
+    # K3's column gather
+    with pytest.raises(TypeError, match="K3"):
+        gkk.dense_geometry(128, 1000, torch.bfloat16, source="cols")
+    with pytest.raises(ValueError):
+        gkk.dense_geometry(128, 1000, torch.bfloat16, stages=2, steps=8)
     with pytest.raises(ValueError, match="multiple"):
         gkk.dense_geometry(128, 1000, torch.float32, 48)
 
@@ -223,7 +249,9 @@ def test_host_table_matches_what_the_source_builds(kernel):
         body = src[src.index("int packet_impl("):
                    src.index("#undef REPRO_TILE")]
         f32, f64 = body.split("} else {")
-        for dtype, part in ((torch.float32, f32), (torch.float64, f64)):
+        # bf16 (In = __nv_bfloat16, T = float) takes the f32 branch
+        for dtype, part in ((torch.float32, f32), (torch.float64, f64),
+                            (torch.bfloat16, f32)):
             built = {_as_int(t) for t in re.findall(tile, part)}
             assert built == {t + gkk.DENSE_RING
                              for t in gkk.GATHERED_TILES[dtype]}
@@ -231,7 +259,12 @@ def test_host_table_matches_what_the_source_builds(kernel):
     src = (CSRC / "gram_dense.cu").read_text()
     rings = set(re.findall(r"REPRO_TILE\(B, M, N, (\d+), (\d+)\)", src))
     f32 = set(re.findall(r"REPRO_RINGS\((\d+), (\d+), (\d+)\)\n", src))
-    f64 = set(re.findall(tile, src))
+    body = src[src.index("int dense_impl("):src.index("#undef REPRO_RINGS")]
+    bf16, rest = body.split("} else if constexpr")
+    f64 = set(re.findall(tile, rest.split("} else {")[1]))
+    bf16 = {_as_int(t) for t in re.findall(tile, bf16)}
+    assert {t[:3] for t in bf16} == set(gkk.DENSE_TILES[torch.bfloat16])
+    assert {t[3:] for t in bf16} == set(gkk.DENSE_RINGS[torch.bfloat16])
     assert {_as_int(t) for t in rings} == set(gkk.DENSE_RINGS[torch.float32])
     assert {_as_int(t) for t in f32} == set(gkk.DENSE_TILES[torch.float32])
     assert {_as_int(t)[:3] for t in f64} == set(

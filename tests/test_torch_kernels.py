@@ -510,3 +510,82 @@ def test_matvec_through_ops_matches_reference(dt):
         want = j_matvec(op_j, jnp.asarray(flat), jnp.asarray(t), scale=2.0,
                         impl="ref")
         _close(out, want, rtol, atol)
+
+
+# bf16 packets (K1, K7): the reference's tolerance for bf16 against its
+# f32-accumulating oracle (tests/test_kernels.py, 2e-2).  Both packages round
+# the same f32 values to the same bf16 values (round to nearest even).
+BF16_TOL = 2e-2
+
+
+def _bf16_pair(a):
+    """The same f32 array as a torch and a jnp bf16 array, checked equal."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    j = jnp.asarray(a, jnp.bfloat16)
+    assert np.array_equal(t.float().numpy(), np.asarray(j, np.float32))
+    return t, j
+
+
+@pytest.mark.parametrize("shape", [(96, 512), (40, 300), (13, 128)])
+@pytest.mark.parametrize("knobs", KNOBS)
+def test_bf16_row_packet_matches_reference(shape, knobs):
+    """K1's plain version in bf16 (what the wrapper runs on a CPU tensor)
+    against the reference's impl="ref" oracle: f32 out, within 2e-2."""
+    m, n = shape
+    d = 2 * max(m, 16)
+    X, flat, rng = _inputs(d, n, m, np.float32, d, seed=10)
+    u = rng.standard_normal(n).astype(np.float32)
+    (Xt, Xj), (ut, uj) = _bf16_pair(X), _bf16_pair(u)
+    scale, reg, scale_r = knobs
+    G, r = gk.gram_packet_sampled_rows(Xt, torch.from_numpy(flat), ut,
+                                       scale=scale / n, reg=reg,
+                                       scale_r=scale_r)
+    Gj, rj = jref.gram_packet_sampled_ref(Xj, jnp.asarray(flat), uj,
+                                          scale / n, reg, scale_r)
+    assert G.dtype == r.dtype == torch.float32
+    assert Gj.dtype == jnp.float32
+    _close(G, Gj, BF16_TOL, BF16_TOL)
+    _close(r, rj, BF16_TOL, BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (64, 300), (8, 128),
+                                   (130, 700)])
+def test_bf16_dense_packet_matches_reference(shape):
+    """K7's plain version in bf16 against the reference's oracle, and equal
+    to K1's on the rows it gathers (the identity the kernels keep)."""
+    m, n = shape
+    A, _, rng = _inputs(m, n, 1, np.float32, 1, seed=0)
+    u = rng.standard_normal(n).astype(np.float32)
+    (At, Aj), (ut, uj) = _bf16_pair(A), _bf16_pair(u)
+    G, r = gk.gram_packet_dense(At, ut, scale=1.0 / n, reg=0.01)
+    Gj, rj = jref.gram_packet_ref(Aj, uj, 1.0 / n, 0.01)
+    assert G.dtype == r.dtype == torch.float32
+    _close(G, Gj, BF16_TOL, BF16_TOL)
+    _close(r, rj, BF16_TOL, BF16_TOL)
+    flat = torch.arange(m, dtype=torch.int32)
+    G1, r1 = gk.gram_packet_sampled_rows(At, flat, ut, scale=1.0 / n,
+                                         reg=0.01)
+    assert torch.equal(G, G1) and torch.equal(r, r1)
+
+
+@pytest.mark.parametrize("call", ["rows_apply", "cols_packet", "cols_apply",
+                                  "rows_matvec", "cols_matvec", "gram"])
+def test_bf16_refused_by_the_kernels_without_a_bf16_build(call):
+    """Only K1 and K7 take bf16 on the card; the other kernels' checks refuse
+    it before a launch, naming the kernel."""
+    X = torch.zeros((5, 7), dtype=torch.bfloat16)
+    names = {"rows_apply": gk.ROWS_APPLY, "cols_packet": gk.COLS_PACKET,
+             "cols_apply": gk.COLS_APPLY, "rows_matvec": gk.ROWS_MATVEC,
+             "cols_matvec": gk.COLS_MATVEC, "gram": gk.DENSE_GRAM}
+    name = names[call].name
+    with pytest.raises(TypeError, match=f"{name}.*bf16"):
+        if call == "gram":
+            from repro_torch.kernels.gram import gram_kernel
+            gram_kernel._check_operand(X, name)
+        else:
+            check_cuda_operands(X, torch.zeros(2, dtype=torch.int32),
+                                torch.zeros(7, dtype=torch.bfloat16), 7, 5,
+                                name)
+    check_cuda_operands(X, torch.zeros(2, dtype=torch.int32),
+                        torch.zeros(7, dtype=torch.bfloat16), 7, 5,
+                        gk.ROWS_PACKET_BF16.name, bf16=True)
