@@ -72,13 +72,13 @@ Phases (any failure raises; nothing is caught):
      device loss onto 3 survivors (f32, and f64 on the 8x cut) and one
      NCCL rank.  Wire times are gloo's, host-staged, with the ranks on one
      card;
- 2c. (inside phase 2) the bf16 packets K1 / K7 on the real-sim X cast to
-     bf16 at m = 128 and 8: equal under torch.equal to the f32 kernels on
-     the upcast operand, K1 equal to K7 on X[flat], within the reference's
-     2e-2 of the plain version, timed beside their bound (bf16 inputs, f32
-     outputs, the card's bf16 tensor-core rate); then one packet of each
-     at each m through the public entry points (counted: the "bf16
-     packets" path);
+ 2c. (inside phase 2) the bf16 packets K1 / K3 / K7 on the real-sim X
+     cast to bf16 at m = 128 and 8: equal under torch.equal to the f32
+     kernels on the upcast operand, K1 equal to K7 on X[flat] and K3 to
+     K7 on X[:, flat]^T at K3's chunk, within the reference's 2e-2 of the
+     plain version, timed beside their bound (bf16 inputs, f32 outputs,
+     the card's bf16 tensor-core rate); then one packet of each at each m
+     through the public entry points (counted: the "bf16 packets" path);
  10. the contract engine on the card (counted, launches summed over the
      parent and the ranks): (a) the kernels' shared-memory budget against
      the card's opt-in limit, and the plan pass; (b) the contract pass on
@@ -105,7 +105,25 @@ Phases (any failure raises; nothing is caught):
      prompts, then 8 requests of 16-200 prompt tokens x 32 new tokens
      through 4 slots: prefill ms per bucket, decode ms a step beside the
      1.918 ms weight-read bound, tokens/s, the decode's device-idle share
-     (profiler trace) and the allocator's peak.
+     (profiler trace) and the allocator's peak;
+ 12. the other LM bodies, random weights from --seed (plain torch, as in
+     the reference: no kernel; counted, the "lm families" path, all
+     zero): (a) mamba2-370m at its published width and depth (48 layers,
+     d_model 1024, 32 heads of 64, state 128, chunk 256): the chunked SSD
+     scan against the token recurrence, prefill + decode against forward
+     and the engine against the greedy oracle on prompts of distinct
+     tokens, in f32 and f64, then bf16 serving (8 requests of 256 / 512
+     tokens x 32 new through 4 slots); (b) phi3.5-moe-42b at its width,
+     gates at MOE_GATE_LAYERS layers in f32 and f64 with the drop
+     fraction and aux loss, bf16 serving at MOE_SERVE_LAYERS layers; (c)
+     seamless-m4t-large-v2 at its width and depth with S / 4 encoder
+     frames: gates in f32 at 2 + 2 layers and in f64 at 24 + 24 (prefill
+     + decode against forward, a greedy decode_step loop against the
+     greedy oracle), then a bf16 greedy loop of 4 rows; (d)
+     jamba-1.5-large's hybrid interleave at its reduced widths, f32 and
+     f64 gates.  Each serving run reports tok/s, decode ms a step beside
+     its weight- and state-read bound, the decode's idle share and the
+     allocator's peak.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -115,6 +133,7 @@ kernel measurements, the card's name and power limit, and as its last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -538,14 +557,81 @@ def bf16_bound(m: int, uniq: int, K: int, indexed: bool) -> dict:
             "fma_ms": flops / FLOPS_PER_S["torch.float32"] * 1e3}
 
 
+def check_bf16_cols_packet(Xb, Xup, gen, m: int, reps: int) -> dict:
+    """Phase 2c for K3 in bf16 at m columns of the bf16 X (d, n): equal to
+    f32 K3 on the upcast operand and to bf16 K7 on X[:, flat]^T at K3's
+    chunk (torch.equal), within 2e-2 of its plain version; timed beside its
+    bound (bf16 inputs, f32 outputs; the sector traffic of the scattered
+    columns logged beside it), the plain version, the f32 kernel on the
+    upcast operand and a library call (a bf16 product on the gathered
+    panel).  Returns (record, (flat, u))."""
+    d, n = Xb.shape
+    flat = blocked_flat(gen, n, 8, m // 8)
+    u = torch.randn((d,), generator=gen, device=Xb.device,
+                    dtype=torch.bfloat16)
+    chunk = cols_packet_geometry(m, d, torch.bfloat16).chunk
+    Yc = Xb[:, flat.long()].T.contiguous()
+    G3, r3 = gk.gram_packet_sampled_cols(Xb, flat, u)
+    F3 = gk.gram_packet_sampled_cols(Xup, flat, u.float())
+    G7, r7 = gk.gram_packet_dense(Yc, u, bk=chunk)
+    want = gk.gram_packet_sampled_cols_ref(Xb, flat, u)
+    torch.cuda.synchronize()
+    eq_f32 = torch.equal(G3, F3[0]) and torch.equal(r3, F3[1])
+    eq_k7 = torch.equal(G3, G7) and torch.equal(r3, r7)
+    errs = [rel(G3, want[0]), rel(r3, want[1]),
+            rel(cross_terms(G3, flat), cross_terms(want[0], flat))]
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((G3, want[0]), (r3, want[1])))
+    log(f"  bf16 K3 m={m:4d}: out {G3.dtype}; rel err G, r, G cross terms "
+        + " ".join(f"{e:.2e}" for e in errs)
+        + f" (tol {TOL_BF16:.0e}), max abs {max_abs:.2e}; equal to f32 K3 on "
+        f"the upcast operand {eq_f32}; K3 == bf16 K7 on X[:, flat]^T at "
+        f"K3's chunk {chunk} {eq_k7}")
+    if G3.dtype != torch.float32 or not all(
+            math.isfinite(e) and e <= TOL_BF16 for e in errs):
+        raise AssertionError(f"bf16 K3 disagrees with its plain version at "
+                             f"m={m}: {errs}")
+    if not (eq_f32 and eq_k7):
+        raise AssertionError(f"bf16 K3 identities fail at m={m}: {eq_f32}, "
+                             f"{eq_k7}")
+    info = gk.COLS_PACKET_BF16
+    rhs = torch.cat([Yc.T, u[:, None]], dim=1).contiguous()
+    names = KERNEL_NAMES["dense"]
+    rec = {"name": info.name, "route": "cuda", "source": info.source,
+           "replaces": info.replaces, "max_abs_err": max_abs, "m": m, "K": d,
+           "dtype": "bfloat16",
+           "ms": device_ms(lambda: gk.gram_packet_sampled_cols(Xb, flat, u),
+                           reps, names),
+           "plain_ms": device_ms(
+               lambda: gk.gram_packet_sampled_cols_ref(Xb, flat, u), reps),
+           "library_ms": device_ms(lambda: torch.mm(Yc, rhs), reps),
+           "f32_ms": device_ms(
+               lambda: gk.gram_packet_sampled_cols(Xup, flat, u.float()),
+               reps, names)}
+    uniq = int(torch.unique(flat).numel())
+    rec.update(bf16_bound(m, uniq, d, True))
+    rec["sector_ms"] = uniq * d * SECTOR / HBM_BYTES_PER_S * 1e3
+    log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 K3 on the "
+        f"upcast operand {rec['f32_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
+        f"library (bf16 mm on [Y^T | u], Y = X[:, flat]^T) "
+        f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}; device / bound "
+        f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
+        f"{rec['ms'] / rec['library_ms']:.2f}); sector traffic of the "
+        f"scattered columns (one 32-byte sector an element) "
+        f"{rec['sector_ms']:.4f} ms")
+    return rec, (flat, u)
+
+
 def check_bf16_packets(X, gen, reps: int) -> tuple[dict, dict]:
-    """Phase 2c: K1 and K7 on the real-sim X cast to bf16 at m = 128 and 8:
-    each equal to the f32 kernel on the upcast operand and K1 equal to K7 on
-    X[flat] (torch.equal), each within 2e-2 of its plain version; timed
-    beside its bound, the plain version and a library call (a bf16 product
-    on the tensor cores, f32 sums, bf16 output, on the gathered panel).
-    Then the counted path: one packet of each through the public entry
-    points at each m.  Returns (records, the path's launch counts)."""
+    """Phase 2c: K1, K3 and K7 on the real-sim X cast to bf16 at m = 128
+    and 8: each equal to the f32 kernel on the upcast operand, K1 equal to
+    K7 on X[flat] and K3 to K7 on X[:, flat]^T at K3's chunk (torch.equal),
+    each within 2e-2 of its plain version; timed beside its bound, the
+    plain version and a library call (a bf16 product on the tensor cores,
+    f32 sums, bf16 output, on the gathered panel).  Then the counted path:
+    one packet of each through the public entry points at each m.  Returns
+    (records, the path's launch counts)."""
     d, n = X.shape
     Xb = X.to(torch.bfloat16)
     Xup = Xb.float()
@@ -612,12 +698,15 @@ def check_bf16_packets(X, gen, reps: int) -> tuple[dict, dict]:
                 f"{rec['ms'] / rec['library_ms']:.2f}); f32 FMAs at "
                 f"67 TFLOP/s {rec['fma_ms']:.4f} ms")
             recs[info.name if m == 128 else f"{info.name}@m{m}"] = rec
-        cases.append((flat, u, Yb))
+        rec, cols = check_bf16_cols_packet(Xb, Xup, gen, m, reps)
+        recs[rec["name"] if m == 128 else f"{rec['name']}@m{m}"] = rec
+        cases.append((flat, u, Yb, cols))
     # the counted path: the packets through the public entry points
     gk.reset_launch_counts()
-    for flat, u, Yb in cases:
+    for flat, u, Yb, (flat_c, u_c) in cases:
         gk.gram_packet_sampled(Xb, flat, u)
         gk.gram_packet(Yb, u)
+        gk.gram_packet_sampled(gk.ColMajorOperand(Xb), flat_c, u_c)
     torch.cuda.synchronize()
     counts = launches()
     log(f"  bf16 packets path: launches {counts}")
@@ -2250,6 +2339,10 @@ def lm_serving(cfg16, model16, logits32: dict, stats: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     outs, secs = timed(lambda: eng.generate(prompts, SERVE_NEW))
     peak = torch.cuda.max_memory_allocated()
+    # the timers close over the engine's own methods: drop them, or the
+    # cycle keeps the engine, its model and its cache alive into the next
+    # phase until a garbage collection
+    del eng._prefill, eng._decode
     ntok = sum(len(o) for o in outs)
     if [len(o) for o in outs] != [SERVE_NEW] * len(prompts):
         raise AssertionError(f"serving: token counts {[len(o) for o in outs]}")
@@ -2313,6 +2406,515 @@ def lm_phase(seed: int, stats: dict) -> dict:
     torch.cuda.empty_cache()
     lm_serving(model16.cfg, model16, logits32, stats)
     return counts
+
+# Phase 12: the other bodies at their published widths, random weights from
+# --seed: mamba2-370m (ssm), phi3.5-moe-42b (moe), seamless-m4t-large-v2
+# (encoder-decoder) and jamba-1.5-large's hybrid interleave.  Every gate is
+# collected and the phase fails at its end if any gate failed, so one run
+# reports every number.  The gates: prefill + decode against forward and
+# the greedy engine (or, for the encoder-decoder, a greedy loop of
+# decode_step) against the step-by-step greedy forward, at the reference's
+# rtol / atol 1e-3 (tests/test_decode.py), a top-1 disagreement passing only
+# where the oracle's top-2 margin is inside that tolerance (as in 11a); the
+# chunked SSD scan against the token-by-token recurrence at the reference's
+# 2e-4 (tests/test_mamba.py).  f64 models keep the reference's f32 islands
+# (mamba's scan and state, the MoE router and combine).  Cuts, and why:
+# phi3.5-moe's 32 layers hold 2.52 GB of bf16 experts each (83 GB in all,
+# more than the card), so it serves at MOE_SERVE_LAYERS layers and gates at
+# MOE_GATE_LAYERS (f32 and f64); seamless gates in f32 at SEAMLESS_F32_LAYERS
+# encoder and decoder layers, as llama in 11a (the random init's attention
+# amplifies rounding with depth), and in f64 at full depth; jamba-1.5-large's
+# one superblock of 8 layers is 88 GB in bf16, so its interleave runs at its
+# reduced() widths.
+SSD_TOL = 2e-4
+MOE_SERVE_LAYERS = 8
+MOE_GATE_LAYERS = 2
+MOE_GATE_CAPACITY = 4.0
+SEAMLESS_F32_LAYERS = 2
+SSM_PROMPTS = (256, 512, 256, 512, 512, 256, 512, 256)   # mamba2 serving
+FAMILY_SERVE_NEW = 32
+ORACLE_NEW = 8
+
+
+class Gates:
+    """Phase 12's gates: each logged as it is read, all checked at the end."""
+
+    def __init__(self):
+        self.failed = []
+
+    def check(self, name: str, ok: bool, detail: str) -> bool:
+        log(f"    gate {name}: {'ok' if ok else 'FAILED'} ({detail})")
+        if not ok:
+            self.failed.append(name)
+        return ok
+
+
+def family_batch(cfg, device, gen, B: int = 2, S: int = 64) -> dict:
+    """B rows of S tokens; the audio family also gets S // 4 encoder frames
+    (0.1 N(0, 1), the reference's stub frontend's rate)."""
+    from repro_torch.data import synthetic_lm_batch
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in synthetic_lm_batch(cfg.vocab, S, B).items()}
+    if cfg.family == "audio":
+        batch["src_embeds"] = 0.1 * torch.randn(
+            (B, S // 4, cfg.d_model), generator=gen, device=device)
+    return batch
+
+
+def gate_prefill_decode(gates, tag: str, cfg, model, batch) -> dict:
+    """Prefill of S - 1 tokens and one decode step against forward."""
+    full, pre, dec = prefill_decode(cfg, model, batch)
+    errs, bad = [], 0
+    for got, want in ((pre, full[:, 0]), (dec, full[:, 1])):
+        errs.append(float((got - want).abs().max()))
+        bad += int(((got - want).abs() > LM_TOL + LM_TOL * want.abs()).sum())
+    gates.check(f"{tag} prefill + decode == forward", bad == 0,
+                f"{cfg.n_layers} layers, {str(cfg.dtype)[6:]}, B x S = "
+                f"{tuple(batch['tokens'].shape)}: max abs err prefill "
+                f"{errs[0]:.2e}, decode {errs[1]:.2e}, largest logit "
+                f"{float(full.abs().max()):.3f}; entries outside rtol / atol "
+                f"{LM_TOL:.0e}: {bad}")
+    return {"prefill_err": errs[0], "decode_err": errs[1],
+            "top": float(full.abs().max())}
+
+
+def oracle_tokens(cfg, model, prompt: list, new: int, extra=None) -> tuple:
+    """Step-by-step greedy decoding through forward: the tokens and, per
+    step, the last logits (for the margin rule)."""
+    from repro_torch.models import api
+    toks, lasts = list(prompt), []
+    for _ in range(new):
+        batch = {"tokens": torch.tensor([toks], device=model.device)}
+        if extra:
+            batch.update(extra)
+        logits, _ = api.forward(model, cfg, batch)
+        lasts.append(logits[0, -1, :cfg.vocab])
+        toks.append(int(torch.argmax(lasts[-1])))
+    return toks[len(prompt):], lasts
+
+
+def tokens_agree(gates, tag: str, got: list, want: list, lasts) -> None:
+    """Greedy tokens against the oracle's; a first disagreement passes only
+    where the oracle's top-2 margin lies inside the logit tolerance."""
+    for step, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            last = lasts[step]
+            margin = top2_margin(last)
+            tol = LM_TOL + LM_TOL * float(last.abs().max())
+            gates.check(tag, margin < tol,
+                        f"first disagreement at step {step}: {a} against "
+                        f"{b}, the oracle's top-2 margin {margin:.3e} "
+                        f"(logit tolerance {tol:.3e}); tokens {got}")
+            return
+    gates.check(tag, len(got) == len(want),
+                f"{len(got)} of {len(want)} tokens equal: {got}")
+
+
+def gate_engine(gates, tag: str, cfg, model, prompts, slots: int = 2,
+                max_seq: int = 1024) -> None:
+    """The engine's greedy tokens against the oracle, prompt by prompt."""
+    from repro_torch.serve import Engine, ServeConfig
+    eng = Engine(cfg, model, ServeConfig(max_seq=max_seq, slots=slots,
+                                         min_bucket=16))
+    outs = eng.generate(prompts, ORACLE_NEW)
+    for i, prompt in enumerate(prompts):
+        want, lasts = oracle_tokens(cfg, model, prompt, ORACLE_NEW)
+        tokens_agree(gates, f"{tag} engine request {i} ({len(prompt)} "
+                     f"prompt tokens) == greedy oracle", outs[i], want, lasts)
+
+
+def ssm_prompts(vocab: int, lengths, seed: int) -> list:
+    """Prompts of distinct random tokens: on a constant prompt a replayed
+    last token would go unseen (ROADMAP.md, queue 3)."""
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, size=n))) for n in lengths]
+
+
+def gate_ssd(gates, cfg, device, gen) -> dict:
+    """The chunked SSD scan against the token-by-token recurrence at the
+    block's full width (B = 1, L = 2 chunks, its heads, head dim and
+    state), in f32 on the card, both also against the f64 recurrence."""
+    from repro_torch.models import mamba2
+    s = cfg.ssm
+    H, L = s.n_heads(cfg.d_model), 2 * s.chunk
+    xdt = 0.5 * torch.randn((1, L, H, s.head_dim), generator=gen,
+                            device=device)
+    dtA = -(0.1 * torch.randn((1, L, H), generator=gen, device=device)).abs()
+    Bm = 0.5 * torch.randn((1, L, s.d_state), generator=gen, device=device)
+    Cm = 0.5 * torch.randn((1, L, s.d_state), generator=gen, device=device)
+    (y, S), secs = timed(lambda: mamba2.ssd_chunked(xdt, dtA, Bm, Cm,
+                                                    s.chunk))
+    yn, Sn = mamba2.naive_ssd(xdt, dtA, Bm, Cm)
+    y64, S64 = mamba2.naive_ssd(*(t.double() for t in (xdt, dtA, Bm, Cm)))
+    err = max(float((y - yn).abs().max()), float((S - Sn).abs().max()))
+    out = {"chunked_vs_naive": err,
+           "chunked_vs_f64": float((y.double() - y64).abs().max()),
+           "naive_vs_f64": float((yn.double() - y64).abs().max()),
+           "chunked_ms": secs * 1e3}
+    gates.check("mamba2 ssd_chunked == naive_ssd", err <= SSD_TOL,
+                f"B=1, L={L}, H={H}, P={s.head_dim}, N={s.d_state}, chunk "
+                f"{s.chunk}, f32: max abs err {err:.2e} (tol {SSD_TOL:.0e}); "
+                f"against the f64 recurrence: chunked "
+                f"{out['chunked_vs_f64']:.2e}, naive {out['naive_vs_f64']:.2e}"
+                f"; chunked scan {out['chunked_ms']:.2f} ms (host clock)")
+    return out
+
+
+def decode_bound_ms(cfg, cache_bytes: int) -> tuple:
+    """The least time of one decode step: every weight it reads, read once
+    (the MoE decode runs every expert on its capacity buffer; the encoder
+    and, when the embeddings are untied, the embedding table are not read
+    but for a row a slot), and the cache it reads, at the card's memory
+    rate.  Returns (ms, weight bytes)."""
+    from repro_torch.models import api
+    from repro_torch.models.module import param_bytes
+    specs = api.param_specs(cfg)
+    skip = {"encoder", "enc_norm"} | (
+        set() if cfg.tie_embeddings else {"embedding"})
+    weights = param_bytes({k: v for k, v in specs.items() if k not in skip})
+    return (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3, weights
+
+
+def cache_read_bytes(cache, cfg, pos: int) -> int:
+    """Bytes of the decode cache one step reads: every mamba state (read
+    and written), and attention k / v rows up to ``pos``; cross k / v
+    whole."""
+    total = 0
+
+    def walk(tree, name=""):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif name in ("k", "v"):
+            total += tree[:, :, :pos + 1].numel() * tree.element_size()
+        elif name == "ssm":
+            total += 2 * tree.numel() * tree.element_size()
+        else:
+            total += tree.numel() * tree.element_size()
+    walk(cache)
+    return total
+
+
+def family_serving(tag: str, cfg, model, prompts, new: int, slots: int,
+                   max_seq: int) -> dict:
+    """bf16 serving through the engine: prefill ms per prompt length,
+    decode ms a step beside its bound, tok/s, the decode's device-idle
+    share (profiler trace of 8 steps) and the allocator's peak."""
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, ServeConfig
+    eng = Engine(cfg, model, ServeConfig(max_seq=max_seq, slots=slots,
+                                         min_bucket=32))
+    eng.generate([prompts[0]], 2)                       # warm-up, not timed
+    prefill_ms, decode_ms = {}, []
+    inner_prefill, inner_decode = eng._prefill, eng._decode
+
+    def timed_prefill(tokens):
+        out, secs = timed(lambda: inner_prefill(tokens))
+        prefill_ms.setdefault(tokens.shape[1], []).append(secs * 1e3)
+        return out
+
+    def timed_decode(tok, pos):
+        out, secs = timed(lambda: inner_decode(tok, pos))
+        decode_ms.append(secs * 1e3)
+        return out
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    torch.cuda.reset_peak_memory_stats()
+    outs, secs = timed(lambda: eng.generate(prompts, new))
+    peak = torch.cuda.max_memory_allocated()
+    del eng._prefill, eng._decode           # the cycle (as in lm_serving)
+    ntok = sum(len(o) for o in outs)
+    if [len(o) for o in outs] != [new] * len(prompts):
+        raise AssertionError(f"{tag} serving: token counts "
+                             f"{[len(o) for o in outs]}")
+    pos = max(len(p) for p in prompts) + new // 2
+    bound, weights = decode_bound_ms(cfg, cache_read_bytes(eng.cache, cfg,
+                                                           pos))
+    steady = sorted(decode_ms)[len(decode_ms) // 2]
+    log(f"  {tag} serving (bf16, {cfg.n_layers} layers, weights "
+        f"{weights / 1e9:.3f} GB): {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]}) x {new} tokens through {slots} slots "
+        f"in {secs:.3f} s: {ntok / secs:.1f} tok/s aggregate; "
+        f"{len(decode_ms)} decode steps")
+    for length, ms in sorted(prefill_ms.items()):
+        log(f"    prefill of {length:4d} tokens: {len(ms)} calls, ms "
+            + ", ".join(f"{t:.2f}" for t in ms))
+    log(f"    decode ms a step (all {slots} slots, host clock to a "
+        f"synchronise): median {steady:.3f}, min {min(decode_ms):.3f}, max "
+        f"{max(decode_ms):.3f}; weight- and state-read bound {bound:.3f} ms "
+        f"(median / bound {steady / bound:.2f}); peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+    tok = torch.ones((slots,), dtype=torch.long, device=model.device)
+    posv = torch.full((slots,), pos, device=model.device)
+    cache = api.init_cache(cfg, slots, max_seq, model.device)
+    prof = profile_run(lambda: [api.decode_step(model, cfg, cache, tok, posv)
+                                for _ in range(8)],
+                       f"{tag} decode, 8 steps of {slots} slots (bf16)", 6)
+    return {"prefill_ms": prefill_ms, "decode_ms_median": steady,
+            "decode_ms_min": min(decode_ms), "bound_ms": bound,
+            "weights_bytes": weights, "tok_s": ntok / secs, "wall_s": secs,
+            "peak_bytes": peak, "idle": prof["idle"],
+            "decode_profile": prof}
+
+
+def mamba_phase(gates, seed: int, stats: dict, dev) -> None:
+    """12a: mamba2-370m at its published width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = dataclasses.replace(get_config("mamba2_370m"), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    model, secs = timed(lambda: api.init_model(cfg, gen))
+    log(f"  12a {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"initialised in {secs:.2f} s")
+    rec = {"ssd": gate_ssd(gates, cfg, dev, gen)}
+    rec["f32"] = gate_prefill_decode(gates, "mamba2 f32", cfg, model,
+                                     family_batch(cfg, dev, gen, S=256))
+    chunk = cfg.ssm.chunk
+    gate_engine(gates, "mamba2 f32", cfg, model,
+                ssm_prompts(cfg.vocab, (chunk, 2 * chunk), seed))
+    model64 = model.cast(torch.float64)
+    rec["f64"] = gate_prefill_decode(gates, "mamba2 f64", model64.cfg,
+                                     model64, family_batch(cfg, dev, gen,
+                                                           S=256))
+    gate_engine(gates, "mamba2 f64", model64.cfg, model64,
+                ssm_prompts(cfg.vocab, (chunk, 2 * chunk), seed + 1))
+    del model64
+    model16 = model.cast(torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    lg, _ = api.prefill(model16, model16.cfg,
+                        family_batch(cfg, dev, gen, B=1, S=256))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("mamba2 bf16 prefill logits are not finite")
+    rec["serve"] = family_serving(
+        "12a mamba2-370m", model16.cfg, model16,
+        ssm_prompts(cfg.vocab, SSM_PROMPTS, seed + 2), FAMILY_SERVE_NEW,
+        SERVE_SLOTS, 1024)
+    stats["lm_mamba2"] = rec
+    del model16
+    torch.cuda.empty_cache()
+
+
+def moe_metrics(cfg, model, batch) -> dict:
+    from repro_torch.models import api
+    _, aux = api.forward(model, cfg, batch)
+    return {k: float(v) for k, v in aux.items()}
+
+
+def moe_phase(gates, seed: int, stats: dict, dev) -> None:
+    """12b: phi3.5-moe-42b at its published width: gates at
+    MOE_GATE_LAYERS layers in f32 and f64, bf16 serving at
+    MOE_SERVE_LAYERS."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = get_config("phi3_5_moe_42b")
+    published = dataclasses.replace(full, n_layers=MOE_GATE_LAYERS,
+                                    dtype=torch.float32,
+                                    param_dtype=torch.float32)
+    # the gates at the reference's no-drop capacity (its reduced configs'
+    # 4.0): a dropped slot depends on how many tokens share the dispatch,
+    # so prefill + decode equals forward only without drops
+    cfg = dataclasses.replace(published, moe=dataclasses.replace(
+        published.moe, capacity_factor=MOE_GATE_CAPACITY))
+    model = api.init_model(cfg, gen)
+    rec = {}
+    batch = family_batch(cfg, dev, gen)
+    rec["f32"] = gate_prefill_decode(gates, "phi3.5-moe f32", cfg, model,
+                                     batch)
+    rec["f32_metrics"] = moe_metrics(cfg, model, batch)
+    gate_engine(gates, "phi3.5-moe f32", cfg, model,
+                serve_prompts(cfg.vocab, 13)[:2], max_seq=256)
+    model64 = model.cast(torch.float64)
+    rec["f64"] = gate_prefill_decode(gates, "phi3.5-moe f64", model64.cfg,
+                                     model64, batch)
+    rec["f64_metrics"] = moe_metrics(model64.cfg, model64, batch)
+    rec["published_metrics"] = moe_metrics(published, model, batch)
+    log(f"    MoE metrics at {cfg.n_layers} layers (B x S = 2 x 64), summed "
+        f"over layers: capacity {cfg.moe.capacity_factor}: f32 "
+        f"{rec['f32_metrics']}, f64 {rec['f64_metrics']}; the published "
+        f"capacity {published.moe.capacity_factor}: "
+        f"{rec['published_metrics']}")
+    gates.check("phi3.5-moe f64 routing == f32 routing",
+                rec["f32_metrics"]["moe_drop_frac"]
+                == rec["f64_metrics"]["moe_drop_frac"],
+                "the same drop fraction from the same tokens")
+    del model, model64
+    torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+    model16, secs = timed(lambda: api.init_model(cfg16, gen))
+    log(f"  12b {cfg16.name} at {cfg16.n_layers} of {full.n_layers} layers: "
+        f"{sum(p.numel() for p in model16.parameters())} parameters, bf16 "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"initialised in {secs:.2f} s")
+    big = family_batch(cfg16, dev, gen, B=2, S=256)
+    rec["bf16_metrics"] = moe_metrics(cfg16, model16, big)
+    log(f"    MoE metrics, bf16, B x S = 2 x 256: {rec['bf16_metrics']}")
+    rec["serve"] = family_serving("12b phi3.5-moe", cfg16, model16,
+                                  serve_prompts(cfg16.vocab, 11),
+                                  FAMILY_SERVE_NEW, SERVE_SLOTS,
+                                  SERVE_MAX_SEQ)
+    stats["lm_phi35_moe"] = rec
+    del model16
+    torch.cuda.empty_cache()
+
+
+def greedy_decode_loop(cfg, model, batch, new: int) -> tuple:
+    """Prefill, then ``new`` greedy decode_step calls on every row; the
+    tokens (rows, new) and the ms of each step."""
+    from repro_torch.models import api
+    B, S = batch["tokens"].shape
+    logits, cache = api.prefill(model, cfg, batch, max_seq=S + new)
+    toks, ms = [], []
+    tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)
+    for i in range(new):
+        toks.append(tok)
+        (logits, cache), secs = timed(lambda: api.decode_step(
+            model, cfg, cache, tok, torch.full((B,), S + i,
+                                               device=model.device)))
+        ms.append(secs * 1e3)
+        tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)
+    return torch.stack(toks, dim=1).tolist(), ms
+
+
+def gate_greedy_loop(gates, tag: str, cfg, model, batch) -> None:
+    """A greedy loop of decode_step against the step-by-step greedy
+    forward (the encoder-decoder's serving path), row by row.  The oracle
+    runs on the whole batch, so that its encoder sees the loop's inputs in
+    the same shapes: through 24 random encoder layers and 24 decoder layers
+    even f64's rounding of another batch shape grows to a top-2 margin."""
+    from repro_torch.models import api
+    outs, _ = greedy_decode_loop(cfg, model, batch, ORACLE_NEW)
+    toks, lasts = batch["tokens"], []
+    for _ in range(ORACLE_NEW):
+        logits, _ = api.forward(model, cfg, dict(batch, tokens=toks))
+        lasts.append(logits[:, -1, :cfg.vocab])
+        toks = torch.cat([toks, torch.argmax(lasts[-1], dim=-1,
+                                             keepdim=True).to(toks.dtype)],
+                         dim=1)
+    S = batch["tokens"].shape[1]
+    for row in range(len(outs)):
+        tokens_agree(gates, f"{tag} greedy decode_step loop row {row} == "
+                     f"greedy oracle", outs[row], toks[row, S:].tolist(),
+                     [last[row] for last in lasts])
+
+
+def seamless_phase(gates, seed: int, stats: dict, dev) -> None:
+    """12c: seamless-m4t-large-v2 at its published width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = dataclasses.replace(get_config("seamless_m4t_large_v2"),
+                               dtype=torch.float32, param_dtype=torch.float32)
+    cut = dataclasses.replace(full, n_layers=SEAMLESS_F32_LAYERS,
+                              enc_layers=SEAMLESS_F32_LAYERS)
+    rec = {}
+    model = api.init_model(cut, gen)
+    batch = family_batch(cut, dev, gen)
+    rec["f32_cut"] = gate_prefill_decode(gates, "seamless f32", cut, model,
+                                         batch)
+    gate_greedy_loop(gates, "seamless f32", cut, model, batch)
+    del model
+    model, secs = timed(lambda: api.init_model(full, gen))
+    log(f"  12c {full.name}: {full.enc_layers} + {full.n_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"initialised in {secs:.2f} s")
+    model64 = model.cast(torch.float64)
+    batch = family_batch(full, dev, gen)
+    rec["f64"] = gate_prefill_decode(gates, "seamless f64", model64.cfg,
+                                     model64, batch)
+    gate_greedy_loop(gates, "seamless f64", model64.cfg, model64, batch)
+    full32 = prefill_decode(full, model, batch)[0]
+    full64 = prefill_decode(model64.cfg, model64, batch)[0]
+    rec["f32_vs_f64_full_depth"] = float((full32 - full64).abs().max()) / \
+        float(full64.abs().max())
+    log(f"    seamless f32 forward against f64 at full depth (reported): "
+        f"{rec['f32_vs_f64_full_depth']:.3e} of the largest logit")
+    del model64
+    model16 = model.cast(torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    cfg16 = model16.cfg
+    slots, S = SERVE_SLOTS, 256
+    batch = family_batch(cfg16, dev, gen, B=slots, S=S)
+    torch.cuda.reset_peak_memory_stats()
+    (outs, ms), secs = timed(lambda: greedy_decode_loop(
+        cfg16, model16, batch, FAMILY_SERVE_NEW))
+    peak = torch.cuda.max_memory_allocated()
+    _, cache = api.prefill(model16, cfg16, batch, max_seq=S + 32)
+    bound, weights = decode_bound_ms(cfg16, cache_read_bytes(cache, cfg16,
+                                                             S + 16))
+    steady = sorted(ms)[len(ms) // 2]
+    ntok = slots * FAMILY_SERVE_NEW
+    log(f"  12c seamless serving (bf16, {cfg16.enc_layers} + "
+        f"{cfg16.n_layers} layers, weights {weights / 1e9:.3f} GB): prefill "
+        f"of {slots} x {S} tokens with {S // 4} frames, then "
+        f"{FAMILY_SERVE_NEW} greedy decode_step calls in {secs:.3f} s: "
+        f"{ntok / secs:.1f} tok/s; decode ms a step median {steady:.3f}, "
+        f"min {min(ms):.3f}; weight- and cache-read bound {bound:.3f} ms "
+        f"(median / bound {steady / bound:.2f}); peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+    tok = torch.ones((slots,), dtype=torch.long, device=dev)
+    pos = torch.full((slots,), S + 16, device=dev)
+    prof = profile_run(lambda: [api.decode_step(model16, cfg16, cache, tok,
+                                                pos) for _ in range(8)],
+                       f"12c seamless decode, 8 steps of {slots} rows "
+                       f"(bf16)", 6)
+    rec["serve"] = {"decode_ms_median": steady, "bound_ms": bound,
+                    "weights_bytes": weights, "tok_s": ntok / secs,
+                    "wall_s": secs, "peak_bytes": peak, "idle": prof["idle"],
+                    "decode_profile": prof}
+    stats["lm_seamless"] = rec
+    del model16, cache
+    torch.cuda.empty_cache()
+
+
+def jamba_phase(gates, seed: int, stats: dict, dev) -> None:
+    """12d: jamba-1.5-large's hybrid interleave at its reduced() widths
+    (one superblock of 8 layers is 88 GB at the published width)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = dataclasses.replace(get_reduced("jamba_1_5_large_398b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    model = api.init_model(cfg, gen)
+    batch = family_batch(cfg, dev, gen)
+    rec = {"f32": gate_prefill_decode(gates, "jamba (reduced) f32", cfg,
+                                      model, batch),
+           "metrics": moe_metrics(cfg, model, batch)}
+    chunk = cfg.ssm.chunk
+    gate_engine(gates, "jamba (reduced) f32", cfg, model,
+                ssm_prompts(cfg.vocab, (chunk, 2 * chunk), seed))
+    model64 = model.cast(torch.float64)
+    rec["f64"] = gate_prefill_decode(gates, "jamba (reduced) f64",
+                                     model64.cfg, model64, batch)
+    gate_engine(gates, "jamba (reduced) f64", model64.cfg, model64,
+                ssm_prompts(cfg.vocab, (chunk, 2 * chunk), seed + 1))
+    log(f"    jamba (reduced) MoE metrics: {rec['metrics']}")
+    stats["lm_jamba_reduced"] = rec
+
+
+def families_phase(seed: int, stats: dict, dev=None) -> dict:
+    """Phase 12: the ssm, moe, encoder-decoder and hybrid bodies on ``dev``
+    (the card).  Plain torch, as in the reference (no TPU kernel on this
+    path): the returned launch counts are all zero.  Raises at the end if
+    any gate failed."""
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    for name, fn in (("12a", mamba_phase), ("12b", moe_phase),
+                     ("12c", seamless_phase), ("12d", jamba_phase)):
+        _, secs = timed(lambda: fn(gates, seed, stats, dev))
+        stats[f"phase{name}_s"] = secs
+        log(f"  {name} took {secs:.1f} s")
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 12 gates failed: {gates.failed}")
+    return counts
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2382,7 +2984,7 @@ def main() -> int:
                                        args.reps, 128))
     records.update(check_cg_shape(X, gen, max(1, args.reps // 5), flush))
     del flush
-    log("== 2c. bf16 packets K1 / K7 on the real-sim X cast to bf16")
+    log("== 2c. bf16 packets K1 / K3 / K7 on the real-sim X cast to bf16")
     bf16_recs, paths["bf16 packets"] = check_bf16_packets(X, gen, args.reps)
     records.update(bf16_recs)
     check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
@@ -2450,6 +3052,15 @@ def main() -> int:
     paths["lm probe"], stats["phase11_s"] = timed(
         lambda: lm_phase(args.seed, stats))
     log(f"  phase 11 took {stats['phase11_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 12. the other bodies at their published widths ----------------------
+    log("== 12. the LM bodies: mamba2-370m, phi3.5-moe-42b, "
+        "seamless-m4t-large-v2 at their published widths, jamba-1.5-large's "
+        "interleave at its reduced widths (random weights)")
+    paths["lm families"], stats["phase12_s"] = timed(
+        lambda: families_phase(args.seed, stats))
+    log(f"  phase 12 took {stats['phase12_s']:.1f} s")
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.

@@ -136,8 +136,7 @@ SHAPES = {
 
 
 def n_params(cfg: ModelConfig) -> int:
-    """Parameter count from the ParamSpec tree (raises NotImplementedError
-    for the families whose specs the port does not build yet)."""
+    """Parameter count from the ParamSpec tree (every family)."""
     from repro_torch.models import api  # local import to avoid cycles
     from repro_torch.models.module import param_count
     return param_count(api.param_specs(cfg))

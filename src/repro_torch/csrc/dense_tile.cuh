@@ -66,16 +66,25 @@
 //   partial and dense_reduce sums them, over the lower entries only and
 //   with 16 loads in flight.
 //
-// * bf16 input (In = __nv_bfloat16, T = float; K7 and K1 only).  The ring
+// * bf16 input (In = __nv_bfloat16, T = float; K7, K1 and K3).  The ring
 //   holds the accumulation type: each element is widened to f32 as it
 //   lands in shared memory, so the multiply-adds and every sum are the f32
 //   kernel's, and a bf16 packet equals the f32 packet of the upcast operand
-//   bit for bit.  cp.async moves 4, 8 or 16 bytes, not a 2-byte element,
-//   so the copying thread moves a bf16 element itself, through registers:
-//   it loads its elements of stage q + STAGES - 1 before it sums stage q
-//   and widens them into the ring after (fetch_stage, land_stage), so the
-//   loads are in flight while it sums.  The operand's reads are half the
-//   f32 kernel's bytes.
+//   bit for bit.  cp.async moves 4, 8 or 16 bytes, not a 2-byte element.
+//   Rows (K7, K1): the copying thread moves a bf16 element itself, through
+//   registers: it loads its elements of stage q + STAGES - 1 before it
+//   sums stage q and widens them into the ring after (fetch_stage,
+//   land_stage), so the loads are in flight while it sums; the operand's
+//   reads are half the f32 kernel's bytes.  Columns (K3): a sampled
+//   element is an isolated read, and one stage of register loads in
+//   flight (the rows' scheme) left the column gather twice as slow as
+//   f32's STAGES - 1 stages of cp.async.  So each element's aligned 4-byte
+//   word (the element and its neighbour) moves by cp.async into the
+//   element's f32 slot, as in f32, and once the thread's copies of a stage
+//   have landed it keeps the element's half, widened, in that slot
+//   (issue_column_words, widen_columns).  An aligned 4-byte word never
+//   crosses a page, so the neighbour's half is mapped wherever the element
+//   is; its value is dropped.  The sector traffic is f32 K3's.
 //
 // The chunk is the host's pick for (m, K) in the packet's layout, so K1(X,
 // flat, u) equals K7(X[flat], u), K3(X, flat, u) equals K7(X[:, flat]^T, u)
@@ -213,6 +222,45 @@ __device__ __forceinline__ void land_stage(float* dst,
   }
 }
 
+// The column gather of bf16 input: issue_columns' copies, each moving the
+// aligned 4-byte word that holds its element (word_of) into the element's
+// f32 slot; widen_columns then keeps the element's half of each slot as
+// f32 (little-endian: the element at the lower address is the low half).
+// A copy that is not valid zero-fills its slot, which widens to +0.
+__device__ __forceinline__ const float* word_of(const __nv_bfloat16* p) {
+  return reinterpret_cast<const float*>(reinterpret_cast<uintptr_t>(p) &
+                                        ~static_cast<uintptr_t>(3));
+}
+
+__device__ __forceinline__ float widen_half(float word,
+                                            const __nv_bfloat16* p) {
+  const unsigned bits = __float_as_uint(word);
+  return __uint_as_float((reinterpret_cast<uintptr_t>(p) & 2)
+                             ? (bits & 0xffff0000u)
+                             : (bits << 16));
+}
+
+template <typename D>
+__device__ __forceinline__ void issue_column_words(
+    float* dst, const __nv_bfloat16* src, int64_t step, bool ok, int lim,
+    int k0) {
+#pragma unroll
+  for (int q = 0; q < D::COPIES; ++q)
+    cp_async_elem(dst + q * D::CSTEP * D::LD, word_of(src + q * step),
+                  ok && k0 + q * D::CSTEP < lim);
+}
+
+template <typename D>
+__device__ __forceinline__ void widen_columns(float* dst,
+                                              const __nv_bfloat16* src,
+                                              int64_t step) {
+#pragma unroll
+  for (int q = 0; q < D::COPIES; ++q) {
+    float* slot = dst + q * D::CSTEP * D::LD;
+    *slot = widen_half(*slot, src + q * step);
+  }
+}
+
 // Copy one stage of one operand: this thread's COPIES elements, element
 // e = tid + THREADS * q at step 8 (q / ROW_COPIES) + tid % 8 and row
 // tid / 8 + ROW_STEP (q % ROW_COPIES) of the stage.  `dst` is the thread's
@@ -339,11 +387,14 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
     const int64_t left = k_end - k_begin - off;
     return left < STEPS ? static_cast<int>(left) : STEPS;
   };
-  // bf16 input: the registers that carry one stage (both operands and u).
-  constexpr bool STAGED = !std::is_same_v<T, In>;
-  static_assert(!STAGED || (std::is_same_v<T, float> &&
-                            std::is_same_v<In, __nv_bfloat16> &&
-                            SRC != Source::COLS));
+  // bf16 input: rows through the registers that carry one stage (both
+  // operands and u, STAGED); columns by word copies widened in place
+  // (WORDS).
+  constexpr bool WIDE = !std::is_same_v<T, In>;
+  static_assert(!WIDE || (std::is_same_v<T, float> &&
+                          std::is_same_v<In, __nv_bfloat16>));
+  constexpr bool STAGED = WIDE && SRC != Source::COLS;
+  constexpr bool WORDS = WIDE && SRC == Source::COLS;
   In staged[STAGED ? 2 * D::COPIES + 1 : 1];
   auto fetch = [&](int s) {
     if constexpr (STAGED) {
@@ -388,6 +439,14 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
         if (!diag)
           issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j,
                             lim, klo);
+      } else if constexpr (WORDS) {
+        const int cslot = (tid / BM) * D::LD + tid % BM;
+        issue_column_words<D>(st + cslot, rows_i[0] + off * ldx,
+                              D::CSTEP * ldx, ok_i, lim, tid / BM);
+        if (!diag)
+          issue_column_words<D>(st + STEPS * D::LD + cslot,
+                                rows_j[0] + off * ldx, D::CSTEP * ldx, ok_j,
+                                lim, tid / BM);
       } else if constexpr (SRC == Source::COLS) {
         const int cslot = (tid / BM) * D::LD + tid % BM;
         issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
@@ -402,9 +461,32 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
           issue_operand<D>(st + STEPS * D::LD + slot0, src_j + off, rs, ok_j,
                            lim, klo);
       }
-      if (with_r && tid < STEPS)
-        cp_async_elem(st + 2 * STEPS * D::LD + tid, u + k_begin + off + tid,
-                      tid < lim);
+      if constexpr (WORDS) {
+        if (with_r && tid < STEPS)
+          cp_async_elem(st + 2 * STEPS * D::LD + tid,
+                        word_of(u + k_begin + off + tid), tid < lim);
+      } else {
+        if (with_r && tid < STEPS)
+          cp_async_elem(st + 2 * STEPS * D::LD + tid,
+                        u + k_begin + off + tid, tid < lim);
+      }
+    }
+  };
+  // WORDS: this thread's slots of stage s (in ring slot `slot`), once its
+  // copies have landed, each keeping its element's half as f32.
+  auto widen = [&](int slot, int s) {
+    if constexpr (WORDS) {
+      T* st = ring + slot * D::STAGE;
+      const int64_t off = static_cast<int64_t>(s) * STEPS;
+      const int cslot = (tid / BM) * D::LD + tid % BM;
+      widen_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx);
+      if (!diag)
+        widen_columns<D>(st + STEPS * D::LD + cslot, rows_j[0] + off * ldx,
+                         D::CSTEP * ldx);
+      if (with_r && tid < STEPS) {
+        float* us = st + 2 * STEPS * D::LD + tid;
+        *us = widen_half(*us, u + k_begin + off + tid);
+      }
     }
   };
 
@@ -425,6 +507,7 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
   int cur = 0, nxt = STAGES - 1;
   for (int q = 0; q < slabs; ++q) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage q
+    if constexpr (WORDS) widen(cur, q);  // its slots of stage q as f32
     __syncthreads();              // everyone's; stage q - 1 consumed
     const bool more = q + STAGES - 1 < slabs;
     if constexpr (STAGED) {

@@ -25,6 +25,14 @@
 //   thread, up to 16 rows; else 32) and a shallow ring for each
 //   (gram_kernel.COLS_BUILT, from launch.tile_sweep --only cols); only
 //   those two geometries are built here.
+//   K3 also takes bf16 X and u, as the reference's kernel does (f32 sums
+//   and outputs), at the f32 geometries: each element's aligned 4-byte
+//   word moves by cp.async into the element's f32 slot and the copying
+//   thread keeps the element's half there, widened (dense_tile.cuh's
+//   issue_column_words / widen_columns), so a bf16 packet equals the f32
+//   packet of the upcast operand bit for bit and keeps f32's STAGES - 1
+//   stages of isolated reads in flight.  A sampled bf16 element still
+//   costs a sector of its own: the sector traffic is f32's.
 //
 // K4 cols_apply: out(d) = scale * Y v.
 //   Replaces panel_apply_cols_pallas (sampled_colmajor.py).  The reads are
@@ -133,9 +141,10 @@ cols_apply(const T* __restrict__ X, const int* __restrict__ flat,
 }
 
 // K3: the gathered-column tile at the geometries the host can pick
-// (gram_kernel.COLS_BUILT, the same for f32 and f64).  Anything else is
-// refused with cudaErrorInvalidValue before a launch.
-template <typename T>
+// (gram_kernel.COLS_BUILT, the same for f32, f64 and bf16 input, In =
+// __nv_bfloat16 with f32 sums and outputs).  Anything else is refused with
+// cudaErrorInvalidValue before a launch.
+template <typename T, typename In = T>
 int packet_impl(const void* X, const void* flat, const void* u,
                 const int* tiles, void* Gp, void* rp, void* G, void* r,
                 int64_t d, int64_t n, int m, int64_t chunk, int splits,
@@ -145,9 +154,9 @@ int packet_impl(const void* X, const void* flat, const void* u,
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true,       \
-                                               repro::Source::COLS>(          \
-        static_cast<const T*>(X), static_cast<const int*>(flat),              \
-        static_cast<const T*>(u), tiles, ntiles, m, d, chunk, splits, smem,   \
+                                               repro::Source::COLS, In>(      \
+        static_cast<const In*>(X), static_cast<const int*>(flat),             \
+        static_cast<const In*>(u), tiles, ntiles, m, d, chunk, splits, smem,  \
         static_cast<T>(scale), static_cast<T>(reg), static_cast<T>(scale_r),  \
         static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),         \
         static_cast<T*>(r), static_cast<cudaStream_t>(stream), n));
@@ -230,6 +239,19 @@ int cols_packet_f64(const void* X, const void* flat, const void* u,
   return packet_impl<double>(X, flat, u, tiles, Gp, rp, G, r, d, n, m, chunk,
                              splits, bm, tm, tn, stages, steps, ntiles, smem,
                              scale, reg, scale_r, stream);
+}
+
+// cols_packet_bf16: as cols_packet_f32 with X and u bf16; Gp, rp, G and r
+// are f32.
+int cols_packet_bf16(const void* X, const void* flat, const void* u,
+                     const int* tiles, void* Gp, void* rp, void* G, void* r,
+                     int64_t d, int64_t n, int m, int64_t chunk, int splits,
+                     int bm, int tm, int tn, int stages, int steps,
+                     int ntiles, int smem, double scale, double reg,
+                     double scale_r, void* stream) {
+  return packet_impl<float, __nv_bfloat16>(
+      X, flat, u, tiles, Gp, rp, G, r, d, n, m, chunk, splits, bm, tm, tn,
+      stages, steps, ntiles, smem, scale, reg, scale_r, stream);
 }
 
 // cols_apply_*(X, flat, v, out, d, n, m, threads, seg, scale, stream)

@@ -9,9 +9,11 @@ maps the reference ``SolverPlan`` fields this port supports (a reference
 :func:`result_to_numpy` converts a port result back.  For the tenant-batched
 engine, :func:`batch_from_numpy` builds a ``TenantBatch`` from numpy arrays
 and :func:`batched_result_to_numpy` converts a batched result back.  For
-the LM, :func:`lm_params_from_reference` builds the port's model from the
+the LM, :func:`lm_params_from_reference` builds the port's model (every
+family: dense, vlm, ssm, hybrid, moe and the encoder-decoder) from the
 reference's parameter tree, and :func:`lm_cache_from_reference` /
-:func:`lm_cache_to_numpy` carry a decode cache across.
+:func:`lm_cache_to_numpy` carry a decode cache across, the mamba state
+included.
 """
 from __future__ import annotations
 
@@ -134,24 +136,40 @@ def _tree_to_torch(tree, device, dtype):
 
 
 def lm_params_from_reference(params_np, cfg, *, device, dtype=None):
-    """The port's :class:`~repro_torch.models.DecoderLM` for ``cfg`` with
-    the reference's parameters: ``params_np`` is the reference's tree (as
-    numpy arrays, the layer axis stacked under ``blocks/sub{j}``), each leaf
-    placed on ``device`` in ``dtype`` (default: ``cfg.param_dtype``).  A
-    bf16 leaf is carried through f32, which holds it exactly."""
+    """The port's model for ``cfg`` (``models.api.build_model``: a
+    :class:`~repro_torch.models.DecoderLM`, or an
+    :class:`~repro_torch.models.EncDecLM` for the audio family) with the
+    reference's parameters: ``params_np`` is the reference's tree (numpy
+    arrays, layer axes stacked under ``blocks/sub{j}`` or ``encoder`` /
+    ``decoder``; mamba, MoE and cross-attention sublayers included), each
+    leaf placed on ``device`` in the type its spec gives a model of
+    ``dtype`` (default: ``cfg.param_dtype``; the f32 parameters -- mamba's
+    ``A_log``, ``D``, ``dt_bias`` and the MoE router -- stay f32, as in the
+    reference).  A bf16 leaf is carried through f32, which holds it
+    exactly."""
     import dataclasses
 
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import api
     dtype = cfg.param_dtype if dtype is None else dtype
     if dtype != cfg.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
-    return DecoderLM(cfg, _tree_to_torch(params_np, device, dtype))
+    params = api._to_specs(_tree_to_torch(params_np, device, None),
+                           api.param_specs(cfg))
+    return api.build_model(cfg, params)
 
 
 def lm_cache_from_reference(cache_np, *, device, dtype):
-    """A reference decode cache (numpy, ``{"blocks": {"sub{j}": {"k",
-    "v"}}}``, layer axis first) as the port's cache on ``device`` in
-    ``dtype``: the two share the layout."""
+    """A reference decode cache (numpy; ``{"blocks": {"sub{j}": {"k", "v"}
+    or {"ssm", "conv_x", "conv_B", "conv_C"}}}`` or ``{"decoder": {"k",
+    "v", "xk", "xv"}}``, layer axis first) as the port's cache on
+    ``device``: the two share the layout.  Every leaf is taken to
+    ``dtype`` but the mamba state ``ssm``, which is f32 in every model, as
+    in the reference."""
+    if isinstance(cache_np, dict):
+        return {k: (_tree_to_torch(v, device, torch.float32) if k == "ssm"
+                    else lm_cache_from_reference(v, device=device,
+                                                 dtype=dtype))
+                for k, v in cache_np.items()}
     return _tree_to_torch(cache_np, device, dtype)
 
 

@@ -3,7 +3,7 @@ PyTorch versions (``ref``) and hand-written CUDA kernels for Hopper
 (``csrc/``).
 
 ``KERNELS`` lists the CUDA kernels with their launch counters, one per TPU
-kernel; ``BF16_KERNELS`` the bf16 builds of the packets K1 and K7, counted
+kernel; ``BF16_KERNELS`` the bf16 builds of the packets K1, K3 and K7, counted
 apart; ``launch_counts`` reads every counter of both."""
 from . import tuning
 from .gram_kernel import (DENSE_GRAM, DENSE_PACKET, DENSE_PACKET_BF16,
@@ -16,7 +16,7 @@ from .ref import (gram_packet_ref, gram_packet_sampled_cols_ref,
                   gram_packet_sampled_ref, gram_ref, panel_apply_cols_ref,
                   panel_apply_ref, panel_matvec_cols_ref, panel_matvec_ref)
 from .sampled_colmajor import (COLS_APPLY, COLS_MATVEC, COLS_PACKET,
-                               gram_packet_sampled_cols, panel_apply_cols,
+                               COLS_PACKET_BF16, gram_packet_sampled_cols, panel_apply_cols,
                                panel_matvec_cols)
 from .sampled_kernel import (ROWS_APPLY, ROWS_MATVEC, ROWS_PACKET,
                              ROWS_PACKET_BF16, gram_packet_sampled_rows,
@@ -24,7 +24,7 @@ from .sampled_kernel import (ROWS_APPLY, ROWS_MATVEC, ROWS_PACKET,
 
 KERNELS = (ROWS_PACKET, ROWS_APPLY, COLS_PACKET, COLS_APPLY, COLS_MATVEC,
            ROWS_MATVEC, DENSE_PACKET, DENSE_GRAM)
-BF16_KERNELS = (ROWS_PACKET_BF16, DENSE_PACKET_BF16)
+BF16_KERNELS = (ROWS_PACKET_BF16, DENSE_PACKET_BF16, COLS_PACKET_BF16)
 
 
 def launch_counts() -> dict:

@@ -107,8 +107,9 @@ GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
 # the rings that read best keep few steps in flight, (stages, steps) =
 # (3, 32) at m = 8 and (4, 8) at m = 128 (where deeper and shallower rings
 # alike read up to 2x slower, in no monotone order).
+# bf16 input (f32 ring and sums) is built at the f32 picks alone.
 COLS_BUILT = {dtype: ((16, 2, 2, 3, 32), (32, 4, 4, 4, 8))
-              for dtype in (torch.float32, torch.float64)}
+              for dtype in (torch.float32, torch.float64, torch.bfloat16)}
 
 
 class DenseGeometry(NamedTuple):

@@ -12,7 +12,11 @@ layout, with no transposed copy of X.
   read best in ``launch.tile_sweep``'s cols sweep
   (:func:`cols_packet_geometry`, ``gram_kernel.launch_dense``), so it
   equals K7 on the gathered panel ``X[:, flat].T`` at that chunk bit for
-  bit.
+  bit.  It also takes bf16 X and u, as the reference's kernel does: each
+  element is widened to f32 as it lands in the ring, so the f32 (G, r)
+  equal the f32 kernel's on the upcast operand bit for bit (counted apart,
+  :data:`COLS_PACKET_BF16`).  A sampled bf16 element still reads a sector
+  of its own, so it reads about as many sectors as f32.
 * :func:`panel_apply_cols` (K4) -- ``out(d) = scale * Y v``.  Replaces
   ``panel_apply_cols_pallas`` (same file).  Bounded by the sector traffic
   of its scattered reads.  Each row of X gets a segment of lanes as wide as
@@ -43,6 +47,9 @@ from .sampled_kernel import (D, I, I64, P, SUFFIX, check_cuda_operands,
 
 COLS_PACKET = _build.KernelInfo(
     "gram_packet_sampled_cols", "src/repro_torch/csrc/sampled_cols.cu",
+    "src/repro/kernels/gram/sampled_colmajor.py:143")
+COLS_PACKET_BF16 = _build.KernelInfo(
+    "gram_packet_sampled_cols_bf16", "src/repro_torch/csrc/sampled_cols.cu",
     "src/repro/kernels/gram/sampled_colmajor.py:143")
 COLS_APPLY = _build.KernelInfo(
     "panel_apply_cols", "src/repro_torch/csrc/sampled_cols.cu",
@@ -135,14 +142,16 @@ def gram_packet_sampled_cols(X: torch.Tensor, flat: torch.Tensor,
                              bk: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: the column-sampled packet for X (d, n), flat (m,) int32 over n,
-    u (d,)."""
+    u (d,); X and u float32, float64 or bfloat16 (then G and r are
+    float32)."""
     if X.device.type == "cpu":
         return ref.gram_packet_sampled_cols_ref(X, flat, u, scale, reg,
                                                 scale_r)
     d, n = X.shape
-    check_cuda_operands(X, flat, u, d, n, COLS_PACKET.name)
+    info = COLS_PACKET_BF16 if X.dtype == torch.bfloat16 else COLS_PACKET
+    check_cuda_operands(X, flat, u, d, n, info.name, bf16=True)
     geom = cols_packet_geometry(flat.shape[0], d, X.dtype, bk)
-    return launch_dense(COLS_PACKET, X, u, geom, scale, reg, scale_r, flat)
+    return launch_dense(info, X, u, geom, scale, reg, scale_r, flat)
 
 
 def panel_apply_cols(X: torch.Tensor, flat: torch.Tensor, v: torch.Tensor,

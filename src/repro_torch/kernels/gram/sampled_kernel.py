@@ -63,7 +63,7 @@ P, I, I64, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _APPLY_ARGS = (P, P, P, P, I64, I, I, I, I, D, P)
 MATVEC_ARGS = (P,) * 6 + (I64, I, I, I64, I, I, I, I, I, I, I, D, P)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# The packets K1 and K7 also take bf16 (f32 sums and outputs).
+# The packets K1, K3 and K7 also take bf16 (f32 sums and outputs).
 PACKET_SUFFIX = SUFFIX | {torch.bfloat16: "bf16"}
 
 # K2 (rows_apply): the block sizes, and per dtype the (columns a thread,
@@ -101,10 +101,10 @@ SMEM_PER_BLOCK = 232448         # bytes of shared memory a block may use
 
 def check_matrix(X: torch.Tensor, what: str, *, bf16: bool = False) -> None:
     """The operand a kernel reads: float32 or float64 (and bfloat16 where
-    ``bf16``: the packets K1 and K7), 2-D and contiguous (the wrappers never
+    ``bf16``: the packets K1, K3 and K7), 2-D and contiguous (the wrappers never
     copy it)."""
     if X.dtype not in (PACKET_SUFFIX if bf16 else SUFFIX):
-        hint = (f" (bf16 input is taken by the packets K1 and K7 only; "
+        hint = (f" (bf16 input is taken by the packets K1, K3 and K7 only; "
                 f"{what} has no bf16 build)"
                 if X.dtype == torch.bfloat16 else "")
         raise TypeError(f"{what}: X dtype {X.dtype} not in float32/float64"

@@ -5,7 +5,10 @@
 --max-new 16`` serves the reduced configuration on the card; ``--full``
 serves the published one (random weights from ``--seed``: no weights are
 downloaded); ``--device cpu`` runs on the CPU.  Without a card the default
-device raises.
+device raises.  Every decoder family's ``--arch`` is served (dense, vlm,
+ssm, hybrid, moe; the ssm / hybrid prompts are one SSD chunk long); the
+encoder-decoder (seamless) is refused by the engine, whose requests carry
+no encoder frames.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.regression import check_device
-from repro_torch.models import DecoderLM
+from repro_torch.models import api
 from repro_torch.serve import Engine, ServeConfig
 
 
@@ -40,7 +43,7 @@ def main(argv=None) -> list[list[int]]:
     device = check_device(args.device)
     cfg = (get_config if args.full else get_reduced)(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = DecoderLM.init(cfg, gen)
+    model = api.init_model(cfg, gen)
     eng = Engine(cfg, model, ServeConfig(
         max_seq=512, slots=args.slots, temperature=args.temperature,
         seed=args.seed))

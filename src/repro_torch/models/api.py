@@ -1,9 +1,15 @@
-"""Model assembly for the decoder family, the twin of ``repro.models.api``:
-the dense decoders (llama, qwen2, granite, mistral-nemo) and the vlm's
-patch-prefix path (llava) share one body.
+"""Model assembly, the twin of ``repro.models.api``: every architecture
+reduces to one of two bodies
+
+  * decoder -- dense / moe / ssm / hybrid / vlm (:class:`DecoderLM`; llava
+               = decoder + patch prefix; mamba2 = decoder with mamba
+               sublayers and no MLP; jamba = 1:7 attn:mamba interleave with
+               MoE on every other layer)
+  * encdec  -- seamless (:class:`EncDecLM`: audio encoder + cross-attending
+               text decoder)
 
 Public entry points (the reference's, with its parameter tree replaced by
-a :class:`DecoderLM`):
+a model built from it, :func:`build_model`):
   param_specs(cfg)                         -> ParamSpec tree
   forward(model, cfg, batch)               -> (logits, aux)
   init_cache_specs(cfg, batch, max_seq)    -> cache ParamSpec tree
@@ -11,20 +17,21 @@ a :class:`DecoderLM`):
   prefill(model, cfg, batch, max_seq)      -> (logits_last, cache)
   decode_step(model, cfg, cache, tok, pos) -> (logits, cache)
 
-The reference scans one superblock over a stacked layer axis; here the
-layers are an ``nn.ModuleList`` and the scan is a Python loop over them.
-The parameter tree keeps the stacked layout (``blocks/sub{j}``, layer axis
-first) so that counts, bytes and the reference's weights carry over
-(``repro_torch.interop.lm_params_from_reference``); each layer's tensors
-are views of it.  So does the cache: ``{"blocks": {"sub{j}": {"k", "v"}}}``
-with the layer axis first, slot axis second.  ``decode_step`` writes the
-new k / v rows into that cache in place and returns it (the reference
-returns a new cache).  The reference's ``_remat`` is a training-time
-memory policy and has no twin.
-
-The ssm / hybrid bodies (``mamba2.py``), mixture-of-experts MLPs
-(``moe.py``) and the encoder-decoder body (audio) are not ported yet: their
-entry points raise ``NotImplementedError``.
+The reference scans one superblock (the lcm of the attention interleave
+and the MoE period) over a stacked layer axis; here the layers are an
+``nn.ModuleList`` and the scan is a Python loop over them, so a layer holds
+only its own sublayers: ``attn`` or ``mamba``, then ``mlp``, ``moe`` or
+nothing (``d_ff == 0``).  The parameter tree keeps the stacked layout
+(``blocks/sub{j}``, or ``encoder`` / ``decoder`` for the enc-dec body,
+layer axis first) so that counts, bytes and the reference's weights carry
+over (``repro_torch.interop.lm_params_from_reference``); each layer's
+tensors are views of it.  So does the cache: ``{"blocks": {"sub{j}":
+{"k", "v"} or {"ssm", "conv_x", "conv_B", "conv_C"}}}`` or ``{"decoder":
+{"k", "v", "xk", "xv"}}``, layer axis first, slot axis second.
+``decode_step`` writes each layer's new k / v rows and mamba state into
+that cache in place and returns it (the reference returns a new cache).
+The reference's ``_remat`` is a training-time memory policy and has no
+twin; nor has ``loss_fn`` yet.
 """
 from __future__ import annotations
 
@@ -35,23 +42,9 @@ import torch
 from torch import nn
 
 from . import layers as L
-from .module import ParamSpec, init_params, stack_specs, tree_map
-
-UNPORTED = ("ssm", "hybrid", "audio")
-
-
-def check_ported(cfg, what: str) -> None:
-    """Refuse the families whose bodies the port does not have yet."""
-    if cfg.family in UNPORTED or cfg.moe is not None:
-        part = ("the encoder-decoder body" if cfg.family == "audio" else
-                "moe.py" if cfg.moe is not None and cfg.family == "moe" else
-                "mamba2.py and moe.py" if cfg.family == "hybrid" else
-                "mamba2.py")
-        raise NotImplementedError(
-            f"{what}: {cfg.name} ({cfg.family}) needs {part}, which the next "
-            f"slice of the port brings (ROADMAP.md, queue 1); the port has "
-            f"the dense and vlm decoder body only")
-
+from . import mamba2 as M
+from . import moe as MOE
+from .module import ParamSpec, init_params, is_spec, stack_specs, tree_map
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -66,10 +59,18 @@ def _superblock_period(cfg) -> int:
 
 
 def _sublayer_specs(cfg, i: int) -> dict:
-    return {"ln1": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
-            "attn": L.attention_specs(cfg),
-            "ln2": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
-            "mlp": L.mlp_specs(cfg)}
+    specs: dict = {"ln1": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)}
+    if cfg.layer_kind(i) == "attn":
+        specs["attn"] = L.attention_specs(cfg)
+    else:
+        specs["mamba"] = M.mamba_specs(cfg)
+    if cfg.d_ff > 0:
+        specs["ln2"] = L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)
+        if cfg.mlp_kind(i) == "moe":
+            specs["moe"] = MOE.moe_specs(cfg)
+        else:
+            specs["mlp"] = L.mlp_specs(cfg)
+    return specs
 
 
 def _block_specs(cfg) -> dict:
@@ -81,18 +82,47 @@ def _block_specs(cfg) -> dict:
     return stack_specs(sub, cfg.n_layers // period)
 
 
+def _encdec_specs(cfg) -> dict:
+    # Encoder: bidirectional attn + MLP; decoder: self-attn + cross-attn + MLP.
+    enc_layer = {
+        "ln1": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "attn": L.attention_specs(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "mlp": L.mlp_specs(cfg),
+    }
+    dec_layer = {
+        "ln1": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "attn": L.attention_specs(cfg),
+        "lnx": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "cross": L.attention_specs(cfg, cross=True),
+        "ln2": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "mlp": L.mlp_specs(cfg),
+    }
+    return {
+        "encoder": stack_specs(enc_layer, cfg.enc_layers),
+        "enc_norm": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+        "decoder": stack_specs(dec_layer, cfg.n_layers),
+    }
+
+
 def param_specs(cfg, experts_only: bool = False) -> dict:
-    check_ported(cfg, "param_specs")
     if experts_only:
-        return {}
+        if not cfg.moe:
+            return {}
+        moe_layers = cfg.n_layers // cfg.moe.every_n_layers
+        e = MOE.moe_specs(cfg)
+        return stack_specs({k: e[k] for k in ("w1", "w2", "w3")}, moe_layers)
     specs: dict = dict(L.embed_specs(cfg))
     specs["final_norm"] = L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)
-    specs["blocks"] = _block_specs(cfg)
+    if cfg.family == "audio":
+        specs.update(_encdec_specs(cfg))
+    else:
+        specs["blocks"] = _block_specs(cfg)
     return specs
 
 
 # ---------------------------------------------------------------------------
-# The model
+# The models
 # ---------------------------------------------------------------------------
 
 
@@ -100,45 +130,65 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class DecoderLayer(nn.Module):
-    """One decoder layer: ``ln1``, ``attn`` (wq, wk, wv, wo, and bq, bk, bv
-    with qkv bias), ``ln2`` and ``mlp`` (w1, w3, w2), as in the reference's
-    sublayer tree."""
+class Layer(nn.Module):
+    """One layer's parameters, in the reference's sublayer tree: the norms
+    (``ln1``, ``ln2``, ``lnx``) as parameters, the sublayers (``attn``,
+    ``cross``, ``mamba``, ``mlp``, ``moe``) as parameter dicts.  ``kinds``
+    names the entries this layer has."""
 
     def __init__(self, p: dict):
         super().__init__()
-        self.ln1 = _frozen(p["ln1"])
-        self.attn = nn.ParameterDict({k: _frozen(v)
-                                      for k, v in p["attn"].items()})
-        self.ln2 = _frozen(p["ln2"])
-        self.mlp = nn.ParameterDict({k: _frozen(v)
-                                     for k, v in p["mlp"].items()})
+        self.kinds = tuple(p)
+        for k, v in p.items():
+            setattr(self, k, nn.ParameterDict(
+                {n: _frozen(t) for n, t in v.items()})
+                if isinstance(v, dict) else _frozen(v))
+
+    def tree(self) -> dict:
+        out = {}
+        for k in self.kinds:
+            v = getattr(self, k)
+            out[k] = ({n: t.data for n, t in v.items()}
+                      if isinstance(v, nn.ParameterDict) else v.data)
+        return out
 
 
-class DecoderLM(nn.Module):
-    """The decoder LM: ``top`` holds ``embedding`` (and ``lm_head`` when
-    the embeddings are untied) and ``final_norm``; ``layers`` the
-    ``cfg.n_layers`` decoder layers in order.  Built from a parameter tree in
-    the reference's layout (:func:`param_specs`), whose tensors it keeps as
-    they are (views, no copy); no gradients are kept."""
+def _unstack(stacked: dict, n: int) -> list:
+    """The n layer trees of a stacked tree (views along the layer axis)."""
+    return [tree_map(lambda t, i=i: t[i], stacked, is_leaf=torch.is_tensor)
+            for i in range(n)]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _to_specs(tree, specs):
+    """Each leaf of ``tree`` in the dtype of its spec (a copy where the
+    dtype changes)."""
+    if is_spec(specs):
+        return tree.to(specs.dtype)
+    return {k: _to_specs(tree[k], specs[k]) for k in tree}
+
+
+class _LM(nn.Module):
+    """What both bodies share: ``top`` holds ``embedding`` (and ``lm_head``
+    when the embeddings are untied), ``final_norm`` and any other unstacked
+    leaf; the subclass holds the layers and knows their stacked layout.
+    Built from a parameter tree in the reference's layout
+    (:func:`param_specs`), whose tensors it keeps as they are (views, no
+    copy); no gradients are kept."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
-        check_ported(cfg, "DecoderLM")
         self.cfg = cfg
-        self.top = nn.ParameterDict({k: _frozen(params[k]) for k in
-                                     ("embedding", "lm_head", "final_norm")
-                                     if k in params})
-        period = _superblock_period(cfg)
-        blocks = params["blocks"]
-        self.layers = nn.ModuleList(
-            DecoderLayer(tree_map(lambda t, i=i: t[i], blocks[f"sub{j}"],
-                                  is_leaf=torch.is_tensor))
-            for i in range(cfg.n_layers // period) for j in range(period))
+        self.top = nn.ParameterDict({k: _frozen(v) for k, v in params.items()
+                                     if torch.is_tensor(v)})
 
     @classmethod
-    def init(cls, cfg, generator: torch.Generator, device=None
-             ) -> "DecoderLM":
+    def init(cls, cfg, generator: torch.Generator, device=None):
         """Random weights from ``generator`` (:func:`init_params`)."""
         return cls(cfg, init_params(param_specs(cfg), generator, device))
 
@@ -146,42 +196,87 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.top["embedding"].device
 
+    def _stacks(self) -> dict:
+        raise NotImplementedError
+
     def param_tree(self, dtype: torch.dtype | None = None) -> dict:
-        """The parameters in the reference's layout (layer axis stacked),
-        copied, in ``dtype`` when given."""
-        def conv(t):
-            return t.data if dtype is None else t.data.to(dtype)
-
-        period = _superblock_period(self.cfg)
-        tree = {k: conv(v).clone() for k, v in self.top.items()}
-        tree["blocks"] = {}
-        for j in range(period):
-            layers = self.layers[j::period]
-            tree["blocks"][f"sub{j}"] = _stack(
-                [tree_map(conv, _layer_tree(layer), is_leaf=torch.is_tensor)
-                 for layer in layers], _layer_tree(layers[0]))
-        return tree
-
-    def cast(self, dtype: torch.dtype) -> "DecoderLM":
-        """A copy with every parameter and the activations in ``dtype``
-        (``cfg.dtype`` and ``cfg.param_dtype`` replaced)."""
+        """The parameters in the reference's layout (layer axes stacked),
+        copied; with ``dtype``, each leaf in the type its spec gives a model
+        of that dtype (the f32 parameters -- mamba's ``A_log``, ``D``,
+        ``dt_bias``, the MoE router -- stay f32, as in the reference)."""
+        tree = {k: v.data.clone() for k, v in self.top.items()}
+        tree.update(self._stacks())
+        if dtype is None:
+            return tree
         cfg = dataclasses.replace(self.cfg, dtype=dtype, param_dtype=dtype)
-        return DecoderLM(cfg, self.param_tree(dtype))
+        return _to_specs(tree, param_specs(cfg))
+
+    def cast(self, dtype: torch.dtype) -> "_LM":
+        """A copy with the activations and the parameters in ``dtype``
+        (``cfg.dtype`` and ``cfg.param_dtype`` replaced; f32 parameters
+        stay f32, :meth:`param_tree`)."""
+        cfg = dataclasses.replace(self.cfg, dtype=dtype, param_dtype=dtype)
+        return type(self)(cfg, self.param_tree(dtype))
 
     def forward(self, batch: dict):
         return forward(self, self.cfg, batch)
 
 
-def _layer_tree(layer: DecoderLayer) -> dict:
-    return {"ln1": layer.ln1.data, "ln2": layer.ln2.data,
-            "attn": {k: v.data for k, v in layer.attn.items()},
-            "mlp": {k: v.data for k, v in layer.mlp.items()}}
+class DecoderLM(_LM):
+    """The decoder LM: ``layers`` holds the ``cfg.n_layers`` layers in
+    order, layer i = superblock i // period, sublayer ``sub{i % period}``
+    of the stacked tree; each holds ``attn`` or ``mamba``, and ``mlp``,
+    ``moe`` or nothing, as ``cfg.layer_kind`` / ``cfg.mlp_kind`` say."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__(cfg, params)
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.name} is an encoder-decoder: EncDecLM, "
+                             f"or build_model, builds it")
+        period = _superblock_period(cfg)
+        subs = [_unstack(params["blocks"][f"sub{j}"], cfg.n_layers // period)
+                for j in range(period)]
+        self.layers = nn.ModuleList(Layer(subs[i % period][i // period])
+                                    for i in range(cfg.n_layers))
+
+    def _stacks(self) -> dict:
+        period = _superblock_period(self.cfg)
+        return {"blocks": {f"sub{j}": _stack([layer.tree() for layer in
+                                              self.layers[j::period]])
+                           for j in range(period)}}
 
 
-def _stack(trees: list, like: dict):
-    if isinstance(like, dict):
-        return {k: _stack([t[k] for t in trees], like[k]) for k in like}
-    return torch.stack(trees)
+class EncDecLM(_LM):
+    """The encoder-decoder LM (audio family): ``enc_layers`` (``ln1``,
+    ``attn``, ``ln2``, ``mlp``), ``enc_norm`` in ``top``, and
+    ``dec_layers`` (``ln1``, ``attn``, ``lnx``, ``cross``, ``ln2``,
+    ``mlp``)."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__(cfg, params)
+        if cfg.family != "audio":
+            raise ValueError(f"{cfg.name} is a decoder: DecoderLM, or "
+                             f"build_model, builds it")
+        self.enc_layers = nn.ModuleList(
+            Layer(t) for t in _unstack(params["encoder"], cfg.enc_layers))
+        self.dec_layers = nn.ModuleList(
+            Layer(t) for t in _unstack(params["decoder"], cfg.n_layers))
+
+    def _stacks(self) -> dict:
+        return {"encoder": _stack([la.tree() for la in self.enc_layers]),
+                "decoder": _stack([la.tree() for la in self.dec_layers])}
+
+
+def build_model(cfg, params: dict) -> _LM:
+    """The model of ``cfg``'s body on a parameter tree of
+    :func:`param_specs`' layout: :class:`EncDecLM` for the audio family,
+    else :class:`DecoderLM`."""
+    return (EncDecLM if cfg.family == "audio" else DecoderLM)(cfg, params)
+
+
+def init_model(cfg, generator: torch.Generator, device=None) -> _LM:
+    """:func:`build_model` on random weights from ``generator``."""
+    return build_model(cfg, init_params(param_specs(cfg), generator, device))
 
 
 # ---------------------------------------------------------------------------
@@ -207,24 +302,80 @@ def _project(p, x, cfg, positions):
     return q, k, v
 
 
-def _apply_layer(layer, x, cfg, positions, kv=None):
-    """One decoder layer on x (B, S, D); appends its (k, v) to ``kv`` when
-    given (prefill's cache)."""
+def _attend(q, k, v, cfg, causal=True):
+    return L.chunked_attention(q, k, v, causal=causal, block_q=cfg.block_q,
+                               block_kv=cfg.block_kv)
+
+
+def _apply_layer(layer, x, cfg, positions, aux, caches=None):
+    """One decoder layer on x (B, S, D); sums the MoE metrics into ``aux``;
+    appends the layer's decode cache to ``caches`` when given (prefill's:
+    an attention layer's rope'd k and its v, a mamba layer's state)."""
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-    q, k, v = _project(layer.attn, h, cfg, positions)
-    out = L.chunked_attention(q, k, v, causal=True, block_q=cfg.block_q,
-                              block_kv=cfg.block_kv)
-    x = x + L.out_proj(layer.attn, out)
-    if kv is not None:
-        kv.append((k, v))
-    h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
-    return x + L.swiglu(layer.mlp, h)
+    if "attn" in layer.kinds:
+        q, k, v = _project(layer.attn, h, cfg, positions)
+        x = x + L.out_proj(layer.attn, _attend(q, k, v, cfg))
+        state = {"k": k, "v": v}
+    else:
+        out, state = M.mamba_block_with_state(layer.mamba, h, cfg)
+        x = x + out
+    if caches is not None:
+        caches.append(state)
+    if "ln2" in layer.kinds:
+        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+        if "moe" in layer.kinds:
+            out, metrics = MOE.moe_block(layer.moe, h, cfg)
+            aux = {k: aux.get(k, 0.0) + v for k, v in metrics.items()}
+            x = x + out
+        else:
+            x = x + L.swiglu(layer.mlp, h)
+    return x, aux
 
 
-def _decoder_stack(model, cfg, x, positions, kv=None):
-    """The layers in order (the reference's scan over superblocks)."""
+def _decoder_stack(model, cfg, x, positions, caches=None):
+    """The layers in order (the reference's scan over superblocks); the
+    MoE metrics summed over the MoE layers, from f32 zeros."""
+    aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
+            for k in ("moe_aux_loss", "moe_drop_frac")} if cfg.moe else {})
     for layer in model.layers:
-        x = _apply_layer(layer, x, cfg, positions, kv)
+        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches)
+    return x, aux
+
+
+def _self_attention(p, x, cfg, positions, causal):
+    q, k, v = _project(p, x, cfg, positions)
+    return L.out_proj(p, _attend(q, k, v, cfg, causal))
+
+
+def _encoder_stack(model, cfg, src):
+    """The bidirectional encoder on the frame embeddings, then enc_norm."""
+    x = torch.as_tensor(src, device=model.device).to(cfg.dtype)
+    positions = _positions(x.shape[1], x.device)
+    for layer in model.enc_layers:
+        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+        x = x + _self_attention(layer.attn, h, cfg, positions, causal=False)
+        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+        x = x + L.swiglu(layer.mlp, h)
+    return L.rmsnorm(x, model.top["enc_norm"], cfg.norm_eps)
+
+
+def _cross_decoder_stack(model, cfg, x, enc, caches=None):
+    """The text decoder: causal self-attention, cross-attention to the
+    encoder's output, MLP.  Appends each layer's self k / v and cross
+    xk / xv to ``caches`` when given."""
+    positions = _positions(x.shape[1], x.device)
+    for layer in model.dec_layers:
+        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+        q, k, v = _project(layer.attn, h, cfg, positions)
+        x = x + L.out_proj(layer.attn, _attend(q, k, v, cfg))
+        h = L.rmsnorm(x, layer.lnx, cfg.norm_eps)
+        qx, xk, xv = L.qkv_proj(layer.cross, h, enc)
+        x = x + L.out_proj(layer.cross, _attend(qx, xk, xv, cfg,
+                                                causal=False))
+        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+        x = x + L.swiglu(layer.mlp, h)
+        if caches is not None:
+            caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
     return x, {}
 
 
@@ -246,29 +397,70 @@ def _embed(model, cfg, batch: dict) -> torch.Tensor:
 def forward(model, cfg, batch: dict):
     """Returns (logits (B, S, Vpad), aux metrics).  batch keys: tokens
     (B, St); optional extra_embeds (B, Sx, D) prefixed (the vlm's patch
-    embeddings)."""
-    check_ported(cfg, "forward")
-    x = _embed(model, cfg, batch)
-    x, aux = _decoder_stack(model, cfg, x, _positions(x.shape[1], x.device))
+    embeddings); the audio family instead takes src_embeds (B, Se, D), the
+    encoder's frames, with the tokens."""
+    if cfg.family == "audio":
+        enc = _encoder_stack(model, cfg, batch["src_embeds"])
+        x, aux = _cross_decoder_stack(model, cfg, _embed(model, cfg, batch),
+                                      enc)
+    else:
+        x = _embed(model, cfg, batch)
+        x, aux = _decoder_stack(model, cfg, x,
+                                _positions(x.shape[1], x.device))
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     return L.unembed(model.top, x), aux
 
 
 # ---------------------------------------------------------------------------
-# KV caches and decode
+# Caches and decode
 # ---------------------------------------------------------------------------
 
 
+def _cache_sublayer_specs(cfg, i: int, batch: int, max_seq: int) -> dict:
+    if cfg.layer_kind(i) == "attn":
+        hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (batch, max_seq, hkv, dh)
+        axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": ParamSpec(shape, axes, cfg.dtype, init="zeros"),
+                "v": ParamSpec(shape, axes, cfg.dtype, init="zeros")}
+    s = cfg.ssm
+    di, h, gn = (s.d_inner(cfg.d_model), s.n_heads(cfg.d_model),
+                 s.n_groups * s.d_state)
+    return {
+        "ssm": ParamSpec((batch, h, s.head_dim, s.d_state),
+                         ("batch", "inner", "head_dim", "state"),
+                         torch.float32, init="zeros"),
+        "conv_x": ParamSpec((batch, s.d_conv - 1, di),
+                            ("batch", "conv", "inner"), cfg.dtype,
+                            init="zeros"),
+        "conv_B": ParamSpec((batch, s.d_conv - 1, gn),
+                            ("batch", "conv", "state"), cfg.dtype,
+                            init="zeros"),
+        "conv_C": ParamSpec((batch, s.d_conv - 1, gn),
+                            ("batch", "conv", "state"), cfg.dtype,
+                            init="zeros"),
+    }
+
+
 def init_cache_specs(cfg, batch: int, max_seq: int) -> dict:
-    """ParamSpec tree of the decode cache, the reference's layout."""
-    check_ported(cfg, "init_cache_specs")
-    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (batch, max_seq, hkv, dh)
-    axes = ("batch", "cache_seq", "kv_heads", "head_dim")
-    sub = {f"sub{j}": {"k": ParamSpec(shape, axes, cfg.dtype, init="zeros"),
-                       "v": ParamSpec(shape, axes, cfg.dtype, init="zeros")}
-           for j in range(_superblock_period(cfg))}
-    return {"blocks": stack_specs(sub, cfg.n_layers // _superblock_period(cfg))}
+    """ParamSpec tree of the decode cache, the reference's layout.  The
+    audio family's cross k / v are sized for max(max_seq // 4, 128) frames,
+    as the reference sizes them (its prefill returns them at the encoder's
+    own length)."""
+    if cfg.family == "audio":
+        hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        self_shape = (batch, max_seq, hkv, dh)
+        cross_shape = (batch, max(max_seq // 4, 128), hkv, dh)
+        axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+        layer = {"k": ParamSpec(self_shape, axes, cfg.dtype, init="zeros"),
+                 "v": ParamSpec(self_shape, axes, cfg.dtype, init="zeros"),
+                 "xk": ParamSpec(cross_shape, axes, cfg.dtype, init="zeros"),
+                 "xv": ParamSpec(cross_shape, axes, cfg.dtype, init="zeros")}
+        return {"decoder": stack_specs(layer, cfg.n_layers)}
+    period = _superblock_period(cfg)
+    sub = {f"sub{j}": _cache_sublayer_specs(cfg, j, batch, max_seq)
+           for j in range(period)}
+    return {"blocks": stack_specs(sub, cfg.n_layers // period)}
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> dict:
@@ -278,35 +470,70 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> dict:
                     init_cache_specs(cfg, batch, max_seq))
 
 
-def _layer_cache(cache: dict, cfg, i: int) -> tuple:
-    """(k, v) of layer i: views into the stacked cache."""
+def _layer_cache(cache: dict, cfg, i: int) -> dict:
+    """Layer i's cache leaves: views into the stacked cache."""
+    if "decoder" in cache:
+        return {k: v[i] for k, v in cache["decoder"].items()}
     period = _superblock_period(cfg)
-    c = cache["blocks"][f"sub{i % period}"]
-    return c["k"][i // period], c["v"][i // period]
+    return {k: v[i // period]
+            for k, v in cache["blocks"][f"sub{i % period}"].items()}
+
+
+def _decode_self_attention(p, c, h, cfg, pos, rows):
+    """Self-attention of one new token per row at ``pos``: its k / v
+    written into the cache views ``c`` in place, then attention to rows
+    <= pos."""
+    q, k, v = L.qkv_proj(p, h)
+    q = L.rope(q, pos[:, None], cfg.rope_theta)
+    k = L.rope(k, pos[:, None], cfg.rope_theta)
+    c["k"][rows, pos] = k[:, 0].to(c["k"].dtype)
+    c["v"][rows, pos] = v[:, 0].to(c["v"].dtype)
+    return L.out_proj(p, L.decode_attention(q, c["k"], c["v"], pos))
 
 
 def decode_step(model, cfg, cache: dict, token: torch.Tensor,
                 pos: torch.Tensor):
     """One decode step.  token (B,) integer, pos (B,) current positions.
-    Writes each layer's new k / v row at ``pos`` into ``cache`` in place.
-    Returns (logits (B, Vpad), cache)."""
-    check_ported(cfg, "decode_step")
+    Writes each layer's new k / v row at ``pos``, and each mamba layer's
+    new state, into ``cache`` in place.  Returns (logits (B, Vpad),
+    cache)."""
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
     rows = torch.arange(token.shape[0], device=dev)
     x = L.embed(model.top, token[:, None]).to(cfg.dtype)    # (B, 1, D)
-    for i, layer in enumerate(model.layers):
-        ck, cv = _layer_cache(cache, cfg, i)
-        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-        q, k, v = L.qkv_proj(layer.attn, h)
-        q = L.rope(q, pos[:, None], cfg.rope_theta)
-        k = L.rope(k, pos[:, None], cfg.rope_theta)
-        ck[rows, pos] = k[:, 0].to(ck.dtype)
-        cv[rows, pos] = v[:, 0].to(cv.dtype)
-        x = x + L.out_proj(layer.attn, L.decode_attention(q, ck, cv, pos))
-        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
-        x = x + L.swiglu(layer.mlp, h)
+    if cfg.family == "audio":
+        for i, layer in enumerate(model.dec_layers):
+            c = _layer_cache(cache, cfg, i)
+            h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+            x = x + _decode_self_attention(layer.attn, c, h, cfg, pos, rows)
+            h = L.rmsnorm(x, layer.lnx, cfg.norm_eps)
+            q, _, _ = L.qkv_proj(layer.cross, h)             # cross k/v cached
+            # the reference attends at position enc_len - 1 for every row:
+            # every cached frame
+            enc_last = torch.full_like(pos, c["xk"].shape[1] - 1)
+            x = x + L.out_proj(layer.cross, L.decode_attention(
+                q, c["xk"], c["xv"], enc_last))
+            h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+            x = x + L.swiglu(layer.mlp, h)
+    else:
+        for i, layer in enumerate(model.layers):
+            c = _layer_cache(cache, cfg, i)
+            h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+            if "attn" in layer.kinds:
+                x = x + _decode_self_attention(layer.attn, c, h, cfg, pos,
+                                               rows)
+            else:
+                out, state = M.mamba_decode_step(layer.mamba, c, h[:, 0], cfg)
+                for name, leaf in state.items():
+                    c[name].copy_(leaf)
+                x = x + out[:, None, :]
+            if "ln2" in layer.kinds:
+                h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+                if "moe" in layer.kinds:
+                    x = x + MOE.moe_block(layer.moe, h, cfg)[0]
+                else:
+                    x = x + L.swiglu(layer.mlp, h)
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     return L.unembed(model.top, x)[:, 0, :], cache
 
@@ -318,19 +545,45 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
 
 def prefill(model, cfg, batch: dict, max_seq: int | None = None):
     """Run the full-context forward and build the decode cache: every
-    layer's rope'd k and its v, zero-padded from S to ``max_seq``.  Returns
+    attention layer's rope'd k and its v, zero-padded from S to
+    ``max_seq``, and every mamba layer's state after the last position (the
+    chunked scan's final state and the convs' last inputs).  Returns
     (logits at the last position (B, Vpad), cache)."""
-    check_ported(cfg, "prefill")
+    if cfg.family == "audio":
+        return _prefill_encdec(model, cfg, batch, max_seq)
     x = _embed(model, cfg, batch)
     B, S = x.shape[:2]
     max_seq = max_seq or S
-    kv: list = []
-    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), kv)
+    caches: list = []
+    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches)
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     logits = L.unembed(model.top, x[:, -1:, :])[:, 0, :]
     cache = init_cache(cfg, B, max_seq, x.device)
-    for i, (k, v) in enumerate(kv):
-        ck, cv = _layer_cache(cache, cfg, i)
-        ck[:, :S] = k.to(ck.dtype)
-        cv[:, :S] = v.to(cv.dtype)
+    for i, state in enumerate(caches):
+        c = _layer_cache(cache, cfg, i)
+        for name, leaf in state.items():
+            if name in ("k", "v"):
+                c[name][:, :S] = leaf.to(c[name].dtype)
+            else:
+                c[name].copy_(leaf)
     return logits, cache
+
+
+def _prefill_encdec(model, cfg, batch, max_seq):
+    """The audio family's prefill: the encoder on src_embeds, the decoder
+    on the tokens; the cache holds each decoder layer's self k / v padded
+    to ``max_seq`` and its cross xk / xv at the encoder's own length, as
+    the reference's."""
+    enc = _encoder_stack(model, cfg, batch["src_embeds"])
+    x = _embed(model, cfg, batch)
+    S = x.shape[1]
+    max_seq = max_seq or S
+    caches: list = []
+    x, _ = _cross_decoder_stack(model, cfg, x, enc, caches)
+    x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
+    logits = L.unembed(model.top, x[:, -1:, :])[:, 0, :]
+    pad = (0, 0, 0, 0, 0, max_seq - S)
+    layers = [{"k": torch.nn.functional.pad(c["k"], pad),
+               "v": torch.nn.functional.pad(c["v"], pad),
+               "xk": c["xk"], "xv": c["xv"]} for c in caches]
+    return logits, {"decoder": _stack(layers)}

@@ -108,7 +108,7 @@ def test_bf16_packets_equal_f32_on_the_upcast_operand(cuda_device, m, K):
     G1, r1 = gk.gram_packet_sampled_rows(X, flat, u, **knobs)
     Y = X[flat.long()].contiguous()
     G7, r7 = gk.gram_packet_dense(Y, u, **knobs)
-    assert [k.launches for k in gk.BF16_KERNELS] == [1, 1]
+    assert gk.ROWS_PACKET_BF16.launches == gk.DENSE_PACKET_BF16.launches == 1
     assert gk.ROWS_PACKET.launches == gk.DENSE_PACKET.launches == 0
     assert G1.dtype == r1.dtype == torch.float32
     F1 = gk.gram_packet_sampled_rows(X.float(), flat, u.float(), **knobs)
@@ -118,6 +118,38 @@ def test_bf16_packets_equal_f32_on_the_upcast_operand(cuda_device, m, K):
     assert torch.equal(G1, G7) and torch.equal(r1, r7)
     want = tref.gram_packet_sampled_ref(X, flat, u, **knobs)
     assert _rel(G1, want[0]) <= 2e-2 and _rel(r1, want[1]) <= 2e-2
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 128, 200])
+@pytest.mark.parametrize("d", [300, 20958])
+def test_bf16_cols_packet_equals_f32_and_k7(cuda_device, m, d):
+    """bf16 K3 (f32 sums and outputs) at both built tile edges: equal to f32
+    K3 on the upcast operand and to bf16 K7 on X[:, flat]^T at K3's chunk
+    under torch.equal, within 2e-2 of the plain version, counted on its own
+    counter."""
+    from repro_torch.kernels.gram import sampled_colmajor as sc
+    g = torch.Generator(device=cuda_device).manual_seed(m + d)
+    n = 5000
+    X = torch.randn((d, n), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    u = torch.randn((d,), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    flat = torch.randint(0, n, (m,), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    flat[-1] = flat[0]
+    knobs = {"scale": 0.5, "reg": 0.25, "scale_r": 2.0}
+    gk.reset_launch_counts()
+    G3, r3 = gk.gram_packet_sampled_cols(X, flat, u, **knobs)
+    assert gk.COLS_PACKET_BF16.launches == 1 and gk.COLS_PACKET.launches == 0
+    assert G3.dtype == r3.dtype == torch.float32
+    F3 = gk.gram_packet_sampled_cols(X.float(), flat, u.float(), **knobs)
+    assert torch.equal(G3, F3[0]) and torch.equal(r3, F3[1])
+    chunk = sc.cols_packet_geometry(m, d, torch.bfloat16).chunk
+    Y = X[:, flat.long()].T.contiguous()
+    G7, r7 = gk.gram_packet_dense(Y, u, bk=chunk, **knobs)
+    assert torch.equal(G3, G7) and torch.equal(r3, r7)
+    want = tref.gram_packet_sampled_cols_ref(X, flat, u, **knobs)
+    assert _rel(G3, want[0]) <= 2e-2 and _rel(r3, want[1]) <= 2e-2
+
 
 def test_kernel_refuses_bad_indices_on_card(cuda_device):
     X = torch.zeros((5, 7), device=cuda_device)

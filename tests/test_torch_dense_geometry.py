@@ -217,10 +217,12 @@ def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
         gkk.dense_geometry(128, 1000, torch.float64, stages=2, steps=8)
     with pytest.raises(TypeError):
         gkk.dense_geometry(128, 1000, torch.float16)
-    # bf16 is built for the packets K7 and K1 at the picks alone, never for
-    # K3's column gather
-    with pytest.raises(TypeError, match="K3"):
-        gkk.dense_geometry(128, 1000, torch.bfloat16, source="cols")
+    # bf16 is built for the packets K7, K1 and K3 at the f32 picks alone
+    with pytest.raises(ValueError, match="bfloat16 on cols"):
+        gkk.dense_geometry(128, 1000, torch.bfloat16, source="cols",
+                           stages=2)
+    with pytest.raises(TypeError):
+        gkk.dense_geometry(128, 1000, torch.float16, source="cols")
     with pytest.raises(ValueError):
         gkk.dense_geometry(128, 1000, torch.bfloat16, stages=2, steps=8)
     with pytest.raises(ValueError, match="multiple"):
@@ -241,7 +243,9 @@ def test_host_table_matches_what_the_source_builds(kernel):
         body = src[src.index("int packet_impl("):
                    src.index("#undef REPRO_TILE")]
         built = {_as_int(t) for t in re.findall(tile, body)}
-        for dtype in DTYPES:                 # one list for both dtypes
+        # one list for f32, f64 and bf16 input
+        assert set(gkk.COLS_BUILT) == set(DTYPES) | {torch.bfloat16}
+        for dtype in gkk.COLS_BUILT:
             assert built == set(gkk.COLS_BUILT[dtype])
         return
     if kernel == "gathered":
@@ -353,3 +357,17 @@ def test_sass_mix_demangles_in_order():
         pytest.skip("needs c++filt (binutils)")
     assert sass_mix.demangle(["_Z3fooPf", "_Z3barv"]) == ["foo(float*)",
                                                           "bar()"]
+
+
+def test_ptxas_report_compares_kernel_by_kernel(capsys):
+    """launch/ptxas_report.py's comparison: equal lines pass, a changed or
+    missing kernel fails, a kernel only in the second file (a new build)
+    passes."""
+    from repro_torch.launch import ptxas_report
+    a = {"x.cu:k1": ["Used 96 registers"], "x.cu:k2": ["Used 40 registers"]}
+    assert ptxas_report.compare(a, dict(a, **{"x.cu:k3": ["Used 8"]}))
+    assert not ptxas_report.compare(a, dict(a, **{"x.cu:k2": ["Used 41"]}))
+    assert not ptxas_report.compare(a, {"x.cu:k1": a["x.cu:k1"]})
+    assert "1 differ" in capsys.readouterr().out
+    assert ptxas_report._ANON.sub("_GLOBAL__N__", "_ZN48_GLOBAL__N__29a5fd"
+                                  "ca_15_rows") == "_ZN48_GLOBAL__N__15_rows"

@@ -83,6 +83,7 @@ def test_the_scan_sees_the_whole_port():
             "serve/solver_service.py", "core/krylov.py", "core/tsqr.py",
             "kernels/gram/gram_kernel.py", "configs/base.py",
             "models/api.py", "models/layers.py", "models/module.py",
+            "models/mamba2.py", "models/moe.py",
             "data/tokens.py", "serve/engine.py", "launch/serve.py",
             "launch/lm_probe.py"} <= names
 
@@ -99,8 +100,6 @@ NO_TWIN = {
         # a typing Protocol; the port's formulations are duck-typed
         "Formulation"},
     "repro.models": {
-        # not ported yet (ROADMAP.md, queue 1)
-        "mamba2", "moe",
         # the compile-only dry run's abstract arrays and mesh shardings
         "abstract_params", "BASE_RULES", "ShardingRules", "constrain",
         "make_rules"},

@@ -512,7 +512,7 @@ def test_matvec_through_ops_matches_reference(dt):
         _close(out, want, rtol, atol)
 
 
-# bf16 packets (K1, K7): the reference's tolerance for bf16 against its
+# bf16 packets (K1, K3, K7): the reference's tolerance for bf16 against its
 # f32-accumulating oracle (tests/test_kernels.py, 2e-2).  Both packages round
 # the same f32 values to the same bf16 values (round to nearest even).
 BF16_TOL = 2e-2
@@ -568,15 +568,51 @@ def test_bf16_dense_packet_matches_reference(shape):
     assert torch.equal(G, G1) and torch.equal(r, r1)
 
 
-@pytest.mark.parametrize("call", ["rows_apply", "cols_packet", "cols_apply",
-                                  "rows_matvec", "cols_matvec", "gram"])
+@pytest.mark.parametrize("shape", [(512, 96, 128), (300, 77, 40),
+                                   (128, 40, 8)])
+@pytest.mark.parametrize("knobs", KNOBS)
+def test_bf16_cols_packet_matches_reference(shape, knobs):
+    """K3's plain version in bf16 (what the wrapper runs on a CPU tensor)
+    against the reference's gram_packet_sampled_cols_ref on the same bf16
+    values: f32 out, within 2e-2 (the identities the kernels keep under
+    torch.equal are held on the card, test_torch_cuda.py)."""
+    d, n, m = shape
+    X, flat, rng = _inputs(d, n, m, np.float32, n, seed=11)
+    u = rng.standard_normal(d).astype(np.float32)
+    (Xt, Xj), (ut, uj) = _bf16_pair(X), _bf16_pair(u)
+    scale, reg, scale_r = knobs
+    G, r = gk.gram_packet_sampled_cols(Xt, torch.from_numpy(flat), ut,
+                                       scale=scale / d, reg=reg,
+                                       scale_r=scale_r)
+    Gj, rj = jref.gram_packet_sampled_cols_ref(Xj, jnp.asarray(flat), uj,
+                                               scale / d, reg, scale_r)
+    assert G.dtype == r.dtype == torch.float32
+    assert Gj.dtype == jnp.float32
+    _close(G, Gj, BF16_TOL, BF16_TOL)
+    _close(r, rj, BF16_TOL, BF16_TOL)
+
+
+def test_bf16_cols_packet_geometry_is_the_f32_one():
+    """K3's bf16 build is made at the f32 picks alone: every m and d gives
+    the f32 geometry (an f32 ring, so the same shared memory), and a
+    geometry the f32 build lacks is refused in bf16 too."""
+    for m in (1, 8, 16, 17, 77, 128, 200):
+        for d in (128, 20958):
+            assert (sc.cols_packet_geometry(m, d, torch.bfloat16)
+                    == sc.cols_packet_geometry(m, d, torch.float32))
+    with pytest.raises(ValueError, match="bfloat16 on cols"):
+        sc.cols_packet_geometry(128, 2000, torch.bfloat16, stages=2)
+
+
+@pytest.mark.parametrize("call", ["rows_apply", "cols_apply", "rows_matvec",
+                                  "cols_matvec", "gram"])
 def test_bf16_refused_by_the_kernels_without_a_bf16_build(call):
-    """Only K1 and K7 take bf16 on the card; the other kernels' checks refuse
-    it before a launch, naming the kernel."""
+    """Only K1, K3 and K7 take bf16 on the card; the other kernels' checks
+    refuse it before a launch, naming the kernel."""
     X = torch.zeros((5, 7), dtype=torch.bfloat16)
-    names = {"rows_apply": gk.ROWS_APPLY, "cols_packet": gk.COLS_PACKET,
-             "cols_apply": gk.COLS_APPLY, "rows_matvec": gk.ROWS_MATVEC,
-             "cols_matvec": gk.COLS_MATVEC, "gram": gk.DENSE_GRAM}
+    names = {"rows_apply": gk.ROWS_APPLY, "cols_apply": gk.COLS_APPLY,
+             "rows_matvec": gk.ROWS_MATVEC, "cols_matvec": gk.COLS_MATVEC,
+             "gram": gk.DENSE_GRAM}
     name = names[call].name
     with pytest.raises(TypeError, match=f"{name}.*bf16"):
         if call == "gram":
@@ -586,6 +622,7 @@ def test_bf16_refused_by_the_kernels_without_a_bf16_build(call):
             check_cuda_operands(X, torch.zeros(2, dtype=torch.int32),
                                 torch.zeros(7, dtype=torch.bfloat16), 7, 5,
                                 name)
-    check_cuda_operands(X, torch.zeros(2, dtype=torch.int32),
-                        torch.zeros(7, dtype=torch.bfloat16), 7, 5,
-                        gk.ROWS_PACKET_BF16.name, bf16=True)
+    for info in gk.BF16_KERNELS:
+        check_cuda_operands(X, torch.zeros(2, dtype=torch.int32),
+                            torch.zeros(7, dtype=torch.bfloat16), 7, 5,
+                            info.name, bf16=True)

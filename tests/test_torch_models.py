@@ -40,10 +40,9 @@ from repro_torch.models import DecoderLM, api, init_params
 from repro_torch.models import layers as TL
 from repro_torch.models.module import ParamSpec, param_bytes
 
-DECODER = ["llama3_2_3b", "mistral_nemo_12b", "qwen2_0_5b", "granite_3_2b",
-           "llava_next_34b"]
-UNPORTED = ["mamba2_370m", "seamless_m4t_large_v2", "jamba_1_5_large_398b",
-            "dbrx_132b", "phi3_5_moe_42b"]
+ARCHS = ["llama3_2_3b", "mistral_nemo_12b", "qwen2_0_5b", "granite_3_2b",
+         "llava_next_34b", "mamba2_370m", "seamless_m4t_large_v2",
+         "jamba_1_5_large_398b", "dbrx_132b", "phi3_5_moe_42b"]
 LAYER_TOL = 2e-5
 ROPE_TOL = 1e-4
 LOGIT_TOL = 3e-3
@@ -54,11 +53,13 @@ def _same_fields(t, j):
         a, b = getattr(t, f.name), getattr(j, f.name)
         if f.name in ("dtype", "param_dtype"):
             assert str(a).split(".")[-1] == jnp.dtype(b).name
+        elif dataclasses.is_dataclass(b):     # the moe / ssm sub-configs
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
         else:
             assert a == b, f.name
 
 
-@pytest.mark.parametrize("arch", DECODER)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_configs_and_counts_match_reference(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     _same_fields(t, j)
@@ -78,19 +79,6 @@ def test_registry_matches_reference():
     cfg = tconfigs.get_config("llama3.2-3b")
     assert tconfigs.n_params(cfg) == 3212749824
     assert param_bytes(api.param_specs(cfg)) == 6425499648
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_reduced(arch)
-    for call in (lambda: api.param_specs(cfg),
-                 lambda: api.forward(None, cfg, {}),
-                 lambda: api.prefill(None, cfg, {}),
-                 lambda: api.decode_step(None, cfg, {}, None, None),
-                 lambda: api.init_cache_specs(cfg, 1, 8),
-                 lambda: tconfigs.n_params(cfg)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
 
 
 def test_init_params_follows_the_specs():
@@ -241,7 +229,10 @@ def shared_model(arch, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "qwen2_0_5b",
-                                  "granite_3_2b", "llava_next_34b"])
+                                  "granite_3_2b", "llava_next_34b",
+                                  "mamba2_370m", "jamba_1_5_large_398b",
+                                  "phi3_5_moe_42b", "dbrx_132b",
+                                  "seamless_m4t_large_v2"])
 def test_forward_matches_reference(arch):
     jc, params, tc, model = shared_model(arch)
     if tc.qkv_bias:   # zero-initialised: give the biases values
@@ -258,14 +249,56 @@ def test_forward_matches_reference(arch):
     if tc.family == "vlm":
         batch["extra_embeds"] = (0.1 * rng.standard_normal(
             (2, tc.frontend_tokens, tc.d_model))).astype(np.float32)
-    want, _ = japi.forward(params, jc, {k: jnp.asarray(v)
-                                        for k, v in batch.items()})
-    got, _ = api.forward(model, tc, {k: torch.from_numpy(v)
-                                     for k, v in batch.items()})
+    if tc.family == "audio":
+        batch["src_embeds"] = (0.1 * rng.standard_normal(
+            (2, 16, tc.d_model))).astype(np.float32)
+    want, jaux = japi.forward(params, jc, {k: jnp.asarray(v)
+                                           for k, v in batch.items()})
+    got, aux = api.forward(model, tc, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
     assert got.shape == want.shape == (2, 45 + tc.frontend_tokens,
                                        tc.padded_vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=LOGIT_TOL)
+    # the MoE metrics, summed over the MoE layers
+    assert aux.keys() == jaux.keys()
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "jamba_1_5_large_398b",
+                                  "phi3_5_moe_42b", "seamless_m4t_large_v2"])
+def test_param_tree_round_trips_every_body(arch):
+    """The model keeps the reference's stacked layout (``blocks/sub{j}`` or
+    ``encoder`` / ``decoder``) whatever its layers hold: its parameter tree
+    equals the reference's, leaf for leaf, and a cast keeps the f32
+    parameters f32."""
+    _, params, tc, model = shared_model(arch)
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield path, np.asarray(tree)
+
+    got, want = dict(leaves(model.param_tree())), dict(leaves(params))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+    assert sum(p.numel() for p in model.parameters()) == \
+        tconfigs.n_params(tc)
+    layers = model.dec_layers if tc.family == "audio" else model.layers
+    kinds = [layer.kinds for layer in layers]
+    assert len(kinds) == tc.n_layers
+    if tc.family == "hybrid":       # attention mid-period, MoE every other
+        assert [("attn" in k, "moe" in k) for k in kinds[:8]] == [
+            (i == 4, i % 2 == 1) for i in range(8)]
+    bf = model.cast(torch.bfloat16)
+    for name, t in bf.named_parameters():
+        f32 = name.rsplit(".", 1)[-1] in ("A_log", "D", "dt_bias", "router")
+        assert t.dtype == (torch.float32 if f32 else torch.bfloat16), name
 
 
 def test_token_stream_matches_reference():
