@@ -123,7 +123,22 @@ Phases (any failure raises; nothing is caught):
      jamba-1.5-large's hybrid interleave at its reduced widths, f32 and
      f64 gates.  Each serving run reports tok/s, decode ms a step beside
      its weight- and state-read bound, the decode's idle share and the
-     allocator's peak.
+     allocator's peak;
+ 13. training, random weights from --seed (plain torch, as in the
+     reference: no kernel; counted, the "train" path, all zero): (a)
+     llama3.2-3b at its published width cut to 2 layers in f64, B = 2,
+     S = 64: loss_fn's gradient tree on the card against the CPU's and a
+     finite difference along a random direction; (b) one make_train_step
+     step there, card against CPU; (c) its full config (28 layers, bf16
+     weights, f32 master, remat "full") at 2 x 2048 tokens a step through
+     Trainer.run on the TokenStream: ms a step, tok/s, the share of the
+     bf16 dense rate, the AdamW update's ms, the allocator's peak and the
+     idle share of two traced steps; (d) microbatches 2 against 1 in f32
+     at 8 layers; (e) the cpu-small preset's 200 steps through
+     launch/train.py (the loss falls) and exact resume from a checkpoint
+     in deterministic mode; (f) the elastic restart of granite-3-2b
+     reduced from 4 gloo ranks sharing the card to 2, against one rank, in
+     bf16 and f32, and an MoE config refused on 2 ranks.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -605,6 +620,7 @@ def check_bf16_cols_packet(Xb, Xup, gen, m: int, reps: int) -> dict:
            "plain_ms": device_ms(
                lambda: gk.gram_packet_sampled_cols_ref(Xb, flat, u), reps),
            "library_ms": device_ms(lambda: torch.mm(Yc, rhs), reps),
+           "gather_ms": device_ms(gather_call(Xb, flat, "cols"), reps),
            "f32_ms": device_ms(
                lambda: gk.gram_packet_sampled_cols(Xup, flat, u.float()),
                reps, names)}
@@ -614,7 +630,9 @@ def check_bf16_cols_packet(Xb, Xup, gen, m: int, reps: int) -> dict:
     log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 K3 on the "
         f"upcast operand {rec['f32_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
         f"library (bf16 mm on [Y^T | u], Y = X[:, flat]^T) "
-        f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+        f"{rec['library_ms']:.4f} (gather {rec['gather_ms']:.4f}, gather + "
+        f"library {rec['gather_ms'] + rec['library_ms']:.4f}), bound "
+        f"{rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}; device / bound "
         f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
         f"{rec['ms'] / rec['library_ms']:.2f}); sector traffic of the "
@@ -689,10 +707,18 @@ def check_bf16_packets(X, gen, reps: int) -> tuple[dict, dict]:
                                                             u.float()),
                        reps, names)}
             rec.update(bf16_bound(m, uniq if indexed else m, n, indexed))
+            gather = ""
+            if indexed:         # K1 starts from X: PyTorch's gather first
+                rec["gather_ms"] = device_ms(gather_call(Xb, flat, "rows"),
+                                             reps)
+                gather = (f" (gather {rec['gather_ms']:.4f}, gather + "
+                          f"library "
+                          f"{rec['gather_ms'] + rec['library_ms']:.4f})")
             log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 "
                 f"kernel on the upcast operand {rec['f32_ms']:.4f}), plain "
                 f"{rec['plain_ms']:.4f}, library (bf16 mm on [Y^T | u]) "
-                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms "
+                f"{rec['library_ms']:.4f}{gather}, bound "
+                f"{rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}; device / bound "
                 f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
                 f"{rec['ms'] / rec['library_ms']:.2f}); f32 FMAs at "
@@ -2916,6 +2942,528 @@ def families_phase(seed: int, stats: dict, dev=None) -> dict:
     return counts
 
 
+# Phase 13: training, random weights from --seed.  (a) / (b) llama3.2-3b at
+# its published width cut to TRAIN_EXACT_LAYERS layers, in f64 (the layers
+# compute in f64 for f64 inputs), B = 2, S = 64, the same weights on the
+# card and on the CPU: loss_fn's gradient tree against the CPU's (each leaf's
+# relative Frobenius error; the two devices sum in other orders, f64
+# rounding: expected about 1e-13), and central finite differences of the
+# loss along a random direction (each leaf's entries N(0, 1) times its
+# RMS) at h = FD_STEP and h / 2, extrapolated so that the h^2 term cancels
+# (the random init's sharp softmax makes that term 1e-4 at h = 1e-6 and
+# d_model 1024 on the CPU; the extrapolated difference reads 1e-10 there,
+# and f64 rounding's eps / h about 1e-9); then one
+# make_train_step step on both devices: the master, m and v are f32, and
+# f64 gradients 1e-13 apart cast to the same f32 value or one ulp apart,
+# so the gate is f32's: 1e-5 of each leaf's norm.  (c) and (d) draw the
+# weights as init_params does and then rescale the attention projections to
+# the fan-in of their contraction (attention_fan_in): under the reference's
+# own init the gradient grows about 8x a layer, so at 28 layers the f32 sum
+# of its squares overflows (grad_norm inf on the card in both packages'
+# arithmetic, and the clip then zeroes every update), and at 8 layers in
+# f32 one microbatch's gradient sat 10 % from two's.  (c) the full config
+# (28 layers, bf16 weights, f32 master, remat "full", microbatches 1) at
+# TRAIN_FULL_BATCH (4096 tokens a step), TRAIN_WARM steps then TRAIN_TIMED
+# timed ones through Trainer.run on the TokenStream; the AdamW update timed
+# by CUDA events inside the steps; the device-idle share of two traced
+# steps.  No checkpoint of this state (about 45 GB of host memory).  (d)
+# microbatches 2 against 1 on the same global batch, f32, at ACCUM_LAYERS
+# layers (two f32 states, the f32 accumulators and the gradients of the
+# full depth do not fit the card): the gradient of the mean of two
+# halves' means is the full batch's up to f32 rounding, so grad_norm at
+# 1e-5, m and v at 1e-4 of each leaf's norm, and each leaf's move (master
+# after - before) at 2e-3: Adam's first step moves an element by about lr
+# sign(g), so an element whose gradient is within rounding of 0 can step
+# the other way.  (e) the cpu-small preset (the reference's init) for its
+# 200 steps through launch/train.py's main: the mean logged loss of its last
+# 50 steps lies LEARN_MARGIN below that of its first 20 (the CPU run of the
+# same preset: 11.0484 -> 10.8996, 0.1488); then exact resume (4 steps
+# against 2, a checkpoint, a new Trainer and 2 more) under torch.equal, in
+# deterministic mode (torch.use_deterministic_algorithms and
+# CUBLAS_WORKSPACE_CONFIG, for these runs only: the backward of the
+# embedding gather and of take_along_dim adds with atomics otherwise).  (f)
+# granite-3-2b reduced, as the reference's elastic check (bf16), then in
+# f32: 2 steps on ELASTIC_RANKS[0] gloo ranks sharing the card with a
+# checkpoint, a restore on ELASTIC_RANKS[1] of them to step 4, against one
+# rank on the same stream; the replicas the same bytes on every rank; an
+# MoE config refused on two ranks.  TOL_ELASTIC: (loss atol, each leaf's
+# f32 master move against its norm).  In bf16, P ranks sum P bf16
+# gradients where one rank rounds one, and Adam's normalised step turns a
+# gradient element within rounding of 0 into a move of lr either way: on
+# the CPU (seeds 0-2, 4 -> 2 and 2 -> 1 ranks) up to 3.4e-3 and 5.2e-2; in
+# f32 up to 9.5e-7 and 1.8e-5.
+TRAIN_EXACT_LAYERS = 2
+TRAIN_EXACT_BATCH = (2, 64)
+TOL_TRAIN_GRAD_F64 = 1e-10
+TOL_TRAIN_FD = 1e-6
+FD_STEP = 1e-6
+TOL_TRAIN_STEP_F32 = 1e-5
+TRAIN_FULL_BATCH = (2, 2048)
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+ACCUM_LAYERS = 8
+TOL_ACCUM_NORM = 1e-5
+TOL_ACCUM_MOMENT = 1e-4
+TOL_ACCUM_MOVE = 2e-3
+LEARN_MARGIN = 0.1
+ELASTIC_RANKS = (4, 2)
+TOL_ELASTIC = {"bf16": (1e-2, 0.15), "f32": (1e-5, 2e-4)}
+
+
+def tree_items(tree, path=()):
+    """(path, leaf) of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def worst_leaf(got, want, base=None) -> tuple:
+    """The largest relative Frobenius error over the leaves of ``got``
+    against ``want`` (of the moves from ``base`` when given), with its
+    leaf."""
+    w = dict(tree_items(want))
+    b = dict(tree_items(base)) if base is not None else {}
+    errs = []
+    for k, g in tree_items(got):
+        t = w[k].to(g.device)
+        if k in b:
+            errs.append((rel(g - b[k], t - b[k]), k))
+        else:
+            errs.append((rel(g, t), k))
+    return max(errs)
+
+
+def attention_fan_in(params: dict, cfg) -> None:
+    """Rescale, in place, the attention projections of a parameter tree
+    drawn by ``init_params`` to the fan-in of their contraction: the
+    reference's init divides by the axis before last, the heads for wq /
+    wk / wv (24 or 8, not d_model 3072) and head_dim for wo (128, not
+    heads x head_dim), which makes llama3.2-3b's scores about 200 wide and
+    its gradient grow about 8x a layer (PERF.md, PR 23)."""
+    for sub in params["blocks"].values():
+        a = sub["attn"]
+        for k in ("wq", "wk", "wv"):
+            a[k].mul_(math.sqrt(a[k].shape[-2] / cfg.d_model))
+        a["wo"].mul_(1 / math.sqrt(a["wo"].shape[-3]))
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.clone()
+
+
+def on_device(tree, device):
+    """A copy of a tree of tensors or arrays on ``device``."""
+    return {k: on_device(v, device) for k, v in tree.items()} \
+        if isinstance(tree, dict) else torch.as_tensor(tree).to(device,
+                                                               copy=True)
+
+
+def train_exactness(cfg, gates, gen, dev, stats) -> None:
+    """13a / 13b: loss_fn's gradients and one train step of the f64 model
+    cut to TRAIN_EXACT_LAYERS layers, card against CPU; the finite
+    difference on the card."""
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_EXACT_LAYERS,
+                              dtype=torch.float64, param_dtype=torch.float64)
+    B, S = TRAIN_EXACT_BATCH
+    params = init_params(api.param_specs(cut), gen)
+    host = on_device(params, "cpu")
+    batch = synthetic_lm_batch(cut.vocab, S, B, seed=1)
+    batch["mask"][1, S // 2:] = 0.0                     # a masked tail
+
+    def grads(p, device):
+        model = api.build_model(cut, p).trainable()
+        total, _ = api.loss_fn(model, cut, on_device(batch, device))
+        total.backward()
+        return float(total.detach()), model.grad_tree()
+
+    (loss_card, g_card), secs_card = timed(lambda: grads(params, dev))
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads(host, torch.device("cpu"))
+    secs_cpu = time.perf_counter() - t0
+    err, leaf = worst_leaf(g_card, g_cpu)
+    rec = {"layers": TRAIN_EXACT_LAYERS, "batch": [B, S],
+           "loss_card": loss_card, "loss_cpu": loss_cpu, "grad_err": err,
+           "grad_err_leaf": leaf, "card_s": secs_card, "cpu_s": secs_cpu}
+    log(f"  13a {cut.name} at {TRAIN_EXACT_LAYERS} layers, f64, B = {B}, "
+        f"S = {S}: loss card {loss_card:.17g}, CPU {loss_cpu:.17g}; "
+        f"backward {secs_card:.2f} s on the card, {secs_cpu:.2f} s on the "
+        f"CPU")
+    gates.check("13a gradients, card against CPU",
+                err <= TOL_TRAIN_GRAD_F64
+                and abs(loss_card - loss_cpu) <= TOL_TRAIN_GRAD_F64 * loss_cpu,
+                f"worst leaf {leaf} {err:.2e}, loss {abs(loss_card - loss_cpu):.2e}"
+                f" (tol {TOL_TRAIN_GRAD_F64:.0e})")
+    del g_cpu
+    # the directional derivative against a central finite difference
+    u = {k: torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                        device=t.device) * t.square().mean().sqrt()
+         for k, t in tree_items(params)}
+    deriv = sum(float((g * u[k]).sum()) for k, g in tree_items(g_card))
+    del g_card
+
+    def loss_at(h):
+        shifted = {}
+        for k, t in tree_items(params):
+            node = shifted
+            *head, last = k.split("/")
+            for name in head:
+                node = node.setdefault(name, {})
+            node[last] = t + h * u[k]
+        with torch.no_grad():
+            return float(api.loss_fn(api.build_model(cut, shifted), cut,
+                                     on_device(batch, dev))[0])
+
+    h = FD_STEP
+    central = [(loss_at(t) - loss_at(-t)) / (2 * t) for t in (h, h / 2)]
+    fd = (4 * central[1] - central[0]) / 3          # the h^2 term cancels
+    fd_err = abs(fd - deriv) / abs(deriv)
+    rec.update(fd=fd, deriv=deriv, fd_err=fd_err, central=central)
+    gates.check("13a finite difference", fd_err <= TOL_TRAIN_FD,
+                f"<g, u> {deriv:.12g}, central differences at h = {h:.0e} "
+                f"and h / 2 {central[0]:.12g}, {central[1]:.12g} (rel "
+                + ", ".join(f"{abs(c - deriv) / abs(deriv):.2e}"
+                            for c in central)
+                + f"), extrapolated {fd:.12g}, rel {fd_err:.2e} "
+                f"(tol {TOL_TRAIN_FD:.0e})")
+    del u
+    # one train step on both devices
+    step = make_train_step(cut, AdamWConfig(lr=1e-3))
+    states = {}
+    for name, p, d in (("card", params, dev), ("cpu", host, "cpu")):
+        st = {"params": p, "opt": init_opt_state(p),
+              "step": torch.zeros((), dtype=torch.int32, device=d)}
+        states[name], m = step(st, batch)
+        rec[f"step_loss_{name}"] = float(m["loss"])
+        rec[f"step_gnorm_{name}"] = float(m["grad_norm"])
+    errs = {part: worst_leaf(states["card"][a][b] if b else
+                             states["card"][a],
+                             states["cpu"][a][b] if b else states["cpu"][a])
+            for part, (a, b) in {"params": ("params", None),
+                                 "master": ("opt", "master"),
+                                 "m": ("opt", "m"),
+                                 "v": ("opt", "v")}.items()}
+    rec["step_err"] = {k: list(v) for k, v in errs.items()}
+    worst = max(e for e, _ in errs.values())
+    gates.check("13b one train step, card against CPU",
+                worst <= TOL_TRAIN_STEP_F32
+                and int(states["card"]["step"]) == 1,
+                ", ".join(f"{k} {e:.2e} ({leaf})" for k, (e, leaf)
+                          in errs.items())
+                + f"; grad_norm card {rec['step_gnorm_card']:.9g}, CPU "
+                f"{rec['step_gnorm_cpu']:.9g} (tol {TOL_TRAIN_STEP_F32:.0e})")
+    stats["train_exact"] = rec
+
+
+def train_full_width(cfg, gates, dev, stats) -> None:
+    """13c: the full config's steps: ms a step, tok/s, the model-FLOP
+    share, the AdamW update's ms, the allocator's peak, the idle share."""
+    import repro_torch.train.trainer as trainer_mod
+    from repro_torch.configs import n_params
+    from repro_torch.train import Trainer, TrainRunConfig
+    B, S = TRAIN_FULL_BATCH
+    rc = TrainRunConfig(steps=TRAIN_WARM + TRAIN_TIMED, global_batch=B,
+                        seq_len=S, lr=3e-4, warmup=1, log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    tr, secs = timed(lambda: Trainer(cfg, rc, device=dev))
+    attention_fan_in(tr.state["params"], cfg)
+    for (_, m), (_, p) in zip(tree_items(tr.state["opt"]["master"]),
+                              tree_items(tr.state["params"])):
+        m.copy_(p)                      # the master starts from the params
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(tr.state))
+    init_peak = torch.cuda.max_memory_allocated()
+    probes = {k: t.reshape(-1)[:4096].clone()
+              for k, t in tree_items(tr.state)}
+    log(f"  13c {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, remat {cfg.remat!r}, params "
+        f"{str(cfg.param_dtype).split('.')[-1]}; state {state_bytes / 1e9:.2f}"
+        f" GB (params, f32 master, m, v), initialised in {secs:.1f} s, peak "
+        f"{init_peak / 2**30:.2f} GiB")
+    events = []
+    inner = trainer_mod.adamw_update
+
+    def timed_adamw(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer_mod.adamw_update = timed_adamw
+    try:
+        warm = tr.run(TRAIN_WARM)
+        torch.cuda.reset_peak_memory_stats()
+        hist = tr.run(TRAIN_WARM + TRAIN_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        trainer_mod.adamw_update = inner
+    torch.cuda.synchronize()
+    adam_ms = [s.elapsed_time(e) for s, e in events[TRAIN_WARM:]]
+    walls = [h["wall"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + walls, walls)]
+    med = sorted(step_ms)[len(step_ms) // 2]
+    tokens = B * S
+    n = n_params(cfg)
+    mfu = 6 * n * tokens / (med / 1e3) / FLOPS_PER_S["torch.bfloat16"]
+    log(f"    warm-up losses {[round(h['loss'], 4) for h in warm]}; timed "
+        f"steps (ms, host clock to the step's metrics): "
+        + ", ".join(f"{t:.1f}" for t in step_ms)
+        + f"; median {med:.1f} ms, {tokens / (med / 1e3):.0f} tok/s; "
+        f"6 N tokens ({n} parameters) at the bf16 dense rate: "
+        f"{mfu:.1%} (the recompute and the attention scores not counted)")
+    log(f"    AdamW update (CUDA events) ms: "
+        + ", ".join(f"{t:.1f}" for t in adam_ms)
+        + f"; losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 3) for h in hist]}")
+    log(f"    peak allocated over the timed steps {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB against {state_bytes / 1e9:.2f} GB of state;"
+        f" card {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+        " GiB)")
+    prof = profile_run(lambda: tr.run(int(tr.state["step"]) + 2),
+                       "13c two training steps", 8)
+    # every f32 master leaf moves (weight decay reaches the norms too);
+    # a bf16 norm of ones can round back to 1 in a few steps
+    moved = {part: sum(not torch.equal(t.reshape(-1)[:4096], probes[k])
+                       for k, t in tree_items(tr.state) if k.startswith(part))
+             for part in ("params/", "opt/master/")}
+    leaves = sum(k.startswith("params/") for k in probes)
+    every = warm + hist
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in every)
+    total = torch.cuda.get_device_properties(0).total_memory
+    final_step = int(tr.state["step"])
+    gates.check("13c full-width steps",
+                finite and final_step == TRAIN_WARM + TRAIN_TIMED + 4
+                and moved["opt/master/"] == leaves and moved["params/"] > 0
+                and peak < total,
+                f"finite {finite}, step {final_step}, leaves moved: master "
+                f"{moved['opt/master/']} of {leaves}, params "
+                f"{moved['params/']}, peak {peak / 2**30:.2f} GiB")
+    stats["train_full"] = {
+        "batch": [B, S], "step_ms": step_ms, "step_ms_median": med,
+        "tok_s": tokens / (med / 1e3), "mfu_6nt": mfu, "n_params": n,
+        "adamw_ms": adam_ms, "peak_bytes": peak, "init_peak_bytes":
+        init_peak, "state_bytes": state_bytes, "history": warm + hist,
+        "profile": prof}
+    del tr, probes
+    torch.cuda.empty_cache()
+
+
+def train_accumulation(cfg, gates, gen, dev, stats, seed: int) -> None:
+    """13d: microbatches 2 against 1 on one global batch, f32, at
+    ACCUM_LAYERS layers."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    cut = dataclasses.replace(cfg, n_layers=ACCUM_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    B, S = TRAIN_FULL_BATCH
+    params = init_params(api.param_specs(cut), gen)
+    attention_fan_in(params, cut)
+    start = clone_tree(params)          # the master before the step
+    batch = TokenStream(cut.vocab, S, B, seed=seed).batch_at(0)
+    out = {}
+    for mb in (1, 2):
+        p = clone_tree(params) if mb == 1 else params
+        st = {"params": p, "opt": init_opt_state(p),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        (st, m), secs = timed(lambda: make_train_step(
+            cut, AdamWConfig(lr=3e-4), mb)(st, batch))
+        out[mb] = (st, {k: float(v) for k, v in m.items()}, secs)
+    (s1, m1, t1), (s2, m2, t2) = out[1], out[2]
+    gn = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    mom = max(worst_leaf(s2["opt"][k], s1["opt"][k]) for k in ("m", "v"))
+    move = worst_leaf(s2["opt"]["master"], s1["opt"]["master"], start)
+    log(f"  13d microbatches 2 against 1, f32, {ACCUM_LAYERS} layers, "
+        f"B = {B}, S = {S}: step {t1 * 1e3:.0f} / {t2 * 1e3:.0f} ms; losses "
+        f"(last microbatch's, as the reference reports) {m1['loss']:.6f} / "
+        f"{m2['loss']:.6f}")
+    gates.check("13d gradient accumulation",
+                gn <= TOL_ACCUM_NORM and mom[0] <= TOL_ACCUM_MOMENT
+                and move[0] <= TOL_ACCUM_MOVE,
+                f"grad_norm {gn:.2e} (tol {TOL_ACCUM_NORM:.0e}), m / v "
+                f"{mom[0]:.2e} at {mom[1]} (tol {TOL_ACCUM_MOMENT:.0e}), "
+                f"master move {move[0]:.2e} at {move[1]} (tol "
+                f"{TOL_ACCUM_MOVE:.0e})")
+    stats["train_accum"] = {"layers": ACCUM_LAYERS, "grad_norm_err": gn,
+                            "moment_err": list(mom), "move_err": list(move),
+                            "ms": [t1 * 1e3, t2 * 1e3]}
+    del out, s1, s2, params, start
+    torch.cuda.empty_cache()
+
+
+def train_learning(gates, dev, stats, seed: int) -> None:
+    """13e: the cpu-small preset's 200 steps through launch/train.py's
+    main, then exact resume in deterministic mode."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import Trainer, TrainRunConfig
+    hist, secs = timed(lambda: launch_train.main(
+        ["--preset", "cpu-small", "--seed", str(seed), "--device",
+         str(dev)]))
+    first = [h["loss"] for h in hist if h["step"] <= 20]
+    last = [h["loss"] for h in hist if h["step"] > hist[-1]["step"] - 50]
+    drop = sum(first) / len(first) - sum(last) / len(last)
+    log(f"  13e cpu-small: {hist[-1]['step']} steps in {secs:.1f} s "
+        f"({1e3 * secs / hist[-1]['step']:.1f} ms a step), loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    gates.check("13e learning", drop >= LEARN_MARGIN,
+                f"the mean logged loss of the last 50 steps is {drop:.4f} "
+                f"below that of the first 20 (gate {LEARN_MARGIN})")
+    rec = {"losses": [[h["step"], h["loss"]] for h in hist], "s": secs,
+           "drop": drop}
+    preset = launch_train.PRESETS["cpu-small"]
+    cfg = launch_train.build_model_cfg("qwen2_0_5b", preset)
+    rc = TrainRunConfig(steps=4, global_batch=preset["global_batch"],
+                        seq_len=preset["seq_len"], lr=preset["lr"],
+                        seed=seed, save_every=2, log_every=1)
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = Trainer(cfg, rc, device=dev)
+        straight.run()
+        with tempfile.TemporaryDirectory() as d:
+            Trainer(cfg, dataclasses.replace(rc, steps=2, ckpt_dir=d),
+                    device=dev).run()
+            resumed = Trainer(cfg, dataclasses.replace(rc, ckpt_dir=d),
+                              device=dev)
+            at = int(resumed.state["step"])
+            resumed.run()
+        a, b = dict(tree_items(resumed.state)), dict(tree_items(
+            straight.state))
+        differ = [k for k in b if a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k], b[k])]
+        ok = (not differ and at == 2 and resumed.stream.step ==
+              straight.stream.step == 4)
+        detail = (f"resumed at {at}, cursors {resumed.stream.step} / "
+                  f"{straight.stream.step}, {len(b)} leaves, differing "
+                  f"{differ[:4]}")
+    except RuntimeError as e:                 # an op refusing the mode
+        ok, detail = False, f"deterministic mode refused: {e}"
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    gates.check("13e exact resume (torch.equal, deterministic mode)", ok,
+                detail)
+    rec["resume"] = {"ok": ok, "detail": detail}
+    stats["train_learning"] = rec
+
+
+def elastic_case(world, cfg, rc, dev, ckpt_dir: str) -> dict:
+    """One elastic restart of ``cfg`` on ``world``: 2 steps on
+    ELASTIC_RANKS[0] ranks with a checkpoint, 2 more on ELASTIC_RANKS[1]
+    after the restore, against one Trainer on the same stream."""
+    from repro_torch.train import Trainer, run_data_parallel
+    one = Trainer(cfg, rc, device=dev)
+    hist_one = one.run()
+    start = one._fresh_state()["opt"]["master"]
+    first, second = ELASTIC_RANKS
+    out_a = run_data_parallel(world, cfg, dataclasses.replace(
+        rc, steps=2, ckpt_dir=ckpt_dir))
+    out_b = run_data_parallel(world, cfg, dataclasses.replace(
+        rc, ckpt_dir=ckpt_dir), n_ranks=second)
+    hist = out_a["history"] + out_b["history"]
+    state = on_device(out_b["state"], dev)
+    return {"step": int(state["step"]), "steps": [h["step"] for h in hist],
+            "loss": [h["loss"] for h in hist],
+            "loss_one": [h["loss"] for h in hist_one],
+            "loss_err": max(abs(x["loss"] - y["loss"])
+                            for x, y in zip(hist, hist_one)),
+            "move": list(worst_leaf(state["opt"]["master"],
+                                    one.state["opt"]["master"], start)),
+            "replicas": [len(out_a["digests"]), len(out_b["digests"])]}
+
+
+def train_elastic(gates, dev, stats) -> None:
+    """13f: the elastic restart of granite-3-2b reduced (bf16, as in the
+    reference's check, then in f32), ELASTIC_RANKS[0] -> ELASTIC_RANKS[1]
+    gloo ranks sharing the card, against one rank; an MoE config refused
+    on two ranks."""
+    import tempfile
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import SolverWorld
+    from repro_torch.train import TrainRunConfig, run_data_parallel
+    bf16 = get_reduced("granite_3_2b")
+    rc = TrainRunConfig(steps=4, global_batch=8, seq_len=32, lr=1e-3,
+                        warmup=1, save_every=2, log_every=1)
+    world, secs = timed(lambda: SolverWorld(ELASTIC_RANKS[0], device=dev,
+                                            kernels=False))
+    rec = {"spawn_s": secs}
+    with world:
+        for tag, cfg in (("bf16", bf16), ("f32", dataclasses.replace(
+                bf16, dtype=torch.float32, param_dtype=torch.float32))):
+            with tempfile.TemporaryDirectory() as d:
+                rec[tag] = elastic_case(world, cfg, rc, dev, d)
+        try:
+            run_data_parallel(world, get_reduced("phi3_5_moe_42b"),
+                              dataclasses.replace(rc, steps=1), n_ranks=2)
+            rec["moe"] = "not refused"
+        except RuntimeError as e:
+            rec["moe"] = ("refused" if "MoE training" in str(e)
+                          else f"another error: {e}")
+    log(f"  13f {bf16.name}: {ELASTIC_RANKS[0]} gloo ranks spawned in "
+        f"{secs:.1f} s")
+    for tag, (tol_loss, tol_move) in TOL_ELASTIC.items():
+        r = rec[tag]
+        log(f"    {tag}: losses {[round(x, 6) for x in r['loss']]} against "
+            f"one rank's {[round(x, 6) for x in r['loss_one']]}")
+        gates.check(f"13f elastic restart, {tag}",
+                    r["step"] == 4 and r["steps"] == [1, 2, 3, 4]
+                    and r["replicas"] == list(ELASTIC_RANKS)
+                    and r["loss_err"] <= tol_loss
+                    and r["move"][0] <= tol_move,
+                    f"step {r['step']}, replicas the same bytes on "
+                    f"{r['replicas']} ranks, loss {r['loss_err']:.2e} (tol "
+                    f"{tol_loss:.0e}), master move {r['move'][0]:.2e} at "
+                    f"{r['move'][1]} (tol {tol_move:g})")
+    gates.check("13f MoE on 2 ranks", rec["moe"] == "refused", rec["moe"])
+    stats["train_elastic"] = rec
+
+
+def train_phase(seed: int, stats: dict, dev=None) -> dict:
+    """Phase 13: training (plain torch, as in the reference: no TPU kernel
+    on this path; the returned launch counts are all zero).  Raises at the
+    end if any gate failed."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    cfg = get_config("llama3_2_3b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, fn in (
+            ("13ab", lambda: train_exactness(cfg, gates, gen, dev, stats)),
+            ("13c", lambda: train_full_width(cfg, gates, dev, stats)),
+            ("13d", lambda: train_accumulation(cfg, gates, gen, dev, stats,
+                                               seed)),
+            ("13e", lambda: train_learning(gates, dev, stats, seed)),
+            ("13f", lambda: train_elastic(gates, dev, stats))):
+        _, secs = timed(fn)
+        stats[f"phase{name}_s"] = secs
+        log(f"  {name} took {secs:.1f} s")
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 13 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -3061,6 +3609,16 @@ def main() -> int:
     paths["lm families"], stats["phase12_s"] = timed(
         lambda: families_phase(args.seed, stats))
     log(f"  phase 12 took {stats['phase12_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 13. training ---------------------------------------------------------
+    log("== 13. training: llama3.2-3b's gradients and step card against CPU "
+        "(f64, 2 layers), its full config's steps (bf16, 28 layers), "
+        "gradient accumulation, cpu-small's learning and exact resume, the "
+        "elastic restart (random weights)")
+    paths["train"], stats["phase13_s"] = timed(
+        lambda: train_phase(args.seed, stats))
+    log(f"  phase 13 took {stats['phase13_s']:.1f} s")
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.

@@ -5,10 +5,11 @@
 Every config file exports ``CONFIG`` (the exact published geometry) and
 ``reduced()`` (a same-family miniature for CPU smoke tests).  The registry in
 ``repro_torch.configs`` resolves ``--arch <id>`` strings.  ``dtype`` and
-``param_dtype`` are torch dtypes.  The fields the reference keeps for
-its mesh and compiler (``remat``, ``fsdp``, ``scan_unroll``, ``ssd_unroll``)
-stay, so that a configuration reads the same in both packages; nothing in
-the port reads them.
+``param_dtype`` are torch dtypes.  ``remat`` sets the training-time
+activation checkpointing (``models.api._remat``).  The fields the
+reference keeps for its mesh and compiler (``fsdp``, ``scan_unroll``,
+``ssd_unroll``) stay, so that a configuration reads the same in both
+packages; nothing in the port reads them.
 """
 from __future__ import annotations
 

@@ -27,6 +27,10 @@ respawn per solve would cost seconds each.
   (``collectives.WireTap``; ``last["wire"]``), and with ``track_peak`` the
   peak bytes its device allocator held above the solve's start
   (``last["peak_bytes"]``, CUDA only): the contract pass reads both.
+* :meth:`SolverWorld.run` runs any module-level function on the first P
+  ranks with their ``Comm`` (the data-parallel trainer,
+  ``train.elastic``); a world built with ``kernels=False`` skips the
+  kernel build that the solvers' ranks need.
 
 The backend rule: ``"nccl"`` needs one card per rank (rank r computes on
 ``cuda:r``) and raises for more ranks than cards; ``"gloo"`` lets every rank
@@ -133,6 +137,11 @@ class _Rank:
                 "peak_bytes": (torch.cuda.max_memory_allocated(dev) - base
                                if peak else None)}
 
+    def run(self, p: dict):
+        """A function of the world's callers on the first P ranks:
+        ``fn(comm, device, **kwargs)``."""
+        return p["fn"](self.comm(p["P"]), self.device, **p["kwargs"])
+
     def _solve(self, p, form, plan, comm, Xl, idx, tensor) -> tuple:
         P = p["P"]
         metrics = None
@@ -235,9 +244,11 @@ class SolverWorld:
     stops the ranks."""
 
     def __init__(self, n_ranks: int, *, backend: str = "gloo",
-                 device="cuda", timeout: float = 600.0):
+                 device="cuda", timeout: float = 600.0,
+                 kernels: bool = True):
         self.device = _check_world(n_ranks, backend, device)
         self.backend = backend
+        self.kernels = kernels
         self.timeout = float(timeout)
         self.size = 0
         self._procs = []
@@ -251,7 +262,7 @@ class SolverWorld:
     # -- process management ------------------------------------------------
     def _start(self, n_ranks: int) -> None:
         import torch.multiprocessing as mp
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.kernels:
             # the ranks only load the built kernels: no concurrent nvcc
             from repro_torch.kernels.gram import _build
             _build.build_all()
@@ -448,6 +459,15 @@ class SolverWorld:
         return engine.BatchedSolveResult(
             ws, alphas, torch.ones((batch.tenants,), dtype=torch.bool,
                                    device=X.device), {})
+
+    def run(self, fn, n_ranks: int | None = None, **kwargs) -> list:
+        """``fn(comm, device, **kwargs)`` on each of the first ``n_ranks``
+        ranks (all by default): ``comm`` is the rank's
+        :class:`~repro_torch.core.engine.Comm` on their group.  ``fn`` must
+        be importable by the ranks (a module-level function).  Returns the
+        ranks' results in rank order."""
+        P = self._ranks(n_ranks)
+        return self._call("run", {"fn": fn, "P": P, "kwargs": kwargs}, P)
 
     def _probes(self) -> dict:
         return {"tap": self.tap_wire, "peak": self.track_peak}

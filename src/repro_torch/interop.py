@@ -13,7 +13,9 @@ the LM, :func:`lm_params_from_reference` builds the port's model (every
 family: dense, vlm, ssm, hybrid, moe and the encoder-decoder) from the
 reference's parameter tree, and :func:`lm_cache_from_reference` /
 :func:`lm_cache_to_numpy` carry a decode cache across, the mamba state
-included.
+included.  For training, :func:`train_state_from_reference` and
+:func:`train_state_to_numpy` carry a train state (parameters, the f32
+master, m and v, the step) both ways.
 """
 from __future__ import annotations
 
@@ -178,3 +180,28 @@ def lm_cache_to_numpy(cache) -> dict:
     if isinstance(cache, dict):
         return {k: lm_cache_to_numpy(v) for k, v in cache.items()}
     return cache.detach().float().cpu().numpy()
+
+
+def train_state_from_reference(state_np, cfg, *, device):
+    """The port's train state (``repro_torch.train``: ``{"params", "opt":
+    {"master", "m", "v"}, "step"}``) from the reference's, as numpy arrays
+    in the same tree (the parameters in the reference's stacked layout):
+    each leaf on ``device`` in the type
+    :func:`~repro_torch.train.train_state_specs` gives it (the parameters
+    in ``cfg.param_dtype`` with the f32 parameters f32, the optimizer
+    state f32, the step int32); a bf16 leaf is carried through f32, which
+    holds it exactly."""
+    from repro_torch.models import api
+    from repro_torch.train import train_state_specs
+    return api._to_specs(_tree_to_torch(state_np, device, None),
+                         train_state_specs(cfg))
+
+
+def train_state_to_numpy(state) -> dict:
+    """A train state of the port copied to numpy arrays in the same tree
+    (copies: the train step updates the state in place): bf16 leaves as
+    f32 (exact), the others in their own type."""
+    if isinstance(state, dict):
+        return {k: train_state_to_numpy(v) for k, v in state.items()}
+    t = state.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()

@@ -12,6 +12,7 @@ Public entry points (the reference's, with its parameter tree replaced by
 a model built from it, :func:`build_model`):
   param_specs(cfg)                         -> ParamSpec tree
   forward(model, cfg, batch)               -> (logits, aux)
+  loss_fn(model, cfg, batch)               -> (loss, metrics)
   init_cache_specs(cfg, batch, max_seq)    -> cache ParamSpec tree
   init_cache(cfg, batch, max_seq, device)  -> zero cache
   prefill(model, cfg, batch, max_seq)      -> (logits_last, cache)
@@ -30,8 +31,17 @@ tensors are views of it.  So does the cache: ``{"blocks": {"sub{j}":
 {"k", "v", "xk", "xv"}}``, layer axis first, slot axis second.
 ``decode_step`` writes each layer's new k / v rows and mamba state into
 that cache in place and returns it (the reference returns a new cache).
-The reference's ``_remat`` is a training-time memory policy and has no
-twin; nor has ``loss_fn`` yet.
+
+Serving keeps the parameters frozen.  Training calls
+:meth:`_LM.trainable`: every parameter requires grad, and backward adds
+each gradient in place into buffers laid out as the parameter tree
+(:meth:`_LM.grad_tree`), so the optimizer and the checkpoint see the
+reference's layout.  The reference's ``_remat`` becomes :func:`_remat`:
+with gradients on, each superblock (each layer of the enc-dec body) runs
+under ``torch.utils.checkpoint``, saving nothing (``cfg.remat == "full"``)
+or only the products without batch dimensions (``"dots"``); ``"none"``
+keeps every activation.  The memory policy moves no bit of the loss or of
+a gradient.
 """
 from __future__ import annotations
 
@@ -44,7 +54,8 @@ from torch import nn
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
-from .module import ParamSpec, init_params, is_spec, stack_specs, tree_map
+from .module import (ParamSpec, init_params, is_spec, stack_specs, tree_leaves,
+                     tree_map)
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -144,12 +155,13 @@ class Layer(nn.Module):
                 {n: _frozen(t) for n, t in v.items()})
                 if isinstance(v, dict) else _frozen(v))
 
-    def tree(self) -> dict:
+    def tree(self, leaf=lambda p: p.data) -> dict:
+        """The layer's tree of ``leaf(parameter)`` (default: the data)."""
         out = {}
         for k in self.kinds:
             v = getattr(self, k)
-            out[k] = ({n: t.data for n, t in v.items()}
-                      if isinstance(v, nn.ParameterDict) else v.data)
+            out[k] = ({n: leaf(t) for n, t in v.items()}
+                      if isinstance(v, nn.ParameterDict) else leaf(v))
         return out
 
 
@@ -173,19 +185,26 @@ def _to_specs(tree, specs):
     return {k: _to_specs(tree[k], specs[k]) for k in tree}
 
 
+def _nest(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
 class _LM(nn.Module):
     """What both bodies share: ``top`` holds ``embedding`` (and ``lm_head``
     when the embeddings are untied), ``final_norm`` and any other unstacked
-    leaf; the subclass holds the layers and knows their stacked layout.
-    Built from a parameter tree in the reference's layout
-    (:func:`param_specs`), whose tensors it keeps as they are (views, no
-    copy); no gradients are kept."""
+    leaf; the subclass holds the layers and knows their stacked layout
+    (:meth:`_groups`).  Built from a parameter tree in the reference's
+    layout (:func:`param_specs`), whose tensors it keeps as they are
+    (views, no copy), frozen; :meth:`trainable` turns gradients on."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
         self.cfg = cfg
         self.top = nn.ParameterDict({k: _frozen(v) for k, v in params.items()
                                      if torch.is_tensor(v)})
+        self._grads = None
 
     @classmethod
     def init(cls, cfg, generator: torch.Generator, device=None):
@@ -196,8 +215,15 @@ class _LM(nn.Module):
     def device(self) -> torch.device:
         return self.top["embedding"].device
 
-    def _stacks(self) -> dict:
+    def _groups(self) -> list:
+        """(path in the parameter tree, layers stacked there in order)."""
         raise NotImplementedError
+
+    def _stacks(self) -> dict:
+        tree: dict = {}
+        for path, layers in self._groups():
+            _nest(tree, path, _stack([la.tree() for la in layers]))
+        return tree
 
     def param_tree(self, dtype: torch.dtype | None = None) -> dict:
         """The parameters in the reference's layout (layer axes stacked),
@@ -210,6 +236,42 @@ class _LM(nn.Module):
             return tree
         cfg = dataclasses.replace(self.cfg, dtype=dtype, param_dtype=dtype)
         return _to_specs(tree, param_specs(cfg))
+
+    def trainable(self) -> "_LM":
+        """Turn gradients on, for training: every parameter requires grad,
+        and its ``.grad`` is a view of a zero buffer laid out as
+        :meth:`param_tree` (each in its parameter's dtype), so that backward
+        adds each layer's gradient there in place.  Returns the model."""
+        self.requires_grad_(True)
+        grads = {k: torch.zeros_like(v) for k, v in self.top.items()}
+        for k, v in self.top.items():
+            v.grad = grads[k]
+        for path, layers in self._groups():
+            bufs = tree_map(lambda t, n=len(layers): t.new_zeros(
+                (n,) + t.shape), layers[0].tree(), is_leaf=torch.is_tensor)
+            for i, la in enumerate(layers):
+                for k, v in la.tree(lambda p: p).items():
+                    if isinstance(v, dict):
+                        for n, t in v.items():
+                            t.grad = bufs[k][n][i]
+                    else:
+                        v.grad = bufs[k][i]
+            _nest(grads, path, bufs)
+        self._grads = grads
+        return self
+
+    def grad_tree(self) -> dict:
+        """The gradients in the reference's layout: the live buffers of
+        :meth:`trainable` (not copies)."""
+        if self._grads is None:
+            raise RuntimeError("the model is frozen: call trainable() first")
+        return self._grads
+
+    def zero_grad_tree(self) -> None:
+        """Zero the gradient buffers in place (they stay the parameters'
+        ``.grad``)."""
+        for g in tree_leaves(self.grad_tree(), is_leaf=torch.is_tensor):
+            g.zero_()
 
     def cast(self, dtype: torch.dtype) -> "_LM":
         """A copy with the activations and the parameters in ``dtype``
@@ -239,11 +301,10 @@ class DecoderLM(_LM):
         self.layers = nn.ModuleList(Layer(subs[i % period][i // period])
                                     for i in range(cfg.n_layers))
 
-    def _stacks(self) -> dict:
+    def _groups(self) -> list:
         period = _superblock_period(self.cfg)
-        return {"blocks": {f"sub{j}": _stack([layer.tree() for layer in
-                                              self.layers[j::period]])
-                           for j in range(period)}}
+        return [(("blocks", f"sub{j}"), self.layers[j::period])
+                for j in range(period)]
 
 
 class EncDecLM(_LM):
@@ -262,9 +323,9 @@ class EncDecLM(_LM):
         self.dec_layers = nn.ModuleList(
             Layer(t) for t in _unstack(params["decoder"], cfg.n_layers))
 
-    def _stacks(self) -> dict:
-        return {"encoder": _stack([la.tree() for la in self.enc_layers]),
-                "decoder": _stack([la.tree() for la in self.dec_layers])}
+    def _groups(self) -> list:
+        return [(("encoder",), self.enc_layers),
+                (("decoder",), self.dec_layers)]
 
 
 def build_model(cfg, params: dict) -> _LM:
@@ -332,13 +393,58 @@ def _apply_layer(layer, x, cfg, positions, aux, caches=None):
     return x, aux
 
 
+# The products without batch dimensions (the projections, the MLP, the
+# unembedding): what jax's ``dots_with_no_batch_dims_saveable`` keeps.  An
+# einsum with no batch dimension runs as a ``bmm`` over a batch of one.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _DOTS or (op is torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg, model):
+    """The reference's ``_remat``: ``fn`` under activation checkpointing
+    while gradients flow to the model's parameters -- ``"full"`` saves
+    nothing and recomputes ``fn`` in backward, ``"dots"`` saves only the
+    products without batch dimensions; ``"none"``, or no gradients, runs
+    ``fn`` as it is."""
+    if (cfg.remat == "none" or not torch.is_grad_enabled()
+            or not model.top["embedding"].requires_grad):
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r} must be 'full', 'dots' or "
+                         "'none'")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _apply_layers(layers, x, cfg, positions, aux, caches=None):
+    for layer in layers:
+        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches)
+    return x, aux
+
+
 def _decoder_stack(model, cfg, x, positions, caches=None):
-    """The layers in order (the reference's scan over superblocks); the
-    MoE metrics summed over the MoE layers, from f32 zeros."""
+    """The layers in order (the reference's scan over superblocks, each
+    superblock under :func:`_remat`); the MoE metrics summed over the MoE
+    layers, from f32 zeros."""
     aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
             for k in ("moe_aux_loss", "moe_drop_frac")} if cfg.moe else {})
-    for layer in model.layers:
-        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches)
+    period = _superblock_period(cfg)
+    block = _remat(_apply_layers, cfg, model)
+    for i in range(0, len(model.layers), period):
+        x, aux = block(model.layers[i:i + period], x, cfg, positions, aux,
+                       caches)
     return x, aux
 
 
@@ -347,35 +453,46 @@ def _self_attention(p, x, cfg, positions, causal):
     return L.out_proj(p, _attend(q, k, v, cfg, causal))
 
 
+def _encoder_layer(layer, x, cfg, positions):
+    h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+    x = x + _self_attention(layer.attn, h, cfg, positions, causal=False)
+    h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+    return x + L.swiglu(layer.mlp, h)
+
+
 def _encoder_stack(model, cfg, src):
-    """The bidirectional encoder on the frame embeddings, then enc_norm."""
+    """The bidirectional encoder on the frame embeddings (each layer under
+    :func:`_remat`), then enc_norm."""
     x = torch.as_tensor(src, device=model.device).to(cfg.dtype)
     positions = _positions(x.shape[1], x.device)
+    block = _remat(_encoder_layer, cfg, model)
     for layer in model.enc_layers:
-        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-        x = x + _self_attention(layer.attn, h, cfg, positions, causal=False)
-        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
-        x = x + L.swiglu(layer.mlp, h)
+        x = block(layer, x, cfg, positions)
     return L.rmsnorm(x, model.top["enc_norm"], cfg.norm_eps)
+
+
+def _cross_decoder_layer(layer, x, cfg, positions, enc, caches=None):
+    h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
+    q, k, v = _project(layer.attn, h, cfg, positions)
+    x = x + L.out_proj(layer.attn, _attend(q, k, v, cfg))
+    h = L.rmsnorm(x, layer.lnx, cfg.norm_eps)
+    qx, xk, xv = L.qkv_proj(layer.cross, h, enc)
+    x = x + L.out_proj(layer.cross, _attend(qx, xk, xv, cfg, causal=False))
+    h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
+    x = x + L.swiglu(layer.mlp, h)
+    if caches is not None:
+        caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
+    return x
 
 
 def _cross_decoder_stack(model, cfg, x, enc, caches=None):
     """The text decoder: causal self-attention, cross-attention to the
-    encoder's output, MLP.  Appends each layer's self k / v and cross
-    xk / xv to ``caches`` when given."""
+    encoder's output, MLP (each layer under :func:`_remat`).  Appends each
+    layer's self k / v and cross xk / xv to ``caches`` when given."""
     positions = _positions(x.shape[1], x.device)
+    block = _remat(_cross_decoder_layer, cfg, model)
     for layer in model.dec_layers:
-        h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-        q, k, v = _project(layer.attn, h, cfg, positions)
-        x = x + L.out_proj(layer.attn, _attend(q, k, v, cfg))
-        h = L.rmsnorm(x, layer.lnx, cfg.norm_eps)
-        qx, xk, xv = L.qkv_proj(layer.cross, h, enc)
-        x = x + L.out_proj(layer.cross, _attend(qx, xk, xv, cfg,
-                                                causal=False))
-        h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
-        x = x + L.swiglu(layer.mlp, h)
-        if caches is not None:
-            caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
+        x = block(layer, x, cfg, positions, enc, caches)
     return x, {}
 
 
@@ -390,7 +507,7 @@ def _embed(model, cfg, batch: dict) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forward / loss
 # ---------------------------------------------------------------------------
 
 
@@ -409,6 +526,42 @@ def forward(model, cfg, batch: dict):
                                 _positions(x.shape[1], x.device))
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     return L.unembed(model.top, x), aux
+
+
+def nll_sum(model, cfg, batch: dict):
+    """(sum of the masked next-token NLL over the text positions, the mask's
+    sum, the forward's aux metrics): :func:`loss_fn`'s parts, so that a
+    data-parallel rank can divide its rows' sum by the global batch's
+    count.  The cross entropy runs in ``layers.acc_dtype`` of the logits:
+    f32 for bf16 and f32 models (the reference's f32), f64 for f64
+    models."""
+    logits, aux = forward(model, cfg, batch)
+    dev = logits.device
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    St = labels.shape[1]
+    logits = logits[:, -St:, :].to(L.acc_dtype(logits.dtype))  # text only
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None else
+            torch.as_tensor(mask, device=dev).to(nll.dtype))
+    return (nll * mask).sum(), mask.sum(), aux
+
+
+def loss_fn(model, cfg, batch: dict):
+    """Next-token cross entropy with masking (:func:`nll_sum` over
+    max(mask sum, 1)), the MoE aux loss added: (total, {"loss",
+    "ppl_log"[, "moe_aux_loss"]})."""
+    total_nll, n, aux = nll_sum(model, cfg, batch)
+    loss = total_nll / torch.clamp_min(n, 1)
+    metrics = {"loss": loss, "ppl_log": loss}
+    total = loss
+    if aux.get("moe_aux_loss") is not None and cfg.moe:
+        total = total + aux["moe_aux_loss"] / max(
+            cfg.n_layers // cfg.moe.every_n_layers, 1)
+        metrics["moe_aux_loss"] = aux["moe_aux_loss"]
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

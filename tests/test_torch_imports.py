@@ -44,7 +44,11 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.models.api", "repro_torch.models.layers",
             "repro_torch.models.module", "repro_torch.data.tokens",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
-            "repro_torch.launch.lm_probe"} <= set(mods)
+            "repro_torch.launch.lm_probe", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.train", "repro_torch.train.trainer",
+            "repro_torch.train.elastic", "repro_torch.launch.train",
+            "repro_torch.launch.train_lm"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -85,7 +89,9 @@ def test_the_scan_sees_the_whole_port():
             "models/api.py", "models/layers.py", "models/module.py",
             "models/mamba2.py", "models/moe.py",
             "data/tokens.py", "serve/engine.py", "launch/serve.py",
-            "launch/lm_probe.py"} <= names
+            "launch/lm_probe.py", "optim/adamw.py", "optim/schedules.py",
+            "train/trainer.py", "train/elastic.py", "launch/train.py",
+            "launch/train_lm.py"} <= names
 
 
 # Names of the reference's packages that have no twin in the port, each with
@@ -104,7 +110,10 @@ NO_TWIN = {
         "abstract_params", "BASE_RULES", "ShardingRules", "constrain",
         "make_rules"},
     "repro.configs": set(), "repro.data": set(),
-    "repro.serve": set(),
+    "repro.serve": set(), "repro.optim": set(),
+    "repro.train": {
+        # its mesh's NamedSharding / ShapeDtypeStruct trees
+        "train_step_shardings", "abstract_train_state"},
 }
 
 
