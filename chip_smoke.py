@@ -138,7 +138,27 @@ Phases (any failure raises; nothing is caught):
      launch/train.py (the loss falls) and exact resume from a checkpoint
      in deterministic mode; (f) the elastic restart of granite-3-2b
      reduced from 4 gloo ranks sharing the card to 2, against one rank, in
-     bf16 and f32, and an MoE config refused on 2 ranks.
+     bf16 and f32, and an MoE config refused on 2 ranks;
+ 14. on four gloo ranks sharing the card (plain torch, as in the
+     reference, except (d) and (e)): (a) flash-decoding
+     (decode_attention_seqsharded) at llama3.2-3b's decode width (B = 4,
+     H = 24 / 8, Dh = 128) over decode_32k's 32768 positions, ragged pos
+     (first shard, a shard's last key, the next shard's first, the last),
+     against decode_attention on the whole cache in f32 (1e-5) and bf16
+     (1e-2): two all-reduces a call, under a quarter of the cache's bytes;
+     (b) llama3.2-3b at full width cut to 2 layers, f32: prefill of 63
+     tokens, then 8 greedy decode steps with the cache sequence-sharded
+     over the ranks against the local decode_step (tokens equal, logits
+     1e-3, 2 all-reduces an attention layer a step, ms a step); (c) the
+     LM dry run (launch/dryrun.py) of every arch x applicable shape on one
+     rank with its probe at full width (two depths x two row cuts,
+     counted and timed, extrapolated) and the analytic full-depth record,
+     llama3.2-3b's train_4k and decode_32k also on the four ranks, the
+     roofline tables at the H100's cited peaks, failed == 0; (d)
+     solver_dryrun --tenants 8 --verify 4: H all-reduces a batched solve
+     on every rank (K1-K6 on the ranks); (e) launch/lasso.py through K1 /
+     K2 (counted: the "lasso" path), s = 20 within 1e-8 of s = 1 and the
+     support recovered.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -152,6 +172,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3464,6 +3485,226 @@ def train_phase(seed: int, stats: dict, dev=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM dry run and roofline on a world of ranks, flash-decoding
+# over a sequence-sharded cache, the batched solver dry-run cells, lasso
+# ---------------------------------------------------------------------------
+
+SEQ_RANKS = 4                   # gloo ranks sharing the card
+# llama3.2-3b's decode attention at decode_32k's length
+FLASH = {"B": 4, "H": 24, "Hkv": 8, "Dh": 128, "S": 32768}
+# a row in the first shard, one at the last key of shard 0 (every later
+# shard wholly after it), one at the first key of shard 2, one at the end
+FLASH_POS = (100, 8191, 16384, 32767)
+# bf16: both sides sum in f32 and round the output to bf16 (2^-8 relative),
+# so they may differ by an ulp of outputs of magnitude up to 1
+FLASH_TOL = {"f32": 1e-5, "bf16": 1e-2}
+SHARD_LAYERS, SHARD_PROMPT, SHARD_STEPS = 2, 63, 8
+SHARD_MAX_SEQ = 128             # shards of 32: steps at 63..70 cross 64
+DRYRUN_WORLD = (("llama3_2_3b", "train_4k"), ("llama3_2_3b", "decode_32k"))
+DRYRUN_TENANTS = 8
+
+
+def flash_decoding_check(world, gates, dev, seed: int, stats) -> None:
+    """14a: decode_attention_seqsharded on SEQ_RANKS ranks against
+    decode_attention on the whole cache, f32 and bf16: two all-reduces a
+    call, under a quarter of the cache's bytes."""
+    from repro_torch.launch.flash_decode import flash_decode
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, H, Hkv, Dh, S = (FLASH[k] for k in ("B", "H", "Hkv", "Dh", "S"))
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev)
+    ck, cv = (torch.randn((B, S, Hkv, Dh), generator=g, device=dev)
+              for _ in range(2))
+    pos = torch.tensor(FLASH_POS, device=dev)
+    rec = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qq, kk, vv = (t.to(dtype) for t in (q, ck, cv))
+        dense = L.decode_attention(qq, kk, vv, pos).float().cpu()
+        got, secs = timed(lambda: flash_decode(world, qq, kk, vv, pos,
+                                               SEQ_RANKS))
+        err = float((got["out"].float() - dense).abs().max())
+        cache_bytes = 2 * kk.numel() * kk.element_size()
+        cs = got["counters"]
+        rec[tag] = {"err": err, "all_reduces": [c["all_reduces"] for c in cs],
+                    "max": [c["max_reduces"] for c in cs],
+                    "bytes": cs[0]["bytes"], "cache_bytes": cache_bytes,
+                    "reduce_ms": max(c["reduce_s"] for c in cs) * 1e3,
+                    "call_s": secs}
+        gates.check(
+            f"14a flash-decoding {tag}",
+            err <= FLASH_TOL[tag] and all(
+                c["all_reduces"] == 2 and c["max_reduces"] == 1
+                and c["bytes"] < cache_bytes / 4 for c in cs),
+            f"max |flash - dense| {err:.3e} (tol {FLASH_TOL[tag]:g}); "
+            f"all-reduces by rank {rec[tag]['all_reduces']} (max "
+            f"{rec[tag]['max']}); {cs[0]['bytes']} bytes a rank against a "
+            f"{cache_bytes}-byte cache; the slowest rank's host ms in its "
+            f"all-reduces {rec[tag]['reduce_ms']:.3f}; pos {FLASH_POS}")
+        del qq, kk, vv, got
+    del q, ck, cv
+    stats["flash_decoding"] = rec
+
+
+def sharded_decode_check(world, gates, dev, seed: int, stats) -> None:
+    """14b: llama3.2-3b at full width cut to SHARD_LAYERS layers, f32:
+    prefill of SHARD_PROMPT tokens, then SHARD_STEPS greedy decode steps
+    with the cache sequence-sharded over SEQ_RANKS ranks against the local
+    decode_step on the whole cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.flash_decode import local_decode, sharded_decode
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    cfg = dataclasses.replace(get_config("llama3_2_3b"),
+                              n_layers=SHARD_LAYERS, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    model = api.build_model(cfg, params)
+    tokens = torch.randint(0, cfg.vocab, (2, SHARD_PROMPT), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        logits, cache = api.prefill(model, cfg, {"tokens": tokens},
+                                    max_seq=SHARD_MAX_SEQ)
+    tok = logits[:, :cfg.vocab].argmax(-1)
+    pos = torch.full((2,), SHARD_PROMPT, device=dev)
+    whole = clone_tree(cache)
+    local = local_decode(model, cfg, whole, tok, pos, SHARD_STEPS)
+    got = sharded_decode(world, cfg, params, cache, tok, pos, SHARD_STEPS,
+                         SEQ_RANKS)
+    err = float((got["logits"] - local["logits"]).abs().max())
+    want = [2 * SHARD_LAYERS] * SHARD_STEPS
+    ms = float(np.median(got["step_s"][1:])) * 1e3
+    local_ms = float(np.median(local["step_s"][1:])) * 1e3
+    stats["sharded_decode"] = {"err": err, "step_ms": ms,
+                               "local_step_ms": local_ms,
+                               "all_reduces": got["all_reduces"]}
+    gates.check("14b decode on the sharded cache",
+                torch.equal(got["tokens"], local["tokens"]) and err <= LM_TOL
+                and got["all_reduces"] == want,
+                f"tokens {got['tokens'].T.tolist()} equal to the local "
+                f"decode's: {torch.equal(got['tokens'], local['tokens'])}; "
+                f"max |logits diff| {err:.3e} (tol {LM_TOL:g}); all-reduces "
+                f"a step {got['all_reduces']} (2 x {SHARD_LAYERS} attention "
+                f"layers); {ms:.2f} ms a step on {SEQ_RANKS} ranks (the "
+                f"slowest rank, median of steps 2-{SHARD_STEPS}) against "
+                f"{local_ms:.2f} ms local")
+    del model, params, cache, whole
+
+
+def dryrun_check(world, gates, dev, seed: int, stats) -> None:
+    """14c: the dry run of every arch x applicable shape on one rank with
+    the probe, and DRYRUN_WORLD's cells on SEQ_RANKS ranks; the roofline
+    tables; failed == 0 and every skip with its reason."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun, roofline
+    out = Path(__file__).resolve().parent / "artifacts" / \
+        "dryrun_chip_smoke"
+    shutil.rmtree(out, ignore_errors=True)     # this run's records only
+    out = str(out)
+    results = dryrun.run(ARCH_IDS, list(SHAPES), 1, out, device=dev,
+                         seed=seed)
+    for arch, shape in DRYRUN_WORLD:
+        results += dryrun.run([arch], [shape], SEQ_RANKS, out, device=dev,
+                              world=world, seed=seed)
+    cells = roofline.load_cells(out)
+    for mesh in ("p1", f"p{SEQ_RANKS}"):
+        log(f"  14c roofline, {mesh} (H100 SXM peaks: 989 TFLOP/s bf16, "
+            f"3.35 TB/s, NVLink 450 GB/s):")
+        for line in roofline.table(cells, mesh).splitlines():
+            log(f"    {line}")
+    count = dryrun.summarize(results)
+    skips = [r for r in results if r["status"] == "skipped"] + [
+        r["probe_record"] for r in results
+        if (r.get("probe_record") or {}).get("status") == "skipped"]
+    stats["dryrun"] = {"count": count, "records": [
+        {"cell": list(key), **slots} for key, slots in sorted(cells.items())],
+        "rows": [
+        roofline.analyze_cell(a, s, m, slots["base"], slots.get("probe"))
+        for (a, s, m), slots in sorted(cells.items()) if "base" in slots]}
+    gates.check("14c dry run",
+                count["failed"] == 0 and all(r.get("reason") for r in skips)
+                and all("GB" in r["reason"] for r in skips
+                        if "fit" in r["reason"]),
+                f"{len(results)} cells: {count['ok']} ok "
+                f"({count['probes_skipped']} without a probe), "
+                f"{count['skipped']} skipped, {count['failed']} failed"
+                + "".join(f"; FAILED {r['arch']} {r['shape']} {r['mesh']}: "
+                          f"{r.get('error')}" for r in results
+                          if r["status"] == "failed"))
+
+
+def batched_dryrun_check(world, gates, dev, stats) -> None:
+    """14d: ``solver_dryrun --tenants 8 --verify 4`` on the card."""
+    from repro_torch.launch import solver_dryrun
+    out = str(Path(__file__).resolve().parent / "artifacts" /
+              "solver_chip_smoke")
+    cells = solver_dryrun.run_batched(DRYRUN_TENANTS, out)
+    rows = solver_dryrun.verify(SEQ_RANKS, "primal", world=world,
+                                tenants=DRYRUN_TENANTS)
+    stats["batched_dryrun"] = {"cells": cells, "verified": rows}
+    gates.check("14d batched cells",
+                all(r["all_reduces_by_rank"] == [8 // r["s"]] * SEQ_RANKS
+                    for r in rows)
+                and all(c["all_reduces"] == 8 // c["s"] for c in cells),
+                f"H all-reduces by rank at T = {DRYRUN_TENANTS}: "
+                + ", ".join(f"s={r['s']}: {r['all_reduces_by_rank']}"
+                            for r in rows))
+
+
+def lasso_check(gates, dev, stats) -> dict:
+    """14e: launch/lasso.py on the card (counted: the "lasso" path)."""
+    from repro_torch.launch import lasso
+    gk.reset_launch_counts()
+    res, secs = timed(lambda: lasso.main(device=dev))
+    counts = launches()
+    stats["lasso"] = {k: res[k] for k in ("deviation", "nnz", "recovered")}
+    stats["lasso"]["s"] = secs
+    gates.check("14e lasso",
+                res["deviation"] < lasso.TOL
+                and res["recovered"] == lasso.K,
+                f"max |objective s={lasso.S} - s=1| {res['deviation']:.3e} "
+                f"(tol {lasso.TOL:g}); recovered {res['recovered']}/{lasso.K},"
+                f" nnz {res['nnz']}; {secs:.1f} s; K1 {counts[gk.ROWS_PACKET.name]}"
+                f" / K2 {counts[gk.ROWS_APPLY.name]} launches")
+    return counts
+
+
+def dryrun_phase(seed: int, stats: dict, dev=None) -> dict:
+    """Phase 14: (a) flash-decoding and (b) decode on a sequence-sharded
+    cache on SEQ_RANKS gloo ranks sharing the card, (c) the LM dry run and
+    roofline, (d) the batched solver dry-run cells verified on the ranks,
+    (e) the lasso entry point (counted: the returned launches).  Raises at
+    the end if any gate failed."""
+    from repro_torch.core import SolverWorld
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    world, secs = timed(lambda: SolverWorld(SEQ_RANKS, device=dev))
+    log(f"  {SEQ_RANKS} gloo ranks spawned in {secs:.1f} s")
+    try:
+        for name, fn in (
+                ("14a", lambda: flash_decoding_check(world, gates, dev, seed,
+                                                     stats)),
+                ("14b", lambda: sharded_decode_check(world, gates, dev, seed,
+                                                     stats)),
+                ("14c", lambda: dryrun_check(world, gates, dev, seed,
+                                             stats)),
+                ("14d", lambda: batched_dryrun_check(world, gates, dev,
+                                                     stats))):
+            _, secs = timed(fn)
+            stats[f"phase{name}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        world.close()
+    counts, secs = timed(lambda: lasso_check(gates, dev, stats))
+    stats["phase14e_s"] = secs
+    log(f"  14e took {secs:.1f} s")
+    if gates.failed:
+        raise AssertionError(f"phase 14 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -3619,6 +3860,15 @@ def main() -> int:
     paths["train"], stats["phase13_s"] = timed(
         lambda: train_phase(args.seed, stats))
     log(f"  phase 13 took {stats['phase13_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 14. the dry run, flash-decoding, the batched cells, lasso ----------
+    log(f"== 14. flash-decoding and decode on a sequence-sharded cache on "
+        f"{SEQ_RANKS} gloo ranks, the LM dry run and roofline, the batched "
+        "solver dry-run cells, the lasso entry point")
+    paths["lasso"], stats["phase14_s"] = timed(
+        lambda: dryrun_phase(args.seed, stats))
+    log(f"  phase 14 took {stats['phase14_s']:.1f} s")
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.
@@ -3632,7 +3882,8 @@ def main() -> int:
                "sharded": [k.name for k in gk.KERNELS[:6]],
                "contracts": [k.name for k in gk.KERNELS[:4]],
                "bf16 packets": [k.name for k in gk.BF16_KERNELS],
-               "lm probe": [gk.COLS_PACKET.name, gk.COLS_APPLY.name]}
+               "lm probe": [gk.COLS_PACKET.name, gk.COLS_APPLY.name],
+               "lasso": [gk.ROWS_PACKET.name, gk.ROWS_APPLY.name]}
     for path, names in on_path.items():
         idle = [name for name in names if paths[path][name] == 0]
         if idle:

@@ -32,8 +32,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class CollectiveSummary:
     """Calls by kind, their elements and bytes, and the dtypes moved.
-    ``by_kind`` maps a kind (``"all_reduce"``, ``"hop"``, or the name of any
-    other ``torch.distributed`` call a tap saw) to ``(calls, words)``.  A
+    ``by_kind`` maps a kind (``"all_reduce"`` for a sum, ``"max"`` for a max
+    all-reduce, ``"hop"``, or the name of any other ``torch.distributed``
+    call a tap saw) to ``(calls, words)``.  A
     tap's record has no bytes or dtypes: 0 and the empty set."""
     count: int
     words: int
@@ -54,7 +55,10 @@ class CollectiveSummary:
 
 
 def _kinds(counters: dict) -> dict:
-    kinds = {"all_reduce": (counters["all_reduces"], counters["words"]),
+    n_max, w_max = counters.get("max_reduces", 0), counters.get("max_words", 0)
+    kinds = {"all_reduce": (counters["all_reduces"] - n_max,
+                            counters["words"] - w_max),
+             "max": (n_max, w_max),
              "hop": (counters["hops"], counters["hop_words"])}
     for name, (n, w) in counters.get("other", {}).items():
         kinds[name] = (n, w)
@@ -108,13 +112,16 @@ def _tensors(x) -> list:
 class WireTap:
     """A context manager that counts every call into ``torch.distributed``
     made in this process while it is open (:data:`TAPPED`), whoever made
-    it.  ``all_reduce`` counts as the kind ``"all_reduce"``, each send of
+    it.  ``all_reduce`` counts as the kind ``"all_reduce"`` (``"max"``
+    with ``op=ReduceOp.MAX``, also counted among the all-reduces, as
+    ``Comm`` counts it), each send of
     ``batch_isend_irecv`` and each ``send`` as a ``"hop"``, any other call
     under its own name.  :meth:`counters` has ``Comm.counters()``'s call
     and word keys (and ``"other"``)."""
 
     def __init__(self):
         self.all_reduces = self.words = 0
+        self.max_reduces = self.max_words = 0
         self.hops = self.hop_words = 0
         self.other: dict[str, list] = {}
         self._saved = {}
@@ -131,6 +138,10 @@ class WireTap:
             if name == "all_reduce":
                 self.all_reduces += 1
                 self.words += words
+                op = kwargs.get("op", args[1] if len(args) > 1 else None)
+                if op == dist.ReduceOp.MAX:
+                    self.max_reduces += 1
+                    self.max_words += words
             elif name == "send":
                 self.hops += 1
                 self.hop_words += words
@@ -161,5 +172,6 @@ class WireTap:
 
     def counters(self) -> dict:
         return {"all_reduces": self.all_reduces, "words": self.words,
+                "max_reduces": self.max_reduces, "max_words": self.max_words,
                 "hops": self.hops, "hop_words": self.hop_words,
                 "other": {k: tuple(v) for k, v in self.other.items()}}

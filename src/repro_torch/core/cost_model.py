@@ -49,6 +49,9 @@ CORI_SPARK = MachineModel("cori-spark", gamma=8e-13, alpha=1e-3, beta=1.3e-10)
 # tensor cores), at the full 700 W.  Words are 4 bytes (f32).
 H100_F32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12      # cited: the same data sheet, HBM3
+# cited: the same data sheet, bf16 on the tensor cores, dense (the LM's
+# roofline, launch/roofline.py)
+H100_BF16_FLOPS = 989e12
 
 # One card, no wire: a local solve reduces nothing (alpha = beta = 0).
 H100_LOCAL = MachineModel("h100-local", gamma=1 / H100_F32_FLOPS, alpha=0.0,

@@ -568,11 +568,15 @@ class Comm:
         self.reset()
 
     def reset(self) -> None:
-        self.all_reduces = 0    # all-reduce calls
+        self.all_reduces = 0    # all-reduce calls (sum and max)
         self.words = 0          # elements all-reduced, summed over calls
+        self.max_reduces = 0    # of those, max all-reduces
+        self.max_words = 0      # elements max-reduced
+        self.max_bytes = 0      # bytes max-reduced
         self.hops = 0           # ring hops (one send and one receive each)
         self.hop_words = 0      # elements sent by the hops
         self.bytes = 0          # bytes all-reduced and sent, summed
+        self.hop_bytes = 0      # of those, bytes sent by the hops
         self.dtypes = set()     # dtype names the calls moved
         self.reduce_s = 0.0     # host seconds inside all-reduce calls
         self.hop_s = 0.0        # host seconds inside hops
@@ -581,8 +585,9 @@ class Comm:
         """This rank's record of its calls since :meth:`reset`
         (``dtypes`` as a sorted tuple)."""
         out = {k: getattr(self, k) for k in (
-            "all_reduces", "words", "hops", "hop_words", "bytes", "reduce_s",
-            "hop_s", "staged", "backend", "size")}
+            "all_reduces", "words", "max_reduces", "max_words", "max_bytes",
+            "hops", "hop_words", "hop_bytes", "bytes", "reduce_s", "hop_s",
+            "staged", "backend", "size")}
         out["dtypes"] = tuple(sorted(self.dtypes))
         return out
 
@@ -594,14 +599,28 @@ class Comm:
         if self.staged:
             torch.cuda.synchronize(self.device)
 
-    def all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        """Sum ``flat`` over the group in place (one collective)."""
+    def all_reduce(self, flat: torch.Tensor, op: str = "sum"
+                   ) -> torch.Tensor:
+        """Reduce ``flat`` over the group in place (one collective): its
+        sum, or with ``op="max"`` its elementwise maximum (flash-decoding's
+        global max, ``models.layers.decode_attention_seqsharded``).  Both
+        count as all-reduces; a max is also counted apart, as the kind
+        ``"max"`` of the summaries (``core.collectives``), which no solver
+        declares."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"op={op!r} must be 'sum' or 'max'")
+        reduce_op = (self._dist.ReduceOp.MAX if op == "max"
+                     else self._dist.ReduceOp.SUM)
         self._wait_device()
         t0 = time.perf_counter()
-        self._dist.all_reduce(flat, group=self.group)
+        self._dist.all_reduce(flat, op=reduce_op, group=self.group)
         self.reduce_s += time.perf_counter() - t0
         self.all_reduces += 1
         self.words += flat.numel()
+        if op == "max":
+            self.max_reduces += 1
+            self.max_words += flat.numel()
+            self.max_bytes += flat.numel() * flat.element_size()
         self._record(flat)
         return flat
 
@@ -623,6 +642,7 @@ class Comm:
         self.hop_s += time.perf_counter() - t0
         self.hops += 1
         self.hop_words += send.numel()
+        self.hop_bytes += send.numel() * send.element_size()
         self._record(send)
         return recv
 

@@ -17,6 +17,7 @@ a model built from it, :func:`build_model`):
   init_cache(cfg, batch, max_seq, device)  -> zero cache
   prefill(model, cfg, batch, max_seq)      -> (logits_last, cache)
   decode_step(model, cfg, cache, tok, pos) -> (logits, cache)
+  shard_cache(cache, cfg, rank, n_shards)  -> a rank's sequence shard
 
 The reference scans one superblock (the lcm of the attention interleave
 and the MoE period) over a stacked layer axis; here the layers are an
@@ -31,6 +32,16 @@ tensors are views of it.  So does the cache: ``{"blocks": {"sub{j}":
 {"k", "v", "xk", "xv"}}``, layer axis first, slot axis second.
 ``decode_step`` writes each layer's new k / v rows and mamba state into
 that cache in place and returns it (the reference returns a new cache).
+
+Decode also runs on a sequence-sharded cache (``seq_shards=P`` in the
+cache specs, :func:`shard_cache`, ``decode_step(..., comm=...)``): every
+attention layer's k / v holds S / P positions on a rank, a new row is
+written only on the rank that owns its position, and self-attention is
+flash-decoding (``layers.decode_attention_seqsharded``: two all-reduces a
+layer); the mamba state, the MLP / MoE, the norms and the logits are
+replicated, and the audio family's cross cache of encoder frames stays
+whole.  The reference shards its dry run's decode cache over 'model' and
+lets GSPMD place the collective; the port passes the rank's communicator.
 
 Serving keeps the parameters frozen.  Training calls
 :meth:`_LM.trainable`: every parameter requires grad, and backward adds
@@ -595,14 +606,25 @@ def _cache_sublayer_specs(cfg, i: int, batch: int, max_seq: int) -> dict:
     }
 
 
-def init_cache_specs(cfg, batch: int, max_seq: int) -> dict:
+def _shard_len(max_seq: int, seq_shards: int) -> int:
+    if seq_shards < 1 or max_seq % seq_shards:
+        raise ValueError(f"max_seq={max_seq} does not split into "
+                         f"seq_shards={seq_shards} equal shards")
+    return max_seq // seq_shards
+
+
+def init_cache_specs(cfg, batch: int, max_seq: int,
+                     seq_shards: int = 1) -> dict:
     """ParamSpec tree of the decode cache, the reference's layout.  The
     audio family's cross k / v are sized for max(max_seq // 4, 128) frames,
     as the reference sizes them (its prefill returns them at the encoder's
-    own length)."""
+    own length).  With ``seq_shards=P`` it is one rank's shard of a
+    sequence-sharded cache: every self-attention k / v holds max_seq / P
+    positions; the cross k / v and the mamba state stay whole."""
+    local = _shard_len(max_seq, seq_shards)
     if cfg.family == "audio":
         hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-        self_shape = (batch, max_seq, hkv, dh)
+        self_shape = (batch, local, hkv, dh)
         cross_shape = (batch, max(max_seq // 4, 128), hkv, dh)
         axes = ("batch", "cache_seq", "kv_heads", "head_dim")
         layer = {"k": ParamSpec(self_shape, axes, cfg.dtype, init="zeros"),
@@ -611,16 +633,34 @@ def init_cache_specs(cfg, batch: int, max_seq: int) -> dict:
                  "xv": ParamSpec(cross_shape, axes, cfg.dtype, init="zeros")}
         return {"decoder": stack_specs(layer, cfg.n_layers)}
     period = _superblock_period(cfg)
-    sub = {f"sub{j}": _cache_sublayer_specs(cfg, j, batch, max_seq)
+    sub = {f"sub{j}": _cache_sublayer_specs(cfg, j, batch, local)
            for j in range(period)}
     return {"blocks": stack_specs(sub, cfg.n_layers // period)}
 
 
-def init_cache(cfg, batch: int, max_seq: int, device) -> dict:
+def init_cache(cfg, batch: int, max_seq: int, device,
+               seq_shards: int = 1) -> dict:
     """A zero cache of :func:`init_cache_specs` on ``device``."""
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                           device=device),
-                    init_cache_specs(cfg, batch, max_seq))
+                    init_cache_specs(cfg, batch, max_seq, seq_shards))
+
+
+def shard_cache(cache: dict, cfg, rank: int, n_shards: int) -> dict:
+    """Rank ``rank``'s shard of a whole cache (a copy): positions
+    ``rank * S / P`` to ``(rank + 1) * S / P`` of every self-attention
+    k / v, the cross k / v and the mamba state whole -- the layout of
+    ``init_cache_specs(..., seq_shards=n_shards)``."""
+    def cut(name, t):
+        if name not in ("k", "v"):
+            return t.clone()
+        local = _shard_len(t.shape[2], n_shards)   # (layers, batch, seq, ...)
+        return t[:, :, rank * local:(rank + 1) * local].clone()
+
+    return {group: {sub: ({n: cut(n, t) for n, t in leaves.items()}
+                          if isinstance(leaves, dict) else cut(sub, leaves))
+                    for sub, leaves in tree.items()}
+            for group, tree in cache.items()}
 
 
 def _layer_cache(cache: dict, cfg, i: int) -> dict:
@@ -632,24 +672,40 @@ def _layer_cache(cache: dict, cfg, i: int) -> dict:
             for k, v in cache["blocks"][f"sub{i % period}"].items()}
 
 
-def _decode_self_attention(p, c, h, cfg, pos, rows):
+def _decode_self_attention(p, c, h, cfg, pos, rows, comm=None):
     """Self-attention of one new token per row at ``pos``: its k / v
     written into the cache views ``c`` in place, then attention to rows
-    <= pos."""
+    <= pos.  With ``comm``, ``c`` is this rank's sequence shard: a row's
+    k / v is written only where the rank owns ``pos`` (elsewhere the slot
+    it would clamp to is rewritten with its own bytes, so nothing waits
+    for the device), and attention is flash-decoding over the shards."""
     q, k, v = L.qkv_proj(p, h)
     q = L.rope(q, pos[:, None], cfg.rope_theta)
     k = L.rope(k, pos[:, None], cfg.rope_theta)
-    c["k"][rows, pos] = k[:, 0].to(c["k"].dtype)
-    c["v"][rows, pos] = v[:, 0].to(c["v"].dtype)
-    return L.out_proj(p, L.decode_attention(q, c["k"], c["v"], pos))
+    if comm is None:
+        c["k"][rows, pos] = k[:, 0].to(c["k"].dtype)
+        c["v"][rows, pos] = v[:, 0].to(c["v"].dtype)
+        return L.out_proj(p, L.decode_attention(q, c["k"], c["v"], pos))
+    S_local = c["k"].shape[1]
+    lo = comm.rank * S_local
+    own = ((pos >= lo) & (pos < lo + S_local))[:, None, None]
+    at = (pos - lo).clamp(0, S_local - 1)
+    for name, new in (("k", k), ("v", v)):
+        leaf = c[name]
+        leaf[rows, at] = torch.where(own, new[:, 0].to(leaf.dtype),
+                                     leaf[rows, at])
+    return L.out_proj(p, L.decode_attention_seqsharded(
+        q, c["k"], c["v"], pos, comm=comm))
 
 
 def decode_step(model, cfg, cache: dict, token: torch.Tensor,
-                pos: torch.Tensor):
+                pos: torch.Tensor, comm=None):
     """One decode step.  token (B,) integer, pos (B,) current positions.
     Writes each layer's new k / v row at ``pos``, and each mamba layer's
     new state, into ``cache`` in place.  Returns (logits (B, Vpad),
-    cache)."""
+    cache).  ``comm``: this rank's handle on a world over which ``cache``
+    is sequence-sharded (:func:`shard_cache`; module docstring); token,
+    pos and the result are replicated."""
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
@@ -659,7 +715,8 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
         for i, layer in enumerate(model.dec_layers):
             c = _layer_cache(cache, cfg, i)
             h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
-            x = x + _decode_self_attention(layer.attn, c, h, cfg, pos, rows)
+            x = x + _decode_self_attention(layer.attn, c, h, cfg, pos, rows,
+                                           comm)
             h = L.rmsnorm(x, layer.lnx, cfg.norm_eps)
             q, _, _ = L.qkv_proj(layer.cross, h)             # cross k/v cached
             # the reference attends at position enc_len - 1 for every row:
@@ -675,7 +732,7 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
             h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
             if "attn" in layer.kinds:
                 x = x + _decode_self_attention(layer.attn, c, h, cfg, pos,
-                                               rows)
+                                               rows, comm)
             else:
                 out, state = M.mamba_decode_step(layer.mamba, c, h[:, 0], cfg)
                 for name, leaf in state.items():

@@ -16,7 +16,9 @@ Layouts are the reference's: q (B, S, H, Dh), k / v (B, S, Hkv, Dh), and a
 query head h = hkv * G + g of the Hkv * G heads.
 
 ``decode_attention_seqsharded`` (flash-decoding over a sequence-sharded
-cache) needs a world of ranks and has no twin yet.
+cache) runs on a world of ranks: the reference's ``shard_map`` body with
+its ``pmax`` / ``psum`` becomes the rank's own shard and two all-reduces
+of its :class:`~repro_torch.core.engine.Comm`.
 """
 from __future__ import annotations
 
@@ -200,6 +202,43 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = _acc_einsum("bhgk,bkhd->bhgd", p.to(cache_v.dtype), cache_v)
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def decode_attention_seqsharded(q: torch.Tensor, cache_k: torch.Tensor,
+                                cache_v: torch.Tensor, pos, *, comm
+                                ) -> torch.Tensor:
+    """Flash-decoding on this rank's shard of a sequence-sharded cache.
+    ``cache_k`` / ``cache_v`` (B, S / P, Hkv, Dh) hold the key positions
+    ``comm.rank * S_local + arange(S_local)``; q (B, 1, H, Dh) and ``pos``
+    are replicated.  Each rank computes a partial softmax over its keys
+    (masked scores, local max m, p = exp(s - m), numerator and
+    denominator); one max all-reduce gives the global max, and one sum
+    all-reduce combines the rescaled packet [num r | den r], r = exp(m -
+    gmax), of (B, Hkv, G, Dh + 1) words, in place of gathering the cache.
+    A shard whose keys all lie after ``pos`` has m = NEG_INF and p = 1 on
+    every key: its rescale r = 0 removes it, as in the reference, whose
+    order of operations this keeps.  The statistics are in
+    :func:`acc_dtype` (f32, f64 for f64 inputs).  Returns (B, 1, H, Dh)."""
+    B, _, H, Dh = q.shape
+    S_local, Hkv = cache_k.shape[1], cache_k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    kpos = comm.rank * S_local + torch.arange(S_local, device=q.device)
+    s = _acc_einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, G, Dh),
+                    cache_k) * scale
+    pos = torch.as_tensor(pos, device=q.device)
+    pos_b = pos.reshape(-1, 1, 1, 1) if pos.dim() else pos
+    s = torch.where(kpos[None, None, None, :] <= pos_b, s, NEG_INF)
+    m = s.amax(dim=-1)                                   # (B, Hkv, G)
+    p = torch.exp(s - m[..., None])
+    num = _acc_einsum("bhgk,bkhd->bhgd", p.to(cache_v.dtype), cache_v)
+    den = p.sum(dim=-1)
+    gmax = comm.all_reduce(m.clone(), op="max")     # m stays the local max
+    r = torch.exp(m - gmax)
+    packet = torch.cat([num * r[..., None], (den * r)[..., None]], dim=-1)
+    packet = comm.all_reduce(packet.contiguous())        # (B, Hkv, G, Dh + 1)
+    out = packet[..., :Dh] / torch.clamp_min(packet[..., Dh:], 1e-30)
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 

@@ -376,3 +376,32 @@ def test_solver_dryrun_verifies_on_four_ranks(world, form):
     assert [(r["s"], r["wire"]) for r in rows] == [
         (1, "psum"), (4, "psum"), (4, "psum"), (8, "psum"), (8, "ring")]
     assert rows[-1]["hops"] == 6 and rows[0]["all_reduces"] == 8
+
+
+@pytest.mark.parametrize("tenants", [1, 8, 64])
+def test_solver_dryrun_batched_all_reduces_do_not_scale_with_tenants(
+        tmp_path, tenants):
+    """The batched cells: H all-reduces whatever T; sb^2 + T sb words an
+    outer step (the shared Gram not scaled by T)."""
+    rows = solver_dryrun.run_batched(tenants, str(tmp_path), "primal")
+    assert (tmp_path / f"solver_cells_batched_T{tenants}.json").exists()
+    by = {(r["chips"], r["s"]): r for r in rows}
+    assert sorted(by) == [(P, s) for P in (256, 512) for s in (1, 4, 8)]
+    for (P, s), r in by.items():
+        assert r["all_reduces"] == 8 // s and r["hops"] == 0
+        sb = s * 8
+        assert r["words"] == (8 // s) * (sb * sb + tenants * sb)
+        assert r["modeled_solves_per_s"] > 0
+        assert r["modeled_bytes_per_iter_per_tenant"] > 0
+    one = solver_dryrun.run_batched(1, str(tmp_path), "primal")
+    for r, r1 in zip(rows, one):
+        assert r["all_reduces"] == r1["all_reduces"]
+        assert r["words"] - r1["words"] == (tenants - 1) * 8 * 8
+
+
+@pytest.mark.parametrize("form", ["primal", "dual"])
+def test_solver_dryrun_verifies_batched_on_four_ranks(world, form):
+    rows = solver_dryrun.verify(4, form, world=world, tenants=8)
+    assert [r["s"] for r in rows] == [1, 4, 8]
+    for r in rows:
+        assert r["all_reduces_by_rank"] == [8 // r["s"]] * 4

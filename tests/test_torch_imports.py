@@ -48,7 +48,10 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.optim.adamw", "repro_torch.optim.schedules",
             "repro_torch.train", "repro_torch.train.trainer",
             "repro_torch.train.elastic", "repro_torch.launch.train",
-            "repro_torch.launch.train_lm"} <= set(mods)
+            "repro_torch.launch.train_lm", "repro_torch.launch.inputs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.flash_decode",
+            "repro_torch.launch.lasso"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -91,7 +94,9 @@ def test_the_scan_sees_the_whole_port():
             "data/tokens.py", "serve/engine.py", "launch/serve.py",
             "launch/lm_probe.py", "optim/adamw.py", "optim/schedules.py",
             "train/trainer.py", "train/elastic.py", "launch/train.py",
-            "launch/train_lm.py"} <= names
+            "launch/train_lm.py", "launch/inputs.py", "launch/dryrun.py",
+            "launch/roofline.py", "launch/flash_decode.py",
+            "launch/lasso.py", "launch/solver_dryrun.py"} <= names
 
 
 # Names of the reference's packages that have no twin in the port, each with
