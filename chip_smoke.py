@@ -138,7 +138,9 @@ Phases (any failure raises; nothing is caught):
      launch/train.py (the loss falls) and exact resume from a checkpoint
      in deterministic mode; (f) the elastic restart of granite-3-2b
      reduced from 4 gloo ranks sharing the card to 2, against one rank, in
-     bf16 and f32, and an MoE config refused on 2 ranks;
+     bf16 and f32, the same restart of phi3.5-moe reduced in f32 with its
+     experts sharded over the ranks, and an MoE config refused on 3 ranks
+     (E = 4);
  14. on four gloo ranks sharing the card (plain torch, as in the
      reference, except (d) and (e)): (a) flash-decoding
      (decode_attention_seqsharded) at llama3.2-3b's decode width (B = 4,
@@ -158,7 +160,33 @@ Phases (any failure raises; nothing is caught):
      solver_dryrun --tenants 8 --verify 4: H all-reduces a batched solve
      on every rank (K1-K6 on the ranks); (e) launch/lasso.py through K1 /
      K2 (counted: the "lasso" path), s = 20 within 1e-8 of s = 1 and the
-     support recovered.
+     support recovered;
+ 15. experts sharded over four gloo ranks sharing the card (plain torch
+     and collectives, as the reference's jnp MoE: no kernel; counted, the
+     "experts" path, all zero), random weights from --seed, f32 unless
+     said: (a) one MoE block at dbrx's width (d 6144, d_ff 10752, 16
+     experts, top-4; 12.7 GB of experts) and at jamba-1.5-large's (8192,
+     24576, 16, top-2; 38.7 GB) at the published capacity 1.25, 4 ranks x
+     512 tokens with a shared offset on the tokens (hot experts: slots
+     drop), the expert-parallel output against the single-process block
+     on the same weights and tokens (EP_TOL), its routing (each rank's
+     rows routed as the rank routes them) and drop fraction equal, the
+     experts' bmm on an (E / P, C, D) slice against the (E, C, D) call
+     (torch.equal or not, reported), all-to-alls a call, bytes a call and
+     host ms inside them; (b) dbrx at its width cut to EP_DECODE_LAYERS
+     layers (capacity 4.0, no drops, as phase 12's gates): prefill +
+     decode steps on the ranks (replicated tokens)
+     against forward (LM_TOL) and against the one-process decode (bits
+     reported), the engine's greedy tokens on the ranks equal to the
+     one-rank engine's, then bf16 decode ms a step on the ranks against
+     local beside the weight-read bounds; (c) phi3.5-moe at its width cut
+     to EP_TRAIN_LAYERS layer at capacity 1.0 (slots drop): one train step
+     on the ranks against the
+     same step on one rank (loss, aux loss, drop fraction, grad norm, each
+     master leaf), ms a step, host ms in the collectives and each rank's
+     allocator peak; (d) the dry run's MoE train cells on 4 ranks (phase
+     14c: probed, or skipped for memory) and dbrx's and jamba's analytic
+     records at 4 and 16 ranks.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -3006,8 +3034,11 @@ def families_phase(seed: int, stats: dict, dev=None) -> dict:
 # granite-3-2b reduced, as the reference's elastic check (bf16), then in
 # f32: 2 steps on ELASTIC_RANKS[0] gloo ranks sharing the card with a
 # checkpoint, a restore on ELASTIC_RANKS[1] of them to step 4, against one
-# rank on the same stream; the replicas the same bytes on every rank; an
-# MoE config refused on two ranks.  TOL_ELASTIC: (loss atol, each leaf's
+# rank on the same stream; the replicas the same bytes on every rank; the
+# same restart of phi3.5-moe reduced in f32 with its experts sharded over
+# the ranks (the replicated leaves the same bytes, TOL_ELASTIC["f32"]), and
+# an MoE config refused on 3 ranks (E = 4 does not split).  TOL_ELASTIC:
+# (loss atol, each leaf's
 # f32 master move against its norm).  In bf16, P ranks sum P bf16
 # gradients where one rank rounds one, and Adam's normalised step turns a
 # gradient element within rounding of 0 into a move of lr either way: on
@@ -3414,14 +3445,16 @@ def elastic_case(world, cfg, rc, dev, ckpt_dir: str) -> dict:
 
 def train_elastic(gates, dev, stats) -> None:
     """13f: the elastic restart of granite-3-2b reduced (bf16, as in the
-    reference's check, then in f32), ELASTIC_RANKS[0] -> ELASTIC_RANKS[1]
-    gloo ranks sharing the card, against one rank; an MoE config refused
-    on two ranks."""
+    reference's check, then in f32) and of phi3.5-moe reduced in f32 (its
+    four experts sharded over the ranks, one a rank, then two),
+    ELASTIC_RANKS[0] -> ELASTIC_RANKS[1] gloo ranks sharing the card,
+    against one rank; an MoE config refused on 3 ranks (E = 4)."""
     import tempfile
 
     from repro_torch.configs import get_reduced
     from repro_torch.core import SolverWorld
-    from repro_torch.train import TrainRunConfig, run_data_parallel
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainRunConfig, make_train_step
     bf16 = get_reduced("granite_3_2b")
     rc = TrainRunConfig(steps=4, global_batch=8, seq_len=32, lr=1e-3,
                         warmup=1, save_every=2, log_every=1)
@@ -3433,16 +3466,26 @@ def train_elastic(gates, dev, stats) -> None:
                 bf16, dtype=torch.float32, param_dtype=torch.float32))):
             with tempfile.TemporaryDirectory() as d:
                 rec[tag] = elastic_case(world, cfg, rc, dev, d)
+        moe = get_reduced("phi3_5_moe_42b")
+        moe = dataclasses.replace(moe, dtype=torch.float32,
+                                  param_dtype=torch.float32,
+                                  moe=dataclasses.replace(
+                                      moe.moe, capacity_factor=1.25))
+        with tempfile.TemporaryDirectory() as d:
+            rec["moe f32"] = elastic_case(world, moe, rc, dev, d)
+
+        class Three:
+            size, rank = 3, 0
         try:
-            run_data_parallel(world, get_reduced("phi3_5_moe_42b"),
-                              dataclasses.replace(rc, steps=1), n_ranks=2)
-            rec["moe"] = "not refused"
-        except RuntimeError as e:
-            rec["moe"] = ("refused" if "MoE training" in str(e)
-                          else f"another error: {e}")
+            make_train_step(moe, AdamWConfig(), comm=Three())
+            rec["moe_split"] = "not refused"
+        except ValueError as e:
+            rec["moe_split"] = ("refused" if "E=4" in str(e)
+                                else f"another error: {e}")
     log(f"  13f {bf16.name}: {ELASTIC_RANKS[0]} gloo ranks spawned in "
         f"{secs:.1f} s")
-    for tag, (tol_loss, tol_move) in TOL_ELASTIC.items():
+    for tag, (tol_loss, tol_move) in (*TOL_ELASTIC.items(),
+                                      ("moe f32", TOL_ELASTIC["f32"])):
         r = rec[tag]
         log(f"    {tag}: losses {[round(x, 6) for x in r['loss']]} against "
             f"one rank's {[round(x, 6) for x in r['loss_one']]}")
@@ -3455,7 +3498,8 @@ def train_elastic(gates, dev, stats) -> None:
                     f"{r['replicas']} ranks, loss {r['loss_err']:.2e} (tol "
                     f"{tol_loss:.0e}), master move {r['move'][0]:.2e} at "
                     f"{r['move'][1]} (tol {tol_move:g})")
-    gates.check("13f MoE on 2 ranks", rec["moe"] == "refused", rec["moe"])
+    gates.check("13f MoE on 3 ranks (E = 4)", rec["moe_split"] == "refused",
+                rec["moe_split"])
     stats["train_elastic"] = rec
 
 
@@ -3501,7 +3545,9 @@ FLASH_POS = (100, 8191, 16384, 32767)
 FLASH_TOL = {"f32": 1e-5, "bf16": 1e-2}
 SHARD_LAYERS, SHARD_PROMPT, SHARD_STEPS = 2, 63, 8
 SHARD_MAX_SEQ = 128             # shards of 32: steps at 63..70 cross 64
-DRYRUN_WORLD = (("llama3_2_3b", "train_4k"), ("llama3_2_3b", "decode_32k"))
+DRYRUN_WORLD = (("llama3_2_3b", "train_4k"), ("llama3_2_3b", "decode_32k"),
+                ("phi3_5_moe_42b", "train_4k"), ("dbrx_132b", "train_4k"),
+                ("jamba_1_5_large_398b", "train_4k"))
 DRYRUN_TENANTS = 8
 
 
@@ -3705,6 +3751,458 @@ def dryrun_phase(seed: int, stats: dict, dev=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: experts sharded over ranks
+# ---------------------------------------------------------------------------
+# Four gloo ranks share the card (as phases 9 and 14); the weights reach
+# them by CUDA IPC from this process (no copy), each rank takes views of its
+# E / P experts.  Widths are the published ones; the cuts, and why: 15a is
+# one MoE block (a layer's experts: dbrx 12.7 GB, jamba 38.7 GB in f32);
+# 15b is dbrx at EP_DECODE_LAYERS of its 40 layers (31 GB in f32; its 40
+# layers are 254 GB of experts in bf16), at phase 12's MOE_GATE_CAPACITY:
+# prefill + decode equals forward only where no slot drops (a decode step's
+# few tokens never fill a capacity of 8); 15c is phi3.5-moe at
+# EP_TRAIN_LAYERS of its 32 layers (a layer's f32 train state is 25 GB of
+# experts; the one-rank step and the four ranks' states take the card).
+# The router of a random init is balanced, so 15a's tokens share an offset
+# (EP_SHIFT N(0, 1) per feature: each expert's logit gets a bias of spread
+# about EP_SHIFT) and some experts run hot: at the published capacity 1.25
+# slots drop, as they do in a trained router.
+EP_RANKS = 4
+EP_BLOCK = (("dbrx_132b", "dbrx"), ("jamba_1_5_large_398b", "jamba"))
+EP_TOKENS = (4, 512)            # B x S: a rank's 512 tokens
+EP_SHIFT = 0.5
+EP_REPS = 3
+# f32: the ranks' router runs on 512 rows, the one process's on 2048 (cuBLAS
+# may split either sum otherwise), and the experts' bmm on an (E / P, C, D)
+# slice; outputs of order 1
+EP_TOL = 1e-4
+EP_DECODE_LAYERS = 2
+EP_PROMPT, EP_STEPS, EP_MAX_SEQ = 61, 3, 128
+EP_SERVE_PROMPTS = (17, 40)
+EP_BF16_STEPS = 8
+EP_TRAIN_LAYERS = 1
+EP_TRAIN_BATCH = (4, 512)
+# the random router is balanced: at the published 1.25 no slot of 2048
+# tokens would drop, at 1.0 some do (as in the CPU test of the step)
+EP_TRAIN_CAPACITY = 1.0
+# one step on the ranks against one rank, f32: sums regrouped (the
+# replicated leaves' gradients, the router's, the grad norm): m (the
+# clipped gradient's moment) against its norm; each master leaf's
+# difference against its move -- Adam's first step moves an element by
+# about lr sign(g), so an element whose gradient is within rounding of 0
+# steps either way.  The first card run read the embedding's master at
+# 1.15e-2 and the attention's wq's m at 2.78e-4 (gates set at 1e-2 and
+# 1e-4 before it); the witness, one_rank_spread: the one-rank step run
+# again gives the same bits, and with cuBLASLt (the same products, summed
+# in another order) moves those leaves by 8.8e-3 and 2.0e-4 from itself
+EP_TRAIN_TOL = {"loss": 1e-5, "aux": 1e-5, "grad_norm": 1e-4, "m": 1e-3,
+                "master": 2e-2}
+EP_RECORDS = (("dbrx_132b", 4), ("dbrx_132b", 16),
+              ("jamba_1_5_large_398b", 4), ("jamba_1_5_large_398b", 16))
+
+
+def wire_ms(counters: dict) -> dict:
+    """Host ms inside each kind of collective of one ``Comm`` record."""
+    return {"all_to_all": counters["a2a_s"] * 1e3,
+            "all_gather": counters["gather_s"] * 1e3,
+            "all_reduce": counters["reduce_s"] * 1e3}
+
+
+def bmm_slices_equal(p, cfg, dev, gen) -> bool:
+    """cuBLAS's bmm of each rank's (E / P, C, D) slice of the experts'
+    buffers, joined, against the one (E, C, D) call: the same bits?"""
+    from repro_torch.models import moe
+    m = cfg.moe
+    C = moe._capacity(EP_TOKENS[0] * EP_TOKENS[1], m.top_k, m.num_experts,
+                      m.capacity_factor)
+    buf = torch.randn((m.num_experts, C, cfg.d_model), generator=gen,
+                      device=dev)
+    whole = torch.bmm(buf, p["w1"])
+    per = m.num_experts // EP_RANKS
+    parts = torch.cat([torch.bmm(buf[i:i + per], p["w1"][i:i + per])
+                       for i in range(0, m.num_experts, per)])
+    return torch.equal(whole, parts)
+
+
+def ep_block_check(world, gates, dev, seed: int, stats, arch: str,
+                   tag: str) -> None:
+    """15a: one MoE block at ``arch``'s width, f32, on EP_RANKS ranks
+    against the single-process block on the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import expert_parallel as EPL
+    from repro_torch.models import moe
+    from repro_torch.models.module import init_params, param_bytes
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    specs = moe.moe_specs(cfg)
+    p = init_params(specs, gen, dev)
+    B, S = EP_TOKENS
+    D = cfg.d_model
+    x = torch.randn((B, S, D), generator=gen, device=dev) + EP_SHIFT * \
+        torch.randn((D,), generator=gen, device=dev)
+    with torch.no_grad():
+        moe.moe_block(p, x, cfg)                     # warm-up
+        (want, wm), secs = timed(lambda: moe.moe_block(p, x, cfg))
+        whole = moe._route(p, x.reshape(-1, D), cfg)
+        rows = [moe._route(p, xs, cfg)
+                for xs in x.reshape(EP_RANKS, -1, D)]
+        routing = torch.equal(torch.cat([r["sel"] for r in rows]),
+                              whole["sel"])
+        counts = whole["counts"].tolist()
+        sliced = bmm_slices_equal(p, cfg, dev, gen)
+    want = want.cpu()
+    del whole, rows
+    torch.cuda.empty_cache()
+    got = EPL.ep_block(world, cfg, p, x, EP_RANKS, reps=EP_REPS)
+    err = float((got["out"] - want).abs().max())
+    equal = torch.equal(got["out"], want)
+    drop = float(got["metrics"]["moe_drop_frac"])
+    drop_equal = torch.equal(got["metrics"]["moe_drop_frac"],
+                             wm["moe_drop_frac"].cpu())
+    aux_rel = abs(float(got["metrics"]["moe_aux_loss"])
+                  - float(wm["moe_aux_loss"])) / float(wm["moe_aux_loss"])
+    last = [cs[-1] for cs in got["counters"]]
+    block_ms = float(np.median([max(r[i] for r in got["block_s"])
+                                for i in range(1, EP_REPS)])) * 1e3
+    C = moe._capacity(B * S, m.top_k, m.num_experts, m.capacity_factor)
+    rec = {"experts_gb": param_bytes(specs) / 1e9, "capacity": C,
+           "counts": counts, "drop_frac": drop, "max_abs_err": err,
+           "equal": equal, "bmm_slices_equal": sliced,
+           "routing_equal": routing, "aux_rel": aux_rel,
+           "one_process_ms": secs * 1e3, "ranks_ms": block_ms,
+           "all_to_alls": [c["all_to_alls"] for c in last],
+           "all_gathers": [c["all_gathers"] for c in last],
+           "all_reduces": [c["all_reduces"] for c in last],
+           "a2a_bytes_a_call": [c["a2a_bytes"] / max(c["all_to_alls"], 1)
+                                for c in last],
+           "wire_ms": [wire_ms(c) for c in last]}
+    stats[f"ep_block_{tag}"] = rec
+    gates.check(
+        f"15a {tag} block on {EP_RANKS} ranks",
+        (equal or err <= EP_TOL) and routing and drop_equal and drop > 0
+        and aux_rel <= 1e-5 and all(n == 2 for n in rec["all_to_alls"]),
+        f"d {D}, d_ff {cfg.d_ff}, {m.num_experts} experts top-{m.top_k}, "
+        f"{rec['experts_gb']:.1f} GB of f32 experts; {B * S} tokens, "
+        f"capacity {C} at {m.capacity_factor}, counts {counts}; output "
+        f"{'torch.equal' if equal else f'max abs err {err:.2e}'} (tol "
+        f"{EP_TOL:g}); routing equal {routing}; drop fraction {drop:.4f} "
+        f"equal {drop_equal}; aux rel {aux_rel:.1e}; bmm on (E/P, C, D) "
+        f"slices == the (E, C, D) call: {sliced}; all-to-alls "
+        f"{rec['all_to_alls']}, "
+        f"{[round(b / 1e6, 2) for b in rec['a2a_bytes_a_call']]}"
+        f" MB a call a rank, host ms inside them "
+        f"{[round(w['all_to_all'], 2) for w in rec['wire_ms']]}; the block "
+        f"{block_ms:.1f} ms on the ranks against {secs * 1e3:.1f} ms in one "
+        f"process")
+    del p, x, got
+
+
+def ep_decode_check(world, gates, dev, seed: int, stats) -> None:
+    """15b: dbrx at its width cut to EP_DECODE_LAYERS layers on EP_RANKS
+    ranks: prefill + decode against forward and the engine's tokens
+    against one rank's, f32; then bf16 decode ms a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import expert_parallel as EPL
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params, param_bytes
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_config("dbrx_132b")
+    cfg = dataclasses.replace(cfg, n_layers=EP_DECODE_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              moe=dataclasses.replace(
+                                  cfg.moe,
+                                  capacity_factor=MOE_GATE_CAPACITY))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    model = api.build_model(cfg, params)
+    tokens = torch.randint(0, cfg.vocab, (2, EP_PROMPT + EP_STEPS),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        full, _ = api.forward(model, cfg, {"tokens": tokens})
+    want = full[:, EP_PROMPT - 1:, :].float().cpu()
+    del full
+    prompt, feed = tokens[:, :EP_PROMPT], tokens[:, EP_PROMPT:]
+    one = EPL.decode(model, cfg, prompt, EP_STEPS, EP_MAX_SEQ, feed=feed)
+    got = EPL.ep_decode(world, cfg, params, prompt, EP_STEPS, EP_MAX_SEQ,
+                        EP_RANKS, feed=feed)
+    errs, bad = [], 0
+    for g, w in [(got["prefill"], want[:, 0])] + [
+            (got["logits"][i], want[:, 1 + i]) for i in range(EP_STEPS)]:
+        errs.append(float((g - w).abs().max()))
+        bad += int(((g - w).abs() > LM_TOL + LM_TOL * w.abs()).sum())
+    bits = torch.equal(got["logits"], one["logits"]) and torch.equal(
+        got["prefill"], one["prefill"])
+    gates.check("15b dbrx prefill + decode on the ranks == forward",
+                bad == 0 and got["all_gathers"] == [EP_DECODE_LAYERS] *
+                EP_STEPS,
+                f"{EP_DECODE_LAYERS} layers, f32, B = 2, prompt {EP_PROMPT},"
+                f" {EP_STEPS} steps: max abs err {max(errs):.2e} (rtol / "
+                f"atol {LM_TOL:g}, entries outside {bad}); the same bits as "
+                f"one process's decode: {bits}; all-gathers a step "
+                f"{got['all_gathers']}")
+    rng = np.random.default_rng(seed)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, size=n)))
+               for n in EP_SERVE_PROMPTS]
+    serve = ServeConfig(max_seq=EP_MAX_SEQ, slots=2, min_bucket=16)
+    with torch.no_grad():
+        want_tok = Engine(cfg, model, serve).generate(prompts, ORACLE_NEW)
+    got_tok = EPL.ep_serve(world, cfg, params, prompts, ORACLE_NEW, serve,
+                           EP_RANKS)
+    gates.check("15b dbrx engine on the ranks == one rank's",
+                got_tok == want_tok,
+                f"{len(prompts)} requests of {list(EP_SERVE_PROMPTS)} "
+                f"tokens x {ORACLE_NEW} new through 2 slots: {got_tok}")
+    del model, one
+    torch.cuda.empty_cache()
+    # bf16 decode: one process, then the ranks (each casts its shard)
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    model16 = api.build_model(cfg16, api._to_specs(params,
+                                                   api.param_specs(cfg16)))
+    local = EPL.decode(model16, cfg16, prompt, EP_BF16_STEPS, EP_MAX_SEQ)
+    del model16
+    torch.cuda.empty_cache()
+    ranks = EPL.ep_decode(world, cfg, params, prompt, EP_BF16_STEPS,
+                          EP_MAX_SEQ, EP_RANKS, dtype=torch.bfloat16)
+    specs16 = api.param_specs(cfg16)
+    experts = param_bytes(api.param_specs(cfg16, experts_only=True))
+    weights = param_bytes({k: v for k, v in specs16.items()
+                           if k != "embedding"})
+    bound_local = weights / HBM_BYTES_PER_S * 1e3
+    # four ranks on one card: each reads the replicated weights, the
+    # experts once between them
+    bound_ranks = (EP_RANKS * (weights - experts) + experts) / \
+        HBM_BYTES_PER_S * 1e3
+    ms_local = float(np.median(local["step_s"][1:])) * 1e3
+    ms_ranks = float(np.median(ranks["step_s"][1:])) * 1e3
+    stats["ep_decode"] = {"errs": errs, "bits_equal_one_process": bits,
+                          "tokens": got_tok, "bf16_local_ms": ms_local,
+                          "bf16_ranks_ms": ms_ranks,
+                          "bound_local_ms": bound_local,
+                          "bound_ranks_ms": bound_ranks,
+                          "weights_gb": weights / 1e9,
+                          "experts_gb": experts / 1e9}
+    log(f"    15b dbrx bf16 decode ({EP_DECODE_LAYERS} layers, B = 2, "
+        f"{EP_BF16_STEPS} greedy steps, median of steps 2-{EP_BF16_STEPS}):"
+        f" {ms_ranks:.2f} ms a step on {EP_RANKS} ranks (the slowest rank; "
+        f"bound {bound_ranks:.3f} ms: the replicated weights read by every "
+        f"rank, the experts once) against {ms_local:.2f} ms in one process "
+        f"(bound {bound_local:.3f} ms: {weights / 1e9:.2f} GB of bf16 "
+        f"weights read a step, {experts / 1e9:.2f} GB of them experts)")
+    del params
+
+
+def one_rank_spread(cfg, params, batch, want, dev) -> dict:
+    """The one-rank step's spread against itself: the same first step from
+    the same state, once more with the default BLAS library and once with
+    cuBLASLt preferred (the same products, their sums in another order),
+    each leaf held against ``want`` as the ranks' are
+    (``expert_parallel._errors``)."""
+    from repro_torch.launch import expert_parallel as EPL
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    default = torch.backends.cuda.preferred_blas_library()
+    out = {}
+    for tag, lib in (("rerun", default), ("cublaslt", "cublaslt")):
+        state = {"params": clone_tree(params), "opt": init_opt_state(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        torch.backends.cuda.preferred_blas_library(lib)
+        try:
+            state, _ = step(state, batch)
+        finally:
+            torch.backends.cuda.preferred_blas_library(default)
+        out[tag] = EPL._errors(state["opt"], want, params, None, dev)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_train_check(world, gates, dev, seed: int, stats) -> None:
+    """15c: phi3.5-moe at its width cut to EP_TRAIN_LAYERS layer on
+    EP_RANKS ranks against one rank, f32: the first train step's metrics,
+    master and m held against each other, the second step timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import expert_parallel as EPL
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params, tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    cfg = get_config("phi3_5_moe_42b")
+    cfg = dataclasses.replace(cfg, n_layers=EP_TRAIN_LAYERS,
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=EP_TRAIN_CAPACITY))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    B, S = EP_TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_lm_batch(cfg.vocab, S, B, seed=seed).items()}
+    with torch.no_grad():
+        _, fwd = api.forward(api.build_model(cfg, params), cfg, batch)
+    state = {"params": clone_tree(params), "opt": init_opt_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    (state, one), first_s = timed(lambda: step(state, batch))
+    # the first step's master and m, on the host (the ranks read them
+    # there, a leaf at a time): the card keeps room for four states
+    want = {k: tree_map(lambda t: t.to("cpu", copy=True), state["opt"][k],
+                        is_leaf=torch.is_tensor) for k in ("master", "m")}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (state, _), secs = timed(lambda: step(state, batch))
+    one_peak = torch.cuda.max_memory_allocated() - base
+    del state
+    torch.cuda.empty_cache()
+    spread = one_rank_spread(cfg, params, batch, want, dev)
+    got = EPL.ep_train_step(world, cfg, params, batch, EP_RANKS, lr=1e-3,
+                            want=want, steps=2)
+    tm, fm = got["metrics"], got["forward"]
+    rel = {k: abs(tm[k] - float(one[k])) / abs(float(one[k]))
+           for k in ("loss", "moe_aux_loss", "grad_norm")}
+    worst = {k: max(((n, e) for n, e in got["err"].items()
+                     if n.startswith(k + "/")), key=lambda kv: kv[1])
+             for k in ("master", "m")}
+    drop_equal = fm["moe_drop_frac"] == float(fwd["moe_drop_frac"])
+    # the one-rank step's own spread on the ranks' worst leaves, and its
+    # worst leaves
+    witness = {tag: {"at_ranks_worst": {k: errs[worst[k][0]]
+                                        for k in worst},
+                     "worst": {k: max(((n, e) for n, e in errs.items()
+                                       if n.startswith(k + "/")),
+                                      key=lambda kv: kv[1])
+                               for k in worst}}
+               for tag, errs in spread.items()}
+    ms = max(s[1] for s in got["step_s"]) * 1e3
+    wires = [wire_ms(c) for c in got["counters"]]
+    stats["ep_train"] = {"rel": rel, "worst": worst,
+                         "drop_frac": fm["moe_drop_frac"],
+                         "ranks_ms": ms, "one_rank_ms": secs * 1e3,
+                         "first_step_ms": {
+                             "one": first_s * 1e3,
+                             "ranks": max(s[0] for s in got["step_s"]) * 1e3},
+                         "one_rank_peak_gb": one_peak / 1e9,
+                         "peak_gb": [(b or 0) / 1e9
+                                     for b in got["peak_bytes"]],
+                         "wire_ms": wires, "one_rank_spread": witness,
+                         "all_to_alls": [c["all_to_alls"]
+                                         for c in got["counters"]]}
+    gates.check(
+        "15c phi3.5-moe train step on the ranks == one rank",
+        rel["loss"] <= EP_TRAIN_TOL["loss"]
+        and rel["moe_aux_loss"] <= EP_TRAIN_TOL["aux"]
+        and rel["grad_norm"] <= EP_TRAIN_TOL["grad_norm"]
+        and drop_equal and worst["m"][1] <= EP_TRAIN_TOL["m"]
+        and worst["master"][1] <= EP_TRAIN_TOL["master"],
+        f"{EP_TRAIN_LAYERS} layer, f32, {B} x {S} tokens: loss "
+        f"{tm['loss']:.6f} (rel {rel['loss']:.1e}), aux "
+        f"{tm['moe_aux_loss']:.6f} (rel {rel['moe_aux_loss']:.1e}), grad "
+        f"norm {tm['grad_norm']:.4f} (rel {rel['grad_norm']:.1e}), drop "
+        f"fraction {fm['moe_drop_frac']:.4f} equal {drop_equal}; worst m "
+        f"leaf {worst['m'][0]} {worst['m'][1]:.2e} of its norm (tol "
+        f"{EP_TRAIN_TOL['m']:g}), worst master leaf {worst['master'][0]} "
+        f"{worst['master'][1]:.2e} of its move (tol "
+        f"{EP_TRAIN_TOL['master']:g}); one rank against itself on those "
+        f"leaves (m, master): rerun "
+        f"{witness['rerun']['at_ranks_worst']['m']:.2e}, "
+        f"{witness['rerun']['at_ranks_worst']['master']:.2e}, cuBLASLt "
+        f"{witness['cublaslt']['at_ranks_worst']['m']:.2e}, "
+        f"{witness['cublaslt']['at_ranks_worst']['master']:.2e} (its worst "
+        f"cuBLASLt leaves {witness['cublaslt']['worst']['m']}, "
+        f"{witness['cublaslt']['worst']['master']}); the second step "
+        f"{ms:.1f} ms on "
+        f"{EP_RANKS} ranks (the slowest) against {secs * 1e3:.1f} ms on one"
+        f" (first steps {first_s * 1e3:.0f} / "
+        f"{stats['ep_train']['first_step_ms']['ranks']:.0f} ms); host ms in "
+        f"the collectives by rank {[round(sum(w.values()), 1) for w in wires]}"
+        f"; allocator peaks "
+        f"{[round((b or 0) / 1e9, 2) for b in got['peak_bytes']]} GB a rank,"
+        f" {one_peak / 1e9:.2f} GB on one rank")
+    del params, want
+
+
+def ep_records_check(gates, dev, stats) -> None:
+    """15d: the MoE train cells of phase 14c on EP_RANKS ranks (probed or
+    skipped for memory), and dbrx's and jamba's analytic records at 4 and
+    16 ranks."""
+    import tempfile
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    cells = [r for r in stats.get("dryrun", {}).get("records", [])
+             if r["cell"][2] == f"p{SEQ_RANKS}" and r["cell"][1] == "train_4k"
+             and "llama" not in r["cell"][0]]
+    for r in cells:
+        base, probe = r.get("base", {}), r.get("probe") or {}
+        log(f"    15d {r['cell'][0]} train_4k p{SEQ_RANKS}: "
+            f"{base.get('status')}"
+            f", probe {probe.get('status')}"
+            + (f" ({probe.get('reason', '')[:150]})"
+               if probe.get("status") == "skipped" else ""))
+    recs = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, P in EP_RECORDS:
+            for shape in SHAPES:
+                rec = dryrun.run_cell(arch, shape, P, out, verbose=False,
+                                      device=dev)
+                mem = rec.get("memory_analysis") or {}
+                recs.append({"arch": arch, "shape": shape, "ranks": P,
+                             "status": rec["status"],
+                             "argument_gb": (mem.get("argument_bytes") or 0)
+                             / 1e9,
+                             "experts": (rec.get("reduced") or {}).get(
+                                 "experts")})
+    for r in recs:
+        log(f"    15d {r['arch']} {r['shape']} p{r['ranks']}: {r['status']}, "
+            f"{r['argument_gb']:.1f} GB of arguments a rank"
+            + (f" ({r['experts']})" if r["experts"] else ""))
+    stats["ep_records"] = recs
+    gates.check("15d the MoE cells on ranks",
+                len(cells) == 3 and all(
+                    r["base"]["status"] == "ok" for r in cells)
+                and all(r["status"] in ("ok", "skipped") for r in recs),
+                f"{len(cells)} MoE train cells on {SEQ_RANKS} ranks; "
+                f"{sum(r['status'] == 'ok' for r in recs)} of {len(recs)} "
+                "analytic records at 4 and 16 ranks ok")
+
+
+def experts_phase(seed: int, stats: dict, dev=None) -> dict:
+    """Phase 15: experts sharded over EP_RANKS gloo ranks sharing the card
+    (plain torch and collectives: the returned launch counts are all
+    zero).  Raises at the end if any gate failed."""
+    from repro_torch.core import SolverWorld
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    world, secs = timed(lambda: SolverWorld(EP_RANKS, device=dev,
+                                            kernels=False))
+    log(f"  {EP_RANKS} gloo ranks spawned in {secs:.1f} s")
+    try:
+        steps = [(f"15a {tag}", lambda a=arch, t=tag: ep_block_check(
+            world, gates, dev, seed, stats, a, t)) for arch, tag in EP_BLOCK]
+        steps += [("15b", lambda: ep_decode_check(world, gates, dev, seed,
+                                                  stats)),
+                  ("15c", lambda: ep_train_check(world, gates, dev, seed,
+                                                 stats))]
+        for name, fn in steps:
+            _, secs = timed(fn)
+            stats[f"phase{name.replace(' ', '_')}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            torch.cuda.ipc_collect()    # what the ranks held by IPC
+            torch.cuda.empty_cache()
+    finally:
+        world.close()
+    ep_records_check(gates, dev, stats)
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 15 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -3869,6 +4367,15 @@ def main() -> int:
     paths["lasso"], stats["phase14_s"] = timed(
         lambda: dryrun_phase(args.seed, stats))
     log(f"  phase 14 took {stats['phase14_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 15. experts sharded over ranks ---------------------------------------
+    log(f"== 15. experts sharded over {EP_RANKS} gloo ranks on one card: "
+        "dbrx's and jamba's MoE blocks, dbrx decode and serving, a "
+        "phi3.5-moe train step, the MoE dry-run cells (random weights)")
+    paths["experts"], stats["phase15_s"] = timed(
+        lambda: experts_phase(args.seed, stats))
+    log(f"  phase 15 took {stats['phase15_s']:.1f} s")
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.

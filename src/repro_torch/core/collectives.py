@@ -33,8 +33,9 @@ import torch
 class CollectiveSummary:
     """Calls by kind, their elements and bytes, and the dtypes moved.
     ``by_kind`` maps a kind (``"all_reduce"`` for a sum, ``"max"`` for a max
-    all-reduce, ``"hop"``, or the name of any other ``torch.distributed``
-    call a tap saw) to ``(calls, words)``.  A
+    all-reduce, ``"hop"``, ``"all_to_all"`` and ``"all_gather"`` -- words
+    as the elements this rank sent or contributed --, or the name of any
+    other ``torch.distributed`` call a tap saw) to ``(calls, words)``.  A
     tap's record has no bytes or dtypes: 0 and the empty set."""
     count: int
     words: int
@@ -59,7 +60,11 @@ def _kinds(counters: dict) -> dict:
     kinds = {"all_reduce": (counters["all_reduces"] - n_max,
                             counters["words"] - w_max),
              "max": (n_max, w_max),
-             "hop": (counters["hops"], counters["hop_words"])}
+             "hop": (counters["hops"], counters["hop_words"]),
+             "all_to_all": (counters.get("all_to_alls", 0),
+                            counters.get("a2a_words", 0)),
+             "all_gather": (counters.get("all_gathers", 0),
+                            counters.get("gather_words", 0))}
     for name, (n, w) in counters.get("other", {}).items():
         kinds[name] = (n, w)
     return {k: v for k, v in kinds.items() if v[0]}
@@ -101,6 +106,12 @@ TAPPED = ("all_reduce", "all_gather", "all_gather_into_tensor",
           "scatter", "send")
 
 
+# Calls a tap records under Comm's kind, with the words of the tensor this
+# rank sends: (kind, its position, its keyword).
+_SENT = {"all_to_all_single": ("all_to_all", 1, "input"),
+         "all_gather": ("all_gather", 1, "tensor")}
+
+
 def _tensors(x) -> list:
     if isinstance(x, torch.Tensor):
         return [x]
@@ -115,7 +126,9 @@ class WireTap:
     it.  ``all_reduce`` counts as the kind ``"all_reduce"`` (``"max"``
     with ``op=ReduceOp.MAX``, also counted among the all-reduces, as
     ``Comm`` counts it), each send of
-    ``batch_isend_irecv`` and each ``send`` as a ``"hop"``, any other call
+    ``batch_isend_irecv`` and each ``send`` as a ``"hop"``,
+    ``all_to_all_single`` and ``all_gather`` as ``"all_to_all"`` and
+    ``"all_gather"`` with the words this rank sends, any other call
     under its own name.  :meth:`counters` has ``Comm.counters()``'s call
     and word keys (and ``"other"``)."""
 
@@ -145,6 +158,13 @@ class WireTap:
             elif name == "send":
                 self.hops += 1
                 self.hop_words += words
+            elif name in _SENT:
+                # the elements this rank sends, as Comm counts them
+                kind, at, key = _SENT[name]
+                sent = args[at] if len(args) > at else kwargs[key]
+                ent = self.other.setdefault(kind, [0, 0])
+                ent[0] += 1
+                ent[1] += sent.numel()
             else:
                 ent = self.other.setdefault(name, [0, 0])
                 ent[0] += 1

@@ -545,12 +545,18 @@ class Comm:
     is no compiled program to read them from).
 
     ``staged`` is True exactly when the group is gloo and the device is a
-    GPU: gloo's point-to-point calls take host tensors only, so each ring
-    hop's chunk is copied through a host buffer (gloo's all-reduce takes the
+    GPU: gloo's point-to-point calls, its all-to-all and its all-gather
+    take host tensors only, so each ring hop's chunk, all-to-all and
+    all-gather is copied through a host buffer (gloo's all-reduce takes the
     device tensor itself and stages it internally).  On a staged rank the
     host waits for its device before a call, as the staging does anyway, so
-    that ``reduce_s`` / ``hop_s`` time the wire, its copies and the wait for
-    the group's slowest rank."""
+    that ``reduce_s`` / ``hop_s`` / ``a2a_s`` / ``gather_s`` time the wire,
+    its copies and the wait for the group's slowest rank.
+
+    The all-to-all and the all-gather (the expert-parallel MoE,
+    ``models.moe``) are counted apart, as the kinds ``"all_to_all"`` and
+    ``"all_gather"`` of the summaries (``core.collectives``), which no
+    solver declares."""
 
     def __init__(self, group, device):
         import torch.distributed as dist
@@ -580,6 +586,14 @@ class Comm:
         self.dtypes = set()     # dtype names the calls moved
         self.reduce_s = 0.0     # host seconds inside all-reduce calls
         self.hop_s = 0.0        # host seconds inside hops
+        self.all_to_alls = 0    # all-to-all calls
+        self.a2a_words = 0      # elements this rank sent by them
+        self.a2a_bytes = 0      # bytes this rank sent by them
+        self.a2a_s = 0.0        # host seconds inside all-to-all calls
+        self.all_gathers = 0    # all-gather calls
+        self.gather_words = 0   # elements this rank contributed to them
+        self.gather_bytes = 0   # bytes this rank contributed to them
+        self.gather_s = 0.0     # host seconds inside all-gather calls
 
     def counters(self) -> dict:
         """This rank's record of its calls since :meth:`reset`
@@ -587,7 +601,9 @@ class Comm:
         out = {k: getattr(self, k) for k in (
             "all_reduces", "words", "max_reduces", "max_words", "max_bytes",
             "hops", "hop_words", "hop_bytes", "bytes", "reduce_s", "hop_s",
-            "staged", "backend", "size")}
+            "all_to_alls", "a2a_words", "a2a_bytes", "a2a_s", "all_gathers",
+            "gather_words", "gather_bytes", "gather_s", "staged", "backend",
+            "size")}
         out["dtypes"] = tuple(sorted(self.dtypes))
         return out
 
@@ -645,6 +661,54 @@ class Comm:
         self.hop_bytes += send.numel() * send.element_size()
         self._record(send)
         return recv
+
+    def all_to_all(self, send: torch.Tensor, send_counts,
+                   recv_counts) -> torch.Tensor:
+        """One all-to-all of rows with uneven splits: ``send`` (N, ...)
+        holds ``send_counts[q]`` rows for rank q, in rank order; returns
+        the (sum(recv_counts), ...) rows the ranks sent here, rank r's
+        ``recv_counts[r]`` rows in rank order.  Every rank must pass the
+        counts that match its peers' (zero rows either way is fine)."""
+        send_counts = [int(c) for c in send_counts]
+        recv_counts = [int(c) for c in recv_counts]
+        if len(send_counts) != self.size or len(recv_counts) != self.size \
+                or sum(send_counts) != send.shape[0]:
+            raise ValueError(
+                f"all_to_all: {send.shape[0]} rows against send counts "
+                f"{send_counts} and receive counts {recv_counts} on a "
+                f"group of {self.size}")
+        self._wait_device()
+        t0 = time.perf_counter()
+        out = send.to("cpu") if self.staged else send.contiguous()
+        recv = out.new_empty((sum(recv_counts),) + tuple(send.shape[1:]))
+        self._dist.all_to_all_single(recv, out, recv_counts, send_counts,
+                                     group=self.group)
+        if self.staged:
+            recv = recv.to(self.device)
+        self.a2a_s += time.perf_counter() - t0
+        self.all_to_alls += 1
+        self.a2a_words += send.numel()
+        self.a2a_bytes += send.numel() * send.element_size()
+        self._record(send)
+        return recv
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (same shape and dtype on every rank),
+        concatenated along a new leading axis in rank order: (P, ...)."""
+        self._wait_device()
+        t0 = time.perf_counter()
+        out = t.to("cpu") if self.staged else t.contiguous()
+        parts = [torch.empty_like(out) for _ in range(self.size)]
+        self._dist.all_gather(parts, out, group=self.group)
+        res = torch.stack(parts)
+        if self.staged:
+            res = res.to(self.device)
+        self.gather_s += time.perf_counter() - t0
+        self.all_gathers += 1
+        self.gather_words += t.numel()
+        self.gather_bytes += t.numel() * t.element_size()
+        self._record(t)
+        return res
 
 
 def _split(flat: torch.Tensor, shapes: list) -> list:

@@ -194,6 +194,9 @@ def _rank_main(rank: int, size: int, init: str, backend: str, device: str,
             res_q.put((rank, "ok", getattr(state, cmd)(payload)))
         except BaseException:
             res_q.put((rank, "error", traceback.format_exc()))
+        # drop the command's tensors now: a CUDA tensor shared by IPC
+        # stays allocated in the sender until every receiver lets it go
+        payload = None
     with contextlib.suppress(Exception):
         dist.destroy_process_group()
 
@@ -500,6 +503,14 @@ class RankGroup:
 
     def solve_batched(self, *args, **kw):
         return self.world.solve_batched(*args, n_ranks=self.size, **kw)
+
+    def run(self, fn, n_ranks: int | None = None, **kwargs) -> list:
+        """``SolverWorld.run`` on these ranks (``n_ranks`` must be None or
+        the group's size)."""
+        if n_ranks not in (None, self.size):
+            raise ValueError(f"a group of {self.size} ranks runs on "
+                             f"{self.size}, not {n_ranks}")
+        return self.world.run(fn, self.size, **kwargs)
 
 
 def plan_solver_world(n_ranks: int, world: SolverWorld) -> SolverWorld:

@@ -15,7 +15,10 @@ reference's parameter tree, and :func:`lm_cache_from_reference` /
 :func:`lm_cache_to_numpy` carry a decode cache across, the mamba state
 included.  For training, :func:`train_state_from_reference` and
 :func:`train_state_to_numpy` carry a train state (parameters, the f32
-master, m and v, the step) both ways.
+master, m and v, the step) both ways.  Each takes a rank's cut of experts
+sharded over ranks (``expert_shard=(rank, P)`` in, ``comm`` out: the
+gather gives back the reference's whole tree); :func:`join_expert_shards`
+joins the ranks' shards without a world.
 """
 from __future__ import annotations
 
@@ -137,7 +140,8 @@ def _tree_to_torch(tree, device, dtype):
     return t if dtype is None else t.to(dtype)
 
 
-def lm_params_from_reference(params_np, cfg, *, device, dtype=None):
+def lm_params_from_reference(params_np, cfg, *, device, dtype=None,
+                             expert_shard: tuple | None = None):
     """The port's model for ``cfg`` (``models.api.build_model``: a
     :class:`~repro_torch.models.DecoderLM`, or an
     :class:`~repro_torch.models.EncDecLM` for the audio family) with the
@@ -148,16 +152,49 @@ def lm_params_from_reference(params_np, cfg, *, device, dtype=None):
     ``dtype`` (default: ``cfg.param_dtype``; the f32 parameters -- mamba's
     ``A_log``, ``D``, ``dt_bias`` and the MoE router -- stay f32, as in the
     reference).  A bf16 leaf is carried through f32, which holds it
-    exactly."""
+    exactly.  ``expert_shard=(rank, P)``: the model of rank ``rank`` of a
+    world over which the experts are sharded (``models.moe``): every MoE
+    leaf w1 / w3 / w2 cut to the rank's E / P experts before it is
+    placed."""
     import dataclasses
 
     from repro_torch.models import api
     dtype = cfg.param_dtype if dtype is None else dtype
     if dtype != cfg.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
-    params = api._to_specs(_tree_to_torch(params_np, device, None),
-                           api.param_specs(cfg))
+    params = api._to_specs(
+        _tree_to_torch(_cut(params_np, cfg, expert_shard), device, None),
+        api.param_specs(cfg, expert_shard=expert_shard))
     return api.build_model(cfg, params)
+
+
+def _cut(tree_np, cfg, expert_shard):
+    """A rank's shard of a reference tree (numpy): each expert leaf cut to
+    the rank's experts on its expert axis (axis 1, after the layer
+    stack)."""
+    if expert_shard is None or not cfg.moe:
+        return tree_np
+    from repro_torch.models import moe
+    moe.check_expert_shards(cfg.moe.num_experts, expert_shard[1])
+    return moe.cut_experts(tree_np, *expert_shard)
+
+
+def join_expert_shards(shards: list):
+    """The whole tree from every rank's shard (numpy or tensors, in rank
+    order): each expert leaf concatenated on its expert axis, the other
+    leaves taken from rank 0 -- the inverse of an ``expert_shard`` cut."""
+    from repro_torch.models import moe
+
+    def walk(trees, path):
+        if isinstance(trees[0], dict):
+            return {k: walk([t[k] for t in trees], path + (k,))
+                    for k in trees[0]}
+        if not moe.is_expert_path(path):
+            return trees[0]
+        if isinstance(trees[0], torch.Tensor):
+            return torch.cat(trees, dim=1)
+        return np.concatenate([np.asarray(t) for t in trees], axis=1)
+    return walk(list(shards), ())
 
 
 def lm_cache_from_reference(cache_np, *, device, dtype):
@@ -182,7 +219,8 @@ def lm_cache_to_numpy(cache) -> dict:
     return cache.detach().float().cpu().numpy()
 
 
-def train_state_from_reference(state_np, cfg, *, device):
+def train_state_from_reference(state_np, cfg, *, device,
+                               expert_shard: tuple | None = None):
     """The port's train state (``repro_torch.train``: ``{"params", "opt":
     {"master", "m", "v"}, "step"}``) from the reference's, as numpy arrays
     in the same tree (the parameters in the reference's stacked layout):
@@ -190,17 +228,30 @@ def train_state_from_reference(state_np, cfg, *, device):
     :func:`~repro_torch.train.train_state_specs` gives it (the parameters
     in ``cfg.param_dtype`` with the f32 parameters f32, the optimizer
     state f32, the step int32); a bf16 leaf is carried through f32, which
-    holds it exactly."""
+    holds it exactly.  ``expert_shard=(rank, P)``: the rank's shard of a
+    state whose experts are sharded over P ranks (the parameters' and the
+    master's, m's and v's expert leaves cut as in
+    :func:`lm_params_from_reference`)."""
     from repro_torch.models import api
     from repro_torch.train import train_state_specs
-    return api._to_specs(_tree_to_torch(state_np, device, None),
-                         train_state_specs(cfg))
+    return api._to_specs(
+        _tree_to_torch(_cut(state_np, cfg, expert_shard), device, None),
+        train_state_specs(cfg, expert_shard))
 
 
-def train_state_to_numpy(state) -> dict:
+def train_state_to_numpy(state, comm=None) -> dict:
     """A train state of the port copied to numpy arrays in the same tree
     (copies: the train step updates the state in place): bf16 leaves as
-    f32 (exact), the others in their own type."""
+    f32 (exact), the others in their own type.  ``comm``: the state is
+    this rank's shard of experts sharded over ``comm``'s ranks (every
+    rank must call it); rank 0 gets the whole (reference) tree, gathered
+    to its host one layer of an expert leaf at a time, the other ranks
+    ``None``."""
+    if comm is not None and comm.size > 1:
+        from repro_torch.models.moe import gather_experts
+        state = gather_experts(state, comm)
+        if state is None:
+            return None
     if isinstance(state, dict):
         return {k: train_state_to_numpy(v) for k, v in state.items()}
     t = state.detach().cpu()

@@ -31,7 +31,9 @@ The cells are the port's own parallelism on a world of P ranks
 (``core.world.SolverWorld``: gloo ranks sharing the card when there are
 fewer cards than ranks, nccl with one card a rank otherwise):
 data-parallel train and prefill, and decode on a sequence-sharded cache
-with flash-decoding.  The reference's meshes ``single`` / ``multi`` become
+with flash-decoding; an MoE model's experts sharded over the ranks in
+every kind (E / P a rank, one global dispatch: ``models.moe``; a P that
+does not divide E is skipped with its reason).  The reference's meshes ``single`` / ``multi`` become
 worlds ``p{P}``.  The probe follows the reference's ``_probe_cfg``:
 single-block attention (``block_q = block_kv = seq_len``), unless its
 corners would not fit the card with it (prefill_32k's one-row score block
@@ -182,7 +184,8 @@ def _cell_program(cfg, shape, n_ranks: int = 1, seq_shard_decode=True, *,
         params, batch = I.prefill_specs(cfg, shape, n_ranks, rows)
 
         def prefill_fn(model, b):
-            return api.prefill(model, cfg, b, max_seq=shape.seq_len)
+            return api.prefill(model, cfg, b, max_seq=shape.seq_len,
+                               comm=wire)
 
         return prefill_fn, (params, batch)
     params, cache, tok, pos = I.decode_specs(cfg, shape, n_ranks,
@@ -191,7 +194,8 @@ def _cell_program(cfg, shape, n_ranks: int = 1, seq_shard_decode=True, *,
 
     def serve_step(model, c, t, q):
         return api.decode_step(model, cfg, c, t, q,
-                               comm=wire if seq_shard_decode else None)
+                               comm=wire if seq_shard_decode else None,
+                               expert_comm=wire)
 
     return serve_step, (params, cache, tok, pos)
 
@@ -237,7 +241,7 @@ def _output_bytes(cfg, shape, n_ranks: int, seq_shard: bool,
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     if shape.kind == "train":
         state, _ = I.train_specs(cfg, shape, n_ranks, rows)
-        metrics = 4 + (1 if cfg.moe and n_ranks == 1 else 0)
+        metrics = 4 + (1 if cfg.moe else 0)
         return 4 * metrics, I.tree_bytes(state)
     B = (I.rank_rows(shape.global_batch, n_ranks) if shape.kind == "prefill"
          else shape.global_batch) if rows is None else rows
@@ -390,6 +394,8 @@ def run_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
     ok, why = shape.applicable(cfg)
     rec = {"arch": cfg.name + tag, "shape": shape_name,
            "mesh": f"p{n_ranks}", "kind": shape.kind}
+    if ok:
+        ok, why = _experts_split(cfg, n_ranks)
     if not ok:
         rec["status"] = "skipped"
         rec["reason"] = why
@@ -429,7 +435,8 @@ def run_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
                         else ex["step_s"] * 1e3,
                         "card": card["smi"] or card["device"]},
             "reduced": {"ranks": f"{n_ranks} of the reference's "
-                                 f"{PRODUCTION_CHIPS} chips"},
+                                 f"{PRODUCTION_CHIPS} chips",
+                        **_experts_cut(cfg, n_ranks)},
         })
         if verbose:
             print(f"[dryrun] {rec['arch']} {shape_name} p{n_ranks}: "
@@ -443,27 +450,47 @@ def run_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
     return rec
 
 
-def _combine(outs: list) -> dict:
+def _kind_bytes(c: dict) -> dict:
+    return {"max": c["max_bytes"], "hop": c["hop_bytes"],
+            "all_to_all": c["a2a_bytes"], "all_gather": c["gather_bytes"],
+            "all_reduce": c["bytes"] - c["max_bytes"] - c["hop_bytes"]
+            - c["a2a_bytes"] - c["gather_bytes"]}
+
+
+def _combine(outs: list, routed: bool = False) -> dict:
     """The ranks' records of one corner: rank 0's counts (every rank's
-    must match), the slowest rank's time and the largest peak."""
+    must match), the slowest rank's time and the largest peak.  With
+    ``routed`` (an MoE model's experts sharded over the ranks) the rows a
+    rank sends and its experts receive follow the routing, so its bytes,
+    all-to-all bytes and every kind's operand bytes are the largest
+    rank's; the flops and each kind's calls must still match."""
     first = outs[0]
     for r, o in enumerate(outs[1:], 1):
-        if (o["flops"], o["bytes"]) != (first["flops"], first["bytes"]):
+        same = (o["flops"] == first["flops"]
+                and (routed or o["bytes"] == first["bytes"]))
+        if not same:
             raise RuntimeError(
                 f"rank {r} counted {o['flops']} flops / {o['bytes']} bytes, "
                 f"rank 0 {first['flops']} / {first['bytes']}")
     c = first["counters"]
     kinds = {} if c is None else _kinds(c)
-    kind_bytes = {} if c is None else {
-        "max": c["max_bytes"], "hop": c["hop_bytes"],
-        "all_reduce": c["bytes"] - c["max_bytes"] - c["hop_bytes"]}
+    counters = [o["counters"] for o in outs if o["counters"] is not None]
+    for r, o in enumerate(counters[1:], 1):
+        if {k: n for k, (n, _) in _kinds(o).items()} != \
+                {k: n for k, (n, _) in kinds.items()}:
+            raise RuntimeError(f"rank {r} made other collectives than rank "
+                               f"0: {_kinds(o)} / {kinds}")
+    kind_bytes = {k: max(_kind_bytes(o)[k] for o in counters)
+                  for k in _kind_bytes(c)} if c is not None else {}
+
     def most(key):
         vals = [o[key] for o in outs]
         return None if None in vals else max(vals)
 
-    return {"flops": first["flops"], "bytes": first["bytes"],
+    return {"flops": first["flops"], "bytes": most("bytes"),
             "coll_count": sum(n for n, _ in kinds.values()),
-            "coll_operand": 0 if c is None else c["bytes"],
+            "coll_operand": (0 if c is None
+                             else max(o["bytes"] for o in counters)),
             "by_kind": {k: {"count": n, "operand_bytes": kind_bytes[k]}
                         for k, (n, _) in kinds.items()},
             "step_s": most("step_s"), "peak": most("peak"),
@@ -501,10 +528,8 @@ def probe_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
     rec = {"arch": cfg.name + tag, "shape": shape_name,
            "mesh": f"p{n_ranks}", "kind": shape.kind, "probe": True}
     ok, why = shape.applicable(cfg)
-    if ok and shape.kind == "train" and cfg.moe and n_ranks > 1:
-        ok, why = False, ("MoE training on more than one rank waits for "
-                          "experts sharded over ranks (make_train_step "
-                          "refuses it)")
+    if ok:
+        ok, why = _experts_split(cfg, n_ranks)
     if not ok:
         rec["status"] = "skipped"
         rec["reason"] = why
@@ -523,7 +548,8 @@ def probe_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
             need = _corner_need(cfg, shape, 2 * period, period, n_ranks,
                                 seq_shard_decode, False,
                                 2 if rows2 else 1)
-            sb = _param_bytes(cfg, 2 * period) - _param_bytes(cfg, period)
+            sb = (_param_bytes(cfg, 2 * period, n_ranks)
+                  - _param_bytes(cfg, period, n_ranks))
             rec["status"] = "skipped"
             rec["reason"] = (
                 f"the probe's smallest corner ({2 * period} layers, "
@@ -545,7 +571,7 @@ def probe_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
                 outs = [_rank_corner(None, device, **kw)]
             else:
                 outs = world.run(_rank_corner, n_ranks, **kw)
-            return _combine(outs)
+            return _combine(outs, bool(cfg.moe) and n_ranks > 1)
 
         tokens = 1 if shape.kind == "decode" else shape.seq_len
         sizing = {}
@@ -607,7 +633,8 @@ def probe_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
             "sizing": {j: {"peak_bytes": p["peak"]}
                        for j, p in sizing.items()},
             "rows_linearity_check": check,
-            "moe_capacity_slots": _capacity_slots(cfg, shape, r, R, rows2),
+            "moe_capacity_slots": _capacity_slots(cfg, shape, r, R, rows2,
+                                                  n_ranks),
             "extrapolated_per_device": {
                 "flops": ex("flops"), "bytes_accessed": ex("bytes"),
                 "coll_count": ex("coll_count"),
@@ -635,7 +662,7 @@ def probe_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
                 "rows": f"{[r, 2 * r] if rows2 else [r]} of the rank's {R}",
                 "depth": f"{[period, 2 * period]} of {cfg.n_layers} layers",
                 "ranks": f"{n_ranks} of the reference's {PRODUCTION_CHIPS} "
-                         "chips"},
+                         "chips", **_experts_cut(cfg, n_ranks)},
         })
     except Exception as e:
         rec["status"] = "failed"
@@ -690,10 +717,29 @@ def _probe_plan(cfg, shape, period: int, n_ranks: int, seq_shard: bool,
     return None
 
 
-def _param_bytes(cfg, depth: int) -> int:
+def _param_bytes(cfg, depth: int, n_ranks: int = 1) -> int:
+    """A rank's parameter bytes at ``depth`` layers (its experts' shard on
+    ``n_ranks`` ranks)."""
     pcfg = dataclasses.replace(cfg, n_layers=depth, **(
         {"enc_layers": depth} if cfg.family == "audio" else {}))
-    return I.tree_bytes(I._from_specs(api.param_specs(pcfg)))
+    return I.tree_bytes(I._params(pcfg, n_ranks))
+
+
+def _experts_split(cfg, n_ranks: int) -> tuple[bool, str | None]:
+    """Can an MoE model's experts be sharded over ``n_ranks``?"""
+    if cfg.moe and cfg.moe.num_experts % n_ranks:
+        return False, (f"{cfg.moe.num_experts} experts do not split over "
+                       f"{n_ranks} ranks (experts are sharded, E % P == 0)")
+    return True, None
+
+
+def _experts_cut(cfg, n_ranks: int) -> dict:
+    """The ``reduced`` entry of a rank's expert shard."""
+    if not cfg.moe or n_ranks == 1:
+        return {}
+    E = cfg.moe.num_experts
+    return {"experts": f"{E // n_ranks} of {E} a rank (experts sharded over "
+                       f"the {n_ranks} ranks; the reference's 'model' axis)"}
 
 
 def _corner_need(cfg, shape, depth: int, period: int, n_ranks: int,
@@ -707,12 +753,12 @@ def _corner_need(cfg, shape, depth: int, period: int, n_ranks: int,
     _, specs = _cell_program(pcfg, shape, n_ranks, seq_shard, rows=rows)
     need = I.tree_bytes(specs)
     if shape.kind == "train":
-        need += _param_bytes(cfg, depth)
+        need += _param_bytes(cfg, depth, n_ranks)
         need += rows * shape.seq_len * cfg.padded_vocab * 14
     copies = 5 if shape.kind == "train" else 3
     need += 4 * copies * cfg.resolved_q_heads * pcfg.block_q \
         * pcfg.block_kv * rows
-    if cfg.moe:     # a layer's dispatch buffers (models.moe._moe_dispatch)
+    if cfg.moe:     # a layer's dispatch buffers (models.moe._dispatch)
         from repro_torch.models.moe import _capacity
         m = cfg.moe
         T = rows * (1 if shape.kind == "decode" else shape.seq_len)
@@ -763,16 +809,18 @@ def _rows_check(sizing: dict, pts: dict, r: int, r0: int) -> dict:
     return out
 
 
-def _capacity_slots(cfg, shape, r: int, R: int, rows2: bool) -> dict | None:
+def _capacity_slots(cfg, shape, r: int, R: int, rows2: bool,
+                    n_ranks: int = 1) -> dict | None:
     """An MoE layer's expert capacity at the full rows, exact against the
     probe's linear extrapolation from r and 2 r rows (each expert's flops
     and bytes scale with its slots: the difference is the extrapolation's
-    error, per expert and MoE layer)."""
+    error, per expert and MoE layer).  A data-parallel rank's rows
+    dispatch with every rank's (the capacity of P r rows)."""
     if not cfg.moe:
         return None
     from repro_torch.models.moe import _capacity
     m = cfg.moe
-    per_row = 1 if shape.kind == "decode" else shape.seq_len
+    per_row = (1 if shape.kind == "decode" else shape.seq_len * n_ranks)
 
     def cap(rows):
         return _capacity(rows * per_row, m.top_k, m.num_experts,

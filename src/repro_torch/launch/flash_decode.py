@@ -65,30 +65,40 @@ def flash_decode(world, q, cache_k, cache_v, pos, n_ranks: int) -> dict:
     return {"out": first, "counters": [o["counters"] for o in outs]}
 
 
-def _greedy(model, cfg, cache, token, pos, steps: int, comm=None) -> dict:
-    """``steps`` greedy decode steps from (token, pos); per step the
-    logits, the all-reduces and the seconds (host clock to a
-    synchronize)."""
+def _greedy(model, cfg, cache, token, pos, steps: int, comm=None,
+            feed=None, expert_comm=None) -> dict:
+    """``steps`` decode steps from (token, pos), each fed the argmax of the
+    last logits (or ``feed[:, i]`` while there is one); ``comm`` shards the
+    cache's sequence, ``expert_comm`` an MoE model's experts
+    (``api.decode_step``).  Per step the logits, the tokens, the
+    all-reduces (``comm``'s), the all-gathers (``expert_comm``'s) and the
+    seconds (host clock to a synchronize)."""
     device = model.device
     token, pos = token.to(device), pos.to(device)
-    logits_all, tokens, reduces, secs = [], [], [], []
+    logits_all, tokens, reduces, gathers, secs = [], [], [], [], []
     with torch.no_grad():
-        for _ in range(steps):
-            if comm is not None:
-                comm.reset()
+        for i in range(steps):
+            for c in (comm, expert_comm):
+                if c is not None:
+                    c.reset()
             _sync(device)
             t0 = time.perf_counter()
             logits, cache = api.decode_step(model, cfg, cache, token, pos,
-                                            comm=comm)
+                                            comm=comm,
+                                            expert_comm=expert_comm)
             _sync(device)
             secs.append(time.perf_counter() - t0)
             reduces.append(0 if comm is None else comm.all_reduces)
-            token = logits[:, :cfg.vocab].argmax(-1)
+            gathers.append(0 if expert_comm is None
+                           else expert_comm.all_gathers)
+            token = (feed[:, i].to(device)
+                     if feed is not None and i < feed.shape[1]
+                     else logits[:, :cfg.vocab].argmax(-1))
             pos = pos + 1
             logits_all.append(logits.float().cpu())
             tokens.append(token.cpu())
     return {"logits": torch.stack(logits_all), "tokens": torch.stack(tokens),
-            "all_reduces": reduces, "step_s": secs}
+            "all_reduces": reduces, "all_gathers": gathers, "step_s": secs}
 
 
 def _decode_rank(comm, device, *, cfg, params, cache, token, pos,

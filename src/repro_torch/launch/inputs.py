@@ -13,7 +13,10 @@ P ranks (``core.world.SolverWorld``), as its parallelism cuts them:
   parameters (and train state);
 * decode takes the whole batch, with every self-attention k / v cut over
   the sequence into P shards when ``seq_shard`` is set (flash-decoding,
-  ``models.api.decode_step(..., comm=...)``), whole otherwise.
+  ``models.api.decode_step(..., comm=...)``), whole otherwise;
+* an MoE model's experts are sharded over the P ranks in every kind
+  (``models.moe``): a rank's parameters and train state hold E / P
+  experts of every MoE layer (:func:`expert_shard`).
 
 The audio family's ``src_embeds`` (max(S / 4, 128) encoder frames) and the
 vlm family's ``extra_embeds`` (the patch prefix) take the reference's
@@ -72,6 +75,18 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
     return out
 
 
+def expert_shard(cfg: ModelConfig, n_ranks: int) -> tuple | None:
+    """The cut of a rank's experts, ``(0, P)`` (every rank's shard has
+    the same shapes), for an MoE model on P > 1 ranks; ``None``
+    otherwise.  Raises where E % P != 0."""
+    return (0, n_ranks) if cfg.moe and n_ranks > 1 else None
+
+
+def _params(cfg: ModelConfig, n_ranks: int) -> dict:
+    return _from_specs(api.param_specs(
+        cfg, expert_shard=expert_shard(cfg, n_ranks)))
+
+
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
                  seq_shard: bool = True, rows: int | None = None) -> tuple:
     """(params, cache, token, pos) of a rank's decode step: the whole batch
@@ -79,7 +94,7 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
     ``seq_shard``."""
     B = shape.global_batch if rows is None else rows
     shards = n_ranks if seq_shard else 1
-    params = _from_specs(api.param_specs(cfg))
+    params = _params(cfg, n_ranks)
     cache = _from_specs(api.init_cache_specs(cfg, B, shape.seq_len, shards))
     return params, cache, _meta((B,), torch.int32), _meta((B,), torch.int32)
 
@@ -87,15 +102,15 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
 def prefill_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
                   rows: int | None = None) -> tuple:
     """(params, batch) of a rank's prefill."""
-    return (_from_specs(api.param_specs(cfg)),
-            batch_specs(cfg, shape, n_ranks, rows))
+    return _params(cfg, n_ranks), batch_specs(cfg, shape, n_ranks, rows)
 
 
 def train_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
                 rows: int | None = None) -> tuple:
     """(state, batch) of a rank's train step: the whole (replicated) state
-    and the rank's rows."""
-    return (_from_specs(train_state_specs(cfg)),
+    but the rank's shard of an MoE model's experts, and the rank's
+    rows."""
+    return (_from_specs(train_state_specs(cfg, expert_shard(cfg, n_ranks))),
             batch_specs(cfg, shape, n_ranks, rows))
 
 

@@ -10,13 +10,14 @@ reduces to one of two bodies
 
 Public entry points (the reference's, with its parameter tree replaced by
 a model built from it, :func:`build_model`):
-  param_specs(cfg)                         -> ParamSpec tree
-  forward(model, cfg, batch)               -> (logits, aux)
-  loss_fn(model, cfg, batch)               -> (loss, metrics)
+  param_specs(cfg[, expert_shard])         -> ParamSpec tree
+  forward(model, cfg, batch[, comm])       -> (logits, aux)
+  loss_fn(model, cfg, batch[, comm])       -> (loss, metrics)
   init_cache_specs(cfg, batch, max_seq)    -> cache ParamSpec tree
   init_cache(cfg, batch, max_seq, device)  -> zero cache
   prefill(model, cfg, batch, max_seq)      -> (logits_last, cache)
-  decode_step(model, cfg, cache, tok, pos) -> (logits, cache)
+  decode_step(model, cfg, cache, tok, pos[, comm, expert_comm])
+                                           -> (logits, cache)
   shard_cache(cache, cfg, rank, n_shards)  -> a rank's sequence shard
 
 The reference scans one superblock (the lcm of the attention interleave
@@ -42,6 +43,18 @@ layer); the mamba state, the MLP / MoE, the norms and the logits are
 replicated, and the audio family's cross cache of encoder frames stays
 whole.  The reference shards its dry run's decode cache over 'model' and
 lets GSPMD place the collective; the port passes the rank's communicator.
+
+An MoE model's experts may be sharded over a world of P ranks (the
+reference's ``"expert": ("model",)``): :func:`param_specs` /
+:func:`init_model` with ``expert_shard=(rank, P)`` give a rank E / P
+experts of every MoE layer (w1 / w3 / w2 cut on the expert axis of the
+stacked layout), and ``forward`` / ``nll_sum`` / ``loss_fn`` / ``prefill``
+take the rank's ``comm`` (its rows of the global batch, or with
+``replicated`` the same tokens on every rank) and ``decode_step`` an
+``expert_comm`` (replicated tokens): the dispatch is the global one
+(``models.moe``).  Everything but the experts stays whole on every rank
+(the reference shards dbrx's and jamba's other weights FSDP-style over
+'data'; the port replicates them).
 
 Serving keeps the parameters frozen.  Training calls
 :meth:`_LM.trainable`: every parameter requires grad, and backward adds
@@ -80,7 +93,7 @@ def _superblock_period(cfg) -> int:
     return period
 
 
-def _sublayer_specs(cfg, i: int) -> dict:
+def _sublayer_specs(cfg, i: int, n_ranks: int = 1) -> dict:
     specs: dict = {"ln1": L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)}
     if cfg.layer_kind(i) == "attn":
         specs["attn"] = L.attention_specs(cfg)
@@ -89,18 +102,18 @@ def _sublayer_specs(cfg, i: int) -> dict:
     if cfg.d_ff > 0:
         specs["ln2"] = L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)
         if cfg.mlp_kind(i) == "moe":
-            specs["moe"] = MOE.moe_specs(cfg)
+            specs["moe"] = MOE.moe_specs(cfg, n_ranks)
         else:
             specs["mlp"] = L.mlp_specs(cfg)
     return specs
 
 
-def _block_specs(cfg) -> dict:
+def _block_specs(cfg, n_ranks: int = 1) -> dict:
     period = _superblock_period(cfg)
     if cfg.n_layers % period:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not divisible "
                          f"by superblock period {period}")
-    sub = {f"sub{j}": _sublayer_specs(cfg, j) for j in range(period)}
+    sub = {f"sub{j}": _sublayer_specs(cfg, j, n_ranks) for j in range(period)}
     return stack_specs(sub, cfg.n_layers // period)
 
 
@@ -127,19 +140,33 @@ def _encdec_specs(cfg) -> dict:
     }
 
 
-def param_specs(cfg, experts_only: bool = False) -> dict:
+def _shards(cfg, expert_shard) -> int:
+    """The ranks the experts are sharded over (1 for none or no MoE)."""
+    if expert_shard is None or not cfg.moe:
+        return 1
+    rank, n_ranks = expert_shard
+    MOE.expert_range(cfg.moe.num_experts, rank, n_ranks)   # E % P checked
+    return n_ranks
+
+
+def param_specs(cfg, experts_only: bool = False,
+                expert_shard: tuple | None = None) -> dict:
+    """The parameter tree's specs; with ``expert_shard=(rank, P)`` a rank's
+    shard of experts sharded over P ranks (``models.moe``): every MoE
+    leaf w1 / w3 / w2 holds E / P experts, the rest is whole."""
+    n_ranks = _shards(cfg, expert_shard)
     if experts_only:
         if not cfg.moe:
             return {}
         moe_layers = cfg.n_layers // cfg.moe.every_n_layers
-        e = MOE.moe_specs(cfg)
+        e = MOE.moe_specs(cfg, n_ranks)
         return stack_specs({k: e[k] for k in ("w1", "w2", "w3")}, moe_layers)
     specs: dict = dict(L.embed_specs(cfg))
     specs["final_norm"] = L.rmsnorm_spec(cfg.d_model, cfg.param_dtype)
     if cfg.family == "audio":
         specs.update(_encdec_specs(cfg))
     else:
-        specs["blocks"] = _block_specs(cfg)
+        specs["blocks"] = _block_specs(cfg, n_ranks)
     return specs
 
 
@@ -346,9 +373,28 @@ def build_model(cfg, params: dict) -> _LM:
     return (EncDecLM if cfg.family == "audio" else DecoderLM)(cfg, params)
 
 
-def init_model(cfg, generator: torch.Generator, device=None) -> _LM:
-    """:func:`build_model` on random weights from ``generator``."""
-    return build_model(cfg, init_params(param_specs(cfg), generator, device))
+def init_model(cfg, generator: torch.Generator, device=None,
+               expert_shard: tuple | None = None) -> _LM:
+    """:func:`build_model` on random weights from ``generator``; with
+    ``expert_shard=(rank, P)`` the rank's shard of the expert-by-expert
+    stream (:func:`init_shard`: the shards of P ranks join into the ``(0,
+    1)`` draw)."""
+    return build_model(cfg, init_shard(param_specs(cfg), generator, device,
+                                       cfg, expert_shard))
+
+
+def init_shard(specs, generator: torch.Generator, device, cfg,
+               expert_shard: tuple | None):
+    """:func:`init_params` of the whole tree ``specs``; with
+    ``expert_shard=(rank, P)`` and an MoE model, each expert leaf drawn one
+    expert's matrix at a time, keeping the rank's experts (the other
+    matrices are drawn and dropped): the same stream for every P, which
+    never holds another rank's experts."""
+    if expert_shard is None or not cfg.moe:
+        return init_params(specs, generator, device)
+    rank, n_ranks = expert_shard
+    return init_params(specs, generator, device, experts=MOE.expert_range(
+        cfg.moe.num_experts, rank, n_ranks))
 
 
 # ---------------------------------------------------------------------------
@@ -379,10 +425,12 @@ def _attend(q, k, v, cfg, causal=True):
                                block_kv=cfg.block_kv)
 
 
-def _apply_layer(layer, x, cfg, positions, aux, caches=None):
+def _apply_layer(layer, x, cfg, positions, aux, caches=None, ep=None):
     """One decoder layer on x (B, S, D); sums the MoE metrics into ``aux``;
     appends the layer's decode cache to ``caches`` when given (prefill's:
-    an attention layer's rope'd k and its v, a mamba layer's state)."""
+    an attention layer's rope'd k and its v, a mamba layer's state).
+    ``ep``: ``(comm, replicated)`` of experts sharded over ranks, or
+    ``None``."""
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
     if "attn" in layer.kinds:
         q, k, v = _project(layer.attn, h, cfg, positions)
@@ -396,7 +444,7 @@ def _apply_layer(layer, x, cfg, positions, aux, caches=None):
     if "ln2" in layer.kinds:
         h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
         if "moe" in layer.kinds:
-            out, metrics = MOE.moe_block(layer.moe, h, cfg)
+            out, metrics = MOE.moe_block(layer.moe, h, cfg, *(ep or ()))
             aux = {k: aux.get(k, 0.0) + v for k, v in metrics.items()}
             x = x + out
         else:
@@ -439,13 +487,21 @@ def _remat(fn, cfg, model):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _apply_layers(layers, x, cfg, positions, aux, caches=None):
+def _apply_layers(layers, x, cfg, positions, aux, caches=None, ep=None):
     for layer in layers:
-        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches)
+        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches, ep)
     return x, aux
 
 
-def _decoder_stack(model, cfg, x, positions, caches=None):
+def _expert_parallel(cfg, comm, replicated: bool):
+    """The ``ep`` argument of the layers: ``(comm, replicated)`` when an
+    MoE model's experts are sharded over more than one rank."""
+    if comm is None or not cfg.moe or comm.size == 1:
+        return None
+    return (comm, replicated)
+
+
+def _decoder_stack(model, cfg, x, positions, caches=None, ep=None):
     """The layers in order (the reference's scan over superblocks, each
     superblock under :func:`_remat`); the MoE metrics summed over the MoE
     layers, from f32 zeros."""
@@ -455,7 +511,7 @@ def _decoder_stack(model, cfg, x, positions, caches=None):
     block = _remat(_apply_layers, cfg, model)
     for i in range(0, len(model.layers), period):
         x, aux = block(model.layers[i:i + period], x, cfg, positions, aux,
-                       caches)
+                       caches, ep)
     return x, aux
 
 
@@ -522,11 +578,15 @@ def _embed(model, cfg, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def forward(model, cfg, batch: dict):
+def forward(model, cfg, batch: dict, comm=None, replicated: bool = False):
     """Returns (logits (B, S, Vpad), aux metrics).  batch keys: tokens
     (B, St); optional extra_embeds (B, Sx, D) prefixed (the vlm's patch
     embeddings); the audio family instead takes src_embeds (B, Se, D), the
-    encoder's frames, with the tokens."""
+    encoder's frames, with the tokens.  ``comm``: this rank's handle on a
+    world over which an MoE model's experts are sharded (the model holds
+    the rank's shard, :func:`param_specs`); the batch is the rank's rows
+    of the global batch, whose dispatch is one (``models.moe``), or with
+    ``replicated`` the same batch on every rank."""
     if cfg.family == "audio":
         enc = _encoder_stack(model, cfg, batch["src_embeds"])
         x, aux = _cross_decoder_stack(model, cfg, _embed(model, cfg, batch),
@@ -534,19 +594,22 @@ def forward(model, cfg, batch: dict):
     else:
         x = _embed(model, cfg, batch)
         x, aux = _decoder_stack(model, cfg, x,
-                                _positions(x.shape[1], x.device))
+                                _positions(x.shape[1], x.device),
+                                ep=_expert_parallel(cfg, comm, replicated))
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     return L.unembed(model.top, x), aux
 
 
-def nll_sum(model, cfg, batch: dict):
+def nll_sum(model, cfg, batch: dict, comm=None):
     """(sum of the masked next-token NLL over the text positions, the mask's
     sum, the forward's aux metrics): :func:`loss_fn`'s parts, so that a
     data-parallel rank can divide its rows' sum by the global batch's
     count.  The cross entropy runs in ``layers.acc_dtype`` of the logits:
     f32 for bf16 and f32 models (the reference's f32), f64 for f64
-    models."""
-    logits, aux = forward(model, cfg, batch)
+    models.  ``comm``: experts sharded over the ranks, the batch this
+    rank's rows (:func:`forward`): the MoE metrics are the global
+    batch's."""
+    logits, aux = forward(model, cfg, batch, comm)
     dev = logits.device
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     St = labels.shape[1]
@@ -560,11 +623,14 @@ def nll_sum(model, cfg, batch: dict):
     return (nll * mask).sum(), mask.sum(), aux
 
 
-def loss_fn(model, cfg, batch: dict):
+def loss_fn(model, cfg, batch: dict, comm=None):
     """Next-token cross entropy with masking (:func:`nll_sum` over
     max(mask sum, 1)), the MoE aux loss added: (total, {"loss",
-    "ppl_log"[, "moe_aux_loss"]})."""
-    total_nll, n, aux = nll_sum(model, cfg, batch)
+    "ppl_log"[, "moe_aux_loss"]}).  With ``comm`` (experts sharded over
+    the ranks, the batch this rank's rows) the loss is the rank's rows'
+    and the aux loss the global batch's; ``train.make_train_step`` builds
+    the world's loss from :func:`nll_sum`."""
+    total_nll, n, aux = nll_sum(model, cfg, batch, comm)
     loss = total_nll / torch.clamp_min(n, 1)
     metrics = {"loss": loss, "ppl_log": loss}
     total = loss
@@ -699,17 +765,25 @@ def _decode_self_attention(p, c, h, cfg, pos, rows, comm=None):
 
 
 def decode_step(model, cfg, cache: dict, token: torch.Tensor,
-                pos: torch.Tensor, comm=None):
+                pos: torch.Tensor, comm=None, expert_comm=None):
     """One decode step.  token (B,) integer, pos (B,) current positions.
     Writes each layer's new k / v row at ``pos``, and each mamba layer's
     new state, into ``cache`` in place.  Returns (logits (B, Vpad),
     cache).  ``comm``: this rank's handle on a world over which ``cache``
     is sequence-sharded (:func:`shard_cache`; module docstring); token,
-    pos and the result are replicated."""
+    pos and the result are replicated.  ``expert_comm``: this rank's
+    handle on a world over which an MoE model's experts are sharded (the
+    model holds the rank's shard; every rank decodes the same tokens,
+    ``models.moe``'s replicated dispatch).  The two are independent and
+    combine: with both (the same world or two), attention is
+    flash-decoding over the cache's shards and the MoE layers all-gather
+    their experts' outputs, and every rank ends the step with the same
+    logits."""
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
     rows = torch.arange(token.shape[0], device=dev)
+    ep = _expert_parallel(cfg, expert_comm, True)
     x = L.embed(model.top, token[:, None]).to(cfg.dtype)    # (B, 1, D)
     if cfg.family == "audio":
         for i, layer in enumerate(model.dec_layers):
@@ -741,7 +815,7 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
             if "ln2" in layer.kinds:
                 h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
                 if "moe" in layer.kinds:
-                    x = x + MOE.moe_block(layer.moe, h, cfg)[0]
+                    x = x + MOE.moe_block(layer.moe, h, cfg, *(ep or ()))[0]
                 else:
                     x = x + L.swiglu(layer.mlp, h)
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
@@ -753,19 +827,24 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def prefill(model, cfg, batch: dict, max_seq: int | None = None):
+def prefill(model, cfg, batch: dict, max_seq: int | None = None,
+            comm=None, replicated: bool = False):
     """Run the full-context forward and build the decode cache: every
     attention layer's rope'd k and its v, zero-padded from S to
     ``max_seq``, and every mamba layer's state after the last position (the
     chunked scan's final state and the convs' last inputs).  Returns
-    (logits at the last position (B, Vpad), cache)."""
+    (logits at the last position (B, Vpad), cache).  ``comm`` /
+    ``replicated``: experts sharded over the ranks, as in :func:`forward`
+    (a serving engine's ranks prefill the same request: ``replicated``;
+    a data-parallel prefill, each rank its rows)."""
     if cfg.family == "audio":
         return _prefill_encdec(model, cfg, batch, max_seq)
     x = _embed(model, cfg, batch)
     B, S = x.shape[:2]
     max_seq = max_seq or S
     caches: list = []
-    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches)
+    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches,
+                          _expert_parallel(cfg, comm, replicated))
     x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
     logits = L.unembed(model.top, x[:, -1:, :])[:, 0, :]
     cache = init_cache(cfg, B, max_seq, x.device)

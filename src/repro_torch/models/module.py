@@ -9,6 +9,7 @@ shardings of its compile-only dry run) has no twin here.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any
 
@@ -56,30 +57,54 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
                             s.init, s.scale), tree)
 
 
-def _init_one(spec: ParamSpec, generator: torch.Generator,
-              device) -> torch.Tensor:
+def _init_one(spec: ParamSpec, generator: torch.Generator, device,
+              experts: tuple | None = None) -> torch.Tensor:
+    """One leaf of ``spec``, one draw.  With ``experts=(lo, hi)`` a leaf
+    with an ``"expert"`` axis is drawn one expert's matrix at a time
+    (leading axes in order) and only those experts are kept: that stream
+    is the same for every cut, and the draw never holds more than one
+    matrix beyond the kept ones."""
+    shape = spec.shape
+    ax = (spec.axes.index("expert")
+          if experts is not None and "expert" in spec.axes else None)
+    if ax is not None:
+        lo, hi = experts
+        shape = shape[:ax] + (hi - lo,) + shape[ax + 1:]
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        return torch.ones(shape, dtype=spec.dtype, device=device)
     # fan-in scaled normal: last-but-one axis is the contraction by convention
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(
         max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x.mul_(scale)).to(spec.dtype)
+    if ax is None:
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x.mul_(scale)).to(spec.dtype)
+    out = torch.empty(shape, dtype=spec.dtype, device=device)
+    x = torch.empty(spec.shape[ax + 1:], dtype=torch.float32, device=device)
+    for idx in itertools.product(*map(range, spec.shape[:ax + 1])):
+        x.normal_(generator=generator)
+        if lo <= idx[-1] < hi:
+            out[idx[:-1] + (idx[-1] - lo,)] = x.mul_(scale)
+    return out
 
 
-def init_params(tree, generator: torch.Generator, device=None):
+def init_params(tree, generator: torch.Generator, device=None,
+                experts: tuple | None = None):
     """Materialise a ParamSpec tree into tensors on ``device`` (default:
     the generator's), drawn in f32 from ``generator`` leaf by leaf in the
-    tree's sorted-key order, scaled, then cast to each spec's dtype, as the
-    reference does.  The stream is ``torch``'s, not ``jax.random``'s: the
-    two packages' weights differ for the same seed by design, and parity
-    tests hand both the same numpy weights instead."""
+    tree's sorted-key order, scaled, then cast to each spec's dtype, as
+    the reference does.  The stream is ``torch``'s, not ``jax.random``'s:
+    the two packages' weights differ for the same seed by design, and
+    parity tests hand both the same numpy weights instead.
+    ``experts=(lo, hi)``: each expert leaf is drawn one expert's matrix at
+    a time (a stream of its own) and keeps only those experts, so the
+    shards of any number of ranks join into the ``(0, E)`` draw
+    (``api.init_shard``)."""
     device = generator.device if device is None else torch.device(device)
-    drawn = {path: _init_one(s, generator, device)
+    drawn = {path: _init_one(s, generator, device, experts)
              for path, s in _paths(tree)}
     return _unflatten(tree, drawn)
 

@@ -5,7 +5,8 @@ The layout (DESIGN.md section 3): the model's parameters in
 master copy and f32 (m, v); gradients arrive in the parameters' dtype and
 are upcast once for the update.  The reference shards (master, m, v) over
 its 'data' axis (ZeRO-1); the port's data-parallel ranks each hold all of
-it (``repro_torch.train.elastic``).
+it (``repro_torch.train.elastic``) but an MoE model's experts, of which a
+rank holds and updates its own shard (``train.trainer``).
 
 The update is the reference's arithmetic, operation for operation:
 ``g32 = g * clip``, ``m = b1 m + (1 - b1) g32``, ``v = b2 v + ((1 - b2)
@@ -80,23 +81,39 @@ def init_opt_state(params) -> dict:
             "v": tree_map(zeros, params, is_leaf=torch.is_tensor)}
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _global_norm(tree, comm=None, sharded: list | None = None
+                 ) -> torch.Tensor:
     """sqrt of the sum over the leaves (sorted-key order, as the
-    reference's) of each f32-cast leaf's sum of squares."""
-    sq = 0
-    for g in _leaves(tree):
+    reference's) of each f32-cast leaf's sum of squares.  With ``comm`` and
+    ``sharded`` (for each leaf: is it this rank's shard of experts sharded
+    over ``comm``'s ranks?) the norm is the whole tree's: the shards'
+    squares are summed apart and over the ranks by one scalar all-reduce,
+    then added to the replicated leaves'."""
+    if comm is None:
+        sq = 0
+        for g in _leaves(tree):
+            g32 = g.to(F32, copy=True)
+            sq = sq + torch.sum(g32.mul_(g32))
+        return torch.sqrt(sq)
+    sq = [0, 0]
+    for g, own in zip(_leaves(tree), sharded):
         g32 = g.to(F32, copy=True)
-        sq = sq + torch.sum(g32.mul_(g32))
-    return torch.sqrt(sq)
+        sq[own] = sq[own] + torch.sum(g32.mul_(g32))
+    shards = torch.as_tensor(sq[1], dtype=F32).reshape(1)
+    return torch.sqrt(sq[0] + comm.all_reduce(shards.to(
+        _leaves(tree)[0].device))[0])
 
 
-def adamw_update(params, grads, opt_state, step, cfg: AdamWConfig):
+def adamw_update(params, grads, opt_state, step, cfg: AdamWConfig,
+                 comm=None, sharded: list | None = None):
     """One AdamW step, in place: the leaves of ``params`` and of
     ``opt_state``'s master, m and v are updated where they lie and the same
     trees are returned, (params, opt_state, {"grad_norm", "lr"}) (the
     reference returns new trees).  ``step`` is the 0-d step counter before
-    the update."""
-    gnorm = _global_norm(grads)
+    the update.  ``comm`` / ``sharded``: the trees hold this rank's shard
+    of experts sharded over ``comm``'s ranks (:func:`_global_norm`: the
+    clip is the whole tree's); each rank updates its own leaves."""
+    gnorm = _global_norm(grads, comm, sharded)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                            1.0)
     step = torch.as_tensor(step)

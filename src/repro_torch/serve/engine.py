@@ -32,6 +32,14 @@
   served through ``api.prefill`` / ``api.decode_step``.
 
 The model runs on its own device; nothing here moves it.
+
+``Engine(..., comm=...)`` serves an MoE model whose experts are sharded
+over a world of ranks (``models.moe``; the model holds the rank's E / P
+experts, ``api.param_specs(cfg, expert_shard=(rank, P))``): every rank
+runs an engine on the same requests (replicated), and each prefill and
+decode call dispatches over the world (``replicated=True``: one
+all-gather of the experts' outputs an MoE layer), so every rank computes
+the same logits and samples the same tokens as the one-rank engine.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ RECURRENT = ("ssm", "hybrid")          # families with mamba state
 
 
 class Engine:
-    def __init__(self, model_cfg, model, cfg: ServeConfig):
+    def __init__(self, model_cfg, model, cfg: ServeConfig, comm=None):
         if model_cfg.family == "audio":
             raise ValueError(
                 f"{model_cfg.name}: the engine serves decoders; an "
@@ -69,6 +77,7 @@ class Engine:
         self.mc = model_cfg
         self.cfg = cfg
         self.model = model
+        self.comm = comm
         self.device = model.device
         self.cache = api.init_cache(model_cfg, cfg.slots, cfg.max_seq,
                                     self.device)
@@ -171,13 +180,14 @@ class Engine:
         logits, self.cache = api.decode_step(
             self.model, self.mc, self.cache,
             torch.from_numpy(tok).to(self.device),
-            torch.from_numpy(pos).to(self.device))
+            torch.from_numpy(pos).to(self.device), expert_comm=self.comm)
         return self._sample(logits)
 
     def _prefill(self, tokens: np.ndarray):
         return api.prefill(self.model, self.mc,
                            {"tokens": torch.from_numpy(tokens).to(
-                               self.device)}, max_seq=self.cfg.max_seq)
+                               self.device)}, max_seq=self.cfg.max_seq,
+                           comm=self.comm, replicated=True)
 
     def _state_of(self, slots) -> list:
         """Copies of the recurrent leaves' stripes of ``slots`` (the mamba

@@ -20,6 +20,19 @@ for each dtype among the gradients: one for every model without f32
 parameters) sums them; the reported loss is summed by one more scalar
 all-reduce.  Every rank then makes the same update on its replica.
 
+An MoE model's experts are sharded over the P ranks (``models.moe``;
+``E % P == 0``, else ``ValueError``): a rank's state holds E / P experts
+of every MoE layer (:func:`train_state_specs` with ``expert_shard``), and
+each microbatch's dispatch is ONE over the global microbatch, as the
+reference's mesh dispatches it (the capacity, the drops, the aux loss and
+the drop fraction are the global batch's).  The rank's loss adds the aux
+loss once over the world (``aux / P`` on every rank; its backward
+all-reduces the probability sums' gradient), the all-reduces sum the
+replicated leaves' gradients only (an expert's gradient is whole on its
+owner after the all-to-all's backward), the gradient norm adds the
+expert shards' squared norms with one scalar all-reduce, so clipping is
+the whole tree's, and AdamW updates each rank's own shard.
+
 The reference's ``train_step_shardings`` and ``abstract_train_state``
 (``NamedSharding`` / ``ShapeDtypeStruct`` trees for its mesh) have no
 twin.
@@ -35,9 +48,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.engine import all_reduce_variadic
 from repro_torch.data import TokenStream
 from repro_torch.data.regression import check_device
-from repro_torch.models import api
-from repro_torch.models.module import (ParamSpec, init_params, tree_leaves,
-                                       tree_map)
+from repro_torch.models import api, moe
+from repro_torch.models.module import ParamSpec, tree_leaves, tree_map
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                opt_state_specs)
 from repro_torch.optim.schedules import cosine_warmup
@@ -52,8 +64,19 @@ def _leaves(tree) -> list:
 
 # ---------------------------------------------------------------- specs ----
 
-def train_state_specs(model_cfg) -> dict:
-    pspecs = api.param_specs(model_cfg)
+def expert_shard_of(model_cfg, comm) -> tuple | None:
+    """``(rank, P)`` where ``comm``'s ranks shard an MoE model's experts
+    (P > 1), else ``None``; raises where E % P != 0."""
+    if comm is None or comm.size == 1 or not model_cfg.moe:
+        return None
+    moe.check_expert_shards(model_cfg.moe.num_experts, comm.size)
+    return (comm.rank, comm.size)
+
+
+def train_state_specs(model_cfg, expert_shard: tuple | None = None) -> dict:
+    """The train state's specs; with ``expert_shard=(rank, P)`` a rank's
+    shard of experts sharded over P ranks (``api.param_specs``)."""
+    pspecs = api.param_specs(model_cfg, expert_shard=expert_shard)
     return {"params": pspecs, "opt": opt_state_specs(pspecs),
             "step": ParamSpec((), (), torch.int32, init="zeros")}
 
@@ -64,12 +87,15 @@ def _rows(batch: dict, lo: int, hi: int) -> dict:
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
-def _reduce_grads(grads: dict, comm) -> None:
+def _reduce_grads(grads: dict, comm, sharded: list | None = None) -> None:
     """Sum the gradient buffers over the ranks in place: one all-reduce
-    for each dtype among them, in that dtype."""
+    for each dtype among them, in that dtype.  ``sharded``: for each leaf,
+    is it a rank's own expert shard (whole on its owner: not summed)?"""
+    leaves = _leaves(grads)
     by_dtype: dict = {}
-    for g in _leaves(grads):
-        by_dtype.setdefault(g.dtype, []).append(g)
+    for g, own in zip(leaves, sharded or [False] * len(leaves)):
+        if not own:
+            by_dtype.setdefault(g.dtype, []).append(g)
     for group in by_dtype.values():
         for g, r in zip(group, all_reduce_variadic(group, comm)):
             g.copy_(r)
@@ -83,21 +109,19 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
     device.  The metrics are the last microbatch's ``loss`` / ``ppl_log``
     (and ``moe_aux_loss``), the step's ``grad_norm`` and ``lr``, as 0-d
     tensors.  ``comm``: this rank's handle on a data-parallel world
-    (module docstring); P > 1 refuses MoE configs."""
+    (module docstring); an MoE state then holds the rank's shard of the
+    experts (:func:`expert_shard_of`)."""
     P = 1 if comm is None else comm.size
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches} must be >= 1")
-    if P > 1 and model_cfg.moe:
-        raise ValueError(
-            f"{model_cfg.name}: MoE training on {P} data-parallel ranks is "
-            "not supported: the expert capacity and the aux loss count the "
-            "tokens of one dispatch, which on a rank is its shard of the "
-            "global batch, not the batch the reference's mesh dispatches; "
-            "train MoE configs on one rank")
+    shard = expert_shard_of(model_cfg, comm)
+    n_moe = (max(model_cfg.n_layers // model_cfg.moe.every_n_layers, 1)
+             if model_cfg.moe else 1)
 
-    def backward(model, mb: dict) -> dict:
+    def backward(model, mb: dict, sharded: list | None) -> dict:
         """Gradients of one microbatch into the model's buffers (summed
-        over the ranks); returns its metrics."""
+        over the ranks but for the expert shards, ``sharded``); returns its
+        metrics."""
         if P == 1:
             total, metrics = api.loss_fn(model, model_cfg, mb)
         else:
@@ -110,17 +134,21 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
                 torch.as_tensor(B * mb["labels"].shape[1], dtype=F32)
                 if mask is None else mask.sum(), 1)
             n = B // P
-            part, _, _ = api.nll_sum(model, model_cfg,
-                                     _rows(mb, comm.rank * n,
-                                           (comm.rank + 1) * n))
+            part, _, aux = api.nll_sum(
+                model, model_cfg, _rows(mb, comm.rank * n,
+                                        (comm.rank + 1) * n),
+                comm if shard else None)
             total = part / count.to(part)
             metrics = {"loss": total}
+            if shard:           # the aux loss once over the world
+                total = total + aux["moe_aux_loss"] / (n_moe * P)
+                metrics["moe_aux_loss"] = aux["moe_aux_loss"]
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if P > 1:
-            _reduce_grads(model.grad_tree(), comm)
+            _reduce_grads(model.grad_tree(), comm, sharded)
             loss = comm.all_reduce(metrics["loss"].reshape(1))[0]
-            metrics = {"loss": loss, "ppl_log": loss}
+            metrics = {**metrics, "loss": loss, "ppl_log": loss}
         return metrics
 
     def train_step(state: TrainState, batch: dict):
@@ -128,8 +156,9 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
         dev = state["step"].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         model = api.build_model(model_cfg, params).trainable()
+        sharded = moe.expert_mask(params) if shard else None
         if microbatches == 1:
-            metrics = backward(model, batch)
+            metrics = backward(model, batch, sharded)
             grads = model.grad_tree()
         else:
             B = len(batch["labels"])
@@ -143,12 +172,15 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
             for i in range(microbatches):
                 if i:
                     model.zero_grad_tree()
-                metrics = backward(model, _rows(batch, i * n, (i + 1) * n))
+                metrics = backward(model, _rows(batch, i * n, (i + 1) * n),
+                                   sharded)
                 for a, g in zip(_leaves(grads), _leaves(model.grad_tree())):
                     a.add_(g.to(F32) / microbatches)
         with torch.no_grad():
             _, _, om = adamw_update(params, grads, state["opt"],
-                                    state["step"], opt_cfg)
+                                    state["step"], opt_cfg,
+                                    comm=comm if shard else None,
+                                    sharded=sharded)
         del model, grads
         state["step"] = state["step"] + 1
         return state, {**metrics, **om, "loss": metrics["loss"]}
@@ -182,7 +214,13 @@ class Trainer:
     runs on ``device`` (the card unless the caller asks for the CPU).
     Fresh weights come from a ``torch.Generator`` seeded with
     ``run_cfg.seed`` on the device (not ``jax.random``'s stream).  Rank 0
-    alone logs and writes the checkpoints; every rank restores."""
+    alone logs and writes the checkpoints; every rank restores.  An MoE
+    model's experts are sharded over the ranks (:func:`expert_shard_of`):
+    a rank's fresh state is its cut of the expert-by-expert draw
+    (``api.init_shard``, the same stream on one rank), a checkpoint
+    holds the whole (logical) state, gathered to rank 0's host before it
+    writes it, and a restore cuts the rank's experts from it, so a state
+    written on P ranks restarts on any P' with E % P' == 0."""
 
     def __init__(self, model_cfg, run_cfg: TrainRunConfig, comm=None, *,
                  device="cuda"):
@@ -192,6 +230,7 @@ class Trainer:
         self.device = (comm.device if comm is not None
                        else check_device(device))
         self.lead = comm is None or comm.rank == 0
+        self.expert_shard = expert_shard_of(model_cfg, comm)
         self.opt_cfg = AdamWConfig(
             lr=cosine_warmup(run_cfg.lr, run_cfg.warmup, run_cfg.steps))
         self.stream = TokenStream(model_cfg.vocab, run_cfg.seq_len,
@@ -205,8 +244,9 @@ class Trainer:
     def _fresh_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(
             self.run_cfg.seed)
-        params = init_params(api.param_specs(self.model_cfg), gen,
-                             self.device)
+        params = api.init_shard(api.param_specs(self.model_cfg), gen,
+                                self.device, self.model_cfg,
+                                self.expert_shard or (0, 1))
         return {"params": params, "opt": init_opt_state(params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=self.device)}
@@ -218,7 +258,8 @@ class Trainer:
             if restored is not None:
                 from .elastic import reshard_state
                 state, extra, step = restored
-                state = reshard_state(state, self.model_cfg, self.device)
+                state = reshard_state(state, self.model_cfg, self.device,
+                                      self.expert_shard)
                 self.stream.load_state_dict(extra["data"])
                 self._log(f"[trainer] resumed from step {step}")
                 return state
@@ -228,10 +269,21 @@ class Trainer:
         if self.lead:
             print(msg)
 
+    def logical_state(self) -> TrainState | None:
+        """The whole state: the rank's own where no experts are sharded;
+        else gathered to rank 0's host one layer of a leaf at a time
+        (every rank must call it; the other ranks get ``None``)."""
+        if self.expert_shard is None:
+            return self.state
+        return moe.gather_experts(self.state, self.comm)
+
     def _save(self, step: int, block: bool = False) -> None:
-        if self.ckpt and self.lead:
-            self.ckpt.save(step, self.state,
-                           {"data": self.stream.state_dict()}, block=block)
+        if not self.ckpt:
+            return
+        state = self.logical_state()
+        if self.lead:
+            self.ckpt.save(step, state, {"data": self.stream.state_dict()},
+                           block=block)
 
     def run(self, steps: int | None = None) -> list[dict]:
         steps = steps or self.run_cfg.steps

@@ -6,7 +6,8 @@ the CPU.
   ``ShapeDtypeStruct``s (built on a 1 x 1 ('data', 'model') mesh) in
   every leaf's path, shape and dtype, for every arch x shape; at four ranks
   the rank's shards tile the global shapes (a data-parallel rank's rows,
-  a decode rank's sequence shard of every self-attention k / v).
+  a decode rank's sequence shard of every self-attention k / v, a rank's
+  E / 4 experts of every MoE leaf).
 * The probe's bilinear extrapolation on reduced configs (small shapes of
   the same names): its flops and bytes equal a direct count at the
   extrapolated size exactly (both are integer sums); an MoE decode
@@ -31,6 +32,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import inputs as I
 from repro_torch.launch import roofline as R
 from repro_torch.models import api
+from repro_torch.models.moe import is_expert_path
 
 CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]
 SMALL = {"train_4k": ShapeConfig("train_4k", 64, 16, "train"),
@@ -105,6 +107,8 @@ def test_rank_shards_tile_the_global_shapes(arch, shape_name):
         elif shape.kind == "decode" and path[0] == "1" \
                 and path[-1] in ("k", "v"):               # self-attn cache
             assert shp[:2] + (shp[2] * 4,) + shp[3:] == wshp, path
+        elif is_expert_path(path):       # a rank's experts (layers, E / P)
+            assert shp[:1] + (shp[1] * 4,) + shp[2:] == wshp, path
         else:
             assert shp == wshp, path
     assert I.tree_bytes(_port_specs(cfg, shape, 4)) <= \
@@ -228,9 +232,9 @@ def test_dry_run_end_to_end(reduced, tmp_path, P):
             world.close()
     count = D.summarize(results)
     assert count["failed"] == 0
-    # long_500k: full attention skipped; MoE training waits on P > 1
+    # long_500k: full attention skipped; MoE training probed on P > 1 too
     assert count["skipped"] == 2
-    assert count["probes_skipped"] == (1 if P > 1 else 0)
+    assert count["probes_skipped"] == 0
     cells = R.load_cells(str(tmp_path))
     assert len(cells) == 12
     for (arch, shape, mesh), slots in cells.items():
@@ -254,6 +258,18 @@ def test_dry_run_end_to_end(reduced, tmp_path, P):
             {"all_reduce": layers, "max": layers}
         train = cells[(llama, "train_4k", "p2")]["base"]
         assert train["collectives"]["count"] == 2    # gradients and loss
+        # the experts sharded over the ranks: a layer's forward gathers the
+        # counts and sums the router's probabilities, two all-to-alls
+        # there and two in backward, which also all-reduces the sums'
+        # gradient; then the gradients (bf16 and the f32 router), the
+        # loss and the shards' squared norm
+        moe_cfg = get_reduced("phi3_5_moe_42b")
+        moe_train = cells[(moe_cfg.name, "train_4k", "p2")]
+        kinds = moe_train["probe"]["extrapolated_per_device"]["by_kind"]
+        n = moe_cfg.n_layers
+        assert {k: v["count"] for k, v in kinds.items()} == \
+            {"all_gather": n, "all_to_all": 4 * n, "all_reduce": 2 * n + 4}
+        assert "2 of 4 a rank" in moe_train["base"]["reduced"]["experts"]
 
 
 def test_a_probe_that_cannot_fit_is_skipped_with_its_gb(reduced, tmp_path,

@@ -21,6 +21,12 @@ Tolerances:
 * the 5-step loss trajectory through the shared stream: atol 1e-4 on
   losses of about 6;
 * resume: ``torch.equal`` on every leaf and the stream's cursor;
+* one train step with the experts sharded over 2 and 4 ranks (phi3.5 and
+  dbrx reduced at capacity 1.0: slots drop) against the reference's on the
+  global batch at the tolerances above (the aux loss rtol 1e-5; dbrx's
+  first-layer wk move at 2e-2, where the port's one-rank step also reads
+  1.7e-2), and each master leaf's move against the port's one-rank step
+  at 2e-4 (read: up to 7.3e-5);
 * the elastic run on two gloo ranks against one rank, (loss atol, each
   leaf's move of the f32 master after 4 steps against its norm): bf16
   (1e-2, 0.15) -- two ranks sum two bf16 gradients where one rank rounds
@@ -71,6 +77,14 @@ MOMENT_TOL = 5e-4
 MOVE_TOL = 2e-3
 TRAJ_TOL = 1e-4
 ELASTIC_TOL = {"bf16": (1e-2, 0.15), "f32": (1e-5, 2e-4)}
+# experts sharded over ranks against the port's one-rank step: each
+# master leaf's move (read: at most 7.3e-5, dbrx on 4 ranks)
+EP_MOVE_TOL = 2e-4
+# dbrx reduced's first-layer wk: the port's one-rank step is itself 1.7e-2
+# from the reference's move (Adam's first step turns a gradient element
+# within rounding of 0 into a move of lr either way; its m holds
+# MOMENT_TOL), and so are the ranks'
+MOVE_TOL_LEAF = {("dbrx_132b", "sub0/attn/wk"): 2e-2}
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -314,44 +328,127 @@ def test_trainer_resumes_exactly(tmp_path):
 def test_elastic_ranks_match_one_rank(tmp_path, dtype):
     """Two steps on two gloo ranks with a checkpoint, then a restore on one
     rank of the same world to step 4, against one Trainer on the same
-    stream; the replicas are the same bytes on both ranks.  A MoE config
-    is refused on two ranks."""
+    stream; the replicas are the same bytes on both ranks.  The same
+    restart of an MoE config (phi3.5 reduced at capacity 1.25, its four
+    experts two a rank on two ranks) against its one-rank Trainer."""
     cfg = tconfigs.get_reduced("granite_3_2b")         # bf16
     if dtype == "f32":
         cfg = dataclasses.replace(cfg, dtype=torch.float32,
                                   param_dtype=torch.float32)
     tol_loss, tol_move = ELASTIC_TOL[dtype]
-    one = Trainer(cfg, _run_cfg(None, ckpt_dir=None), device="cpu")
-    hist_one = one.run()
-    with SolverWorld(2, device="cpu", kernels=False) as world:
-        out2 = run_data_parallel(world, cfg, _run_cfg(tmp_path, steps=2))
-        assert len(out2["digests"]) == 2
-        out1 = run_data_parallel(world, cfg, _run_cfg(tmp_path), n_ranks=1)
-        if dtype == "bf16":
-            with pytest.raises(RuntimeError, match="MoE training"):
-                run_data_parallel(world,
-                                  tconfigs.get_reduced("phi3_5_moe_42b"),
-                                  _run_cfg(None, ckpt_dir=None, steps=1))
-    state = out1["state"]
-    assert int(state["step"]) == 4
-    hist = out2["history"] + out1["history"]
-    assert [h["step"] for h in hist] == [1, 2, 3, 4]
-    np.testing.assert_allclose([h["loss"] for h in hist],
-                               [h["loss"] for h in hist_one], rtol=0,
-                               atol=tol_loss)
-    start = one._fresh_state()["opt"]["master"]
-    for a, b, c in zip(*(tree_leaves(t, is_leaf=torch.is_tensor) for t in (
-            state["opt"]["master"], one.state["opt"]["master"], start))):
-        err = float(torch.linalg.norm(a - b) / torch.linalg.norm(b - c))
-        assert err < tol_move, err
+    moe = tconfigs.get_reduced("phi3_5_moe_42b")
+    moe = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, capacity_factor=1.25))
+    if dtype == "f32":
+        moe = dataclasses.replace(moe, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+    for c, sub in ((cfg, "dense"), (moe, "moe")):
+        one = Trainer(c, _run_cfg(None, ckpt_dir=None), device="cpu")
+        hist_one = one.run()
+        with SolverWorld(2, device="cpu", kernels=False) as world:
+            out2 = run_data_parallel(world, c,
+                                     _run_cfg(tmp_path / sub, steps=2))
+            assert len(out2["digests"]) == 2
+            out1 = run_data_parallel(world, c, _run_cfg(tmp_path / sub),
+                                     n_ranks=1)
+        state = out1["state"]
+        assert int(state["step"]) == 4
+        hist = out2["history"] + out1["history"]
+        assert [h["step"] for h in hist] == [1, 2, 3, 4]
+        np.testing.assert_allclose([h["loss"] for h in hist],
+                                   [h["loss"] for h in hist_one], rtol=0,
+                                   atol=tol_loss)
+        start = one._fresh_state()["opt"]["master"]
+        for a, b, s0 in zip(*(tree_leaves(t, is_leaf=torch.is_tensor)
+                              for t in (state["opt"]["master"],
+                                        one.state["opt"]["master"], start))):
+            err = float(torch.linalg.norm(a - b) / torch.linalg.norm(b - s0))
+            assert err < tol_move, (sub, err)
 
 
 def test_moe_refused_on_ranks():
-    class Two:
-        size, rank = 2, 0
-    with pytest.raises(ValueError, match="MoE training"):
+    """MoE training on ranks shards the experts: a world whose size does
+    not divide E is refused (phi3.5 reduced: E = 4)."""
+    class Three:
+        size, rank = 3, 0
+    with pytest.raises(ValueError, match="E=4 .* P=3"):
         make_train_step(tconfigs.get_reduced("phi3_5_moe_42b"),
-                        AdamWConfig(), comm=Two())
+                        AdamWConfig(), comm=Three())
+
+
+@pytest.fixture(scope="module")
+def moe_world():
+    with SolverWorld(4, device="cpu", kernels=False) as world:
+        yield world
+
+
+_MOE_REFERENCE = {}
+
+
+def _moe_reference_step(arch):
+    """The reference's jitted step on its weights at capacity 1.0 (slots
+    drop), f32, on a global batch of 4 rows: (the port's cfg and state,
+    the batch, the reference's new state and metrics)."""
+    if arch not in _MOE_REFERENCE:
+        jc, jstate, tc, tstate = _shared_state(arch)
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(
+            jc.moe, capacity_factor=1.0))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(
+            tc.moe, capacity_factor=1.0))
+        batch = TokenStream(tc.vocab, 32, 4, seed=3).batch_at(0)
+        batch["mask"][1, 20:] = 0.0
+        jnew, jm = jax.jit(j_make_train_step(jc, JAdamW(lr=1e-3)))(
+            jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        one = jax.tree.map(lambda t: t.clone(), tstate)
+        one, _ = make_train_step(tc, AdamWConfig(lr=1e-3))(one, batch)
+        _MOE_REFERENCE[arch] = (tc, tstate, batch,
+                                jax.tree.map(np.asarray, jnew),
+                                {k: float(v) for k, v in jm.items()},
+                                train_state_to_numpy(one))
+    return _MOE_REFERENCE[arch]
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "dbrx_132b"])
+def test_moe_train_step_on_ranks_matches_reference(moe_world, arch, P):
+    """One train step with the experts sharded over P gloo ranks (each
+    its rows of the global batch, one global dispatch) against the
+    reference's jitted step on the global batch at a capacity that drops
+    slots: the loss, the aux loss, the grad norm and every updated leaf
+    (the shards joined), at the one-rank step's tolerances; each master
+    leaf's move also against the port's one-rank step (EP_MOVE_TOL)."""
+    from repro_torch.launch.expert_parallel import ep_train_step
+    tc, tstate, batch, want, jm, one = _moe_reference_step(arch)
+    model = api.build_model(tc, tstate["params"])
+    with torch.no_grad():
+        _, aux = api.forward(model, tc, batch)
+    assert float(aux["moe_drop_frac"]) > 0            # slots dropped
+    got = ep_train_step(moe_world.ranks(P), tc, tstate["params"], batch, P,
+                        lr=1e-3, keep=True)
+    assert got["forward"]["moe_drop_frac"] == float(aux["moe_drop_frac"])
+    tm = got["metrics"]
+    assert tm.keys() == jm.keys() == {"loss", "ppl_log", "moe_aux_loss",
+                                      "grad_norm", "lr"}
+    for k in ("loss", "ppl_log"):
+        np.testing.assert_allclose(tm[k], jm[k], rtol=0, atol=STEP_LOSS_TOL)
+    np.testing.assert_allclose(tm["moe_aux_loss"], jm["moe_aux_loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"],
+                               rtol=MOMENT_TOL)
+    assert all(c["all_to_alls"] == 4 * tc.n_layers for c in got["counters"])
+    new = dict(_leaves(train_state_to_numpy(got["state"])))
+    ref = dict(_leaves(want))
+    one = dict(_leaves(one))
+    before = dict(_leaves(train_state_to_numpy(tstate)))
+    assert new.keys() == ref.keys() == one.keys()
+    for k in ref:
+        if k[0] == "opt" and k[1] in ("m", "v"):
+            assert _rel(new[k], ref[k]) < MOMENT_TOL, k
+        elif k[0] != "step":
+            tol = MOVE_TOL_LEAF.get((arch, "/".join(k[-3:])), MOVE_TOL)
+            assert _rel(new[k] - before[k], ref[k] - before[k]) < tol, k
+            assert _rel(new[k] - before[k], one[k] - before[k]) < \
+                EP_MOVE_TOL, k
 
 
 def test_launch_train_runs_on_the_cpu(tmp_path):
