@@ -72,12 +72,14 @@ Phases (any failure raises; nothing is caught):
      device loss onto 3 survivors (f32, and f64 on the 8x cut) and one
      NCCL rank.  Wire times are gloo's, host-staged, with the ranks on one
      card;
- 2c. (inside phase 2) the bf16 packets K1 / K3 / K7 on the real-sim X
-     cast to bf16 at m = 128 and 8: equal under torch.equal to the f32
-     kernels on the upcast operand, K1 equal to K7 on X[flat] and K3 to
-     K7 on X[:, flat]^T at K3's chunk, within the reference's 2e-2 of the
-     plain version, timed beside their bound (bf16 inputs, f32 outputs,
-     the card's bf16 tensor-core rate); then one packet of each at each m
+ 2c. (inside phase 2) the bf16 packets K1 / K3 / K7 (tensor cores) on the
+     real-sim X cast to bf16 at m = 128 and 8: within the reference's 2e-2
+     of the bf16 plain version and 1e-4 of the f64 one on the upcast
+     operand (the f32 kernel on it logged beside), K1 equal to K7 on
+     X[flat] and K3 to K7 on X[:, flat]^T at K3's chunk, G to G^T and two
+     runs alike (torch.equal), timed beside their bound (bf16 inputs, f32
+     outputs, the card's bf16 tensor-core rate) and, with --parent, beside
+     another commit's design in turns; then one packet of each at each m
      through the public entry points (counted: the "bf16 packets" path);
  10. the contract engine on the card (counted, launches summed over the
      parent and the ranks): (a) the kernels' shared-memory budget against
@@ -176,10 +178,13 @@ Phases (any failure raises; nothing is caught):
      host ms inside them; (b) dbrx at its width cut to EP_DECODE_LAYERS
      layers (capacity 4.0, no drops, as phase 12's gates): prefill +
      decode steps on the ranks (replicated tokens)
-     against forward (LM_TOL) and against the one-process decode (bits
-     reported), the engine's greedy tokens on the ranks equal to the
-     one-rank engine's, then bf16 decode ms a step on the ranks against
-     local beside the weight-read bounds; (c) phi3.5-moe at its width cut
+     against forward (LM_TOL) and against the one-process decode bit for
+     bit, or, traced tensor by tensor, parting first at a decode step's
+     expert products with the bmm witness at its capacity; the engine's
+     greedy tokens on the ranks equal to the one-rank engine's; then bf16
+     decode ms a step on the ranks against local beside the weight-read
+     bounds; the same gate against forward in f64 in one process (62 GB
+     of weights); (c) phi3.5-moe at its width cut
      to EP_TRAIN_LAYERS layer at capacity 1.0 (slots drop): one train step
      on the ranks against the
      same step on one rank (loss, aux loss, drop fraction, grad norm, each
@@ -199,6 +204,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -221,6 +227,7 @@ from repro_torch.kernels import gram as gk  # noqa: E402
 from repro_torch.kernels.gram import _build  # noqa: E402
 from repro_torch.kernels.gram.sampled_colmajor import (  # noqa: E402
     cols_packet_geometry)
+from repro_torch.launch.bf16_packets import blocked_flat  # noqa: E402
 from repro_torch.launch.tile_sweep import (apply_launcher,  # noqa: E402
                                            cols_apply_launcher,
                                            cols_packet_launcher,
@@ -304,17 +311,6 @@ def cross_terms(G, flat):
     """G with the entries of equal indices (the diagonal and the duplicate
     pairs, all sums of squares) set to zero."""
     return G.masked_fill(flat[:, None] == flat[None, :], 0.0)
-
-
-def blocked_flat(gen, n_total: int, b: int, blocks: int):
-    """``blocks`` blocks of ``b`` distinct indices each, with duplicates
-    across blocks forced in: the index pattern of one outer step."""
-    idx = core.sample_blocks(gen, n_total, b, blocks)
-    for k in range(1, blocks):
-        prev = idx[k - 1, 0]
-        if not bool((idx[k] == prev).any()):
-            idx[k, -1] = prev              # a duplicate across blocks
-    return idx.reshape(-1).contiguous()
 
 
 def ragged_flat(gen, n_total: int, m: int):
@@ -599,189 +595,218 @@ def check_dense_kernels(X, gen, tag: str, ms: tuple, reps: int,
     return out
 
 
-# bf16 packets (K1, K7): against the plain version at the reference's bf16
-# tolerance (tests/test_kernels.py, 2e-2), and under torch.equal against the
-# f32 kernel on the upcast operand (a bf16 element lands widened in the f32
-# ring, so the sums are the f32 kernel's).
+# bf16 packets (K1, K3, K7 on the tensor cores, f32 sums and outputs):
+# within the reference's bf16 tolerance (tests/test_kernels.py, 2e-2) of the
+# bf16 plain version, and within 1e-4 of the plain version in f64 on the
+# upcast operand (G, r and G's cross terms); the f32 kernel on the upcast
+# operand is logged beside, no longer equal (mma sums its slices in its own
+# order).  K1 == K7 on X[flat], K3 == K7 on X[:, flat]^T at K3's chunk, G ==
+# G^T and two runs' bits under torch.equal.
 TOL_BF16 = 2e-2
+TOL_BF16_F64 = 1e-4
 
 
 def bf16_bound(m: int, uniq: int, K: int, indexed: bool) -> dict:
     """The packet's bound with bf16 inputs (2 bytes: the sampled rows and u)
     and f32 outputs (4 bytes: G and r), against the operations at the
-    card's bf16 tensor-core rate.  ``fma_ms``: the operations at the f32
-    CUDA-core rate, the floor of the kernel's own design (f32 FMAs on the
-    widened elements), which is not the card's limit for the function."""
+    card's bf16 tensor-core rate."""
     nbytes = 2 * (uniq * K + K) + 4 * (m * m + m) + (4 * m if indexed else 0)
     flops = 2 * (m * (m + 1) // 2 * K + m * K)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S["torch.bfloat16"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "fma_ms": flops / FLOPS_PER_S["torch.float32"] * 1e3}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_bf16_cols_packet(Xb, Xup, gen, m: int, reps: int) -> dict:
-    """Phase 2c for K3 in bf16 at m columns of the bf16 X (d, n): equal to
-    f32 K3 on the upcast operand and to bf16 K7 on X[:, flat]^T at K3's
-    chunk (torch.equal), within 2e-2 of its plain version; timed beside its
-    bound (bf16 inputs, f32 outputs; the sector traffic of the scattered
-    columns logged beside it), the plain version, the f32 kernel on the
-    upcast operand and a library call (a bf16 product on the gathered
-    panel).  Returns (record, (flat, u))."""
-    d, n = Xb.shape
-    flat = blocked_flat(gen, n, 8, m // 8)
-    u = torch.randn((d,), generator=gen, device=Xb.device,
-                    dtype=torch.bfloat16)
-    chunk = cols_packet_geometry(m, d, torch.bfloat16).chunk
-    Yc = Xb[:, flat.long()].T.contiguous()
-    G3, r3 = gk.gram_packet_sampled_cols(Xb, flat, u)
-    F3 = gk.gram_packet_sampled_cols(Xup, flat, u.float())
-    G7, r7 = gk.gram_packet_dense(Yc, u, bk=chunk)
-    want = gk.gram_packet_sampled_cols_ref(Xb, flat, u)
-    torch.cuda.synchronize()
-    eq_f32 = torch.equal(G3, F3[0]) and torch.equal(r3, F3[1])
-    eq_k7 = torch.equal(G3, G7) and torch.equal(r3, r7)
-    errs = [rel(G3, want[0]), rel(r3, want[1]),
-            rel(cross_terms(G3, flat), cross_terms(want[0], flat))]
-    max_abs = max(float((a - b).abs().max())
-                  for a, b in ((G3, want[0]), (r3, want[1])))
-    log(f"  bf16 K3 m={m:4d}: out {G3.dtype}; rel err G, r, G cross terms "
-        + " ".join(f"{e:.2e}" for e in errs)
-        + f" (tol {TOL_BF16:.0e}), max abs {max_abs:.2e}; equal to f32 K3 on "
-        f"the upcast operand {eq_f32}; K3 == bf16 K7 on X[:, flat]^T at "
-        f"K3's chunk {chunk} {eq_k7}")
-    if G3.dtype != torch.float32 or not all(
-            math.isfinite(e) and e <= TOL_BF16 for e in errs):
-        raise AssertionError(f"bf16 K3 disagrees with its plain version at "
-                             f"m={m}: {errs}")
-    if not (eq_f32 and eq_k7):
-        raise AssertionError(f"bf16 K3 identities fail at m={m}: {eq_f32}, "
-                             f"{eq_k7}")
-    info = gk.COLS_PACKET_BF16
-    rhs = torch.cat([Yc.T, u[:, None]], dim=1).contiguous()
-    names = KERNEL_NAMES["dense"]
-    rec = {"name": info.name, "route": "cuda", "source": info.source,
-           "replaces": info.replaces, "max_abs_err": max_abs, "m": m, "K": d,
-           "dtype": "bfloat16",
-           "ms": device_ms(lambda: gk.gram_packet_sampled_cols(Xb, flat, u),
-                           reps, names),
-           "plain_ms": device_ms(
-               lambda: gk.gram_packet_sampled_cols_ref(Xb, flat, u), reps),
-           "library_ms": device_ms(lambda: torch.mm(Yc, rhs), reps),
-           "gather_ms": device_ms(gather_call(Xb, flat, "cols"), reps),
-           "f32_ms": device_ms(
-               lambda: gk.gram_packet_sampled_cols(Xup, flat, u.float()),
-               reps, names)}
-    uniq = int(torch.unique(flat).numel())
-    rec.update(bf16_bound(m, uniq, d, True))
-    rec["sector_ms"] = uniq * d * SECTOR / HBM_BYTES_PER_S * 1e3
-    log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 K3 on the "
-        f"upcast operand {rec['f32_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
-        f"library (bf16 mm on [Y^T | u], Y = X[:, flat]^T) "
-        f"{rec['library_ms']:.4f} (gather {rec['gather_ms']:.4f}, gather + "
-        f"library {rec['gather_ms'] + rec['library_ms']:.4f}), bound "
-        f"{rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}; device / bound "
-        f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
-        f"{rec['ms'] / rec['library_ms']:.2f}); sector traffic of the "
-        f"scattered columns (one 32-byte sector an element) "
-        f"{rec['sector_ms']:.4f} ms")
-    return rec, (flat, u)
+def parent_bf16_times(parent: str, seed: int, reps: int) -> dict:
+    """The bf16 packets of the tree at ``parent`` (a checkout of another
+    commit, with its own kernels built on first use), timed by
+    launch/bf16_packets.py on the inputs phase 2c draws: {kernel: {m: ms}}.
+    Run in a process of its own before this process's first profiler trace
+    and after its last: a trace taken here after another process has
+    traced the card loses device events (seen on the H100)."""
+    script = (Path(__file__).resolve().parent / "src/repro_torch/launch"
+              / "bf16_packets.py")
+    env = dict(os.environ, PYTHONPATH=str(Path(parent).resolve() / "src"))
+    out = subprocess.run([sys.executable, str(script), "--seed", str(seed),
+                          "--reps", str(reps)], env=env, capture_output=True,
+                         text=True, check=True).stdout
+    return {k: {int(m): v for m, v in t.items()}
+            for k, t in json.loads(out.strip().splitlines()[-1]).items()}
 
 
-def check_bf16_packets(X, gen, reps: int) -> tuple[dict, dict]:
+def bf16_gates(tag: str, got, want16, want64, f32, flat) -> float:
+    """Phase 2c's gates on one bf16 packet: G and r against the bf16 plain
+    version (TOL_BF16) and the f64 one on the upcast operand (TOL_BF16_F64,
+    G's cross terms too), G == G^T; logged beside the f32 kernel on the
+    upcast operand.  Returns the largest absolute error against f64."""
+    G, r = got
+    errs16 = [rel(G, want16[0]), rel(r, want16[1]),
+              rel(cross_terms(G, flat), cross_terms(want16[0], flat))]
+    errs64 = [rel(G, want64[0]), rel(r, want64[1]),
+              rel(cross_terms(G, flat), cross_terms(want64[0], flat))]
+    max_abs = max(float((a.double() - b).abs().max())
+                  for a, b in ((G, want64[0]), (r, want64[1])))
+    sym = torch.equal(G, G.T)
+    eq32 = torch.equal(G, f32[0]) and torch.equal(r, f32[1])
+    log(f"  {tag}: rel err G, r, G cross terms against the bf16 plain "
+        "version " + " ".join(f"{e:.2e}" for e in errs16)
+        + f" (tol {TOL_BF16:.0e}), against f64 on the upcast operand "
+        + " ".join(f"{e:.2e}" for e in errs64)
+        + f" (tol {TOL_BF16_F64:.0e}), max abs {max_abs:.2e}; G == G^T "
+        f"{sym}; the f32 kernel on the upcast operand: equal {eq32}, rel "
+        f"G {rel(G, f32[0]):.2e}, r {rel(r, f32[1]):.2e}")
+    if G.dtype != torch.float32 or not (
+            all(math.isfinite(e) and e <= TOL_BF16 for e in errs16)
+            and all(math.isfinite(e) and e <= TOL_BF16_F64 for e in errs64)):
+        raise AssertionError(f"{tag} disagrees with its plain versions: "
+                             f"{errs16}, {errs64}")
+    if not sym:
+        raise AssertionError(f"{tag}: G is not symmetric")
+    return max_abs
+
+
+BF16_KEYS = (("rows", gk.ROWS_PACKET_BF16), ("dense", gk.DENSE_PACKET_BF16),
+             ("cols", gk.COLS_PACKET_BF16))
+
+
+def bf16_record_key(info, m: int) -> str:
+    return info.name if m == 128 else f"{info.name}@m{m}"
+
+
+def log_parent_turns(records: dict, before: dict | None,
+                     after: dict | None) -> None:
+    """Phase 2c's times beside the parent commit's design, taken in turns
+    (the parent at the run's start and end, this design twice in 2c)."""
+    if before is None:
+        log("  2c the parent design's times: not measured in this run "
+            "(--parent DIR times them in turns with these)")
+        return
+    for m in (128, 8):
+        for key, info in BF16_KEYS:
+            rec = records[bf16_record_key(info, m)]
+            rec["parent_ms"] = [before[key][m], after[key][m]]
+            log(f"  2c {info.name} m={m}: parent design {before[key][m]:.4f}"
+                f", this design {rec['ms']:.4f}, {rec['again_ms']:.4f}, "
+                f"parent design {after[key][m]:.4f} ms (in turns)")
+
+
+def check_bf16_packets(X, seed: int, reps: int, twice: bool
+                       ) -> tuple[dict, dict]:
     """Phase 2c: K1, K3 and K7 on the real-sim X cast to bf16 at m = 128
-    and 8: each equal to the f32 kernel on the upcast operand, K1 equal to
-    K7 on X[flat] and K3 to K7 on X[:, flat]^T at K3's chunk (torch.equal),
-    each within 2e-2 of its plain version; timed beside its bound, the
-    plain version and a library call (a bf16 product on the tensor cores,
-    f32 sums, bf16 output, on the gathered panel).  Then the counted path:
-    one packet of each through the public entry points at each m.  Returns
-    (records, the path's launch counts)."""
+    and 8 (inputs from launch/bf16_packets.py): the gates of bf16_gates, K1
+    == K7 on X[flat], K3 == K7 on X[:, flat]^T at K3's chunk and two runs
+    equal (torch.equal); timed beside their bound, the plain version (CUDA
+    events), the f32 kernel on the upcast operand and a library call (a
+    bf16 product on the tensor cores, f32 sums, on the gathered panel);
+    with ``twice`` the three kernels again (``again_ms``, main's turns
+    against a parent commit's design).
+    Then the counted path: one packet of each through the public entry
+    points at each m.  Returns (records, the path's launch counts)."""
+    from repro_torch.launch import bf16_packets as bp
     d, n = X.shape
     Xb = X.to(torch.bfloat16)
     Xup = Xb.float()
-    recs, cases = {}, []
-    for m in (128, 8):
-        flat = blocked_flat(gen, d, 8, m // 8)
-        u = torch.randn((n,), generator=gen, device=X.device,
-                        dtype=torch.bfloat16)
+    cases = bp.cases(Xb, seed)
+    recs = {}
+    for case in cases:
+        m, flat, u, flat_c, u_c = (case[k] for k in ("m", "flat", "u",
+                                                     "flat_c", "u_c"))
         Yb = Xb[flat.long()].contiguous()
         G1, r1 = gk.gram_packet_sampled_rows(Xb, flat, u)
         G7, r7 = gk.gram_packet_dense(Yb, u)
-        F1 = gk.gram_packet_sampled_rows(Xup, flat, u.float())
-        F7 = gk.gram_packet_dense(Yb.float(), u.float())
-        want = gk.gram_packet_sampled_ref(Xb, flat, u)
+        again = gk.gram_packet_sampled_rows(Xb, flat, u)
         torch.cuda.synchronize()
-        eq_f32 = (torch.equal(G1, F1[0]) and torch.equal(r1, F1[1])
-                  and torch.equal(G7, F7[0]) and torch.equal(r7, F7[1]))
+        max_abs = bf16_gates(
+            f"bf16 K1 m={m:4d}", (G1, r1), gk.gram_packet_ref(Yb, u),
+            gk.gram_packet_ref(Yb.double(), u.double()),
+            gk.gram_packet_sampled_rows(Xup, flat, u.float()), flat)
         eq_k7 = torch.equal(G1, G7) and torch.equal(r1, r7)
-        errs = [rel(G1, want[0]), rel(r1, want[1]),
-                rel(cross_terms(G1, flat), cross_terms(want[0], flat))]
-        max_abs = max(float((a - b).abs().max())
-                      for a, b in ((G1, want[0]), (r1, want[1])))
-        log(f"  bf16 K1 / K7 m={m:4d}: out {G1.dtype}; rel err G, r, G cross "
-            f"terms " + " ".join(f"{e:.2e}" for e in errs)
-            + f" (tol {TOL_BF16:.0e}), max abs {max_abs:.2e}; equal to the "
-            f"f32 kernels on the upcast operand {eq_f32}; K1 == K7 on "
-            f"X[flat] {eq_k7}")
-        if G1.dtype != torch.float32 or not all(
-                math.isfinite(e) and e <= TOL_BF16 for e in errs):
-            raise AssertionError(f"bf16 K1 disagrees with its plain version "
-                                 f"at m={m}: {errs}")
-        if not (eq_f32 and eq_k7):
-            raise AssertionError(f"bf16 identities fail at m={m}: "
-                                 f"{eq_f32}, {eq_k7}")
-        uniq = int(torch.unique(flat).numel())
-        names = KERNEL_NAMES["dense"]
-        rhs = torch.cat([Yb.T, u[:, None]], dim=1).contiguous()
-        for info, kern, plain, indexed in (
-                (gk.ROWS_PACKET_BF16,
-                 lambda: gk.gram_packet_sampled_rows(Xb, flat, u),
-                 lambda: gk.gram_packet_sampled_ref(Xb, flat, u), True),
-                (gk.DENSE_PACKET_BF16, lambda: gk.gram_packet_dense(Yb, u),
-                 lambda: gk.gram_packet_ref(Yb, u), False)):
+        rerun = torch.equal(again[0], G1) and torch.equal(again[1], r1)
+        log(f"    K1 == K7 on X[flat] {eq_k7}; two runs equal {rerun}")
+        if not (eq_k7 and rerun):
+            raise AssertionError(f"bf16 K1 / K7 identities fail at m={m}: "
+                                 f"{eq_k7}, {rerun}")
+        Yc = Xb[:, flat_c.long()].T.contiguous()
+        chunk = cols_packet_geometry(m, d, torch.bfloat16).chunk
+        G3, r3 = gk.gram_packet_sampled_cols(Xb, flat_c, u_c)
+        G7c, r7c = gk.gram_packet_dense(Yc, u_c, bk=chunk)
+        again = gk.gram_packet_sampled_cols(Xb, flat_c, u_c)
+        torch.cuda.synchronize()
+        max_abs3 = bf16_gates(
+            f"bf16 K3 m={m:4d}", (G3, r3), gk.gram_packet_ref(Yc, u_c),
+            gk.gram_packet_ref(Yc.double(), u_c.double()),
+            gk.gram_packet_sampled_cols(Xup, flat_c, u_c.float()), flat_c)
+        eq_k7c = torch.equal(G3, G7c) and torch.equal(r3, r7c)
+        rerun = torch.equal(again[0], G3) and torch.equal(again[1], r3)
+        log(f"    K3 == K7 on X[:, flat]^T at K3's chunk {chunk} {eq_k7c}; "
+            f"two runs equal {rerun}")
+        if not (eq_k7c and rerun):
+            raise AssertionError(f"bf16 K3 / K7 identities fail at m={m}: "
+                                 f"{eq_k7c}, {rerun}")
+        calls = bp.calls(Xb, case)
+        for key, info, plain, f32, Y, uu, fl, K, indexed in (
+                ("rows", gk.ROWS_PACKET_BF16,
+                 lambda: gk.gram_packet_sampled_ref(Xb, flat, u),
+                 lambda: gk.gram_packet_sampled_rows(Xup, flat, u.float()),
+                 Yb, u, flat, n, True),
+                ("dense", gk.DENSE_PACKET_BF16,
+                 lambda: gk.gram_packet_ref(Yb, u),
+                 lambda: gk.gram_packet_dense(Yb.float(), u.float()),
+                 Yb, u, flat, n, False),
+                ("cols", gk.COLS_PACKET_BF16,
+                 lambda: gk.gram_packet_sampled_cols_ref(Xb, flat_c, u_c),
+                 lambda: gk.gram_packet_sampled_cols(Xup, flat_c,
+                                                     u_c.float()),
+                 Yc, u_c, flat_c, d, True)):
+            rhs = torch.cat([Y.T, uu[:, None]], dim=1).contiguous()
             rec = {"name": info.name, "route": "cuda",
                    "source": info.source, "replaces": info.replaces,
-                   "max_abs_err": max_abs, "m": m, "K": n,
-                   "dtype": "bfloat16",
-                   "ms": device_ms(kern, reps, names),
-                   "plain_ms": device_ms(plain, reps),
-                   "library_ms": device_ms(lambda: torch.mm(Yb, rhs), reps),
-                   "f32_ms": device_ms(
-                       lambda: gk.gram_packet_sampled_rows(Xup, flat,
-                                                           u.float())
-                       if indexed else gk.gram_packet_dense(Yb.float(),
-                                                            u.float()),
-                       reps, names)}
-            rec.update(bf16_bound(m, uniq if indexed else m, n, indexed))
-            gather = ""
-            if indexed:         # K1 starts from X: PyTorch's gather first
-                rec["gather_ms"] = device_ms(gather_call(Xb, flat, "rows"),
-                                             reps)
-                gather = (f" (gather {rec['gather_ms']:.4f}, gather + "
-                          f"library "
-                          f"{rec['gather_ms'] + rec['library_ms']:.4f})")
+                   "max_abs_err": max_abs3 if key == "cols" else max_abs,
+                   "m": m, "K": K, "dtype": "bfloat16",
+                   "ms": device_ms(calls[key], reps, bp.NAMES),
+                   # CUDA events: the bf16 plain version (a gather, casts
+                   # and cuBLAS's f32 products) does not launch the same
+                   # kernels on every call, which a profiler count needs
+                   "plain_ms": event_ms(plain, reps),
+                   "library_ms": device_ms(lambda: torch.mm(Y, rhs), reps),
+                   "f32_ms": device_ms(f32, reps, bp.NAMES)}
+            uniq = int(torch.unique(fl).numel()) if indexed else m
+            rec.update(bf16_bound(m, uniq, K, indexed))
+            extra = ""
+            if indexed:         # K1 / K3 start from X: PyTorch's gather first
+                rec["gather_ms"] = device_ms(
+                    gather_call(Xb, fl, "rows" if key == "rows" else "cols"),
+                    reps)
+                extra = (f" (gather {rec['gather_ms']:.4f}, gather + library"
+                         f" {rec['gather_ms'] + rec['library_ms']:.4f})")
+            if key == "cols":
+                rec["sector_ms"] = uniq * d * SECTOR / HBM_BYTES_PER_S * 1e3
+                extra += (f"; sector traffic of the scattered columns (one "
+                          f"32-byte sector an element) "
+                          f"{rec['sector_ms']:.4f} ms")
             log(f"    {info.name} m={m}: device {rec['ms']:.4f} ms (f32 "
                 f"kernel on the upcast operand {rec['f32_ms']:.4f}), plain "
                 f"{rec['plain_ms']:.4f}, library (bf16 mm on [Y^T | u]) "
-                f"{rec['library_ms']:.4f}{gather}, bound "
-                f"{rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']}; device / bound "
-                f"{rec['ms'] / rec['bound_ms']:.1f}, device / library "
-                f"{rec['ms'] / rec['library_ms']:.2f}); f32 FMAs at "
-                f"67 TFLOP/s {rec['fma_ms']:.4f} ms")
-            recs[info.name if m == 128 else f"{info.name}@m{m}"] = rec
-        rec, cols = check_bf16_cols_packet(Xb, Xup, gen, m, reps)
-        recs[rec["name"] if m == 128 else f"{rec['name']}@m{m}"] = rec
-        cases.append((flat, u, Yb, cols))
+                f"{rec['library_ms']:.4f}{extra}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; device / "
+                f"bound {rec['ms'] / rec['bound_ms']:.1f}, device / library "
+                f"{rec['ms'] / rec['library_ms']:.2f})")
+            recs[bf16_record_key(info, m)] = rec
+    if twice:
+        now = bp.times(Xb, cases, reps)
+        for case in cases:
+            for key, info in BF16_KEYS:
+                recs[bf16_record_key(info, case["m"])]["again_ms"] = \
+                    now[key][case["m"]]
     # the counted path: the packets through the public entry points
     gk.reset_launch_counts()
-    for flat, u, Yb, (flat_c, u_c) in cases:
+    for case in cases:
+        flat, u = case["flat"], case["u"]
         gk.gram_packet_sampled(Xb, flat, u)
-        gk.gram_packet(Yb, u)
-        gk.gram_packet_sampled(gk.ColMajorOperand(Xb), flat_c, u_c)
+        gk.gram_packet(Xb[flat.long()].contiguous(), u)
+        gk.gram_packet_sampled(gk.ColMajorOperand(Xb), case["flat_c"],
+                               case["u_c"])
     torch.cuda.synchronize()
     counts = launches()
     log(f"  bf16 packets path: launches {counts}")
@@ -3809,18 +3834,18 @@ def wire_ms(counters: dict) -> dict:
             "all_reduce": counters["reduce_s"] * 1e3}
 
 
-def bmm_slices_equal(p, cfg, dev, gen) -> bool:
+def bmm_slices_equal(w1, tokens: int, cfg, dev, gen) -> bool:
     """cuBLAS's bmm of each rank's (E / P, C, D) slice of the experts'
-    buffers, joined, against the one (E, C, D) call: the same bits?"""
+    buffers, joined, against the one (E, C, D) call, at the capacity C of
+    ``tokens`` tokens: the same bits?"""
     from repro_torch.models import moe
     m = cfg.moe
-    C = moe._capacity(EP_TOKENS[0] * EP_TOKENS[1], m.top_k, m.num_experts,
-                      m.capacity_factor)
+    C = moe._capacity(tokens, m.top_k, m.num_experts, m.capacity_factor)
     buf = torch.randn((m.num_experts, C, cfg.d_model), generator=gen,
                       device=dev)
-    whole = torch.bmm(buf, p["w1"])
+    whole = torch.bmm(buf, w1)
     per = m.num_experts // EP_RANKS
-    parts = torch.cat([torch.bmm(buf[i:i + per], p["w1"][i:i + per])
+    parts = torch.cat([torch.bmm(buf[i:i + per], w1[i:i + per])
                        for i in range(0, m.num_experts, per)])
     return torch.equal(whole, parts)
 
@@ -3852,7 +3877,8 @@ def ep_block_check(world, gates, dev, seed: int, stats, arch: str,
         routing = torch.equal(torch.cat([r["sel"] for r in rows]),
                               whole["sel"])
         counts = whole["counts"].tolist()
-        sliced = bmm_slices_equal(p, cfg, dev, gen)
+        sliced = bmm_slices_equal(p["w1"], EP_TOKENS[0] * EP_TOKENS[1],
+                                  cfg, dev, gen)
     want = want.cpu()
     del whole, rows
     torch.cuda.empty_cache()
@@ -3900,6 +3926,52 @@ def ep_block_check(world, gates, dev, seed: int, stats, arch: str,
     del p, x, got
 
 
+def ep_bits_check(world, gates, cfg, params, model, prompt, feed,
+                  bits: bool, stats) -> None:
+    """15b, the ranks against one process bit for bit: the same decode
+    traced on both sides (launch/expert_parallel.first_difference: every
+    MoE call's input, router probabilities, selection, expert outputs, the
+    slots it combines and the result, then the logits).  Either the same
+    bits, or the first tensor that differs is an expert product of a decode
+    step, with the prefill (its MoE calls and logits) and every tensor
+    before it equal, the selections equal in every call, and the cause
+    reproduced in one process: cuBLAS's bmm on the ranks' (E / P, C, D)
+    slices departs from the (E, C, D) call at the decode's capacity C,
+    while it gives the same bits at the prefill's."""
+    from repro_torch.launch import expert_parallel as EPL
+    trace = EPL.first_difference(world, cfg, params, model, prompt, EP_STEPS,
+                                 EP_MAX_SEQ, EP_RANKS, feed=feed)
+    recs, first = trace["records"], trace["first"]
+    stats["ep_trace"] = [list(r) for r in recs]
+    prefill_calls = EP_DECODE_LAYERS * cfg.moe.groups
+    prefill = all(eq for c, name, eq, _ in recs
+                  if name == "prefill logits" or (
+                      c <= prefill_calls and not name.endswith("logits")))
+    routes = all(eq for _, name, eq, _ in recs if name == "selection")
+    gen = torch.Generator(device=model.device).manual_seed(EP_STEPS)
+    w1 = params["blocks"]["sub0"]["moe"]["w1"][0]
+    B = prompt.shape[0]
+    witness = {"prefill": bmm_slices_equal(w1, B * EP_PROMPT, cfg,
+                                           model.device, gen),
+               "decode": bmm_slices_equal(w1, B, cfg, model.device, gen)}
+    stats["ep_bits_witness"] = witness
+    where = ("none" if first is None else
+             f"{first[1]} of MoE call {first[0]} (max abs {first[3]:.2e}; "
+             f"every earlier tensor equal)")
+    log(f"    15b trace: {len(recs)} tensors ({recs[-3][0]} MoE calls: "
+        f"{EP_DECODE_LAYERS} layers x prefill and {EP_STEPS} steps); the "
+        f"first that differs: {where}; the prefill equal {prefill}; "
+        f"selections equal in every call {routes}; bmm on (E / P, C, D) "
+        f"slices == the (E, C, D) call at the prefill's C {witness['prefill']}"
+        f", at the decode's C {witness['decode']}")
+    cause = (first is not None and first[1] == "expert outputs"
+             and first[0] > prefill_calls and prefill and routes
+             and witness["prefill"] and not witness["decode"])
+    gates.check("15b ranks against one process's bits",
+                (bits and first is None) or (not bits and cause),
+                f"the same bits {bits}; first differing tensor {where}")
+
+
 def ep_decode_check(world, gates, dev, seed: int, stats) -> None:
     """15b: dbrx at its width cut to EP_DECODE_LAYERS layers on EP_RANKS
     ranks: prefill + decode against forward and the engine's tokens
@@ -3943,6 +4015,8 @@ def ep_decode_check(world, gates, dev, seed: int, stats) -> None:
                 f"atol {LM_TOL:g}, entries outside {bad}); the same bits as "
                 f"one process's decode: {bits}; all-gathers a step "
                 f"{got['all_gathers']}")
+    ep_bits_check(world, gates, cfg, params, model, prompt, feed, bits,
+                  stats)
     rng = np.random.default_rng(seed)
     prompts = [list(map(int, rng.integers(1, cfg.vocab, size=n)))
                for n in EP_SERVE_PROMPTS]
@@ -3993,6 +4067,65 @@ def ep_decode_check(world, gates, dev, seed: int, stats) -> None:
         f"(bound {bound_local:.3f} ms: {weights / 1e9:.2f} GB of bf16 "
         f"weights read a step, {experts / 1e9:.2f} GB of them experts)")
     del params
+
+
+def ep_decode_f64_check(gates, dev, seed: int, stats) -> None:
+    """15b's gate against forward in f64, in one process: dbrx at its width
+    cut to EP_DECODE_LAYERS layers (15b's draw, each leaf cast to f64 as it
+    is drawn: about 62 GB), prefill + decode steps against forward at
+    phases 11-12's tolerance, LM_TOL.  f64 rounding leaves the gate nothing
+    of the draw's to amplify (15b's f32 reading stays a report).  If the
+    weights and one f32 leaf do not fit the card's free memory, one layer
+    (the cut is logged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import expert_parallel as EPL
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params, param_bytes
+    base = get_config("dbrx_132b")
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else None
+    for layers in (EP_DECODE_LAYERS, 1):
+        cfg = dataclasses.replace(
+            base, n_layers=layers, dtype=torch.float64,
+            param_dtype=torch.float64,
+            moe=dataclasses.replace(base.moe,
+                                    capacity_factor=MOE_GATE_CAPACITY))
+        specs = api.param_specs(cfg)
+        need = param_bytes(specs) * 1.2      # a leaf drawn in f32 besides
+        if free is None or need <= free:
+            break
+    cut = "" if layers == EP_DECODE_LAYERS else (
+        f"; cut to {layers} layer: {need / 1e9:.1f} GB over the card's "
+        f"{free / 1e9:.1f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = api.build_model(cfg, init_params(specs, gen, dev))
+    tokens = torch.randint(0, cfg.vocab, (2, EP_PROMPT + EP_STEPS),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        full, _ = api.forward(model, cfg, {"tokens": tokens})
+    want = full[:, EP_PROMPT - 1:, :].cpu()
+    del full
+    got = EPL.decode(model, cfg, tokens[:, :EP_PROMPT], EP_STEPS, EP_MAX_SEQ,
+                     feed=tokens[:, EP_PROMPT:])
+    errs, bad = [], 0
+    for g, w in [(got["prefill"], want[:, 0])] + [
+            (got["logits"][i], want[:, 1 + i]) for i in range(EP_STEPS)]:
+        g = g.to(w.dtype)
+        errs.append(float((g - w).abs().max()))
+        bad += int(((g - w).abs() > LM_TOL + LM_TOL * w.abs()).sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    f32 = stats.get("ep_decode", {}).get("errs")
+    stats["ep_decode_f64"] = {"layers": layers, "errs": errs, "peak_gb": peak,
+                              "weights_gb": param_bytes(specs) / 1e9}
+    gates.check("15b dbrx prefill + decode == forward, f64, one process",
+                bad == 0,
+                f"{layers} layers at dbrx's width, "
+                f"{param_bytes(specs) / 1e9:.1f} GB of f64 weights, peak "
+                f"{peak:.1f} GB{cut}: max abs err {max(errs):.2e} (rtol / "
+                f"atol {LM_TOL:g}, entries outside {bad}); 15b's f32 "
+                f"reading on the ranks, reported: "
+                f"{max(f32) if f32 else float('nan'):.2e}")
+    del model, got
 
 
 def one_rank_spread(cfg, params, batch, want, dev) -> dict:
@@ -4186,6 +4319,8 @@ def experts_phase(seed: int, stats: dict, dev=None) -> dict:
             world, gates, dev, seed, stats, a, t)) for arch, tag in EP_BLOCK]
         steps += [("15b", lambda: ep_decode_check(world, gates, dev, seed,
                                                   stats)),
+                  ("15b f64", lambda: ep_decode_f64_check(gates, dev, seed,
+                                                          stats)),
                   ("15c", lambda: ep_train_check(world, gates, dev, seed,
                                                  stats))]
         for name, fn in steps:
@@ -4212,6 +4347,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit: its bf16 packets "
+                         "timed at the run's start and end, in turns with "
+                         "phase 2c's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4239,6 +4378,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {src}: {line.strip()}")
+
+    parent_before = None
+    if args.parent:     # before this process's first profiler trace
+        parent_before, secs = timed(lambda: parent_bf16_times(
+            args.parent, args.seed, args.reps))
+        log(f"  the parent design's bf16 packets at {args.parent}: "
+            f"{parent_before} ({secs:.1f} s with its build)")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -4272,7 +4418,8 @@ def main() -> int:
     records.update(check_cg_shape(X, gen, max(1, args.reps // 5), flush))
     del flush
     log("== 2c. bf16 packets K1 / K3 / K7 on the real-sim X cast to bf16")
-    bf16_recs, paths["bf16 packets"] = check_bf16_packets(X, gen, args.reps)
+    bf16_recs, paths["bf16 packets"] = check_bf16_packets(
+        X, args.seed, args.reps, parent_before is not None)
     records.update(bf16_recs)
     check_kernels(cut[0], gen, "f64", (8, 128, 77), 0, {}, TENANTS)
     check_dense_kernels(cut[0], gen, "f64", (8, 128, 77), 0, None)
@@ -4376,6 +4523,13 @@ def main() -> int:
     paths["experts"], stats["phase15_s"] = timed(
         lambda: experts_phase(args.seed, stats))
     log(f"  phase 15 took {stats['phase15_s']:.1f} s")
+
+    if args.parent:     # after this process's last profiler trace
+        parent_after = parent_bf16_times(args.parent, args.seed, args.reps)
+        log(f"  the parent design's bf16 packets again: {parent_after}")
+        log_parent_turns(records, parent_before, parent_after)
+    else:
+        log_parent_turns(records, None, None)
 
     # Each path's own kernels must have run on it; the line counts the
     # launches of all counted paths.

@@ -66,25 +66,9 @@
 //   partial and dense_reduce sums them, over the lower entries only and
 //   with 16 loads in flight.
 //
-// * bf16 input (In = __nv_bfloat16, T = float; K7, K1 and K3).  The ring
-//   holds the accumulation type: each element is widened to f32 as it
-//   lands in shared memory, so the multiply-adds and every sum are the f32
-//   kernel's, and a bf16 packet equals the f32 packet of the upcast operand
-//   bit for bit.  cp.async moves 4, 8 or 16 bytes, not a 2-byte element.
-//   Rows (K7, K1): the copying thread moves a bf16 element itself, through
-//   registers: it loads its elements of stage q + STAGES - 1 before it
-//   sums stage q and widens them into the ring after (fetch_stage,
-//   land_stage), so the loads are in flight while it sums; the operand's
-//   reads are half the f32 kernel's bytes.  Columns (K3): a sampled
-//   element is an isolated read, and one stage of register loads in
-//   flight (the rows' scheme) left the column gather twice as slow as
-//   f32's STAGES - 1 stages of cp.async.  So each element's aligned 4-byte
-//   word (the element and its neighbour) moves by cp.async into the
-//   element's f32 slot, as in f32, and once the thread's copies of a stage
-//   have landed it keeps the element's half, widened, in that slot
-//   (issue_column_words, widen_columns).  An aligned 4-byte word never
-//   crosses a page, so the neighbour's half is mapped wherever the element
-//   is; its value is dropped.  The sector traffic is f32 K3's.
+// bf16 input (K7, K1 and K3 with bf16 A / X and u; f32 sums and outputs)
+// runs mma_tile, on the tensor cores (the second half of this file), at
+// its own geometry and chunk; dense_reduce sums its chunks.
 //
 // The chunk is the host's pick for (m, K) in the packet's layout, so K1(X,
 // flat, u) equals K7(X[flat], u), K3(X, flat, u) equals K7(X[:, flat]^T, u)
@@ -197,68 +181,13 @@ __device__ __forceinline__ T split_sum_deep(const T* __restrict__ p,
   return acc;
 }
 
-// bf16 input: a thread's elements of one stage of one operand, in the
-// copies' order (issue_operand's), loaded into registers (zero where a copy
-// is not valid: nothing is read), then widened into the ring.  `addr(c, kh)`
-// is the element of row tid / 8 + ROW_STEP c at step kh + tid % 8.
-template <typename D, typename In, typename Addr>
-__device__ __forceinline__ void fetch_stage(In* v, Addr addr,
-                                            unsigned rows_ok, int lim,
-                                            int klo) {
-#pragma unroll
-  for (int q = 0; q < D::COPIES; ++q) {
-    const int c = q % D::ROW_COPIES, kh = 8 * (q / D::ROW_COPIES);
-    v[q] = ((rows_ok >> c) & 1u) && kh + klo < lim ? *addr(c, kh) : In{};
-  }
-}
-
-template <typename D>
-__device__ __forceinline__ void land_stage(float* dst,
-                                           const __nv_bfloat16* v) {
-#pragma unroll
-  for (int q = 0; q < D::COPIES; ++q) {
-    const int c = q % D::ROW_COPIES, kh = 8 * (q / D::ROW_COPIES);
-    dst[kh * D::LD + D::ROW_STEP * c] = __bfloat162float(v[q]);
-  }
-}
-
-// The column gather of bf16 input: issue_columns' copies, each moving the
-// aligned 4-byte word that holds its element (word_of) into the element's
-// f32 slot; widen_columns then keeps the element's half of each slot as
-// f32 (little-endian: the element at the lower address is the low half).
-// A copy that is not valid zero-fills its slot, which widens to +0.
+// The aligned 4-byte word that holds the bf16 element at p: the column
+// gather of bf16 input moves it whole (cp.async moves 4, 8 or 16 bytes),
+// and the fragment build keeps the element's half.  An aligned word never
+// crosses a page, so the neighbour's half is mapped wherever the element is.
 __device__ __forceinline__ const float* word_of(const __nv_bfloat16* p) {
   return reinterpret_cast<const float*>(reinterpret_cast<uintptr_t>(p) &
                                         ~static_cast<uintptr_t>(3));
-}
-
-__device__ __forceinline__ float widen_half(float word,
-                                            const __nv_bfloat16* p) {
-  const unsigned bits = __float_as_uint(word);
-  return __uint_as_float((reinterpret_cast<uintptr_t>(p) & 2)
-                             ? (bits & 0xffff0000u)
-                             : (bits << 16));
-}
-
-template <typename D>
-__device__ __forceinline__ void issue_column_words(
-    float* dst, const __nv_bfloat16* src, int64_t step, bool ok, int lim,
-    int k0) {
-#pragma unroll
-  for (int q = 0; q < D::COPIES; ++q)
-    cp_async_elem(dst + q * D::CSTEP * D::LD, word_of(src + q * step),
-                  ok && k0 + q * D::CSTEP < lim);
-}
-
-template <typename D>
-__device__ __forceinline__ void widen_columns(float* dst,
-                                              const __nv_bfloat16* src,
-                                              int64_t step) {
-#pragma unroll
-  for (int q = 0; q < D::COPIES; ++q) {
-    float* slot = dst + q * D::CSTEP * D::LD;
-    *slot = widen_half(*slot, src + q * step);
-  }
 }
 
 // Copy one stage of one operand: this thread's COPIES elements, element
@@ -319,8 +248,8 @@ __device__ __forceinline__ void issue_columns(T* dst, const T* src,
 // (COLS: A is X (K, ldx)); flat is read only by the gathers, ldx only by
 // COLS.  At one chunk (Gp null) the block writes G (and r) itself; else its
 // partials Gp[split] (mp x mp, lower tiles only) and rp[split] for
-// dense_reduce.  A and u are of the input type In (T, or bf16 for T =
-// float); the ring, the sums and the outputs are T.
+// dense_reduce.  In is T in every build (bf16 input runs mma_tile); the
+// parameter keeps the kernels' names.
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
           bool RESIDUAL, Source SRC, typename In = T>
 __global__ void __launch_bounds__(Tile<T, BM, TM, TN, STEPS>::THREADS,
@@ -331,6 +260,7 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
            T* __restrict__ rp, T* __restrict__ G, T* __restrict__ r,
            const int* __restrict__ flat, int64_t ldx) {
   using D = Tile<T, BM, TM, TN, STEPS>;
+  static_assert(std::is_same_v<T, In>);
   extern __shared__ __align__(16) unsigned char dense_smem[];
   T* ring = reinterpret_cast<T*>(dense_smem);
 
@@ -387,107 +317,31 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
     const int64_t left = k_end - k_begin - off;
     return left < STEPS ? static_cast<int>(left) : STEPS;
   };
-  // bf16 input: rows through the registers that carry one stage (both
-  // operands and u, STAGED); columns by word copies widened in place
-  // (WORDS).
-  constexpr bool WIDE = !std::is_same_v<T, In>;
-  static_assert(!WIDE || (std::is_same_v<T, float> &&
-                          std::is_same_v<In, __nv_bfloat16>));
-  constexpr bool STAGED = WIDE && SRC != Source::COLS;
-  constexpr bool WORDS = WIDE && SRC == Source::COLS;
-  In staged[STAGED ? 2 * D::COPIES + 1 : 1];
-  auto fetch = [&](int s) {
-    if constexpr (STAGED) {
-      const int64_t off = static_cast<int64_t>(s) * STEPS;
-      const int lim = limit(off);
-      if constexpr (SRC == Source::ROWS) {
-        fetch_stage<D>(staged, [&](int c, int kh) {
-          return rows_i[c] + off + kh; }, ok_i, lim, klo);
-        if (!diag)
-          fetch_stage<D>(staged + D::COPIES, [&](int c, int kh) {
-            return rows_j[c] + off + kh; }, ok_j, lim, klo);
-      } else {
-        fetch_stage<D>(staged, [&](int c, int kh) {
-          return src_i + off + c * rs + kh; }, ok_i, lim, klo);
-        if (!diag)
-          fetch_stage<D>(staged + D::COPIES, [&](int c, int kh) {
-            return src_j + off + c * rs + kh; }, ok_j, lim, klo);
-      }
-      if (with_r && tid < STEPS)
-        staged[2 * D::COPIES] = tid < lim ? u[k_begin + off + tid] : In{};
-    }
-  };
-  auto land = [&](int slot) {
-    if constexpr (STAGED) {
-      T* st = ring + slot * D::STAGE;
-      land_stage<D>(st + slot0, staged);
-      if (!diag) land_stage<D>(st + STEPS * D::LD + slot0, staged + D::COPIES);
-      if (with_r && tid < STEPS)
-        st[2 * STEPS * D::LD + tid] = __bfloat162float(staged[2 * D::COPIES]);
-    }
-  };
   auto issue = [&](int slot, int s) {
-    if constexpr (STAGED) {
-      fetch(s);
-      land(slot);
-    } else {
-      T* st = ring + slot * D::STAGE;
-      const int64_t off = static_cast<int64_t>(s) * STEPS;
-      const int lim = limit(off);
-      if constexpr (SRC == Source::ROWS) {
-        issue_gathered<D>(st + slot0, rows_i, off, ok_i, lim, klo);
-        if (!diag)
-          issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j,
-                            lim, klo);
-      } else if constexpr (WORDS) {
-        const int cslot = (tid / BM) * D::LD + tid % BM;
-        issue_column_words<D>(st + cslot, rows_i[0] + off * ldx,
-                              D::CSTEP * ldx, ok_i, lim, tid / BM);
-        if (!diag)
-          issue_column_words<D>(st + STEPS * D::LD + cslot,
-                                rows_j[0] + off * ldx, D::CSTEP * ldx, ok_j,
-                                lim, tid / BM);
-      } else if constexpr (SRC == Source::COLS) {
-        const int cslot = (tid / BM) * D::LD + tid % BM;
-        issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
-                         ok_i, lim, tid / BM);
-        if (!diag)
-          issue_columns<D>(st + STEPS * D::LD + cslot,
-                           rows_j[0] + off * ldx, D::CSTEP * ldx, ok_j, lim,
-                           tid / BM);
-      } else {
-        issue_operand<D>(st + slot0, src_i + off, rs, ok_i, lim, klo);
-        if (!diag)
-          issue_operand<D>(st + STEPS * D::LD + slot0, src_j + off, rs, ok_j,
-                           lim, klo);
-      }
-      if constexpr (WORDS) {
-        if (with_r && tid < STEPS)
-          cp_async_elem(st + 2 * STEPS * D::LD + tid,
-                        word_of(u + k_begin + off + tid), tid < lim);
-      } else {
-        if (with_r && tid < STEPS)
-          cp_async_elem(st + 2 * STEPS * D::LD + tid,
-                        u + k_begin + off + tid, tid < lim);
-      }
-    }
-  };
-  // WORDS: this thread's slots of stage s (in ring slot `slot`), once its
-  // copies have landed, each keeping its element's half as f32.
-  auto widen = [&](int slot, int s) {
-    if constexpr (WORDS) {
-      T* st = ring + slot * D::STAGE;
-      const int64_t off = static_cast<int64_t>(s) * STEPS;
-      const int cslot = (tid / BM) * D::LD + tid % BM;
-      widen_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx);
+    T* st = ring + slot * D::STAGE;
+    const int64_t off = static_cast<int64_t>(s) * STEPS;
+    const int lim = limit(off);
+    if constexpr (SRC == Source::ROWS) {
+      issue_gathered<D>(st + slot0, rows_i, off, ok_i, lim, klo);
       if (!diag)
-        widen_columns<D>(st + STEPS * D::LD + cslot, rows_j[0] + off * ldx,
-                         D::CSTEP * ldx);
-      if (with_r && tid < STEPS) {
-        float* us = st + 2 * STEPS * D::LD + tid;
-        *us = widen_half(*us, u + k_begin + off + tid);
-      }
+        issue_gathered<D>(st + STEPS * D::LD + slot0, rows_j, off, ok_j, lim,
+                          klo);
+    } else if constexpr (SRC == Source::COLS) {
+      const int cslot = (tid / BM) * D::LD + tid % BM;
+      issue_columns<D>(st + cslot, rows_i[0] + off * ldx, D::CSTEP * ldx,
+                       ok_i, lim, tid / BM);
+      if (!diag)
+        issue_columns<D>(st + STEPS * D::LD + cslot, rows_j[0] + off * ldx,
+                         D::CSTEP * ldx, ok_j, lim, tid / BM);
+    } else {
+      issue_operand<D>(st + slot0, src_i + off, rs, ok_i, lim, klo);
+      if (!diag)
+        issue_operand<D>(st + STEPS * D::LD + slot0, src_j + off, rs, ok_j,
+                         lim, klo);
     }
+    if (with_r && tid < STEPS)
+      cp_async_elem(st + 2 * STEPS * D::LD + tid, u + k_begin + off + tid,
+                    tid < lim);
   };
 
   T acc[TM][TN];
@@ -507,15 +361,9 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
   int cur = 0, nxt = STAGES - 1;
   for (int q = 0; q < slabs; ++q) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage q
-    if constexpr (WORDS) widen(cur, q);  // its slots of stage q as f32
     __syncthreads();              // everyone's; stage q - 1 consumed
-    const bool more = q + STAGES - 1 < slabs;
-    if constexpr (STAGED) {
-      if (more) fetch(q + STAGES - 1);  // lands in slot nxt after the sums
-    } else {
-      if (more) issue(nxt, q + STAGES - 1);
-      cp_async_commit();
-    }
+    if (q + STAGES - 1 < slabs) issue(nxt, q + STAGES - 1);
+    cp_async_commit();
 
     const T* si = ring + cur * D::STAGE;
     const T* sj = diag ? si : si + STEPS * D::LD;
@@ -556,9 +404,6 @@ dense_tile(const In* __restrict__ A, const In* __restrict__ u,
         }
       }
     }
-    if constexpr (STAGED) {
-      if (more) land(nxt);  // nxt held stage q - 1, which every thread has
-    }                       // summed: the barrier at the loop's head
     cur = cur + 1 == STAGES ? 0 : cur + 1;
     nxt = nxt + 1 == STAGES ? 0 : nxt + 1;
   }
@@ -639,18 +484,17 @@ constexpr int ring_bytes() {
 // split, dense_reduce after it.  `smem` is the host's count of the ring's
 // bytes: a geometry whose count disagrees is refused with
 // cudaErrorInvalidValue before anything is launched.  `ldx` is X's row
-// length for the column gather (unused otherwise).  A and u are of the
-// input type In; the ring's bytes are T's.
+// length for the column gather (unused otherwise).
 template <typename T, int BM, int TM, int TN, int STAGES, int STEPS,
-          bool RESIDUAL, Source SRC, typename In = T>
-cudaError_t launch_tile(const In* A, const int* flat, const In* u,
+          bool RESIDUAL, Source SRC>
+cudaError_t launch_tile(const T* A, const int* flat, const T* u,
                         const int* tiles, int ntiles, int m, int64_t K,
                         int64_t chunk, int splits, int smem, T scale, T reg,
                         T scale_r, T* Gp, T* rp, T* G, T* r,
                         cudaStream_t stream, int64_t ldx = 0) {
   constexpr int bytes = ring_bytes<T, BM, TM, TN, STAGES, STEPS>();
   if (smem != bytes) return cudaErrorInvalidValue;  // host and kernel disagree
-  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, SRC, In>;
+  auto kernel = dense_tile<T, BM, TM, TN, STAGES, STEPS, RESIDUAL, SRC, T>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -668,6 +512,557 @@ cudaError_t launch_tile(const In* A, const int* flat, const In* u,
   dense_reduce<T, RESIDUAL><<<blocks, REDUCE_THREADS, 0, stream>>>(
       Gp, rp, splits, m, mp, scale, reg, scale_r, G, r);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 input on the tensor cores: mma_tile (K7, K1 and K3 with bf16 A / X
+// and u; f32 sums and outputs), its chunks summed by dense_reduce.
+//
+// What it replaces.  The TPU kernels' bf16 packet is dot_general(bf16,
+// bf16, preferred_element_type=f32) on the matrix unit (src/repro/kernels/
+// gram/sampled_kernel.py, gram_kernel.py, sampled_colmajor.py); here the
+// same product runs on the tensor cores, mma.sync m16n8k16 bf16 x bf16 +
+// f32.  The design it replaces widened each element to f32 in shared memory
+// and summed on the CUDA cores (f32 FMAs: 18 us of operations at m = 128
+// before any stall).
+//
+// What bounds it.  At the solve's m = 128 the packet's operations take
+// about 1.2 us at 989 TFLOP/s and its bytes (the sampled rows once, u, G)
+// about 5 us at 3.35 TB/s: mma.sync, at about half wgmma's rate, leaves
+// the function bound by its reads, and wgmma (its operands in shared memory
+// in its own layout) buys nothing.  What bounds this kernel on the H100 is
+// one warp a scheduler building fragments (shared loads and byte permutes,
+// their latency exposed) beside the reads of rows of X scattered over 3 GB;
+// for K3 the rate at which the memory serves isolated elements, each its
+// own DRAM access: the f32 kernel's limit too (PERF.md).
+//
+// Tiles.  A block owns one lower BM x BM tile of G over one contraction
+// chunk: BM = 128 for m > 16, so that at m <= 128 one tile holds G and each
+// sampled element is read once (a 32-tile reads each row band from 4
+// tiles), and BM = 16 up to m = 16 (at m = 8 rows 8-15 of the m16 fragment
+// are zero).  Four warps share a 128-tile's lower triangle: on the
+// diagonal tile warps 0 / 1 the lower halves of the two 64 x 64 diagonal
+// blocks (every B fragment one of the warp's own A fragments), warps 2 / 3
+// the two 64 x 32 halves of the block below them, at most 24 products of
+// 16 x 8 x 16 each a 16-step slice; below the diagonal (m > 128, TWO) each
+// warp one 64 x 64 quarter.  Each warp runs the block's ring loop with
+// accumulators of exactly its share's shape (warp_share; every warp copies
+// and meets every barrier), and its slices are straight-line code: rows
+// past m are zero in the stage and their products never written, so no
+// branch splits the loads from the products they feed.  G is written from
+// the lower entries and mirrored: G == G^T whatever mma does with D[a, b]
+// against D[b, a].
+//
+// r = scale_r Y u rides on the tensor cores too: u is column 0 of one more
+// 16 x 8 B fragment (the other columns zero) against the warp's A
+// fragments, one product a row block a slice, kept where the share starts
+// at the tile's column 0.  Its two f32 CUDA-core lanes a row (the f32
+// kernel's order) would read every element once more from shared memory,
+// as 2-byte loads, in a kernel whose time is its fragment build.  So a bf16
+// r is not the f32 kernel's r on the upcast operand; it is the same in K1,
+// K7 and K3 (one code path) and within the f32 gate of the f64 plain
+// version.
+//
+// The chunk.  The bf16 chunk is its own pick (tuning.default_chunk with the
+// dtype): at the 128-tile about one block a SM for the rows, a third of the
+// SMs for the columns (fewer isolated reads in flight read faster); two
+// blocks a SM at the rows' 16-tile.  The f32 pick at m = 128 would give K3 13
+// blocks of the 128-tile; K5 / K6, which share the f32 chunk to equal K3 /
+// K1's r, have no bf16 build.  dense_reduce sums the chunks, as in f32.
+//
+// The sum order, fixed by (m, K, chunk) alone and the same for every row
+// source: per chunk each G entry is one chain of mma products over the
+// chunk's 16-step slices in increasing k from +0 (steps past the chunk
+// zero-filled); within a slice, thread t's fragments hold steps 4t .. 4t+3
+// (slots 2t, 2t+1 and 2t+8, 2t+9 of the m16n8k16 layout), in A and B alike;
+// then dense_reduce's order.  So K1(X, flat, u) == K7(X[flat], u), K3(X,
+// flat, u) == K7(X[:, flat]^T, u) at K3's chunk, and two runs give the same
+// bits.
+//
+// Rows (K1, K7): X's row stride at real-sim is 72309 x 2 bytes, not a
+// multiple of 16, so TMA cannot describe X and a row's chunk starts 2-byte
+// aligned.  Each panel row's span of a stage moves as 16-byte cp.async.cg
+// chunks from its 16-byte floor (STEPS / 8 + 1 chunks, consecutive threads
+// on consecutive chunks of a row, STAGES - 1 stages in flight), the row's
+// first step `off` elements into its shared row.  The fragment build
+// realigns: a thread's 4 steps of a row are 8 bytes at element off + 4t +
+// 16 ks, read as three 32-bit shared loads and two byte permutes (prmt;
+// identity permutes when off is even): no shift pass and no barrier of its
+// own, at 1.5x the shared-memory wavefronts of ldmatrix on aligned rows.
+//
+// Columns (K3): a sampled element has no neighbour in its sector, so each
+// element's aligned 4-byte word moves by its own cp.async (word_of, through
+// L1: the launch asks for no more shared memory than a block needs), into a
+// word slot of its panel row; a warp copies 8 panel rows x 4 steps, and the
+// slot of step k of row p is word k ^ swz(p) (16-byte groups permuted by
+// p's low 3 bits), so those copies and the fragment build's 16-byte loads
+// both hit 32 distinct banks.  The fragment build keeps each element's half
+// by the parity of its address (flat[a] for even steps, flat[a] + ldx for
+// odd ones: one prmt a pair), with no widening pass and no barrier.
+//
+// u rides with every stage as its own raw row (16-byte chunks, realigned
+// like a panel row) in all three sources.  Panel rows past m are never
+// copied: their shared rows are zeroed once.
+
+constexpr int MMA_THREADS = 128;  // four warps
+constexpr int SMEM_CARVEOUT_MAX = 228 * 1024;  // an SM's largest carve-out
+
+// D += A B for one m16n8k16 bf16 product with f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BM, int STEPS, Source SRC>
+struct MmaTile {
+  static constexpr int EDGE = BM, SLICES = STEPS / 16;
+  static constexpr bool WORDS = SRC == Source::COLS;  // word slots, else raw
+  static constexpr int CH = STEPS / 8 + 1;    // 16-byte chunks of a raw row
+  static constexpr int LDW = WORDS ? STEPS : 4 * CH;  // words a panel row
+  // A stage: operand i's BM panel rows, operand j's BM when the launch has
+  // tiles below the diagonal (`two`), then u's raw row.
+  __host__ __device__ static constexpr int u_at(bool two) {
+    return (two ? 2 : 1) * BM * LDW;
+  }
+  __host__ __device__ static constexpr int stage(bool two) {
+    return u_at(two) + 4 * CH;
+  }
+  static constexpr int INFO = (2 * BM + 1 + 3) / 4 * 4;  // ints, then
+  // each raw row's 16-byte aligned source (u's at 2 BM), then the ring
+  static constexpr int PTRS = 2 * BM + 2;
+  // the column copies: units of 8 rows x 4 steps, UNITS a warp a stage, and
+  // NPTR panel rows a thread (row groups warp + 4 j, or warp % RG)
+  static constexpr int RG = BM / 8, KG = STEPS / 4;
+  static constexpr int UNITS = RG * KG / 4;
+  static constexpr int NPTR = RG >= 4 ? RG / 4 : 1;
+  static_assert(BM == 16 || BM == 128);
+  static_assert(STEPS % 32 == 0);  // 16-step slices; swz stays in 32 words
+  static_assert(RG >= 4 ? RG % 4 == 0 : 4 % RG == 0);
+};
+
+// The word slot of step k of panel row p (COLS): 16-byte groups permuted by
+// the row's low 3 bits, so that 8 consecutive rows at one group of 4 steps,
+// and 2 rows x 16 steps, each fall on 32 distinct banks.
+__device__ __forceinline__ int swz(int p) {
+  return ((p & 1) << 4) | (((p >> 1) & 3) << 2);
+}
+
+// A thread's 4 steps of a raw row (bf16 pairs, the row's first step `off`
+// elements in): element e = off + kw and the three words around it, two
+// byte permutes (identity when e is even).  lo = steps (kw, kw + 1), hi =
+// steps (kw + 2, kw + 3), as two packed bf16 pairs.
+__device__ __forceinline__ void window_raw(const uint32_t* row, int e,
+                                           uint32_t& lo, uint32_t& hi) {
+  const uint32_t* w = row + (e >> 1);
+  const uint32_t sel = (e & 1) ? 0x5432u : 0x3210u;
+  const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+  lo = __byte_perm(w0, w1, sel);
+  hi = __byte_perm(w1, w2, sel);
+}
+
+// The same from a row of word slots (COLS): steps kw .. kw + 3 are one
+// 16-byte group; `par` holds the half of an even step's element (bit 0) and
+// of an odd step's (bit 1).
+__device__ __forceinline__ void window_words(const uint32_t* row, int kw,
+                                             int sw, int par, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(row + (kw ^ sw));
+  const uint32_t sel = 0x5410u + ((par & 1) ? 0x22u : 0u) +
+                       ((par & 2) ? 0x2200u : 0u);
+  lo = __byte_perm(v.x, v.y, sel);
+  hi = __byte_perm(v.z, v.w, sel);
+}
+
+// One warp's products over one stage `st`: panel rows r0 .. r0 + 16 NRB
+// of operand i against rows c0 .. c0 + 8 NCB of operand j (panel rows from
+// `jrow`: 0 on the diagonal tile, where j is i, else BM), only the 16 x 8
+// blocks that touch the lower triangle when LOWER (then c0 == r0 and each B
+// fragment is one of the warp's own A fragments), and u (the stage's raw
+// row su) as column 0 of one more product into racc, zero unless `with_u`;
+// info[p] is panel row p's offset (raw rows) or halves (word slots),
+// info[2 BM] u's offset.  No branch inside: rows past m are zero in the
+// stage, their products are summed and never written, so the slices' loads
+// and products form one block of straight-line code that ptxas schedules
+// as a whole (one warp a scheduler hides no latency of its own).
+template <typename D, int NRB, int NCB, bool LOWER>
+__device__ __forceinline__ void stage_mma(
+    const uint32_t* st, const uint32_t* su, const int* info, int jrow,
+    int r0, int c0, bool with_u, float (&acc)[NRB][NCB][4],
+    float (&racc)[NRB][4]) {
+  static_assert(!LOWER || NCB == 2 * NRB);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sw = swz(g);  // every row this thread reads is g modulo 8
+  int ia[NRB][2], ib[NCB];
+#pragma unroll
+  for (int R = 0; R < NRB; ++R)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ia[R][h] = info[r0 + 16 * R + 8 * h + g];
+#pragma unroll
+  for (int C = 0; C < NCB; ++C)
+    ib[C] = LOWER ? 0 : info[jrow + c0 + 8 * C + g];
+  const int iu = info[2 * D::EDGE];
+  const uint32_t umask = with_u && g == 0 ? ~0u : 0u;  // u is column 0
+  auto window = [&](const uint32_t* base, int row, int in, int kw,
+                    uint32_t& lo, uint32_t& hi) {
+    if constexpr (D::WORDS)
+      window_words(base + row * D::LDW, kw, sw, in, lo, hi);
+    else
+      window_raw(base + row * D::LDW, in + kw, lo, hi);
+  };
+#pragma unroll
+  for (int ks = 0; ks < D::SLICES; ++ks) {
+    const int kw = 16 * ks + 4 * t;
+    uint32_t a[NRB][4];
+#pragma unroll
+    for (int R = 0; R < NRB; ++R)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        window(st, r0 + 16 * R + 8 * h + g, ia[R][h], kw, a[R][h],
+               a[R][2 + h]);
+    uint32_t lo, hi;
+    window_raw(su, iu + kw, lo, hi);
+#pragma unroll
+    for (int R = 0; R < NRB; ++R)
+      mma_bf16(racc[R], a[R], lo & umask, hi & umask);
+#pragma unroll
+    for (int C = 0; C < NCB; ++C) {
+      uint32_t b0, b1;
+      if constexpr (LOWER) {
+        b0 = a[C / 2][C % 2];
+        b1 = a[C / 2][2 + C % 2];
+      } else {
+        window(st, jrow + c0 + 8 * C + g, ib[C], kw, b0, b1);
+      }
+#pragma unroll
+      for (int R = 0; R < NRB; ++R)
+        if (!LOWER || C <= 2 * R + 1)  // compile-time: the lower blocks
+          mma_bf16(acc[R][C], a[R], b0, b1);
+    }
+  }
+}
+
+// What a warp's share of the tile needs besides its shape: the ring and the
+// rows' info, the stage size and u's place in it, the slabs of the chunk,
+// the share's first row r0 and column c0 and operand j's first panel row,
+// the tile's valid rows (ni, nj) and bands, and the outputs.
+struct MmaShare {
+  const uint32_t* ring;
+  const int* info;
+  int stage, u, slabs, r0, c0, jrow, ni, nj, band_i, band_j, split, m, mp;
+  bool diag, with_u;
+  float scale, reg, scale_r;
+  float* Gp;
+  float* rp;
+  float* G;
+  float* r;
+};
+
+// One warp's share through the whole chunk: the block's ring (every warp
+// copies and meets every barrier), this warp's products on each stage into
+// accumulators of exactly its shape (NRB row blocks x NCB column blocks; 0
+// for a warp without products), then its entries of G (the lower ones on
+// the diagonal tile, mirrored) and, with u, of r.
+template <typename D, int STAGES, int NRB, int NCB, bool LOWER,
+          typename Issue>
+__device__ __forceinline__ void warp_share(const MmaShare& x, Issue& issue) {
+  constexpr int NR = NRB > 0 ? NRB : 1, NC = NCB > 0 ? NCB : 1;
+  float acc[NR][NC][4] = {}, racc[NR][4] = {};
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < x.slabs) issue(s, s);
+    cp_async_commit();
+  }
+  int cur = 0, nxt = STAGES - 1;
+  for (int q = 0; q < x.slabs; ++q) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage q
+    __syncthreads();              // everyone's; stage q - 1 consumed
+    if (q + STAGES - 1 < x.slabs) issue(nxt, q + STAGES - 1);
+    cp_async_commit();
+    if constexpr (NRB > 0) {
+      const uint32_t* st = x.ring + cur * x.stage;
+      stage_mma<D, NR, NC, LOWER>(st, st + x.u, x.info, x.jrow, x.r0, x.c0,
+                                  x.with_u, acc, racc);
+    }
+    cur = cur + 1 == STAGES ? 0 : cur + 1;
+    nxt = nxt + 1 == STAGES ? 0 : nxt + 1;
+  }
+  cp_async_wait<0>();
+  if constexpr (NRB > 0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bool direct = x.Gp == nullptr;
+    float* Gs = direct ? x.G : x.Gp + static_cast<size_t>(x.split) * x.mp *
+                                          x.mp;
+    const int ld = direct ? x.m : x.mp;
+#pragma unroll
+    for (int R = 0; R < NRB; ++R)
+#pragma unroll
+      for (int C = 0; C < NCB; ++C) {
+        if (LOWER && C > 2 * R + 1) continue;  // never summed
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ar = x.r0 + 16 * R + g + 8 * (e >> 1);
+          const int bc = x.c0 + 8 * C + 2 * t + (e & 1);
+          if (ar >= x.ni || bc >= x.nj || (x.diag && bc > ar)) continue;
+          const int a = x.band_i + ar, b = x.band_j + bc;
+          float v = acc[R][C][e];
+          if (direct) {
+            v = g_entry(add_rn(0.f, v), x.scale, x.reg, a == b);
+            if (a != b) x.G[static_cast<size_t>(b) * x.m + a] = v;
+          }
+          Gs[static_cast<size_t>(a) * ld + b] = v;
+        }
+      }
+    if (x.with_u && t == 0) {
+#pragma unroll
+      for (int R = 0; R < NRB; ++R)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ar = x.r0 + 16 * R + g + 8 * h;
+          if (ar >= x.ni) continue;
+          const int a = x.band_i + ar;
+          const float v = racc[R][2 * h];
+          if (direct) x.r[a] = mul_rn(x.scale_r, add_rn(0.f, v));
+          else x.rp[static_cast<size_t>(x.split) * x.mp + a] = v;
+        }
+    }
+  }
+}
+
+// One block of the bf16 packet: lower tile tiles[blockIdx.x] of G over
+// contraction chunk blockIdx.y, with dense_tile's arguments (A, u bf16; the
+// sums and outputs f32).  TWO: the launch has tiles below the diagonal
+// (m > BM), whose operand j has rows of its own.
+template <int BM, int STAGES, int STEPS, Source SRC, bool TWO>
+__global__ void __launch_bounds__(MMA_THREADS)
+mma_tile(const __nv_bfloat16* __restrict__ A,
+         const __nv_bfloat16* __restrict__ u, const int* __restrict__ tiles,
+         int m, int64_t K, int64_t chunk, int mp, float scale, float reg,
+         float scale_r, float* __restrict__ Gp, float* __restrict__ rp,
+         float* __restrict__ G, float* __restrict__ r,
+         const int* __restrict__ flat, int64_t ldx) {
+  using D = MmaTile<BM, STEPS, SRC>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  int* info = reinterpret_cast<int*>(mma_smem);
+  const bf16** srcs = reinterpret_cast<const bf16**>(mma_smem + 4 * D::INFO);
+  uint32_t* ring =
+      reinterpret_cast<uint32_t*>(mma_smem + 4 * D::INFO + 8 * D::PTRS);
+
+  const int packed = tiles[blockIdx.x];
+  const int ti = packed >> 16, tj = packed & 0xffff;
+  const int band_i = ti * BM, band_j = tj * BM;
+  const bool diag = ti == tj;
+  const bool with_r = tj == 0;  // r rides on one tile per band
+  const int split = blockIdx.y;
+  const int64_t k_begin = static_cast<int64_t>(split) * chunk;
+  const int64_t k_end = min(K, k_begin + chunk);
+  const int slabs = static_cast<int>((k_end - k_begin + STEPS - 1) / STEPS);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ni = min(BM, m - band_i), nj = min(BM, m - band_j);
+  constexpr int U = D::u_at(TWO), STAGE = D::stage(TWO);
+
+  // Panel row p: operand i's rows 0 .. BM - 1, then operand j's.  Its first
+  // element at k_begin (raw rows), or its element at step 0 (COLS).
+  auto row_ok = [&](int p) {
+    return p < BM ? p < ni : (!diag && p - BM < nj);
+  };
+  auto row_ptr = [&](int p) -> const bf16* {
+    const int a = (p < BM ? band_i : band_j - BM) + p;
+    if constexpr (SRC == Source::DENSE)
+      return A + static_cast<int64_t>(a) * K + k_begin;
+    else if constexpr (SRC == Source::ROWS)
+      return A + static_cast<int64_t>(flat[a]) * K + k_begin;
+    else
+      return A + flat[a];
+  };
+  for (int p = tid; p <= 2 * BM; p += MMA_THREADS) {
+    int v = 0;
+    const bf16* q = p == 2 * BM ? u + k_begin : row_ok(p) ? row_ptr(p) : A;
+    if (p == 2 * BM || !D::WORDS) {
+      v = misalign(q);
+      srcs[p] = q - v;  // the aligned floor
+    } else {
+      const int even = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(q) >> 1) & 1);
+      v = even | ((even ^ static_cast<int>(ldx & 1)) << 1);
+    }
+    info[p] = v;
+  }
+  // Rows past m (and j's rows on the diagonal tile) are never copied: zero
+  // them once in every stage.
+  for (int p = warp; p < (TWO ? 2 : 1) * BM; p += MMA_THREADS / 32) {
+    if (row_ok(p) || (diag && p >= BM)) continue;
+    for (int s = 0; s < STAGES; ++s)
+      for (int w = lane; w < D::LDW; w += 32)
+        ring[s * STAGE + p * D::LDW + w] = 0u;
+  }
+
+  __syncthreads();  // info and srcs, before the first copies read them
+
+  // The copies.  Raw rows (and u): chunk c of a row's span of a stage from
+  // its aligned floor, consecutive threads on consecutive chunks of a row;
+  // elements at or past k_end zero-filled, a chunk wholly past the stage
+  // skipped.
+  const int off_u = info[2 * BM];
+  auto issue_raw = [&](uint32_t* dst, const bf16* src, int off, int64_t o,
+                       int64_t left0, int c) {
+    if (off == 0 && c == D::CH - 1) return;  // past the stage: not read
+    const int64_t left = left0 - (8 * c - off);
+    const int n = left <= 0 ? 0 : left < 8 ? static_cast<int>(left) : 8;
+    cp_async16(dst + 4 * c,
+               n ? static_cast<const void*>(src + o + 8 * c)
+                 : static_cast<const void*>(src),
+               2 * n);
+  };
+  // Word slots (COLS): units of 8 rows x 4 steps; this thread's rows
+  // 8 (warp + 4 j) + lane % 8 (or 8 (warp % RG) + lane % 8) and steps
+  // 4 kg + lane / 8.
+  const bf16* col_i[D::NPTR];
+  const bf16* col_j[D::NPTR];
+  bool ok_ci[D::NPTR], ok_cj[D::NPTR];
+  auto unit_row = [&](int j) {
+    return 8 * (D::RG >= 4 ? warp + 4 * j : warp % D::RG) + (lane & 7);
+  };
+  if constexpr (D::WORDS) {
+#pragma unroll
+    for (int j = 0; j < D::NPTR; ++j) {
+      const int p = unit_row(j);
+      ok_ci[j] = row_ok(p);
+      ok_cj[j] = row_ok(BM + p);
+      col_i[j] = ok_ci[j] ? row_ptr(p) : A;
+      col_j[j] = ok_cj[j] ? row_ptr(BM + p) : A;
+    }
+  }
+  auto issue = [&](int slot, int s) {
+    uint32_t* st = ring + slot * STAGE;
+    const int64_t o = static_cast<int64_t>(s) * STEPS;
+    const int64_t left0 = k_end - k_begin - o;  // chunk steps from this stage
+    if constexpr (D::WORDS) {
+      const int lim = left0 < STEPS ? static_cast<int>(left0) : STEPS;
+#pragma unroll
+      for (int q = 0; q < D::UNITS; ++q) {
+        const int j = D::RG >= 4 ? q % D::NPTR : 0;
+        const int kg = D::RG >= 4 ? q / D::NPTR
+                                  : warp / D::RG + (4 / D::RG) * q;
+        const int p = unit_row(j), k = 4 * kg + (lane >> 3);
+        const int64_t at = (k_begin + o + k) * ldx;
+        const bool in = k < lim;
+        cp_async_elem(reinterpret_cast<float*>(st + p * D::LDW + (k ^ swz(p))),
+                      word_of(in && ok_ci[j] ? col_i[j] + at : col_i[j]),
+                      in && ok_ci[j]);
+        if (!diag)
+          cp_async_elem(
+              reinterpret_cast<float*>(st + (BM + p) * D::LDW + (k ^ swz(p))),
+              word_of(in && ok_cj[j] ? col_j[j] + at : col_j[j]),
+              in && ok_cj[j]);
+      }
+    } else {
+      const int rows = (TWO ? 2 : 1) * BM;
+      for (int e = tid; e < rows * D::CH; e += MMA_THREADS) {
+        const int p = e / D::CH, c = e - p * D::CH;
+        if (row_ok(p))
+          issue_raw(st + p * D::LDW, srcs[p], info[p], o, left0, c);
+      }
+    }
+    if (with_r && tid < D::CH)
+      issue_raw(st + U, srcs[2 * BM], off_u, o, left0, tid);
+  };
+
+  // This warp's share of the tile (the note above): rows r0 + [0, 64) (16
+  // at BM = 16) against columns c0 + [0, 8 NCB).
+  int r0 = 0, c0 = 0;
+  if constexpr (BM == 128) {
+    if (diag) {
+      r0 = warp == 0 ? 0 : 64;
+      c0 = warp < 2 ? r0 : 32 * (warp - 2);
+    } else {
+      r0 = warp == 0 || warp == 3 ? 0 : 64;
+      c0 = warp == 0 || warp == 2 ? 0 : 64;
+    }
+  }
+  const MmaShare x{ring, info, STAGE, U, slabs, r0, c0, diag ? 0 : BM, ni,
+                   nj, band_i, band_j, split, m, mp, diag,
+                   with_r && c0 == 0, scale, reg, scale_r, Gp, rp, G, r};
+  if constexpr (BM == 16) {  // m <= 16: one tile, warp 0's products
+    if (warp == 0)
+      warp_share<D, STAGES, 1, 2, true>(x, issue);
+    else
+      warp_share<D, STAGES, 0, 0, true>(x, issue);
+  } else if (diag && warp < 2) {
+    warp_share<D, STAGES, 4, 8, true>(x, issue);
+  } else if (diag) {
+    warp_share<D, STAGES, 4, 4, false>(x, issue);
+  } else if constexpr (TWO) {
+    warp_share<D, STAGES, 4, 8, false>(x, issue);
+  }
+}
+
+// Its shared memory, in bytes, with or without operand j's rows (`two`).
+template <int BM, int STAGES, int STEPS, Source SRC>
+constexpr int mma_bytes(bool two) {
+  using D = MmaTile<BM, STEPS, SRC>;
+  return 4 * D::INFO + 8 * D::PTRS + 4 * STAGES * D::stage(two);
+}
+
+// Launch mma_tile at one geometry on `stream`, then dense_reduce at more
+// than one split.  `smem` is the host's count of its shared memory (operand
+// j's rows only where the launch has more than one tile): a geometry whose
+// count disagrees is refused with cudaErrorInvalidValue before anything is
+// launched.  `ldx` is X's row length for COLS.
+template <int BM, int STAGES, int STEPS, Source SRC, bool TWO>
+cudaError_t launch_mma(const __nv_bfloat16* A, const int* flat,
+                       const __nv_bfloat16* u, const int* tiles, int ntiles,
+                       int m, int64_t K, int64_t chunk, int splits, int smem,
+                       float scale, float reg, float scale_r, float* Gp,
+                       float* rp, float* G, float* r, cudaStream_t stream,
+                       int64_t ldx) {
+  constexpr int bytes = mma_bytes<BM, STAGES, STEPS, SRC>(TWO);
+  if (smem != bytes) return cudaErrorInvalidValue;  // host and kernel disagree
+  auto kernel = mma_tile<BM, STAGES, STEPS, SRC, TWO>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (SRC == Source::COLS) {
+    // The column copies go through L1 (4-byte cp.async.ca), one line a
+    // sampled element in flight: ask for no more shared memory than one
+    // block needs, so that the rest of the SM's 256 KB stays L1.
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (bytes * 100 + SMEM_CARVEOUT_MAX - 1) / SMEM_CARVEOUT_MAX);
+    if (err != cudaSuccess) return err;
+  }
+  const int mp = (m + TILE - 1) / TILE * TILE;
+  kernel<<<dim3(ntiles, splits), MMA_THREADS, bytes, stream>>>(
+      A, u, tiles, m, K, chunk, mp, scale, reg, scale_r,
+      splits > 1 ? Gp : nullptr, rp, G, r, flat, ldx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t total = static_cast<int64_t>(m) * m + m;
+  const int blocks =
+      static_cast<int>((total + REDUCE_THREADS - 1) / REDUCE_THREADS);
+  dense_reduce<float, true><<<blocks, REDUCE_THREADS, 0, stream>>>(
+      Gp, rp, splits, m, mp, scale, reg, scale_r, G, r);
+  return cudaGetLastError();
+}
+
+// launch_mma at one geometry, with operand j's rows where the launch has
+// tiles below the diagonal (ntiles > 1).
+template <int BM, int STAGES, int STEPS, Source SRC>
+cudaError_t launch_mma_tile(const __nv_bfloat16* A, const int* flat,
+                            const __nv_bfloat16* u, const int* tiles,
+                            int ntiles, int m, int64_t K, int64_t chunk,
+                            int splits, int smem, float scale, float reg,
+                            float scale_r, float* Gp, float* rp, float* G,
+                            float* r, cudaStream_t stream, int64_t ldx = 0) {
+  auto launch = ntiles > 1 ? launch_mma<BM, STAGES, STEPS, SRC, true>
+                           : launch_mma<BM, STAGES, STEPS, SRC, false>;
+  return launch(A, flat, u, tiles, ntiles, m, K, chunk, splits, smem, scale,
+                reg, scale_r, Gp, rp, G, r, stream, ldx);
 }
 
 }  // namespace repro

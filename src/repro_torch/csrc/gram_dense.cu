@@ -13,8 +13,10 @@
 //
 // Bound on the H100: m(m+1)/2 * K (+ m * K for r) fused multiply-adds on
 // the f32 CUDA cores, no tensor cores (a TF32 product fails the f32 gate).
-// K7 also takes bf16 A and u (the reference's bf16 packet), summed in f32
-// exactly as the f32 kernel sums the upcast operand (dense_tile.cuh).
+// K7 also takes bf16 A and u (the reference's bf16 packet): bf16 products
+// with f32 sums on the tensor cores (dense_tile.cuh's mma_tile, K1's bf16
+// geometry and chunk, bound by the operand's bytes), equal to bf16 K1 on
+// the gathered rows and, at K3's chunk, to bf16 K3.
 // At CholeskyQR's real-sim operand (m = 20958, K = 93267) that is 0.61 s of
 // operations against 2.3 ms of bytes; at K7's gathered panel (m = 128,
 // K = 72309) about 18 us against 11 us.  So the kernel has to keep the FMA
@@ -34,11 +36,9 @@ namespace {
 // (8 x 8 and 4 x 4) and 32 (4 x 4) with every ring of 2-4 stages of 8, 16
 // or 32 steps; f64, whose 8 x 8 accumulators would not fit beside the rest
 // in 128 registers, the 64 and 32 tiles of 4 x 4 with 3 stages of 16
-// steps.  bf16 input (K7 only, In = __nv_bfloat16 with f32 sums and
-// outputs) is built at the picks alone: the 128 (8 x 8), 64 and 32 (4 x 4)
-// tiles at 3 stages of 16 steps.  Anything else is refused with
-// cudaErrorInvalidValue before a launch.
-template <typename T, bool RESIDUAL, typename In = T>
+// steps.  Anything else is refused with cudaErrorInvalidValue before a
+// launch.
+template <typename T, bool RESIDUAL>
 int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
                void* rp, void* G, void* r, int64_t K, int m, int64_t chunk,
                int splits, int bm, int tm, int tn, int stages, int steps,
@@ -48,8 +48,8 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(                                                  \
         repro::launch_tile<T, B, M, N, S, Q, RESIDUAL,                        \
-                           repro::Source::DENSE, In>(                         \
-            static_cast<const In*>(A), nullptr, static_cast<const In*>(u),    \
+                           repro::Source::DENSE>(                             \
+            static_cast<const T*>(A), nullptr, static_cast<const T*>(u),      \
             tiles, ntiles, m, K, chunk, splits, smem, static_cast<T>(scale),  \
             static_cast<T>(reg), static_cast<T>(scale_r),                     \
             static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),     \
@@ -60,11 +60,7 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
   REPRO_TILE(B, M, N, 3, 16) REPRO_TILE(B, M, N, 3, 32)                       \
   REPRO_TILE(B, M, N, 4, 8) REPRO_TILE(B, M, N, 4, 16)                        \
   REPRO_TILE(B, M, N, 4, 32)
-  if constexpr (!std::is_same_v<T, In>) {
-    REPRO_TILE(128, 8, 8, 3, 16)
-    REPRO_TILE(64, 4, 4, 3, 16)
-    REPRO_TILE(32, 4, 4, 3, 16)
-  } else if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4) {
     REPRO_RINGS(128, 8, 8)
     REPRO_RINGS(64, 8, 8)
     REPRO_RINGS(64, 4, 4)
@@ -75,6 +71,29 @@ int dense_impl(const void* A, const void* u, const int* tiles, void* Gp,
   }
 #undef REPRO_RINGS
 #undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7 in bf16: the tensor-core tile (dense_tile.cuh's mma_tile) at the
+// geometries the host can pick (gram_kernel.MMA_BUILT["dense"], K1's).
+int dense_bf16(const void* A, const void* u, const int* tiles, void* Gp,
+               void* rp, void* G, void* r, int64_t K, int m, int64_t chunk,
+               int splits, int bm, int tm, int tn, int stages, int steps,
+               int ntiles, int smem, double scale, double reg, double scale_r,
+               void* stream) {
+#define REPRO_MMA(B, S, Q)                                                    \
+  if (bm == B && tm == 16 && tn == 8 && stages == S && steps == Q)            \
+    return static_cast<int>(                                                  \
+        repro::launch_mma_tile<B, S, Q, repro::Source::DENSE>(                \
+            static_cast<const __nv_bfloat16*>(A), nullptr,                    \
+            static_cast<const __nv_bfloat16*>(u), tiles, ntiles, m, K, chunk, \
+            splits, smem, static_cast<float>(scale), static_cast<float>(reg), \
+            static_cast<float>(scale_r), static_cast<float*>(Gp),             \
+            static_cast<float*>(rp), static_cast<float*>(G),                  \
+            static_cast<float*>(r), static_cast<cudaStream_t>(stream)));
+  REPRO_MMA(16, 4, 128)
+  REPRO_MMA(128, 3, 64)
+#undef REPRO_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -112,9 +131,9 @@ int dense_packet_bf16(const void* A, const void* u, const int* tiles,
                       int64_t chunk, int splits, int bm, int tm, int tn,
                       int stages, int steps, int ntiles, int smem,
                       double scale, double reg, double scale_r, void* stream) {
-  return dense_impl<float, true, __nv_bfloat16>(
-      A, u, tiles, Gp, rp, G, r, K, m, chunk, splits, bm, tm, tn, stages,
-      steps, ntiles, smem, scale, reg, scale_r, stream);
+  return dense_bf16(A, u, tiles, Gp, rp, G, r, K, m, chunk, splits, bm, tm,
+                    tn, stages, steps, ntiles, smem, scale, reg, scale_r,
+                    stream);
 }
 
 // dense_gram_*(A, tiles, Gp, G, K, m, chunk, splits, bm, tm, tn, stages,

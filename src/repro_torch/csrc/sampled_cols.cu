@@ -25,14 +25,14 @@
 //   thread, up to 16 rows; else 32) and a shallow ring for each
 //   (gram_kernel.COLS_BUILT, from launch.tile_sweep --only cols); only
 //   those two geometries are built here.
-//   K3 also takes bf16 X and u, as the reference's kernel does (f32 sums
-//   and outputs), at the f32 geometries: each element's aligned 4-byte
-//   word moves by cp.async into the element's f32 slot and the copying
-//   thread keeps the element's half there, widened (dense_tile.cuh's
-//   issue_column_words / widen_columns), so a bf16 packet equals the f32
-//   packet of the upcast operand bit for bit and keeps f32's STAGES - 1
-//   stages of isolated reads in flight.  A sampled bf16 element still
-//   costs a sector of its own: the sector traffic is f32's.
+//   bf16 X and u (the reference's bf16 packet, f32 sums and outputs) run
+//   mma_tile (dense_tile.cuh) on the tensor cores: one 128-tile at
+//   m <= 128 reads each sampled element once (the f32 32-tile reads each
+//   column from 4 tiles), each element's aligned 4-byte word by its own
+//   cp.async into a word slot, the fragment build keeping its half (no
+//   widening pass); bound, as f32, by the rate at which the memory serves
+//   isolated elements, at bf16's own chunk (a third of the SMs' worth of
+//   blocks: fewer reads in flight come faster).
 //
 // K4 cols_apply: out(d) = scale * Y v.
 //   Replaces panel_apply_cols_pallas (sampled_colmajor.py).  The reads are
@@ -141,10 +141,9 @@ cols_apply(const T* __restrict__ X, const int* __restrict__ flat,
 }
 
 // K3: the gathered-column tile at the geometries the host can pick
-// (gram_kernel.COLS_BUILT, the same for f32, f64 and bf16 input, In =
-// __nv_bfloat16 with f32 sums and outputs).  Anything else is refused with
-// cudaErrorInvalidValue before a launch.
-template <typename T, typename In = T>
+// (gram_kernel.COLS_BUILT, the same for f32 and f64).  Anything else is
+// refused with cudaErrorInvalidValue before a launch.
+template <typename T>
 int packet_impl(const void* X, const void* flat, const void* u,
                 const int* tiles, void* Gp, void* rp, void* G, void* r,
                 int64_t d, int64_t n, int m, int64_t chunk, int splits,
@@ -154,15 +153,40 @@ int packet_impl(const void* X, const void* flat, const void* u,
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true,       \
-                                               repro::Source::COLS, In>(      \
-        static_cast<const In*>(X), static_cast<const int*>(flat),             \
-        static_cast<const In*>(u), tiles, ntiles, m, d, chunk, splits, smem,  \
+                                               repro::Source::COLS>(          \
+        static_cast<const T*>(X), static_cast<const int*>(flat),              \
+        static_cast<const T*>(u), tiles, ntiles, m, d, chunk, splits, smem,   \
         static_cast<T>(scale), static_cast<T>(reg), static_cast<T>(scale_r),  \
         static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),         \
         static_cast<T*>(r), static_cast<cudaStream_t>(stream), n));
   REPRO_TILE(16, 2, 2, 3, 32)
   REPRO_TILE(32, 4, 4, 4, 8)
 #undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3 in bf16: the tensor-core tile (dense_tile.cuh's mma_tile) on word
+// slots at the geometries the host can pick (gram_kernel.MMA_BUILT["cols"]).
+int packet_bf16(const void* X, const void* flat, const void* u,
+                const int* tiles, void* Gp, void* rp, void* G, void* r,
+                int64_t d, int64_t n, int m, int64_t chunk, int splits,
+                int bm, int tm, int tn, int stages, int steps, int ntiles,
+                int smem, double scale, double reg, double scale_r,
+                void* stream) {
+#define REPRO_MMA(B, S, Q)                                                    \
+  if (bm == B && tm == 16 && tn == 8 && stages == S && steps == Q)            \
+    return static_cast<int>(                                                  \
+        repro::launch_mma_tile<B, S, Q, repro::Source::COLS>(                 \
+            static_cast<const __nv_bfloat16*>(X),                             \
+            static_cast<const int*>(flat),                                    \
+            static_cast<const __nv_bfloat16*>(u), tiles, ntiles, m, d, chunk, \
+            splits, smem, static_cast<float>(scale), static_cast<float>(reg), \
+            static_cast<float>(scale_r), static_cast<float*>(Gp),             \
+            static_cast<float*>(rp), static_cast<float*>(G),                  \
+            static_cast<float*>(r), static_cast<cudaStream_t>(stream), n));
+  REPRO_MMA(16, 3, 32)
+  REPRO_MMA(128, 3, 32)
+#undef REPRO_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -249,9 +273,9 @@ int cols_packet_bf16(const void* X, const void* flat, const void* u,
                      int bm, int tm, int tn, int stages, int steps,
                      int ntiles, int smem, double scale, double reg,
                      double scale_r, void* stream) {
-  return packet_impl<float, __nv_bfloat16>(
-      X, flat, u, tiles, Gp, rp, G, r, d, n, m, chunk, splits, bm, tm, tn,
-      stages, steps, ntiles, smem, scale, reg, scale_r, stream);
+  return packet_bf16(X, flat, u, tiles, Gp, rp, G, r, d, n, m, chunk, splits,
+                     bm, tm, tn, stages, steps, ntiles, smem, scale, reg,
+                     scale_r, stream);
 }
 
 // cols_apply_*(X, flat, v, out, d, n, m, threads, seg, scale, stream)

@@ -16,13 +16,19 @@
 //   host picks for the dense kernel K7 at the same (m, n).  So K1(X, flat,
 //   u) equals K7(X[flat], u) bit for bit, and at more than one chunk
 //   dense_reduce sums the partials.  Built only for the geometries the
-//   host can pick (gram_kernel.GATHERED_TILES at the ring (3, 16)).  K1
-//   also takes bf16 X and u, summed in f32 as the f32 kernel sums the
-//   upcast rows (dense_tile.cuh).  What the gather still costs is the
+//   host can pick (gram_kernel.GATHERED_TILES at the ring (3, 16)).  What
+//   the gather still costs is the
 //   rows' addresses: at m = 128 the 1030 blocks read 128 rows scattered
 //   over all of X, and the tile then takes
 //   about 1.7x its time on as many consecutive rows (PERF.md;
 //   launch.tile_sweep --only gather); at m = 8 it costs nothing.
+//   bf16 X and u (the reference's bf16 packet, f32 sums and outputs) run
+//   mma_tile (dense_tile.cuh): the same function on the tensor cores,
+//   bound by the sampled rows' bytes (m n 2 bytes, about 5 us at m = 128)
+//   where the f32 tile is bound by its FMAs.  Each row's span of a stage
+//   moves as 16-byte cp.async.cg chunks from its 16-byte floor (a row of X
+//   starts 2-byte aligned) and the fragment build realigns it with byte
+//   permutes; one 128-tile at m <= 128 reads each row once.
 //
 // K2 rows_apply: out(n) = scale * Y^T v.
 //   Replaces panel_apply_pallas (sampled_kernel.py).  Bound: the m * n
@@ -151,10 +157,9 @@ rows_apply(const T* __restrict__ X, const int* __restrict__ flat,
 
 // K1: the gathered dense tile at the geometries the host can pick (f32
 // tiles of 128 (8 x 8), 64 and 32 (4 x 4); f64 64 and 32 (4 x 4); the ring
-// of 3 stages of 16 steps; bf16 input, In = __nv_bfloat16 with f32 sums
-// and outputs, at the f32 tiles).  Anything else is refused with
+// of 3 stages of 16 steps).  Anything else is refused with
 // cudaErrorInvalidValue before a launch.
-template <typename T, typename In = T>
+template <typename T>
 int packet_impl(const void* X, const void* flat, const void* u,
                 const int* tiles, void* Gp, void* rp, void* G, void* r,
                 int64_t n, int m, int64_t chunk, int splits, int bm, int tm,
@@ -163,9 +168,9 @@ int packet_impl(const void* X, const void* flat, const void* u,
 #define REPRO_TILE(B, M, N, S, Q)                                             \
   if (bm == B && tm == M && tn == N && stages == S && steps == Q)             \
     return static_cast<int>(repro::launch_tile<T, B, M, N, S, Q, true,       \
-                                               repro::Source::ROWS, In>(      \
-        static_cast<const In*>(X), static_cast<const int*>(flat),             \
-        static_cast<const In*>(u), tiles, ntiles, m, n, chunk, splits, smem,  \
+                                               repro::Source::ROWS>(          \
+        static_cast<const T*>(X), static_cast<const int*>(flat),              \
+        static_cast<const T*>(u), tiles, ntiles, m, n, chunk, splits, smem,   \
         static_cast<T>(scale), static_cast<T>(reg), static_cast<T>(scale_r),  \
         static_cast<T*>(Gp), static_cast<T*>(rp), static_cast<T*>(G),         \
         static_cast<T*>(r), static_cast<cudaStream_t>(stream)));
@@ -178,6 +183,31 @@ int packet_impl(const void* X, const void* flat, const void* u,
     REPRO_TILE(32, 4, 4, 3, 16)
   }
 #undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1 in bf16: the tensor-core tile (dense_tile.cuh's mma_tile) at the
+// geometries the host can pick (gram_kernel.MMA_BUILT["rows"]: the 16-tile
+// up to m = 16, else the 128-tile, micro-tile the 16 x 8 product).
+int packet_bf16(const void* X, const void* flat, const void* u,
+                const int* tiles, void* Gp, void* rp, void* G, void* r,
+                int64_t n, int m, int64_t chunk, int splits, int bm, int tm,
+                int tn, int stages, int steps, int ntiles, int smem,
+                double scale, double reg, double scale_r, void* stream) {
+#define REPRO_MMA(B, S, Q)                                                    \
+  if (bm == B && tm == 16 && tn == 8 && stages == S && steps == Q)            \
+    return static_cast<int>(                                                  \
+        repro::launch_mma_tile<B, S, Q, repro::Source::ROWS>(                 \
+            static_cast<const __nv_bfloat16*>(X),                             \
+            static_cast<const int*>(flat),                                    \
+            static_cast<const __nv_bfloat16*>(u), tiles, ntiles, m, n, chunk, \
+            splits, smem, static_cast<float>(scale), static_cast<float>(reg), \
+            static_cast<float>(scale_r), static_cast<float*>(Gp),             \
+            static_cast<float*>(rp), static_cast<float*>(G),                  \
+            static_cast<float*>(r), static_cast<cudaStream_t>(stream)));
+  REPRO_MMA(16, 4, 128)
+  REPRO_MMA(128, 3, 64)
+#undef REPRO_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -269,9 +299,9 @@ int rows_packet_bf16(const void* X, const void* flat, const void* u,
                      int tm, int tn, int stages, int steps, int ntiles,
                      int smem, double scale, double reg, double scale_r,
                      void* stream) {
-  return packet_impl<float, __nv_bfloat16>(
-      X, flat, u, tiles, Gp, rp, G, r, n, m, chunk, splits, bm, tm, tn,
-      stages, steps, ntiles, smem, scale, reg, scale_r, stream);
+  return packet_bf16(X, flat, u, tiles, Gp, rp, G, r, n, m, chunk, splits,
+                     bm, tm, tn, stages, steps, ntiles, smem, scale, reg,
+                     scale_r, stream);
 }
 
 // rows_apply_*(X, flat, v, out, n, m, threads, cols, batch, scale, stream)

@@ -12,8 +12,9 @@ K3 (``sampled_colmajor.gram_packet_sampled_cols``) on its columns
   every entry in K1's order, so ``K7(X[flat], u)`` equals
   ``K1(X, flat, u)`` bit for bit.  Bounded by its m(m+1)/2 * K
   multiply-adds on the f32 CUDA cores.  Like K1 it also takes bf16 A and u
-  (f32 sums and outputs, equal bit for bit to the f32 kernel on the upcast
-  operand; counted apart, :data:`DENSE_PACKET_BF16`).
+  (f32 sums and outputs, on the tensor cores: ``mma_tile``, at K1's bf16
+  geometry and chunk, so it equals bf16 K1 on the gathered rows; counted
+  apart, :data:`DENSE_PACKET_BF16`).
 * :func:`gram_dense` (K8) -- ``G = scale * A A^T + reg * I``.  Replaces
   ``gram_pallas`` (same file): K7 with the residual statically absent, so
   its G equals K7's G bit for bit.  The R-factor Gram of CholeskyQR
@@ -21,8 +22,10 @@ K3 (``sampled_colmajor.gram_packet_sampled_cols``) on its columns
 
 All three launch ``dense_tile``: register-blocked lower BM x BM tiles of G
 fed by a ``cp.async`` ring, one block per (tile, contraction chunk), the
-tiles in the order of :func:`dense_tiles`.  The launch geometry comes from
-:func:`dense_geometry`, from the shapes alone; only the chunk fixes a sum.
+tiles in the order of :func:`dense_tiles`; bf16 input launches ``mma_tile``
+(the same tiles and chunks, tensor-core products, :data:`MMA_BUILT`).  The
+launch geometry comes from :func:`dense_geometry`, from the shapes alone;
+only the chunk (and for bf16 the tile edge, which follows m) fixes a sum.
 At one chunk the kernel writes G itself and no partial buffer is
 allocated; at more, the chunk partials go through ``dense_reduce``.
 
@@ -66,15 +69,12 @@ _COLS_PACKET_ARGS = (P,) * 8 + (I64, I64, I, I64, I) + _GEOM_ARGS + (D, D, D,
 
 # The geometries dense_tile is built for, per dtype: (tile edge BM, micro-tile
 # rows TM, columns TN) and the rings (stages, steps per stage).
-# bf16 (K7 only) is built at the f32 tile edges' picks alone, at
-# DENSE_RING.
 DENSE_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (64, 8, 8),
                                (32, 4, 4)),
-               torch.float64: ((64, 4, 4), (32, 4, 4)),
-               torch.bfloat16: ((128, 8, 8), (64, 4, 4), (32, 4, 4))}
+               torch.float64: ((64, 4, 4), (32, 4, 4))}
 DENSE_RINGS = {torch.float32: tuple((s, q) for s in (2, 3, 4)
                                     for q in (8, 16, 32)),
-               torch.float64: ((3, 16),), torch.bfloat16: ((3, 16),)}
+               torch.float64: ((3, 16),)}
 # The picks, from launch.tile_sweep's dense sweep (PERF.md).  The tile: the
 # widest whose lower tiles times chunks give at least DENSE_TARGET_BLOCKS
 # blocks (four a SM on 132 SMs: the 128-tile at K8's real-sim operand, the
@@ -91,11 +91,9 @@ DENSE_GROUP = 16
 # "cols", K1's else) and the geometries built.
 SOURCES = ("dense", "rows", "cols")
 # The geometries the gathered tile (K1, sampled_rows.cu) is built for: the
-# picks alone, every tile edge with its first micro-tile at DENSE_RING
-# (bf16 at f32's).
+# picks alone, every tile edge with its first micro-tile at DENSE_RING.
 GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
-                  torch.float64: ((64, 4, 4), (32, 4, 4)),
-                  torch.bfloat16: ((128, 8, 8), (64, 4, 4), (32, 4, 4))}
+                  torch.float64: ((64, 4, 4), (32, 4, 4))}
 # The geometries the gathered-column tile (K3, sampled_cols.cu) is built
 # for, per dtype, as (bm, tm, tn, stages, steps): the picks alone, from
 # launch.tile_sweep's cols sweep (PERF.md).  The tile edge is the narrowest
@@ -107,9 +105,22 @@ GATHERED_TILES = {torch.float32: ((128, 8, 8), (64, 4, 4), (32, 4, 4)),
 # the rings that read best keep few steps in flight, (stages, steps) =
 # (3, 32) at m = 8 and (4, 8) at m = 128 (where deeper and shallower rings
 # alike read up to 2x slower, in no monotone order).
-# bf16 input (f32 ring and sums) is built at the f32 picks alone.
 COLS_BUILT = {dtype: ((16, 2, 2, 3, 32), (32, 4, 4, 4, 8))
-              for dtype in (torch.float32, torch.float64, torch.bfloat16)}
+              for dtype in (torch.float32, torch.float64)}
+# bf16 input (K7, K1, K3) runs the tensor-core tile mma_tile
+# (csrc/dense_tile.cuh), built per source for (tile edge, stages, steps):
+# the tile edge is tuning.mma_edge(m) (16 up to m = 16, else 128, for every
+# source, so K1, K3 and K7 at one m sum alike), four warps a block, the
+# micro-tile the 16 x 8 product.  The rings, from launch.tile_sweep's bf16
+# sweep: raw rows (K7, K1) 3 stages of 64 steps at the 128-tile (5 stages,
+# or 192 or 256 steps, read no faster), 4 of 128 at the 16-tile (the m = 8
+# chunk of 288 steps in flight at once); word slots (K3) 3 stages of 32 at
+# both tile edges (2 and 6 read slower at the 128-tile's chunk).
+MMA_BUILT = {"dense": ((16, 4, 128), (128, 3, 64)),
+             "rows": ((16, 4, 128), (128, 3, 64)),
+             "cols": ((16, 3, 32), (128, 3, 32))}
+MMA_MICRO = (16, 8)
+MMA_THREADS = 128
 
 
 class DenseGeometry(NamedTuple):
@@ -135,11 +146,26 @@ class DenseGeometry(NamedTuple):
 
 def ring_bytes(bm: int, stages: int, steps: int, dtype: torch.dtype) -> int:
     """Shared memory of dense_tile's ring: per stage two k-major operands of
-    ``steps`` rows of bm + 16 bytes, and ``steps`` elements of u.  The ring
-    holds the accumulation type: a bf16 operand's 2-byte elements are
-    widened to 4-byte f32 slots as they land (csrc/dense_tile.cuh)."""
-    isz = torch.empty((), dtype=ref.acc_dtype(dtype)).element_size()
+    ``steps`` rows of bm + 16 bytes, and ``steps`` elements of u."""
+    isz = torch.empty((), dtype=dtype).element_size()
     return stages * (2 * steps * (bm + 16 // isz) + steps) * isz
+
+
+def mma_bytes(bm: int, stages: int, steps: int, source: str,
+              tiles: int = 1) -> int:
+    """Shared memory of mma_tile (csrc/dense_tile.cuh's MmaTile) for a
+    launch of ``tiles`` lower tiles: an int of each panel row's offset or
+    halves (2 bm + 1 with u's, in whole 16-byte groups) and an 8-byte
+    source address of each (2 bm + 2), then per stage operand i's bm panel
+    rows, operand j's bm more where there is a tile below the diagonal
+    (tiles > 1), and u's raw row.  A raw row is steps / 8 + 1 16-byte
+    chunks (the misaligned start); a row of word slots (source "cols") 4
+    bytes a step."""
+    ch = steps // 8 + 1
+    ldw = steps if source == "cols" else 4 * ch
+    info = -(-(2 * bm + 1) // 4) * 4
+    rows = (2 if tiles > 1 else 1) * bm
+    return 4 * info + 8 * (2 * bm + 2) + 4 * stages * (rows * ldw + 4 * ch)
 
 
 def lower_tiles(m: int, bm: int) -> int:
@@ -157,24 +183,25 @@ def dense_geometry(m: int, K: int, dtype: torch.dtype, bk: int | None = None,
     of K1 on m rows of X (K = n), "cols" of K3 on m columns of X (K = d).
     The chunk is K3's for "cols", else K1's (:func:`resolve_chunk`), and
     fixes every sum; ``bm``, ``micro`` = (tm, tn), ``stages``, ``steps``
-    and ``group`` override the picks (for the sweep) and move no sum.  A
-    geometry the kernel is not built for (:data:`DENSE_TILES` and
-    :data:`DENSE_RINGS`; rows, :data:`GATHERED_TILES` at
-    :data:`DENSE_RING`; columns, :data:`COLS_BUILT`) raises."""
-    if dtype not in DENSE_TILES:
-        raise TypeError(f"dense_tile is built for {tuple(DENSE_TILES)}, "
-                        f"not {dtype}")
+    and ``group`` override the picks (for the sweep) and move no sum (in bf16 the
+    tile edge follows m, :func:`tuning.mma_edge`).  A geometry the kernel
+    is not built for (:data:`DENSE_TILES` and :data:`DENSE_RINGS`; rows,
+    :data:`GATHERED_TILES` at :data:`DENSE_RING`; columns,
+    :data:`COLS_BUILT`; bf16, :data:`MMA_BUILT`) raises."""
+    if dtype not in DENSE_TILES and dtype != torch.bfloat16:
+        raise TypeError(f"dense_tile is built for {tuple(DENSE_TILES)} and "
+                        f"mma_tile for torch.bfloat16, not {dtype}")
     if source not in SOURCES:
         raise ValueError(f"source={source!r} is none of {SOURCES}")
-    if source == "cols" and dtype not in COLS_BUILT:
-        raise TypeError(f"the column-sampled packet K3 (cols_packet) is built "
-                        f"for {tuple(COLS_BUILT)}, not {dtype}")
     chunk = resolve_chunk(m, K, dtype, "cols" if source == "cols" else "rows",
                           bk)
     splits = -(-K // chunk)
     if splits > tuning.MAX_SPLITS:
         raise ValueError(f"{splits} splits exceed the grid's "
                          f"{tuning.MAX_SPLITS}")
+    if dtype == torch.bfloat16:
+        return _mma_geometry(m, chunk, splits, source, bm, micro, stages,
+                             steps, group)
     if source == "cols":
         return _cols_geometry(m, chunk, splits, dtype, bm, micro, stages,
                               steps, group)
@@ -237,6 +264,35 @@ def _cols_geometry(m, chunk, splits, dtype, bm, micro, stages, steps,
                          f"(bm, tm, tn, stages, steps) in {built}")
     return _geometry(m, chunk, splits, dtype, bm, tm, tn, stages, steps,
                      DENSE_GROUP if group is None else group, "cols")
+
+
+def _mma_geometry(m, chunk, splits, source, bm, micro, stages, steps,
+                  group) -> DenseGeometry:
+    """The bf16 packets' geometry (mma_tile) at their chunk: the tile edge
+    tuning.mma_edge(m) with its ring from :data:`MMA_BUILT`; any field may
+    be overridden with another built one."""
+    built = MMA_BUILT[source]
+    bm = tuning.mma_edge(m) if bm is None else bm
+    tiles = lower_tiles(m, bm)
+    _, pst, pq = next((g for g in built if g[0] == bm and mma_bytes(
+        *g, source, tiles) <= SMEM_PER_BLOCK), (bm, None, None))
+    stages = pst if stages is None else stages
+    steps = pq if steps is None else steps
+    micro = MMA_MICRO if micro is None else tuple(micro)
+    if (bm, stages, steps) not in built or micro != MMA_MICRO:
+        raise ValueError(f"bm={bm}, micro={micro}, stages={stages}, "
+                         f"steps={steps}: mma_tile is built in bfloat16 on "
+                         f"{source} for (bm, stages, steps) in {built} with "
+                         f"micro-tile {MMA_MICRO}")
+    group = DENSE_GROUP if group is None else group
+    if group < 1:
+        raise ValueError(f"group={group} must be positive")
+    smem = mma_bytes(bm, stages, steps, source, tiles)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{smem} bytes of shared memory exceed the block's "
+                         f"{SMEM_PER_BLOCK}")
+    return DenseGeometry(bm, *MMA_MICRO, stages, steps, MMA_THREADS,
+                         (tiles, splits), smem, group, chunk, splits, source)
 
 
 def tile_order(nt: int, group: int) -> list[tuple[int, int]]:

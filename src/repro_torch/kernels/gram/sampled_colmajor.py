@@ -12,11 +12,11 @@ layout, with no transposed copy of X.
   read best in ``launch.tile_sweep``'s cols sweep
   (:func:`cols_packet_geometry`, ``gram_kernel.launch_dense``), so it
   equals K7 on the gathered panel ``X[:, flat].T`` at that chunk bit for
-  bit.  It also takes bf16 X and u, as the reference's kernel does: each
-  element is widened to f32 as it lands in the ring, so the f32 (G, r)
-  equal the f32 kernel's on the upcast operand bit for bit (counted apart,
-  :data:`COLS_PACKET_BF16`).  A sampled bf16 element still reads a sector
-  of its own, so it reads about as many sectors as f32.
+  bit.  It also takes bf16 X and u, as the reference's kernel does:
+  bf16 products with f32 sums on the tensor cores (``mma_tile``, its own
+  geometry and chunk: one 128-tile reads each sampled element once), f32
+  (G, r), equal to bf16 K7 on ``X[:, flat].T`` at K3's chunk bit for bit
+  (counted apart, :data:`COLS_PACKET_BF16`).
 * :func:`panel_apply_cols` (K4) -- ``out(d) = scale * Y v``.  Replaces
   ``panel_apply_cols_pallas`` (same file).  Bounded by the sector traffic
   of its scattered reads.  Each row of X gets a segment of lanes as wide as

@@ -10,9 +10,9 @@
   place, at K7's geometry for the same (m, n) (:func:`rows_packet_geometry`,
   ``gram_kernel.launch_dense``), so it equals K7 on the gathered panel bit
   for bit.  It also takes bf16 X and u, as the reference's kernel does:
-  each element is widened to f32 as it lands in shared memory and the sums
-  are the f32 kernel's, so the f32 (G, r) equal the f32 kernel's on the
-  upcast operand bit for bit (counted apart, :data:`ROWS_PACKET_BF16`).
+  bf16 products with f32 sums on the tensor cores (``mma_tile``, its own
+  geometry and chunk), f32 (G, r), equal to K7's on the gathered rows bit
+  for bit (counted apart, :data:`ROWS_PACKET_BF16`).
 * :func:`panel_apply_rows` (K2) -- ``out(n) = scale * Y^T v``.  Replaces
   ``panel_apply_pallas`` (same file).  Bounded by the m * n bytes of X it
   reads.  One thread per column sums one chain in sample order, with two

@@ -16,6 +16,14 @@ the chunk sweep (``repro_torch.launch.tile_sweep``).  The pick is a function
 of the shapes and layout alone, so the summation order of a packet is fixed
 for a given ``(m, K, layout)``.
 
+bf16 input (the packets K1, K3 and K7 on the tensor cores) has its own
+default (:func:`default_chunk` with the dtype): :data:`MMA_TARGET_BLOCKS`
+blocks of its wider tile (:func:`mma_edge`), which reads each sampled
+element once; at m = 128 the f32 pick for the column layout would give its
+one 128-tile 13 blocks.  The matvecs K5 / K6, which share the f32 chunk to
+equal K3 / K1's r, have no bf16 build, so the f32 and f64 picks stay as
+they were.
+
 ``_TABLE`` is where measured picks go, keyed on power-of-two buckets of
 ``(m, K)`` with the dtype name and layout.  It starts empty: no Hopper sweep
 has been run yet.  :func:`register_table` and :func:`load_table` merge
@@ -39,6 +47,15 @@ BK = 32               # contraction step staged in shared memory
 TARGET_BLOCKS = {"rows": 8 * 132, "cols": 132}   # per layout, 132-SM H100
 MIN_STEPS = 8         # contraction steps per block, at least
 MAX_SPLITS = 65535    # gridDim.y limit
+# bf16 (mma_tile): blocks to aim at per (layout, tile edge), from
+# launch.tile_sweep's bf16 sweep -- one a SM of the 132-SM H100; two for the
+# row layout's light 16-tile; a third of the SMs for the column layout's
+# 128-tile, whose isolated reads come faster with fewer in flight (its
+# chunk of 480 steps at real-sim) -- and the fewest contraction steps a
+# chunk
+MMA_TARGET_BLOCKS = {("rows", 16): 2 * 132, ("rows", 128): 132,
+                     ("cols", 16): 132, ("cols", 128): 44}
+MMA_MIN_STEPS = 64
 
 LAYOUTS = ("rows", "cols")
 
@@ -69,10 +86,24 @@ def lower_tiles(m: int) -> int:
     return nt * (nt + 1) // 2
 
 
-def default_chunk(m: int, K: int, layout: str = "rows") -> int:
-    """Contraction chunk that spreads an (m, K) packet over the card."""
-    want = max(1, TARGET_BLOCKS[layout] // lower_tiles(m))
-    splits = max(1, min(want, K // (BK * MIN_STEPS)))
+def mma_edge(m: int) -> int:
+    """The tile edge of the bf16 packets (mma_tile) for m samples: 16 up to
+    16 samples, else 128, the same for every row source."""
+    return 16 if m <= 16 else 128
+
+
+def default_chunk(m: int, K: int, layout: str = "rows",
+                  dtype: torch.dtype | None = None) -> int:
+    """Contraction chunk that spreads an (m, K) packet over the card; for
+    bf16, :data:`MMA_TARGET_BLOCKS` blocks of the :func:`mma_edge` tile."""
+    if dtype == torch.bfloat16:
+        edge = mma_edge(m)
+        nt = _cdiv(m, edge)
+        want = _cdiv(MMA_TARGET_BLOCKS[(layout, edge)], nt * (nt + 1) // 2)
+        splits = max(1, min(want, K // MMA_MIN_STEPS))
+    else:
+        want = max(1, TARGET_BLOCKS[layout] // lower_tiles(m))
+        splits = max(1, min(want, K // (BK * MIN_STEPS)))
     chunk = _cdiv(_cdiv(max(K, 1), splits), BK) * BK
     return max(chunk, _cdiv(_cdiv(max(K, 1), MAX_SPLITS), BK) * BK)
 
@@ -80,7 +111,7 @@ def default_chunk(m: int, K: int, layout: str = "rows") -> int:
 def pick_tiles(m: int, K: int, dtype: torch.dtype, layout: str = "rows"
                ) -> int:
     """``bk`` for an (m samples, K contraction) packet in ``layout``: a
-    table hit, else ``default_chunk(m, K, layout)``."""
+    table hit, else ``default_chunk(m, K, layout, dtype)``."""
     _check_layout(layout)
     if not _env_loaded:
         _load_env_table()
@@ -88,7 +119,7 @@ def pick_tiles(m: int, K: int, dtype: torch.dtype, layout: str = "rows"
            layout)
     if key in _TABLE:
         return _TABLE[key]
-    return default_chunk(m, K, layout)
+    return default_chunk(m, K, layout, dtype)
 
 
 def register_table(mapping: dict) -> None:

@@ -13,6 +13,7 @@ drive these functions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -186,6 +187,88 @@ def ep_decode(world, cfg, params, tokens, steps: int, max_seq: int,
     out = dict(first)
     out["step_s"] = [max(o["step_s"][i] for o in outs) for i in range(steps)]
     return out
+
+
+@contextlib.contextmanager
+def moe_trace(rec: list):
+    """While open, every MoE dispatch of this process appends to ``rec``, in
+    call order and on the CPU, (name, tensor) for its input rows, router
+    probabilities and top-k selection (``moe._route``), its experts' output
+    buffer (``moe._experts``: the rank's experts only), and the slots it
+    combines (all experts' after the all-gather) with the combined rows
+    (``moe._combine``).  For locating where two runs' bits part."""
+    route, experts, combine = moe._route, moe._experts, moe._combine
+
+    def traced_route(p, xf, cfg):
+        r = route(p, xf, cfg)
+        rec.extend([("input", xf.cpu()), ("router probs", r["probs"].cpu()),
+                    ("selection", r["sel"].cpu())])
+        return r
+
+    def traced_experts(p, buf):
+        out = experts(p, buf)
+        rec.append(("expert outputs", out.cpu()))
+        return out
+
+    def traced_combine(r, slot_out, K):
+        out = combine(r, slot_out, K)
+        rec.extend([("expert slots", slot_out.cpu()), ("combined", out.cpu())])
+        return out
+
+    moe._route, moe._experts, moe._combine = (traced_route, traced_experts,
+                                              traced_combine)
+    try:
+        yield rec
+    finally:
+        moe._route, moe._experts, moe._combine = route, experts, combine
+
+
+def _trace_rank(comm, device, *, cfg, params, tokens, steps: int,
+                max_seq: int, feed=None) -> list:
+    shard = _shard_params(params, comm, device)
+    model = api.build_model(cfg, shard)
+    del shard
+    rec = []
+    with moe_trace(rec):
+        out = decode(model, cfg, tokens, steps, max_seq, feed, comm)
+    del model
+    _release(device)
+    return rec + [("prefill logits", out["prefill"]),
+                  ("decode logits", out["logits"])]
+
+
+def first_difference(world, cfg, params, model, tokens, steps: int,
+                     max_seq: int, n_ranks: int, *, feed=None) -> dict:
+    """:func:`decode` on the ranks against one process (``model`` on the
+    whole ``params``), every MoE tensor of :func:`moe_trace` in call order
+    (each MoE layer of the prefill, then of each step) and the logits.  A
+    rank's expert outputs are held to its experts' rows of the one
+    process's.  Returns {"records": [(call, name, equal on every rank, max
+    abs difference)], "first": the first record not equal, or None}."""
+    one = []
+    with moe_trace(one):
+        out = decode(model, cfg, tokens, steps, max_seq, feed)
+    one += [("prefill logits", out["prefill"]),
+            ("decode logits", out["logits"])]
+    ranks = world.run(_trace_rank, n_ranks, cfg=cfg, params=params,
+                      tokens=tokens, steps=steps, max_seq=max_seq, feed=feed)
+    E = cfg.moe.num_experts
+    El = E // n_ranks
+    records, calls = [], 0
+    for i, (name, want) in enumerate(one):
+        calls += name == "input"
+        equal, worst = True, 0.0
+        for r, rec in enumerate(ranks):
+            got = rec[i][1]
+            w = want
+            if name == "expert outputs":   # (E C, D): the rank's E / P
+                w = want.reshape(E, -1, want.shape[-1])[
+                    r * El:(r + 1) * El].reshape(got.shape)
+            equal &= torch.equal(got, w)
+            worst = max(worst, float((got.double() - w.double()).abs().max()))
+        records.append((calls, name, equal, worst))
+    first = next((rec for rec in records if not rec[2]), None)
+    return {"records": records, "first": first}
 
 
 def _serve_rank(comm, device, *, cfg, params, prompts, new: int,

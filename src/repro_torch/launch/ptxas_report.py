@@ -8,7 +8,9 @@ shared-memory lines as they were.  Run this file (by its path: the parent
 need not have it) with ``--save`` once with each commit's ``src`` on
 ``PYTHONPATH`` (it builds that tree's ``csrc`` into that tree's build
 directory), then ``--compare`` the two files.  Kernel names are compared
-with the anonymous namespace's per-build hash taken out.
+with the anonymous namespace's two hashes taken out (one a build, one of
+the source's contents, so that an edited source's unedited kernels still
+pair up).
 
 Run on a machine with ``nvcc``, from the repository root:
     PYTHONPATH=<commit>/src python src/repro_torch/launch/ptxas_report.py \\
@@ -24,6 +26,13 @@ import sys
 from pathlib import Path
 
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+_SOURCE = re.compile(r"(_GLOBAL__N__(?:\d+_)?\w+?_cu_)[0-9a-f]{8}")
+
+
+def _name(name: str) -> str:
+    """A kernel's name without the anonymous namespace's hashes: the
+    build's, then the source's."""
+    return _SOURCE.sub(r"\1", _ANON.sub("_GLOBAL__N__", name))
 
 
 def report() -> dict:
@@ -36,7 +45,7 @@ def report() -> dict:
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                name = _ANON.sub("_GLOBAL__N__", m.group(1))
+                name = _name(m.group(1))
             elif name and re.search(r"registers|spill|smem", line):
                 out.setdefault(f"{source}:{name}", []).append(
                     re.sub(r"^.*ptxas info\s*:\s*", "", line.strip()))
@@ -71,7 +80,8 @@ def main(argv=None) -> int:
         Path(args.save).write_text(json.dumps(rep, indent=0))
         print(f"saved {len(rep)} kernels to {args.save}")
     if args.compare:
-        a, b = (json.loads(Path(p).read_text()) for p in args.compare)
+        a, b = ({_name(k): v for k, v in json.loads(Path(p).read_text())
+                 .items()} for p in args.compare)
         return 0 if compare(a, b) else 1
     return 0
 

@@ -34,6 +34,11 @@ solve's shapes (real-sim: d = 20958, n = 72309, f32).
   for K8 also the strip height of the tile order.  K8 is timed with CUDA
   events (seconds a call: warm, then cold after an L2 flush), K7 as the
   matvecs.
+* ``bf16``: the bf16 packets on the tensor cores (``mma_tile``): K1, K7 and
+  K3 at m = 128 and 8 at every ring they are built for
+  (``gram_kernel.MMA_BUILT``) and at chunks around their pick, the tile and
+  the reduce pass also apart; K1 also on consecutive rows.  Each ring held
+  to the pick under torch.equal at its chunk.
 
 Every geometry's output must equal the default's under ``torch.equal``:
 the geometry cuts the work, never a sum.  The data are Gaussian: no
@@ -41,7 +46,8 @@ kernel's work depends on the values, but the card's power draw does, and
 with it the clock under the power cap (PERF.md, K8).
 
 Run on a GPU:  PYTHONPATH=src python -m repro_torch.launch.tile_sweep
-               [--only packet|gather|cols|apply|matvec|dense] [--reps N]
+               [--only packet|gather|cols|apply|matvec|dense|bf16]
+               [--reps N]
 """
 from __future__ import annotations
 
@@ -354,12 +360,72 @@ def sweep_dense(g, reps: int, d: int, n: int) -> list:
     return out
 
 
+BF16_CHUNKS = {("rows", 128): (288, 1152), ("rows", 8): (160, 576),
+               ("cols", 128): (160, 480, 1632), ("cols", 8): (96, 320)}
+
+
+def sweep_bf16(X, g, reps: int) -> list:
+    """The bf16 packets K1 / K7 (rows) and K3 (cols) at every built ring of
+    their tile edge and at chunks around the pick; tile and reduce apart."""
+    from repro_torch.launch.bf16_packets import NAMES
+    Xb = X.to(torch.bfloat16)
+    d, n = Xb.shape
+    out = []
+    for m in (128, 8):
+        rows = torch.randperm(d, generator=g, device=X.device)[:m]
+        cols = torch.randperm(n, generator=g, device=X.device)[:m]
+        u = torch.randn((n,), generator=g, device=X.device).to(Xb.dtype)
+        uc = torch.randn((d,), generator=g, device=X.device).to(Xb.dtype)
+        Y = Xb[rows].contiguous()
+        runs = [("K1", "rows", Xb, rows.to(torch.int32), u, n),
+                ("K1 consecutive rows", "rows", Xb,
+                 torch.arange(m, dtype=torch.int32, device=X.device), u, n),
+                ("K7", "dense", Y, None, u, n),
+                ("K3", "cols", Xb, cols.to(torch.int32), uc, d)]
+        for name, source, A, flat, vec, K in runs:
+            layout = "cols" if source == "cols" else "rows"
+            info = {"rows": sk.ROWS_PACKET_BF16, "dense": gk.DENSE_PACKET_BF16,
+                    "cols": sc.COLS_PACKET_BF16}[source]
+            auto = gkk.dense_geometry(m, K, Xb.dtype, source=source)
+            for bk in (auto.chunk,) + BF16_CHUNKS[(layout, m)]:
+                want = None
+                for bm, st, q in gkk.MMA_BUILT[source]:
+                    if bm != auto.bm:
+                        continue
+                    geom = gkk.dense_geometry(m, K, Xb.dtype, bk, stages=st,
+                                              steps=q, source=source)
+
+                    def launch(geom=geom):
+                        return gkk.launch_dense(info, A, vec, geom, 1.0, 0.0,
+                                                None, flat)
+                    got = launch()
+                    if want is None:
+                        want = got
+                    elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"{name} m={m} {geom} changed a "
+                                             f"sum")
+                    total = device_ms(launch, reps, NAMES)
+                    tile = device_ms(launch, reps, ("mma_tile",))
+                    red = (device_ms(launch, reps, ("dense_reduce",))
+                           if geom.splits > 1 else 0.0)
+                    mark = "  <- default" if geom == auto else ""
+                    print(f"bf16 {name:20s} m={m:4d} chunk={bk:5d} "
+                          f"splits={geom.splits:4d} bm={bm:3d} stages={st} "
+                          f"steps={q:3d} smem={geom.smem:6d}: {total:.4f} ms "
+                          f"(tile {tile:.4f}, reduce {red:.4f}){mark}",
+                          flush=True)
+                    out.append(("bf16", name, m, bk, bm, st, q, total, tile,
+                                red))
+    return out
+
+
 def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
          only: str | None = None) -> list:
     dev = check_device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    if only in (None, "packet", "gather", "cols", "apply", "matvec"):
+    if only in (None, "packet", "gather", "cols", "apply", "matvec",
+                "bf16"):
         X = torch.randn((d, n), generator=g, device=dev)
         if only in (None, "packet"):
             rows += sweep_packets(X, g, reps)
@@ -371,6 +437,8 @@ def main(d: int = 20958, n: int = 72309, reps: int = 20, seed: int = 0,
             rows += sweep_applies(X, g, reps)
         if only in (None, "matvec"):
             rows += sweep_matvecs(X, g, reps)
+        if only in (None, "bf16"):
+            rows += sweep_bf16(X, g, reps)
         del X
     if only in (None, "dense"):
         rows += sweep_dense(g, reps, d, n)
@@ -381,7 +449,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", choices=("packet", "gather", "cols", "apply",
-                                       "matvec", "dense"),
+                                       "matvec", "dense", "bf16"),
                     default=None)
     args = ap.parse_args()
     main(reps=args.reps, only=args.only)

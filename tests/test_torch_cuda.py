@@ -87,14 +87,35 @@ def test_kernel_matches_plain_version_on_card(cuda_device, kernel, m, dtype,
 
 
 
+# bf16 packets (K1, K3, K7 on the tensor cores, f32 sums and outputs):
+# within 1e-4 of the plain version in f64 on the upcast operand (G, r and
+# G's cross terms), within the reference's bf16 tolerance 2e-2 of the bf16
+# plain version, G == G^T, the same bits from two runs, and the identities
+# of one code path: K1 == K7 on the gathered rows, K3 == K7 on X[:, flat]^T
+# at K3's chunk (torch.equal).
+TOL_BF16_F64 = 1e-4
+
+
+def _bf16_gates(got, want64, want16, flat):
+    G, r = got
+    assert G.dtype == r.dtype == torch.float32
+    assert _rel(G, want64[0]) <= TOL_BF16_F64
+    assert _rel(r, want64[1]) <= TOL_BF16_F64
+    same = flat[:, None] == flat[None, :]
+    if not bool(same.all()):
+        assert _rel(G.masked_fill(same, 0.0),
+                    want64[0].masked_fill(same, 0.0)) <= TOL_BF16_F64
+    assert _rel(G, want16[0]) <= 2e-2 and _rel(r, want16[1]) <= 2e-2
+    assert torch.equal(G, G.T)
+
+
 @pytest.mark.parametrize("m", [1, 8, 77, 200])
 @pytest.mark.parametrize("K", [2001, 72309])
 def test_bf16_packets_equal_f32_on_the_upcast_operand(cuda_device, m, K):
-    """bf16 K1 and K7 (f32 sums and outputs) equal the f32 kernels on the
-    upcast operand under torch.equal (a bf16 element lands widened in the
-    f32 ring, and the chunk and sum order are the f32 kernel's), lie within
-    the reference's bf16 tolerance 2e-2 of the plain version, and K1 == K7
-    on the gathered rows; each counts on its own bf16 counter."""
+    """bf16 K1 and K7 (f32 sums and outputs, tensor cores) against the plain
+    version in f64 on the upcast operand (1e-4, G, r and G's cross terms)
+    and in bf16 (2e-2), G == G^T, two runs with the same bits, K1 == K7 on
+    the gathered rows; each counts on its own bf16 counter."""
     g = torch.Generator(device=cuda_device).manual_seed(m)
     X = torch.randn((300, K), generator=g, device=cuda_device,
                     dtype=torch.bfloat16)
@@ -110,25 +131,27 @@ def test_bf16_packets_equal_f32_on_the_upcast_operand(cuda_device, m, K):
     G7, r7 = gk.gram_packet_dense(Y, u, **knobs)
     assert gk.ROWS_PACKET_BF16.launches == gk.DENSE_PACKET_BF16.launches == 1
     assert gk.ROWS_PACKET.launches == gk.DENSE_PACKET.launches == 0
-    assert G1.dtype == r1.dtype == torch.float32
-    F1 = gk.gram_packet_sampled_rows(X.float(), flat, u.float(), **knobs)
-    F7 = gk.gram_packet_dense(Y.float(), u.float(), **knobs)
-    assert torch.equal(G1, F1[0]) and torch.equal(r1, F1[1])
-    assert torch.equal(G7, F7[0]) and torch.equal(r7, F7[1])
+    want64 = tref.gram_packet_sampled_ref(X.double(), flat, u.double(),
+                                          **knobs)
+    want16 = tref.gram_packet_sampled_ref(X, flat, u, **knobs)
+    _bf16_gates((G1, r1), want64, want16, flat)
     assert torch.equal(G1, G7) and torch.equal(r1, r7)
-    want = tref.gram_packet_sampled_ref(X, flat, u, **knobs)
-    assert _rel(G1, want[0]) <= 2e-2 and _rel(r1, want[1]) <= 2e-2
+    again = gk.gram_packet_sampled_rows(X, flat, u, **knobs)
+    assert torch.equal(again[0], G1) and torch.equal(again[1], r1)
 
+
+@pytest.mark.parametrize("n", [5000, 5001])
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 128, 200])
 @pytest.mark.parametrize("d", [300, 20958])
-def test_bf16_cols_packet_equals_f32_and_k7(cuda_device, m, d):
-    """bf16 K3 (f32 sums and outputs) at both built tile edges: equal to f32
-    K3 on the upcast operand and to bf16 K7 on X[:, flat]^T at K3's chunk
-    under torch.equal, within 2e-2 of the plain version, counted on its own
-    counter."""
+def test_bf16_cols_packet_equals_f32_and_k7(cuda_device, m, d, n):
+    """bf16 K3 (f32 sums and outputs, tensor cores) at both tile edges:
+    against the plain version in f64 on the upcast operand (1e-4) and in
+    bf16 (2e-2), G == G^T, two runs with the same bits, and equal to bf16
+    K7 on X[:, flat]^T at K3's chunk under torch.equal; counted on its own
+    counter.  An odd row length n puts the elements of one sampled column
+    in alternate halves of their 4-byte words."""
     from repro_torch.kernels.gram import sampled_colmajor as sc
     g = torch.Generator(device=cuda_device).manual_seed(m + d)
-    n = 5000
     X = torch.randn((d, n), generator=g, device=cuda_device,
                     dtype=torch.bfloat16)
     u = torch.randn((d,), generator=g, device=cuda_device,
@@ -140,15 +163,16 @@ def test_bf16_cols_packet_equals_f32_and_k7(cuda_device, m, d):
     gk.reset_launch_counts()
     G3, r3 = gk.gram_packet_sampled_cols(X, flat, u, **knobs)
     assert gk.COLS_PACKET_BF16.launches == 1 and gk.COLS_PACKET.launches == 0
-    assert G3.dtype == r3.dtype == torch.float32
-    F3 = gk.gram_packet_sampled_cols(X.float(), flat, u.float(), **knobs)
-    assert torch.equal(G3, F3[0]) and torch.equal(r3, F3[1])
+    want64 = tref.gram_packet_sampled_cols_ref(X.double(), flat, u.double(),
+                                               **knobs)
+    want16 = tref.gram_packet_sampled_cols_ref(X, flat, u, **knobs)
+    _bf16_gates((G3, r3), want64, want16, flat)
     chunk = sc.cols_packet_geometry(m, d, torch.bfloat16).chunk
     Y = X[:, flat.long()].T.contiguous()
     G7, r7 = gk.gram_packet_dense(Y, u, bk=chunk, **knobs)
     assert torch.equal(G3, G7) and torch.equal(r3, r7)
-    want = tref.gram_packet_sampled_cols_ref(X, flat, u, **knobs)
-    assert _rel(G3, want[0]) <= 2e-2 and _rel(r3, want[1]) <= 2e-2
+    again = gk.gram_packet_sampled_cols(X, flat, u, **knobs)
+    assert torch.equal(again[0], G3) and torch.equal(again[1], r3)
 
 
 def test_kernel_refuses_bad_indices_on_card(cuda_device):

@@ -126,20 +126,76 @@ def test_every_col_pick_is_built(dtype):
 
 @pytest.mark.parametrize("m,K", SHAPES)
 def test_bf16_packets_take_the_f32_geometry_and_chunk(m, K):
-    """bf16 K7 / K1 run the f32 pick at the f32 chunk with the f32 ring (a
-    bf16 element lands widened in an f32 slot), so their sums are the f32
-    kernel's on the upcast operand; K3 and the matvecs take no bf16."""
-    for source in ("dense", "rows"):
-        f32 = gkk.dense_geometry(m, K, torch.float32, source=source)
-        bf16 = gkk.dense_geometry(m, K, torch.bfloat16, source=source)
-        assert bf16.chunk == f32.chunk and bf16.bm == f32.bm
-        assert bf16 == gkk.dense_geometry(
-            m, K, torch.float32, source=source, micro=bf16[1:3],
-            stages=gkk.DENSE_RING[0], steps=gkk.DENSE_RING[1])
-        assert (bf16.bm, bf16.tm, bf16.tn) in gkk.GATHERED_TILES[
-            torch.bfloat16]
+    """bf16 K7 / K1 / K3 run the tensor-core tile at their own picks (no
+    longer the f32 ones): the tile edge from m alone, a built ring whose
+    shared memory fits a block, the same chunk and geometry for K1 and K7
+    (so K1 == K7 on the gathered rows), and K3's chunk handed to K7 keeps
+    K7 at K3's tile edge (so K3 == K7 on X[:, flat]^T); the matvecs take no
+    bf16."""
+    bf16 = torch.bfloat16
+    k7 = gkk.dense_geometry(m, K, bf16)
+    k1 = sk.rows_packet_geometry(m, K, bf16)
+    assert k7[:-1] == k1[:-1] and (k7.source, k1.source) == ("dense", "rows")
+    assert k1.chunk == tuning.default_chunk(m, K, "rows", bf16)
+    k3 = sc.cols_packet_geometry(m, K, bf16)
+    assert k3.chunk == tuning.default_chunk(m, K, "cols", bf16)
+    at_k3 = gkk.dense_geometry(m, K, bf16, k3.chunk)
+    assert (at_k3.bm, at_k3.chunk, at_k3.splits) == (k3.bm, k3.chunk,
+                                                     k3.splits)
+    for geom in (k7, k1, k3, at_k3):
+        assert geom.bm == tuning.mma_edge(m) == (16 if m <= 16 else 128)
+        assert (geom.tm, geom.tn) == gkk.MMA_MICRO
+        assert geom[:1] + geom[3:5] in gkk.MMA_BUILT[geom.source]
+        assert geom.threads == gkk.MMA_THREADS == 128
+        assert geom.grid == (gkk.lower_tiles(m, geom.bm), geom.splits)
+        assert geom.smem == gkk.mma_bytes(geom.bm, geom.stages, geom.steps,
+                                          geom.source, geom.grid[0])
+        assert 0 < geom.smem <= sk.SMEM_PER_BLOCK == 232448
+        assert geom.splits == -(-K // geom.chunk) <= tuning.MAX_SPLITS
     with pytest.raises(TypeError, match="K5 / K6"):
         sk.matvec_geometry(m, K, 1, torch.bfloat16, "rows")
+
+
+# The f32 / f64 picks at the real-sim shapes, as they stood before the bf16
+# packets moved to the tensor cores (bf16 has its own picks and chunk now;
+# these must not move): (bm, tm, tn, stages, steps, threads, grid, smem,
+# group, chunk, splits, source).
+PINNED = {
+    ("rows", 8, torch.float32): (32, 4, 4, 3, 16, 64, (1, 252), 14016, 16,
+                                 288, 252, "rows"),
+    ("rows", 128, torch.float32): (32, 4, 4, 3, 16, 64, (10, 103), 14016, 16,
+                                   704, 103, "rows"),
+    ("cols", 8, torch.float32): (16, 2, 2, 3, 32, 64, (1, 73), 15744, 16, 288,
+                                 73, "cols"),
+    ("cols", 128, torch.float32): (32, 4, 4, 4, 8, 64, (10, 13), 9344, 16,
+                                   1632, 13, "cols"),
+    ("dense", 20958, torch.float32): (128, 8, 8, 3, 16, 256, (13530, 1),
+                                      50880, 16, 93280, 1, "dense"),
+    ("rows", 8, torch.float64): (32, 4, 4, 3, 16, 64, (1, 252), 26496, 16,
+                                 288, 252, "rows"),
+    ("rows", 128, torch.float64): (32, 4, 4, 3, 16, 64, (10, 103), 26496, 16,
+                                   704, 103, "rows"),
+    ("cols", 8, torch.float64): (16, 2, 2, 3, 32, 64, (1, 73), 28416, 16, 288,
+                                 73, "cols"),
+    ("cols", 128, torch.float64): (32, 4, 4, 4, 8, 64, (10, 13), 17664, 16,
+                                   1632, 13, "cols"),
+    ("dense", 20958, torch.float64): (64, 4, 4, 3, 16, 256, (53956, 1), 51072,
+                                      16, 93280, 1, "dense")}
+
+
+@pytest.mark.parametrize("source,m,dtype", sorted(PINNED, key=str))
+def test_f32_f64_picks_at_real_sim_are_unchanged(source, m, dtype):
+    """K1 / K7 at n = 72309 (K8 at CholeskyQR's 93267), K3 at d = 20958:
+    the f32 and f64 geometry and chunk, and the matvecs' chunk, which must
+    equal the packets' so that K5 / K6 equal K3 / K1's r."""
+    K = {"rows": 72309, "cols": 20958, "dense": 93267}[source]
+    geom = (sc.cols_packet_geometry(m, K, dtype) if source == "cols" else
+            gkk.dense_geometry(m, K, dtype, source=source))
+    assert tuple(geom) == PINNED[(source, m, dtype)]
+    assert geom.chunk == tuning.default_chunk(
+        m, K, "cols" if source == "cols" else "rows")
+    if source != "dense":
+        assert sk.matvec_geometry(m, K, 8, dtype, source).chunk == geom.chunk
 
 
 def test_dense_tile_edge_at_the_main_shapes():
@@ -172,11 +228,29 @@ def test_every_built_geometry_fits_a_block(m, K, dtype):
 @pytest.mark.parametrize("bm,stages,steps,dtype,want", [
     (128, 3, 16, torch.float32, 3 * (2 * 16 * 132 + 16) * 4),
     (32, 2, 8, torch.float32, 2 * (2 * 8 * 36 + 8) * 4),
-    (64, 3, 16, torch.float64, 3 * (2 * 16 * 66 + 16) * 8),
-    # bf16 lands in f32 slots: the f32 ring
-    (128, 3, 16, torch.bfloat16, 3 * (2 * 16 * 132 + 16) * 4)])
+    (64, 3, 16, torch.float64, 3 * (2 * 16 * 66 + 16) * 8)])
 def test_ring_bytes_counts_two_operands_and_u(bm, stages, steps, dtype, want):
     assert gkk.ring_bytes(bm, stages, steps, dtype) == want
+
+
+@pytest.mark.parametrize("bm,stages,steps,source,tiles,want", [
+    # 260 ints of offsets and 258 8-byte sources, then per stage 128 raw
+    # rows of 9 chunks and u's; with a tile below the diagonal operand j's
+    # 128 rows too
+    (128, 3, 64, "rows", 1, 4 * 260 + 8 * 258 + 4 * 3 * (128 * 36 + 36)),
+    (128, 3, 64, "rows", 3, 4 * 260 + 8 * 258 + 4 * 3 * (256 * 36 + 36)),
+    (16, 4, 128, "dense", 1, 4 * 36 + 8 * 34 + 4 * 4 * (16 * 68 + 68)),
+    # word slots: 4 bytes a step, u still a raw row
+    (128, 3, 32, "cols", 1, 4 * 260 + 8 * 258 + 4 * 3 * (128 * 32 + 20)),
+    (128, 3, 32, "cols", 3, 4 * 260 + 8 * 258 + 4 * 3 * (256 * 32 + 20)),
+    (16, 3, 32, "cols", 1, 4 * 36 + 8 * 34 + 4 * 3 * (16 * 32 + 20))])
+def test_mma_bytes_counts_info_panel_rows_and_u(bm, stages, steps, source,
+                                                tiles, want):
+    """mma_tile's shared memory (csrc/dense_tile.cuh, MmaTile): the rows'
+    offsets and sources, then per stage operand i's panel rows (and j's
+    where a tile lies below the diagonal) and u's raw row; the kernel
+    refuses a launch whose count differs."""
+    assert gkk.mma_bytes(bm, stages, steps, source, tiles) == want
 
 
 @pytest.mark.parametrize("over,err", [
@@ -217,7 +291,7 @@ def test_dense_geometry_refuses_f64_wide_tiles_and_other_dtypes():
         gkk.dense_geometry(128, 1000, torch.float64, stages=2, steps=8)
     with pytest.raises(TypeError):
         gkk.dense_geometry(128, 1000, torch.float16)
-    # bf16 is built for the packets K7, K1 and K3 at the f32 picks alone
+    # bf16 (K7, K1, K3 on the tensor cores) is built at its picks alone
     with pytest.raises(ValueError, match="bfloat16 on cols"):
         gkk.dense_geometry(128, 1000, torch.bfloat16, source="cols",
                            stages=2)
@@ -233,6 +307,15 @@ def _as_int(t):
     return tuple(map(int, t))
 
 
+def _mma_built(src, entry):
+    """The (bm, stages, steps) a source's bf16 dispatch (REPRO_MMA lines
+    after ``entry``) builds mma_tile for."""
+    body = src[src.index(entry):]
+    body = body[:body.index("#undef REPRO_MMA")]
+    return {_as_int(t) for t in
+            re.findall(r"REPRO_MMA\((\d+), (\d+), (\d+)\)\n", body)}
+
+
 @pytest.mark.parametrize("kernel", ["dense", "gathered", "cols"])
 def test_host_table_matches_what_the_source_builds(kernel):
     """gram_dense.cu's dispatch (K7 / K8), sampled_rows.cu's (K1) and
@@ -243,32 +326,31 @@ def test_host_table_matches_what_the_source_builds(kernel):
         body = src[src.index("int packet_impl("):
                    src.index("#undef REPRO_TILE")]
         built = {_as_int(t) for t in re.findall(tile, body)}
-        # one list for f32, f64 and bf16 input
-        assert set(gkk.COLS_BUILT) == set(DTYPES) | {torch.bfloat16}
+        # one list for f32 and f64; bf16 runs mma_tile
+        assert set(gkk.COLS_BUILT) == set(DTYPES)
         for dtype in gkk.COLS_BUILT:
             assert built == set(gkk.COLS_BUILT[dtype])
+        assert _mma_built(src, "int packet_bf16(") == set(
+            gkk.MMA_BUILT["cols"])
         return
     if kernel == "gathered":
         src = (CSRC / "sampled_rows.cu").read_text()
         body = src[src.index("int packet_impl("):
                    src.index("#undef REPRO_TILE")]
         f32, f64 = body.split("} else {")
-        # bf16 (In = __nv_bfloat16, T = float) takes the f32 branch
-        for dtype, part in ((torch.float32, f32), (torch.float64, f64),
-                            (torch.bfloat16, f32)):
+        for dtype, part in ((torch.float32, f32), (torch.float64, f64)):
             built = {_as_int(t) for t in re.findall(tile, part)}
             assert built == {t + gkk.DENSE_RING
                              for t in gkk.GATHERED_TILES[dtype]}
+        assert _mma_built(src, "int packet_bf16(") == set(
+            gkk.MMA_BUILT["rows"])
         return
     src = (CSRC / "gram_dense.cu").read_text()
     rings = set(re.findall(r"REPRO_TILE\(B, M, N, (\d+), (\d+)\)", src))
     f32 = set(re.findall(r"REPRO_RINGS\((\d+), (\d+), (\d+)\)\n", src))
     body = src[src.index("int dense_impl("):src.index("#undef REPRO_RINGS")]
-    bf16, rest = body.split("} else if constexpr")
-    f64 = set(re.findall(tile, rest.split("} else {")[1]))
-    bf16 = {_as_int(t) for t in re.findall(tile, bf16)}
-    assert {t[:3] for t in bf16} == set(gkk.DENSE_TILES[torch.bfloat16])
-    assert {t[3:] for t in bf16} == set(gkk.DENSE_RINGS[torch.bfloat16])
+    f64 = set(re.findall(tile, body.split("} else {")[1]))
+    assert _mma_built(src, "int dense_bf16(") == set(gkk.MMA_BUILT["dense"])
     assert {_as_int(t) for t in rings} == set(gkk.DENSE_RINGS[torch.float32])
     assert {_as_int(t) for t in f32} == set(gkk.DENSE_TILES[torch.float32])
     assert {_as_int(t)[:3] for t in f64} == set(
@@ -371,3 +453,44 @@ def test_ptxas_report_compares_kernel_by_kernel(capsys):
     assert "1 differ" in capsys.readouterr().out
     assert ptxas_report._ANON.sub("_GLOBAL__N__", "_ZN48_GLOBAL__N__29a5fd"
                                   "ca_15_rows") == "_ZN48_GLOBAL__N__15_rows"
+
+
+def test_ptxas_report_pairs_the_kernels_of_an_edited_source(capsys):
+    """An anonymous-namespace kernel's name carries a hash of its source
+    as well as the build's: an edit anywhere in the source moves it, so the
+    comparison takes both out, and an unchanged kernel of an edited source
+    still pairs with the parent's."""
+    from repro_torch.launch import ptxas_report
+    raw = "_ZN48_GLOBAL__N__29a5fdca_15_sampled_rows_cu_{}10rows_applyIfEv"
+    lines = ["Used 40 registers"]
+    a = {"s.cu:" + ptxas_report._name(raw.format("0132b837")): lines}
+    b = {"s.cu:" + ptxas_report._name(raw.format("1ea0f816")): lines}
+    assert ptxas_report.compare(*(
+        {ptxas_report._name(k): v for k, v in d.items()} for d in (a, b)))
+    assert "1 kernels equal, 0 differ" in capsys.readouterr().out
+
+
+def test_bf16_packet_inputs_come_from_the_seed_alone():
+    """launch/bf16_packets.py's inputs (phase 2c's, and a parent tree's in
+    the same call): per m in (128, 8), indices in range in blocks of 8 with
+    a duplicate across blocks, u of the contraction's length, the same
+    from the same seed and other from another."""
+    from repro_torch.launch import bf16_packets as bp
+    Xb = torch.zeros((300, 500), dtype=torch.bfloat16)
+    a, b, c = bp.cases(Xb, 0), bp.cases(Xb, 0), bp.cases(Xb, 1)
+    assert [case["m"] for case in a] == list(bp.MS) == [128, 8]
+    for case, same, other in zip(a, b, c):
+        m = case["m"]
+        for key, hi in (("flat", 300), ("flat_c", 500)):
+            flat = case[key]
+            assert flat.dtype == torch.int32 and flat.shape == (m,)
+            assert 0 <= int(flat.min()) and int(flat.max()) < hi
+            blocks = flat.view(m // 8, 8)
+            assert all(len(set(row.tolist())) == 8 for row in blocks)
+            if m > 8:
+                assert len(set(flat.tolist())) < m     # across blocks
+            assert torch.equal(flat, same[key])
+            assert not torch.equal(flat, other[key])
+        assert case["u"].shape == (500,) and case["u_c"].shape == (300,)
+        assert case["u"].dtype == case["u_c"].dtype == torch.bfloat16
+        assert torch.equal(case["u"], same["u"])

@@ -193,6 +193,30 @@ def test_replicated_decode_matches_reference(world, arch, P):
                                    atol=LOGIT_TOL)
 
 
+def test_first_difference_traces_every_moe_tensor(world):
+    """The trace behind phase 15b's bits gate: dbrx reduced, prefill and 2
+    fed steps on 4 ranks against one process, every MoE call's input,
+    router probabilities, selection, expert outputs (each rank's rows of
+    the one process's buffer), slots and combined rows, then the logits; on
+    the CPU every one equal, so no first difference."""
+    _, _, tc, model = shared_model("dbrx_132b")
+    B, S, steps = 2, 24, 2
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tc.vocab, (B, S)).astype(np.int64))
+    out = EP.first_difference(world.ranks(4), tc, model.param_tree(), model,
+                              toks[:, :S - steps], steps, S, 4,
+                              feed=toks[:, S - steps:])
+    calls = tc.n_layers // tc.moe.every_n_layers * (1 + steps)
+    names = ["input", "router probs", "selection", "expert outputs",
+             "expert slots", "combined"]
+    assert [name for _, name, _, _ in out["records"]] == (
+        names * calls + ["prefill logits", "decode logits"])
+    assert [c for c, *_ in out["records"][:-2]] == [
+        1 + i // len(names) for i in range(len(names) * calls)]
+    assert out["first"] is None
+    assert all(eq and diff == 0.0 for _, _, eq, diff in out["records"])
+
+
 def test_engine_on_ranks_equals_one_rank(world):
     """``Engine(..., comm=...)`` on two ranks, each holding two of the
     four experts, every rank given the same requests: the one-rank

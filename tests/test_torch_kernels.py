@@ -593,13 +593,23 @@ def test_bf16_cols_packet_matches_reference(shape, knobs):
 
 
 def test_bf16_cols_packet_geometry_is_the_f32_one():
-    """K3's bf16 build is made at the f32 picks alone: every m and d gives
-    the f32 geometry (an f32 ring, so the same shared memory), and a
-    geometry the f32 build lacks is refused in bf16 too."""
+    """K3's bf16 build (the tensor-core tile on word slots) has its own
+    picks, no longer the f32 ones: for every m and d a built geometry whose
+    shared memory fits a block, at the bf16 chunk, which K7 takes when it
+    is handed that chunk (so K3 == K7 on X[:, flat]^T); a geometry it is
+    not built for is refused."""
+    from repro_torch.kernels.gram import gram_kernel as gkk
+    from repro_torch.kernels.gram import tuning
     for m in (1, 8, 16, 17, 77, 128, 200):
         for d in (128, 20958):
-            assert (sc.cols_packet_geometry(m, d, torch.bfloat16)
-                    == sc.cols_packet_geometry(m, d, torch.float32))
+            geom = sc.cols_packet_geometry(m, d, torch.bfloat16)
+            assert geom[:1] + geom[3:5] in gkk.MMA_BUILT["cols"]
+            assert geom.smem <= sk.SMEM_PER_BLOCK
+            assert geom.chunk == tuning.default_chunk(m, d, "cols",
+                                                      torch.bfloat16)
+            k7 = gkk.dense_geometry(m, d, torch.bfloat16, geom.chunk)
+            assert (k7.bm, k7.chunk, k7.grid) == (geom.bm, geom.chunk,
+                                                  geom.grid)
     with pytest.raises(ValueError, match="bfloat16 on cols"):
         sc.cols_packet_geometry(128, 2000, torch.bfloat16, stages=2)
 
