@@ -191,7 +191,28 @@ Phases (any failure raises; nothing is caught):
      master leaf), ms a step, host ms in the collectives and each rank's
      allocator peak; (d) the dry run's MoE train cells on 4 ranks (phase
      14c: probed, or skipped for memory) and dbrx's and jamba's analytic
-     records at 4 and 16 ranks.
+     records at 4 and 16 ranks;
+ 16. the reference's production layout on a grid of four gloo ranks
+     sharing the card (plain torch and collectives), llama3.2-3b at its
+     published width cut to GRID_LAYERS layers (GRID_ZERO1_LAYERS in (a),
+     whose replicated world holds four whole states), f32, on phase 15's
+     world: (a) a (4, 1) grid,
+     ZeRO-1 alone: every rank's blocks of the state after GRID_STEPS
+     Trainer steps the same bytes as its cut of the replicated
+     data-parallel world's (SHA-256 a leaf), each rank's optimizer bytes
+     a quarter of the replicated; (b) a (2, 2) grid, tensor parallelism
+     over 'model' and ZeRO-1 over 'data', against the same step in one
+     process (loss, grad norm, each leaf's m and master move: 15c's
+     gates), ms
+     a step, host ms in the collectives and the allocator peak of each
+     rank, and the f64 twin at GRID_F64_LAYERS layer (loss within 1e-10);
+     (c) as (b) with the config's fsdp set (each layer's weights
+     gathered over 'data' before use, their gradients reduce-scattered);
+     (d) a checkpoint written on 2 x 2 restored on 1 x 2 (the cpu-small
+     preset's width): the restored state has the saved bits;
+     (e) the dry run's analytic records of every arch x shape on the
+     reference's 16x16 and 2x16x16 meshes: none fails; a rank's train_4k
+     bytes of dbrx, jamba and llama3.2-3b.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -4303,17 +4324,24 @@ def ep_records_check(gates, dev, stats) -> None:
                 "analytic records at 4 and 16 ranks ok")
 
 
-def experts_phase(seed: int, stats: dict, dev=None) -> dict:
+def spawn_world(dev, n_ranks: int):
+    from repro_torch.core import SolverWorld
+    world, secs = timed(lambda: SolverWorld(n_ranks, device=dev,
+                                            kernels=False))
+    log(f"  {n_ranks} gloo ranks spawned in {secs:.1f} s")
+    return world
+
+
+def experts_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     """Phase 15: experts sharded over EP_RANKS gloo ranks sharing the card
     (plain torch and collectives: the returned launch counts are all
-    zero).  Raises at the end if any gate failed."""
-    from repro_torch.core import SolverWorld
+    zero), on ``world`` when given (its caller closes it).  Raises at the
+    end if any gate failed."""
     dev = torch.device("cuda") if dev is None else dev
     gates = Gates()
     gk.reset_launch_counts()
-    world, secs = timed(lambda: SolverWorld(EP_RANKS, device=dev,
-                                            kernels=False))
-    log(f"  {EP_RANKS} gloo ranks spawned in {secs:.1f} s")
+    own = world is None
+    world = spawn_world(dev, EP_RANKS) if own else world
     try:
         steps = [(f"15a {tag}", lambda a=arch, t=tag: ep_block_check(
             world, gates, dev, seed, stats, a, t)) for arch, tag in EP_BLOCK]
@@ -4330,11 +4358,279 @@ def experts_phase(seed: int, stats: dict, dev=None) -> dict:
             torch.cuda.ipc_collect()    # what the ranks held by IPC
             torch.cuda.empty_cache()
     finally:
-        world.close()
+        if own:
+            world.close()
     ep_records_check(gates, dev, stats)
     counts = launches()
     if gates.failed:
         raise AssertionError(f"phase 15 gates failed: {gates.failed}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the reference's production layout on a grid of ranks
+# ---------------------------------------------------------------------------
+# Four gloo ranks share the card: phase 15's world (as phases 9 and 14's);
+# weights reach them by CUDA IPC, each rank copies its blocks
+# (train.trainer.place_fresh).  llama3.2-3b at its published width cut to
+# GRID_LAYERS of its 28 layers in f32; 16a at GRID_ZERO1_LAYERS: its
+# replicated world holds four whole states at once, and at 4 layers a
+# rank's 3.19 GB of weights, as much gradient, 9.56 GB of optimizer state
+# and the gradient all-reduce's 3.19 GB buffer came to 19 GB a rank, 76 GB
+# for four (the card's first run: out of memory; 2 layers ran, 16.7 GB
+# a rank, at about 11 s a step of host-staged gloo, so 1 keeps the whole
+# run near its time).  GRID_BATCH rows x tokens a step, the rows over
+# 'data'.  16b / 16c hold one step of the grid to one process at 15c's
+# gates, m's included (Adam's first move is m / sqrt(v), about the sign of
+# the gradient whatever its scale, so the master's move alone would not
+# see a leaf's gradient scaled wrongly; m is the gradient's own scale)
+# (the sums regroup: rows over 'data', heads and vocab columns over
+# 'model') and time it beside the one process's; the f64 twin at
+# GRID_F64_LAYERS layer holds the loss at GRID_F64_TOL.  Their weights are
+# drawn as init_params draws them, the attention projections rescaled to
+# their fan-in (attention_fan_in, as 13c / 13d): under the reference's own
+# init the first card run read a gradient norm of 3.6e4 at 4 layers, and
+# the f32 sums regrouped over the grid moved it by 15 % (the f64 twin
+# agreed to 1.5e-16; one process with its rows regrouped moves as far,
+# launch/f32_spread.py).  16d uses the cpu-small preset's width
+# (launch/train.py): a checkpoint of the full width's state would be
+# 13 GB on the disk.
+GRID_RANKS = EP_RANKS
+GRID_LAYERS = 4
+GRID_ZERO1_LAYERS = 1
+GRID_F64_LAYERS = 1
+GRID_BATCH = (4, 512)
+GRID_STEPS = 2                  # 16a's; 16b / 16c take one
+GRID_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-3, "master": 2e-2}
+GRID_F64_TOL = 1e-10
+GRID_MESHES = ("single", "multi")
+
+
+def grid_cfg(layers: int, dtype, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3_2_3b"), n_layers=layers,
+                               dtype=dtype, param_dtype=dtype, **kw)
+
+
+def grid_zero1_check(world, gates, dev, seed: int, stats) -> None:
+    """16a: ZeRO-1 on (4, 1) against the replicated world, bit for bit."""
+    from repro_torch.launch.grid_train import zero1_against_replicated
+    from repro_torch.train import TrainRunConfig
+    cfg = grid_cfg(GRID_ZERO1_LAYERS, torch.float32)
+    B, S = GRID_BATCH
+    run = TrainRunConfig(steps=GRID_STEPS, global_batch=B, seq_len=S,
+                         lr=1e-4, warmup=1, log_every=1, seed=seed)
+    outs = zero1_against_replicated(world, (GRID_RANKS, 1), cfg, run)
+    same = all(o["replicated"]["digests"] == o["grid"]["digests"]
+               and [h["loss"] for h in o["replicated"]["history"]]
+               == [h["loss"] for h in o["grid"]["history"]] for o in outs)
+    opt = [(o["grid"]["opt_bytes"], o["replicated"]["opt_bytes"])
+           for o in outs]
+    quarter = all(g * GRID_RANKS == r for g, r in opt)
+    hist = outs[0]["grid"]["history"]
+    stats["grid_16a"] = {
+        "loss": [h["loss"] for h in hist],
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "opt_gb": [g / 1e9 for g, _ in opt],
+        "replicated_opt_gb": [r / 1e9 for _, r in opt],
+        "peak_gb": {k: [(o[k]["peak_bytes"] or 0) / 1e9 for o in outs]
+                    for k in ("grid", "replicated")},
+        "run_s": {k: max(o[k]["run_s"] for o in outs)
+                  for k in ("grid", "replicated")}}
+    gates.check(
+        "16a ZeRO-1 on (4, 1) == the replicated world",
+        same and quarter and all(math.isfinite(h["loss"]) for h in hist),
+        f"{GRID_ZERO1_LAYERS} layers, f32, {GRID_STEPS} steps of {B} x {S} "
+        f"tokens: every leaf's block the same bytes on each rank "
+        f"{same}, losses {[round(h['loss'], 6) for h in hist]}, grad norm "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; optimizer GB a rank "
+        f"{[round(g / 1e9, 3) for g, _ in opt]} against "
+        f"{[round(r / 1e9, 3) for _, r in opt]} replicated (a quarter: "
+        f"{quarter}); peaks GB {stats['grid_16a']['peak_gb']}; the "
+        f"{GRID_STEPS} steps {stats['grid_16a']['run_s']} s "
+        f"(host-staged gloo)")
+
+
+def grid_one_process(cfg, dev, seed: int) -> tuple:
+    """Weights, a batch and one train step of ``cfg`` in this process:
+    (params, batch, the step's metrics, {"master", "m"} after it, its
+    ms)."""
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    attention_fan_in(params, cfg)
+    B, S = GRID_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_lm_batch(cfg.vocab, S, B, seed=seed).items()}
+    state = {"params": clone_tree(params), "opt": init_opt_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    (state, m1), secs = timed(lambda: step(state, batch))
+    want = {k: state["opt"][k] for k in ("master", "m")}
+    ms = secs * 1e3
+    del state
+    torch.cuda.empty_cache()
+    return params, batch, {k: float(v) for k, v in m1.items()}, want, ms
+
+
+def grid_tp_check(world, gates, seed: int, stats, tag: str, fsdp: bool,
+                  one: tuple, one64: tuple) -> None:
+    """16b / 16c: (2, 2), tensor parallelism and ZeRO-1 (with ``fsdp``
+    FSDP too), against one process in f32 and in f64."""
+    from repro_torch.launch.grid_train import grid_train_steps
+    grid = (2, 2)
+    params, batch, m1, want, one_ms = one
+    cfg = grid_cfg(GRID_LAYERS, torch.float32, fsdp=fsdp)
+    got = grid_train_steps(world, grid, cfg, params, batch, keep=False,
+                           want=want)
+    tm = got["first"]
+    rel = {k: abs(tm[k] - m1[k]) / abs(m1[k]) for k in ("loss", "grad_norm")}
+    worst = {k: max(((n, e) for n, e in got["err"].items()
+                     if n.startswith(k + "/")), key=lambda kv: kv[1])
+             for k in ("master", "m")}
+    p64, b64, m64, _, _ = one64
+    cfg64 = grid_cfg(GRID_F64_LAYERS, torch.float64, fsdp=fsdp)
+    g64 = grid_train_steps(world, grid, cfg64, p64, b64, keep=False)
+    rel64 = {k: abs(g64["first"][k] - m64[k]) / abs(m64[k])
+             for k in ("loss", "grad_norm")}
+    ms = max(s[-1] for s in got["step_s"]) * 1e3
+    host_ms = [round(h * 1e3, 1) for h in got["host_s"]]
+    peaks = [round((b or 0) / 1e9, 2) for b in got["peak_bytes"]]
+    kinds = {k: (v["all_reduces"], v["all_gathers"], v["reduce_scatters"])
+             for k, v in got["counters"][0].items()}
+    stats[f"grid_{tag}"] = {"rel": rel, "worst": worst, "rel64": rel64,
+                            "ms": ms, "one_process_ms": one_ms,
+                            "host_ms": host_ms, "peak_gb": peaks,
+                            "calls_rank0": kinds,
+                            "opt_gb": [b / 1e9 for b in got["opt_bytes"]]}
+    gates.check(
+        f"{tag} (2, 2){' FSDP' if fsdp else ''} == one process",
+        rel["loss"] <= GRID_TOL["loss"]
+        and rel["grad_norm"] <= GRID_TOL["grad_norm"]
+        and worst["m"][1] <= GRID_TOL["m"]
+        and worst["master"][1] <= GRID_TOL["master"]
+        and rel64["loss"] <= GRID_F64_TOL,
+        f"{GRID_LAYERS} layers f32, one step: loss "
+        f"{tm['loss']:.6f} (rel {rel['loss']:.1e}), grad norm "
+        f"{tm['grad_norm']:.4f} (rel {rel['grad_norm']:.1e}), worst master "
+        f"move {worst['master'][0]} {worst['master'][1]:.2e} (tol "
+        f"{GRID_TOL['master']:g}), worst m {worst['m'][0]} "
+        f"{worst['m'][1]:.2e} (tol {GRID_TOL['m']:g}); f64 at {GRID_F64_LAYERS} layer: loss rel "
+        f"{rel64['loss']:.1e} (tol {GRID_F64_TOL:g}), grad norm rel "
+        f"{rel64['grad_norm']:.1e}; the step {ms:.1f} ms on the grid (the "
+        f"slowest rank) against {one_ms:.1f} ms in one process (each the "
+        f"first); host "
+        f"ms in the collectives by rank {host_ms}; rank 0's (all-reduce, "
+        f"all-gather, reduce-scatter) calls by group {kinds}; allocator "
+        f"peaks {peaks} GB a rank; optimizer GB a rank "
+        f"{[round(b / 1e9, 3) for b in got['opt_bytes']]}")
+
+
+def grid_restart_check(world, gates, seed: int, stats) -> None:
+    """16d: a checkpoint on 2 x 2 restored on 1 x 2, the same bits."""
+    import tempfile
+    from repro_torch.launch.grid_train import restore_on_grid
+    from repro_torch.launch.train import PRESETS, build_model_cfg
+    from repro_torch.train import TrainRunConfig, run_data_parallel
+    cfg = dataclasses.replace(
+        build_model_cfg("llama3_2_3b", PRESETS["cpu-small"]),
+        dtype=torch.float32, param_dtype=torch.float32)
+    ckpt = tempfile.mkdtemp(prefix="grid-ckpt-")
+    try:
+        run = TrainRunConfig(steps=2, global_batch=4, seq_len=256, lr=1e-3,
+                             warmup=1, log_every=1, seed=seed,
+                             ckpt_dir=ckpt)
+        (saved, save_s) = timed(lambda: run_data_parallel(
+            world, cfg, run, grid=(2, 2))["state"])
+        got, load_s = timed(lambda: restore_on_grid(world, (1, 2), cfg,
+                                                    run))
+        want, have = dict(tree_items(saved)), dict(tree_items(got["state"]))
+        same = want.keys() == have.keys() and all(
+            torch.equal(have[k], want[k]) for k in want)
+        nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats["grid_16d"] = {"bytes": nbytes, "train_save_s": save_s,
+                         "restore_s": load_s}
+    gates.check("16d restart 2 x 2 -> 1 x 2 keeps the saved bits",
+                same and got["step"] == 2,
+                f"{cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, "
+                f"f32): "
+                f"{nbytes / 1e9:.3f} GB of state, 2 steps and the write "
+                f"{save_s:.1f} s, the restore on 1 x 2 {load_s:.1f} s, "
+                f"step {got['step']}, every leaf equal {same}")
+
+
+def grid_dryrun_check(gates, dev, stats) -> None:
+    """16e: the analytic records on the reference's meshes."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun as D
+    out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_grid")
+    recs = []
+    for mesh in GRID_MESHES:
+        recs += D.run(ARCH_IDS, list(SHAPES), probe=False, out_dir=out,
+                      device=dev, grid=D.parse_mesh(mesh))
+    count = D.summarize(recs)
+    train = {(r["arch"], r["mesh"]): round(
+        r["memory_analysis"]["alias_bytes"] / 1e9, 3) for r in recs
+        if r["shape"] == "train_4k" and r["status"] == "ok"
+        and r["arch"] in ("dbrx-132b", "jamba-1.5-large-398b",
+                          "llama3.2-3b")}
+    stats["grid_16e"] = {"count": count, "train_state_gb": {
+        f"{a} {m}": v for (a, m), v in train.items()}}
+    gates.check("16e dry run on 16x16 and 2x16x16: no cell fails",
+                count["failed"] == 0 and count["ok"] > 0,
+                f"{count}; a rank's train_4k state GB {train}")
+
+
+def grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
+    """Phase 16: the production layout on a grid of GRID_RANKS gloo ranks
+    sharing the card (plain torch and collectives: the returned launch
+    counts are all zero), on ``world`` when given (phase 15's: its caller
+    closes it).  Raises at the end if any gate failed."""
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    own = world is None
+    world = spawn_world(dev, GRID_RANKS) if own else world
+    one = one64 = None
+    try:
+        def tp(tag, fsdp):
+            nonlocal one, one64
+            if one is None:
+                one = grid_one_process(grid_cfg(GRID_LAYERS, torch.float32),
+                                       dev, seed)
+                one64 = grid_one_process(
+                    grid_cfg(GRID_F64_LAYERS, torch.float64), dev, seed)
+            grid_tp_check(world, gates, seed, stats, tag, fsdp, one, one64)
+        for name, fn in (
+                ("16a", lambda: grid_zero1_check(world, gates, dev, seed,
+                                                 stats)),
+                ("16b", lambda: tp("16b", False)),
+                ("16c", lambda: tp("16c", True)),
+                ("16d", lambda: grid_restart_check(world, gates, seed,
+                                                   stats))):
+            _, secs = timed(fn)
+            stats[f"phase{name}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+    finally:
+        if own:
+            world.close()
+        one = one64 = None
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    _, secs = timed(lambda: grid_dryrun_check(gates, dev, stats))
+    stats["phase16e_s"] = secs
+    log(f"  16e took {secs:.1f} s")
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 16 gates failed: {gates.failed}")
     return counts
 
 
@@ -4520,9 +4816,26 @@ def main() -> int:
     log(f"== 15. experts sharded over {EP_RANKS} gloo ranks on one card: "
         "dbrx's and jamba's MoE blocks, dbrx decode and serving, a "
         "phi3.5-moe train step, the MoE dry-run cells (random weights)")
-    paths["experts"], stats["phase15_s"] = timed(
-        lambda: experts_phase(args.seed, stats))
-    log(f"  phase 15 took {stats['phase15_s']:.1f} s")
+    # phases 15 and 16 share one world of four gloo ranks (a spawn is
+    # 9-13 s)
+    world = spawn_world(dev, EP_RANKS)
+    try:
+        paths["experts"], stats["phase15_s"] = timed(
+            lambda: experts_phase(args.seed, stats, world=world))
+        log(f"  phase 15 took {stats['phase15_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # -- 16. the production layout on a grid of ranks ---------------------
+        log(f"== 16. the reference's production layout on a grid of "
+            f"{GRID_RANKS} gloo ranks on one card (phase 15's): ZeRO-1 on "
+            "(4, 1) against the replicated world, tensor parallelism (and "
+            "FSDP) on (2, 2) against one process, a restart 2 x 2 -> 1 x 2, "
+            "the dry run on 16x16 and 2x16x16 (random weights)")
+        paths["grid"], stats["phase16_s"] = timed(
+            lambda: grid_phase(args.seed, stats, world=world))
+        log(f"  phase 16 took {stats['phase16_s']:.1f} s")
+    finally:
+        world.close()
 
     if args.parent:     # after this process's last profiler trace
         parent_after = parent_bf16_times(args.parent, args.seed, args.reps)

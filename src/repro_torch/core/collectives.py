@@ -33,7 +33,8 @@ import torch
 class CollectiveSummary:
     """Calls by kind, their elements and bytes, and the dtypes moved.
     ``by_kind`` maps a kind (``"all_reduce"`` for a sum, ``"max"`` for a max
-    all-reduce, ``"hop"``, ``"all_to_all"`` and ``"all_gather"`` -- words
+    all-reduce, ``"hop"``, ``"all_to_all"``, ``"all_gather"`` and
+    ``"reduce_scatter"`` -- words
     as the elements this rank sent or contributed --, or the name of any
     other ``torch.distributed`` call a tap saw) to ``(calls, words)``.  A
     tap's record has no bytes or dtypes: 0 and the empty set."""
@@ -64,7 +65,9 @@ def _kinds(counters: dict) -> dict:
              "all_to_all": (counters.get("all_to_alls", 0),
                             counters.get("a2a_words", 0)),
              "all_gather": (counters.get("all_gathers", 0),
-                            counters.get("gather_words", 0))}
+                            counters.get("gather_words", 0)),
+             "reduce_scatter": (counters.get("reduce_scatters", 0),
+                                counters.get("rs_words", 0))}
     for name, (n, w) in counters.get("other", {}).items():
         kinds[name] = (n, w)
     return {k: v for k, v in kinds.items() if v[0]}
@@ -103,20 +106,23 @@ TAPPED = ("all_reduce", "all_gather", "all_gather_into_tensor",
           "all_gather_object", "all_to_all", "all_to_all_single", "barrier",
           "batch_isend_irecv", "broadcast", "broadcast_object_list", "gather",
           "recv", "reduce", "reduce_scatter", "reduce_scatter_tensor",
-          "scatter", "send")
+          "reduce_scatter_single", "scatter", "send")
 
 
 # Calls a tap records under Comm's kind, with the words of the tensor this
 # rank sends: (kind, its position, its keyword).
 _SENT = {"all_to_all_single": ("all_to_all", 1, "input"),
-         "all_gather": ("all_gather", 1, "tensor")}
+         "all_gather": ("all_gather", 1, "tensor"),
+         "reduce_scatter_tensor": ("reduce_scatter", 1, "input"),
+         "reduce_scatter_single": ("reduce_scatter", 1, "input")}
 
 
-def _tensors(x) -> list:
+def tensors(x) -> list:
+    """The tensors of an argument: itself, or those of a list / tuple."""
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, (list, tuple)):
-        return [t for item in x for t in _tensors(item)]
+        return [t for item in x for t in tensors(item)]
     return []
 
 
@@ -127,10 +133,11 @@ class WireTap:
     with ``op=ReduceOp.MAX``, also counted among the all-reduces, as
     ``Comm`` counts it), each send of
     ``batch_isend_irecv`` and each ``send`` as a ``"hop"``,
-    ``all_to_all_single`` and ``all_gather`` as ``"all_to_all"`` and
-    ``"all_gather"`` with the words this rank sends, any other call
-    under its own name.  :meth:`counters` has ``Comm.counters()``'s call
-    and word keys (and ``"other"``)."""
+    ``all_to_all_single``, ``all_gather`` and ``reduce_scatter_tensor``
+    (or ``reduce_scatter_single``) as ``"all_to_all"``, ``"all_gather"``
+    and ``"reduce_scatter"`` with the words this rank sends, any other
+    call under its own name.  :meth:`counters` has ``Comm.counters()``'s
+    call and word keys (and ``"other"``)."""
 
     def __init__(self):
         self.all_reduces = self.words = 0
@@ -146,7 +153,7 @@ class WireTap:
             self.hops += len(sent)
             self.hop_words += sum(t.numel() for t in sent)
         else:
-            moved = _tensors(list(args) + list(kwargs.values()))
+            moved = tensors(list(args) + list(kwargs.values()))
             words = sum(t.numel() for t in moved)
             if name == "all_reduce":
                 self.all_reduces += 1
@@ -195,3 +202,74 @@ class WireTap:
                 "max_reduces": self.max_reduces, "max_words": self.max_words,
                 "hops": self.hops, "hop_words": self.hop_words,
                 "other": {k: tuple(v) for k, v in self.other.items()}}
+
+
+# ------------------------------------------------- the tensor-parallel pair --
+# The autograd functions of a grid's layers (``models.api``): each forward
+# and each backward collective goes through the group's ``Comm``, so both
+# passes are counted (and seen by a WireTap).  A group of one is no group:
+# the functions return their input.
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward: the entry of
+    a tensor-parallel region (its input replicated, its gradient a sum of
+    the ranks' parts)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.clone(
+            memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward, identity backward: the exit of a
+    tensor-parallel region (the ranks' partial sums joined; every rank's
+    copy of the sum takes the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter of the gradient
+    backward: a weight sharded over the group (FSDP) made whole for one
+    use, its gradient summed over the group and cut back to the rank's
+    block."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return torch.cat(comm.all_gather(x).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = torch.stack(g.chunk(ctx.comm.size, dim=ctx.dim))
+        return ctx.comm.reduce_scatter(parts), None, None
+
+
+def copy_to(x: torch.Tensor, comm) -> torch.Tensor:
+    """``x`` into a tensor-parallel region over ``comm``'s group."""
+    return x if comm is None or comm.size == 1 else \
+        _CopyToGroup.apply(x, comm)
+
+
+def reduce_from(x: torch.Tensor, comm) -> torch.Tensor:
+    """The sum of the ranks' ``x`` out of a tensor-parallel region."""
+    return x if comm is None or comm.size == 1 else \
+        _ReduceFromGroup.apply(x, comm)
+
+
+def gather_from(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """The whole of a tensor sharded over ``comm``'s group along ``dim``."""
+    return x if comm is None or comm.size == 1 else \
+        _GatherFromGroup.apply(x, comm, dim)

@@ -554,9 +554,10 @@ class Comm:
     its copies and the wait for the group's slowest rank.
 
     The all-to-all and the all-gather (the expert-parallel MoE,
-    ``models.moe``) are counted apart, as the kinds ``"all_to_all"`` and
-    ``"all_gather"`` of the summaries (``core.collectives``), which no
-    solver declares."""
+    ``models.moe``; the grid's FSDP and ZeRO-1 gathers) and the
+    reduce-scatter (FSDP's gradients) are counted apart, as the kinds
+    ``"all_to_all"``, ``"all_gather"`` and ``"reduce_scatter"`` of the
+    summaries (``core.collectives``), which no solver declares."""
 
     def __init__(self, group, device):
         import torch.distributed as dist
@@ -594,6 +595,10 @@ class Comm:
         self.gather_words = 0   # elements this rank contributed to them
         self.gather_bytes = 0   # bytes this rank contributed to them
         self.gather_s = 0.0     # host seconds inside all-gather calls
+        self.reduce_scatters = 0    # reduce-scatter calls
+        self.rs_words = 0       # elements this rank contributed to them
+        self.rs_bytes = 0       # bytes this rank contributed to them
+        self.rs_s = 0.0         # host seconds inside reduce-scatter calls
 
     def counters(self) -> dict:
         """This rank's record of its calls since :meth:`reset`
@@ -602,8 +607,8 @@ class Comm:
             "all_reduces", "words", "max_reduces", "max_words", "max_bytes",
             "hops", "hop_words", "hop_bytes", "bytes", "reduce_s", "hop_s",
             "all_to_alls", "a2a_words", "a2a_bytes", "a2a_s", "all_gathers",
-            "gather_words", "gather_bytes", "gather_s", "staged", "backend",
-            "size")}
+            "gather_words", "gather_bytes", "gather_s", "reduce_scatters",
+            "rs_words", "rs_bytes", "rs_s", "staged", "backend", "size")}
         out["dtypes"] = tuple(sorted(self.dtypes))
         return out
 
@@ -709,6 +714,35 @@ class Comm:
         self.gather_bytes += t.numel() * t.element_size()
         self._record(t)
         return res
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (P, ...) on every rank: returns the sum over the ranks of
+        their ``t[rank]`` (this rank's part), one collective."""
+        if t.shape[0] != self.size:
+            raise ValueError(f"reduce_scatter: a leading axis of "
+                             f"{t.shape[0]} on a group of {self.size}")
+        self._wait_device()
+        t0 = time.perf_counter()
+        src = (t.to("cpu") if self.staged else t).reshape(-1)
+        out = src.new_empty(src.numel() // self.size)
+        # reduce_scatter_single is the newer name of reduce_scatter_tensor
+        rs = getattr(self._dist, "reduce_scatter_single", None) or \
+            self._dist.reduce_scatter_tensor
+        rs(out, src, group=self.group)
+        out = out.reshape(t.shape[1:])
+        if self.staged:
+            out = out.to(self.device)
+        self.rs_s += time.perf_counter() - t0
+        self.reduce_scatters += 1
+        self.rs_words += t.numel()
+        self.rs_bytes += t.numel() * t.element_size()
+        self._record(t)
+        return out
+
+    def host_s(self) -> float:
+        """Host seconds inside this rank's calls since :meth:`reset`."""
+        return (self.reduce_s + self.hop_s + self.a2a_s + self.gather_s
+                + self.rs_s)
 
 
 def _split(flat: torch.Tensor, shapes: list) -> list:

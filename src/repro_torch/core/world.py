@@ -31,6 +31,13 @@ respawn per solve would cost seconds each.
   ranks with their ``Comm`` (the data-parallel trainer,
   ``train.elastic``); a world built with ``kernels=False`` skips the
   kernel build that the solvers' ranks need.
+* :meth:`SolverWorld.run_grid` runs one on the first ranks laid out as a
+  grid (``{"pod", "data", "model"}``, ``core.grid``): each gets a
+  :class:`GridComm`, its coordinates and one ``Comm`` a group of each axis
+  (the ranks that differ on that axis alone; and on pod and data
+  together, the batch's axes).  ``dist.new_group`` must be entered by
+  every rank of the world, for every group, in one order: the first use
+  of a grid makes its groups on all the ranks, then keeps them.
 
 The backend rule: ``"nccl"`` needs one card per rank (rank r computes on
 ``cuda:r``) and raises for more ranks than cards; ``"gloo"`` lets every rank
@@ -61,6 +68,7 @@ import numpy as np
 import torch
 
 from . import collectives, engine
+from .grid import as_grid, coords_of, grid_name, grid_size
 
 _LOOPBACK_ENV = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
 
@@ -79,6 +87,77 @@ def _launches() -> dict:
     return launch_counts()
 
 
+# The axis groups of a grid, in the order every rank makes them; axes
+# absent from the grid drop out ("pod", "data" is "data" on a 2-D grid).
+GRID_GROUPS = (("model",), ("data",), ("pod",), ("pod", "data"))
+
+
+def _group_members(grid: dict, axes: tuple) -> list:
+    """Every group of ranks that differ on ``axes`` alone, each in rank
+    order, the groups in the order of the other coordinates."""
+    groups: dict = {}
+    for rank in range(grid_size(grid)):
+        c = coords_of(rank, grid)
+        key = tuple(c[a] for a in grid if a not in axes)
+        groups.setdefault(key, []).append(rank)
+    return list(groups.values())
+
+
+class GridComm:
+    """One rank's handle on a grid of ranks: ``grid`` (``{axis: size}``),
+    its ``coords``, its ``rank`` and the grid's ``size``, the ``device``,
+    the ``Comm`` of each of its axis groups (:meth:`axis`; ``None`` for an
+    axis of one rank: no group, no collective) and ``world``, the ``Comm``
+    of all the grid's ranks."""
+
+    def __init__(self, grid: dict, rank: int, device, comms: dict,
+                 world: engine.Comm):
+        self.grid = grid
+        self.rank = rank
+        self.size = grid_size(grid)
+        self.coords = coords_of(rank, grid)
+        self.device = torch.device(device)
+        self.world = world
+        self._comms = comms
+
+    def axis(self, *axes: str):
+        """The ``Comm`` of this rank's group over ``axes`` (those absent
+        from the grid dropped), ``None`` where the group is one rank."""
+        key = tuple(a for a in axes if a in self.grid)
+        return self._comms.get(key)
+
+    @property
+    def model(self):
+        return self.axis("model")
+
+    @property
+    def data(self):
+        return self.axis("data")
+
+    @property
+    def batch(self):
+        """The batch's axes, (pod, data)."""
+        return self.axis("pod", "data")
+
+    def comms(self) -> dict:
+        """``{name: Comm}`` of every group this rank talks on."""
+        out = {"+".join(k): c for k, c in self._comms.items()
+               if c is not None}
+        out["world"] = self.world
+        return out
+
+    def reset(self) -> None:
+        for c in self.comms().values():
+            c.reset()
+
+    def counters(self) -> dict:
+        return {k: c.counters() for k, c in self.comms().items()}
+
+    def host_s(self) -> float:
+        """Host seconds inside the rank's collectives, over its groups."""
+        return sum(c.host_s() for c in self.comms().values())
+
+
 class _Rank:
     """One rank's state: its groups, Comms and shards."""
 
@@ -88,6 +167,7 @@ class _Rank:
         self.groups = groups
         self.comms = {}
         self.shards = {}
+        self.grids = {}
 
     def comm(self, P: int) -> engine.Comm:
         if P not in self.comms:
@@ -139,8 +219,37 @@ class _Rank:
 
     def run(self, p: dict):
         """A function of the world's callers on the first P ranks:
-        ``fn(comm, device, **kwargs)``."""
-        return p["fn"](self.comm(p["P"]), self.device, **p["kwargs"])
+        ``fn(comm, device, **kwargs)`` (``comm`` the rank's
+        :class:`GridComm` when the call names a grid)."""
+        comm = (self.grids[p["grid"]] if p.get("grid")
+                else self.comm(p["P"]))
+        return p["fn"](comm, self.device, **p["kwargs"])
+
+    def make_grid(self, p: dict) -> None:
+        """Make a grid's groups (every rank of the world enters every
+        ``new_group``, in one order); a group that is the first k ranks
+        reuses the world's group of them, a group of one is none."""
+        import torch.distributed as dist
+        grid = p["grid"]
+        n = grid_size(grid)
+        comms = {}
+        for axes in GRID_GROUPS:
+            key = tuple(a for a in axes if a in grid)
+            if not key or key in comms:
+                continue
+            comms[key] = None
+            for ranks in _group_members(grid, key):
+                if len(ranks) == 1:
+                    continue
+                if ranks == list(range(len(ranks))):
+                    group = self.groups[len(ranks)]
+                else:
+                    group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    comms[key] = engine.Comm(group, self.device)
+        if self.rank < n:
+            self.grids[grid_name(grid)] = GridComm(
+                grid, self.rank, self.device, comms, self.comm(n))
 
     def _solve(self, p, form, plan, comm, Xl, idx, tensor) -> tuple:
         P = p["P"]
@@ -285,6 +394,7 @@ class SolverWorld:
                 proc.start()
                 self._procs.append(proc)
         self.size = n_ranks
+        self._grids = set()
         self.launches = [dict.fromkeys(_launches(), 0)
                          for _ in range(n_ranks)]
         ready = self._gather(n_ranks)
@@ -471,6 +581,22 @@ class SolverWorld:
         ranks' results in rank order."""
         P = self._ranks(n_ranks)
         return self._call("run", {"fn": fn, "P": P, "kwargs": kwargs}, P)
+
+    def run_grid(self, fn, grid, **kwargs) -> list:
+        """``fn(comm, device, **kwargs)`` on the first ``prod(grid)`` ranks
+        laid out as ``grid`` (``{"pod", "data", "model"}`` or a tuple,
+        ``core.grid.as_grid``; rank-major, model fastest): ``comm`` is
+        the rank's :class:`GridComm`.  The grid's groups are made on every
+        rank of the world at its first use.  Returns the ranks' results in
+        rank order."""
+        grid = as_grid(grid)
+        P = self._ranks(grid_size(grid))
+        key = grid_name(grid)
+        if key not in self._grids:
+            self._call("make_grid", {"grid": grid}, self.size)
+            self._grids.add(key)
+        return self._call("run", {"fn": fn, "P": P, "grid": key,
+                                  "kwargs": kwargs}, P)
 
     def _probes(self) -> dict:
         return {"tap": self.tap_wire, "peak": self.track_peak}

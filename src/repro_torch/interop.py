@@ -18,7 +18,11 @@ included.  For training, :func:`train_state_from_reference` and
 master, m and v, the step) both ways.  Each takes a rank's cut of experts
 sharded over ranks (``expert_shard=(rank, P)`` in, ``comm`` out: the
 gather gives back the reference's whole tree); :func:`join_expert_shards`
-joins the ranks' shards without a world.
+joins the ranks' shards without a world.  On a grid of ranks
+(``models.sharding``) the two ``..._from_reference`` functions cut the
+reference's tree into a rank's blocks by the rule table (``comm``: the
+rank's ``core.world.GridComm`` for the model, whose layout it takes;
+``grid`` / ``coords`` for a train state).
 """
 from __future__ import annotations
 
@@ -141,7 +145,7 @@ def _tree_to_torch(tree, device, dtype):
 
 
 def lm_params_from_reference(params_np, cfg, *, device, dtype=None,
-                             expert_shard: tuple | None = None):
+                             expert_shard: tuple | None = None, comm=None):
     """The port's model for ``cfg`` (``models.api.build_model``: a
     :class:`~repro_torch.models.DecoderLM`, or an
     :class:`~repro_torch.models.EncDecLM` for the audio family) with the
@@ -155,17 +159,39 @@ def lm_params_from_reference(params_np, cfg, *, device, dtype=None,
     exactly.  ``expert_shard=(rank, P)``: the model of rank ``rank`` of a
     world over which the experts are sharded (``models.moe``): every MoE
     leaf w1 / w3 / w2 cut to the rank's E / P experts before it is
-    placed."""
+    placed.  ``comm``: the model of the rank of a grid (a
+    ``core.world.GridComm``): each leaf cut to the rank's block by the
+    rule table, the model built with the rank's layout
+    (``api.grid_layout``)."""
     import dataclasses
 
     from repro_torch.models import api
     dtype = cfg.param_dtype if dtype is None else dtype
     if dtype != cfg.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    if comm is not None:
+        from repro_torch.models.sharding import cut, make_rules
+        rules = make_rules(comm.grid, fsdp=cfg.fsdp)
+        specs = api.param_specs(cfg)
+        params = _map2(lambda a, s: torch.as_tensor(np.array(cut(
+            _np(a), rules.spec_of(s), comm.grid, comm.coords)),
+            device=device).to(s.dtype), params_np, specs)
+        return api.build_model(cfg, params, api.grid_layout(cfg, comm))
     params = api._to_specs(
         _tree_to_torch(_cut(params_np, cfg, expert_shard), device, None),
         api.param_specs(cfg, expert_shard=expert_shard))
     return api.build_model(cfg, params)
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _map2(fn, tree, specs):
+    if isinstance(specs, dict):
+        return {k: _map2(fn, tree[k], specs[k]) for k in specs}
+    return fn(tree, specs)
 
 
 def _cut(tree_np, cfg, expert_shard):
@@ -220,7 +246,8 @@ def lm_cache_to_numpy(cache) -> dict:
 
 
 def train_state_from_reference(state_np, cfg, *, device,
-                               expert_shard: tuple | None = None):
+                               expert_shard: tuple | None = None,
+                               grid=None, coords: dict | None = None):
     """The port's train state (``repro_torch.train``: ``{"params", "opt":
     {"master", "m", "v"}, "step"}``) from the reference's, as numpy arrays
     in the same tree (the parameters in the reference's stacked layout):
@@ -231,9 +258,17 @@ def train_state_from_reference(state_np, cfg, *, device,
     holds it exactly.  ``expert_shard=(rank, P)``: the rank's shard of a
     state whose experts are sharded over P ranks (the parameters' and the
     master's, m's and v's expert leaves cut as in
-    :func:`lm_params_from_reference`)."""
+    :func:`lm_params_from_reference`).  ``grid`` / ``coords``: the blocks
+    of the rank at ``coords`` on that grid
+    (``train.trainer.train_step_shardings``)."""
     from repro_torch.models import api
     from repro_torch.train import train_state_specs
+    if grid is not None:
+        from repro_torch.train.elastic import reshard_state
+        return reshard_state(
+            api._to_specs(_tree_to_torch(state_np, "cpu", None),
+                          train_state_specs(cfg)),
+            cfg, device, grid=grid, coords=coords)
     return api._to_specs(
         _tree_to_torch(_cut(state_np, cfg, expert_shard), device, None),
         train_state_specs(cfg, expert_shard))

@@ -42,14 +42,24 @@ skip leaves out the fully masked key blocks; its rows start at r = 2 (a
 1-row corner bends the bytes' linearity in the rows) unless only 1 and 2
 rows fit.  The record names the attention and the rows it ran.
 
+The reference's meshes themselves are grids of ranks (``--mesh single``
+= ``16x16``, ``multi`` = ``2x16x16``, or any ``DxM`` / ``PxDxM``): there the
+analytic record (:func:`grid_cell`) holds a rank's argument bytes under
+the rule table (``launch.inputs``' grid specs: the reference's
+per-device bytes), its output bytes (the logits cut over ('batch',
+'vocab'), a prefill's cache under the rules) and its alias bytes; a
+probe runs on the ``p{P}`` world of ``--ranks`` that fits the card, and
+the grid's record names that layout (``probe_layout``) without taking its
+numbers.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
-        [--shape NAME|all] [--ranks P] [--probe] [--set k=v[,k=v]]
-        [--tag T] [--out DIR] [--seq-shard-decode true|false]
-        [--device cuda|cpu]
+        [--shape NAME|all] [--ranks P] [--mesh none|single|multi|DxM]
+        [--probe] [--set k=v[,k=v]] [--tag T] [--out DIR]
+        [--seq-shard-decode true|false] [--device cuda|cpu]
 
-Per cell it writes ``<out>/<arch>__<shape>__p<P>.json`` (and with
-``--probe`` also ``...__probe.json``).  A failing cell is a bug: it is
+Per cell it writes ``<out>/<arch>__<shape>__p<P>.json`` (``__16x16`` etc.
+on a grid; with ``--probe`` also ``...__p<P>__probe.json``).  A failing cell is a bug: it is
 recorded and ``main`` exits non-zero.
 """
 from __future__ import annotations
@@ -57,7 +67,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
+import math
 import os
 import subprocess
 import time
@@ -68,11 +80,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
-from repro_torch.core.collectives import _kinds
+from repro_torch.core.collectives import _kinds, tensors
 from repro_torch.data.regression import check_device
 from repro_torch.launch import inputs as I
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api
 from repro_torch.models.module import tree_leaves
+from repro_torch.core.grid import as_grid, grid_name, grid_size
+from repro_torch.models.sharding import make_rules, shard_shape
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.trainer import make_train_step
 
@@ -100,14 +115,6 @@ _WRITE_ONLY = {"copy_", "fill_", "zero_", "uniform_", "normal_"}
 _SPARSE_WRITES = {"index_put_": 2, "_index_put_impl_": 2, "index_add_": 3,
                   "index_copy_": 3, "scatter_": 3, "scatter_add_": 3,
                   "masked_scatter_": 2}
-
-
-def _tensors(x) -> list:
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, (list, tuple)):
-        return [t for item in x for t in _tensors(item)]
-    return []
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -159,12 +166,12 @@ class CostMode(TorchDispatchMode):
             if i in written and (name in _WRITE_ONLY
                                  or name in _SPARSE_WRITES):
                 continue
-            read += sum(_nbytes(t) for t in _tensors(a))
-        read += sum(_nbytes(t) for t in _tensors(list(kwargs.values())))
+            read += sum(_nbytes(t) for t in tensors(a))
+        read += sum(_nbytes(t) for t in tensors(list(kwargs.values())))
         if name in _SPARSE_WRITES:
             values = args[_SPARSE_WRITES[name]]
-            return read + sum(_nbytes(t) for t in _tensors(values))
-        return read + sum(_nbytes(t) for t in _tensors(out))
+            return read + sum(_nbytes(t) for t in tensors(values))
+        return read + sum(_nbytes(t) for t in tensors(out))
 
 
 # ------------------------------------------------------------ the programs --
@@ -359,6 +366,7 @@ def _share(shape, n_ranks: int) -> int:
     return I.rank_rows(shape.global_batch, n_ranks)
 
 
+@functools.lru_cache(maxsize=None)
 def _smi() -> str | None:
     try:
         return subprocess.run(
@@ -450,11 +458,101 @@ def run_cell(arch: str, shape_name: str, n_ranks: int, out_dir: str,
     return rec
 
 
+def _grid_output_bytes(cfg, shape, grid: dict, seq_shard: bool) -> tuple:
+    """(new bytes, alias bytes) a rank's step returns on ``grid``: the
+    train state updated in place and the metrics; the logits cut over
+    ('batch', 'vocab') and a prefill's new cache, or a decode step's
+    cache updated in place, under the rules."""
+    if shape.kind == "train":
+        state, _ = I.train_specs(cfg, shape, grid=grid)
+        return 4 * (4 + (1 if cfg.moe else 0)), I.tree_bytes(state)
+    rules = make_rules(grid, fsdp=cfg.fsdp)
+    B, V = shape.global_batch, cfg.padded_vocab
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    logits = (math.prod(shard_shape((B, V), rules.spec_for(
+        (B, V), ("batch", "vocab")), grid)) * itemsize)
+    if shape.kind == "prefill":
+        cache = I._grid_cut(api.init_cache_specs(cfg, B, shape.seq_len),
+                            rules)
+        return logits + I.tree_bytes(cache), 0
+    _, cache, _, _ = I.decode_specs(cfg, shape, seq_shard=seq_shard,
+                                    grid=grid)
+    return logits, I.tree_bytes(cache)
+
+
+def grid_cell(arch: str, shape_name: str, grid, out_dir: str,
+              seq_shard_decode: bool = True, verbose: bool = True,
+              overrides: dict | None = None, tag: str = "", *,
+              device="cuda", probe_ranks: int | None = None) -> dict:
+    """The analytic record of a cell on a grid of ranks (the reference's
+    mesh): a rank's argument, output and alias bytes under the rule table
+    at the production shape and full depth, from the meta specs.  No
+    temp bytes, flops or collectives: the probe runs on the ``p{P}``
+    world of ``probe_ranks`` (named in ``probe_layout``), not on this
+    grid."""
+    grid = as_grid(grid)
+    cfg = get_config(arch)
+    if overrides:
+        cfg = _apply_overrides(cfg, overrides)
+    shape = SHAPES[shape_name]
+    ok, why = shape.applicable(cfg)
+    rec = {"arch": cfg.name + tag, "shape": shape_name,
+           "mesh": grid_name(grid), "kind": shape.kind}
+    if not ok:
+        rec["status"] = "skipped"
+        rec["reason"] = why
+        _write(rec, out_dir)
+        return rec
+    try:
+        if shape.kind == "train":
+            specs = I.train_specs(cfg, shape, grid=grid)
+        elif shape.kind == "prefill":
+            specs = I.prefill_specs(cfg, shape, grid=grid)
+        else:
+            specs = I.decode_specs(cfg, shape, seq_shard=seq_shard_decode,
+                                   grid=grid)
+        args = I.tree_bytes(specs)
+        out_bytes, alias = _grid_output_bytes(cfg, shape, grid,
+                                              seq_shard_decode)
+        card = _card(device)
+        rules = make_rules(grid, fsdp=cfg.fsdp)
+        rules.tree(api.param_specs(cfg))
+        rec.update({
+            "status": "ok", "chips": grid_size(grid), "grid": grid,
+            "memory_analysis": {
+                "argument_bytes": args, "output_bytes": out_bytes,
+                "alias_bytes": alias, "temp_bytes": None,
+                "device_memory_bytes": card["total_memory"],
+                "temp_source": "not measured (no probe on this grid)"},
+            "cost_analysis": None, "collectives": None,
+            "dropped": sorted({f"{d[0]} {d[1]} over {'x'.join(d[2])}"
+                               for d in rules.dropped}),
+            "probe_layout": (None if probe_ranks is None
+                             else f"p{probe_ranks}"),
+            "timings": {"step_ms": None,
+                        "card": card["smi"] or card["device"]},
+            "reduced": {"ranks": f"the reference's {grid_name(grid)} mesh "
+                                 "as a grid of ranks, analytic (meta "
+                                 "specs, no run)"},
+        })
+        if verbose:
+            print(f"[dryrun] {rec['arch']} {shape_name} {rec['mesh']}: "
+                  f"arguments {args / 1e9:.3f} GB, outputs "
+                  f"{out_bytes / 1e9:.3f} GB a rank", flush=True)
+    except Exception as e:  # a failing cell is a bug; record, fail at the end
+        rec["status"] = "failed"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+    _write(rec, out_dir)
+    return rec
+
+
 def _kind_bytes(c: dict) -> dict:
     return {"max": c["max_bytes"], "hop": c["hop_bytes"],
             "all_to_all": c["a2a_bytes"], "all_gather": c["gather_bytes"],
+            "reduce_scatter": c["rs_bytes"],
             "all_reduce": c["bytes"] - c["max_bytes"] - c["hop_bytes"]
-            - c["a2a_bytes"] - c["gather_bytes"]}
+            - c["a2a_bytes"] - c["gather_bytes"] - c["rs_bytes"]}
 
 
 def _combine(outs: list, routed: bool = False) -> dict:
@@ -853,10 +951,13 @@ def open_world(n_ranks: int, device):
 
 def run(archs, shapes, n_ranks: int = 1, out_dir: str = "artifacts/dryrun",
         *, probe: bool = True, seq_shard: bool = True, overrides=None,
-        tag: str = "", device="cuda", world=None, seed: int = 0) -> list:
+        tag: str = "", device="cuda", world=None, seed: int = 0,
+        grid=None) -> list:
     """Every (arch, shape) cell on ``n_ranks`` ranks: the probe (with
     ``probe``) and the analytic record, which takes the probe's
-    extrapolation.  Returns the analytic records with their probes under
+    extrapolation.  With ``grid`` the analytic record is the grid's
+    (:func:`grid_cell`), and a probe runs on the ``n_ranks`` world beside
+    it.  Returns the analytic records with their probes under
     ``"probe_record"``."""
     results = []
     for arch in archs:
@@ -865,9 +966,15 @@ def run(archs, shapes, n_ranks: int = 1, out_dir: str = "artifacts/dryrun",
             prec = (probe_cell(arch, shape, n_ranks, out_dir, seq_shard,
                                overrides, tag, device=device, world=world,
                                seed=seed) if probe else None)
-            rec = run_cell(arch, shape, n_ranks, out_dir, seq_shard,
-                           verbose=False, overrides=overrides, tag=tag,
-                           device=device, probe=prec)
+            if grid is not None:
+                rec = grid_cell(arch, shape, grid, out_dir, seq_shard,
+                                verbose=False, overrides=overrides, tag=tag,
+                                device=device,
+                                probe_ranks=n_ranks if probe else None)
+            else:
+                rec = run_cell(arch, shape, n_ranks, out_dir, seq_shard,
+                               verbose=False, overrides=overrides, tag=tag,
+                               device=device, probe=prec)
             if prec is not None and prec["status"] == "failed":
                 rec = {**rec, "status": "failed", "error": prec["error"]}
             rec["probe_record"] = prec
@@ -879,7 +986,7 @@ def run(archs, shapes, n_ranks: int = 1, out_dir: str = "artifacts/dryrun",
                 extra = ""
             else:
                 extra = f" reason={rec.get('reason', rec.get('error', ''))[:160]}"
-            print(f"[dryrun] {arch:24s} {shape:12s} p{n_ranks:<3d} "
+            print(f"[dryrun] {arch:24s} {shape:12s} {rec['mesh']:7s} "
                   f"{status:8s} ({time.time() - t0:.1f}s){extra}", flush=True)
             results.append(rec)
     return results
@@ -895,12 +1002,25 @@ def summarize(results: list) -> dict:
     return count
 
 
+def parse_mesh(name: str) -> dict | None:
+    """``--mesh``: ``none``, ``single``, ``multi`` or ``DxM`` / ``PxDxM``."""
+    if name == "none":
+        return None
+    if name in ("single", "multi"):
+        return make_production_mesh(multi_pod=name == "multi")
+    return as_grid(tuple(int(n) for n in name.split("x")))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--ranks", type=int, default=1,
                     help="ranks of the world (default 1)")
+    ap.add_argument("--mesh", default="none",
+                    help="none (the p{ranks} world), single (16x16), multi "
+                         "(2x16x16) or DxM / PxDxM: the analytic records "
+                         "on that grid of ranks")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--seq-shard-decode", default="true")
     ap.add_argument("--probe", action="store_true",
@@ -920,7 +1040,7 @@ def main() -> None:
                       probe=args.probe,
                       seq_shard=args.seq_shard_decode.lower() == "true",
                       overrides=_parse_set(args.set), tag=args.tag,
-                      device=device, world=world)
+                      device=device, world=world, grid=parse_mesh(args.mesh))
     finally:
         if world is not None:
             world.close()

@@ -18,6 +18,15 @@ P ranks (``core.world.SolverWorld``), as its parallelism cuts them:
   (``models.moe``): a rank's parameters and train state hold E / P
   experts of every MoE layer (:func:`expert_shard`).
 
+On a grid of ranks (``grid``: the reference's ``16x16`` / ``2x16x16``
+meshes, ``launch.mesh``, or any ``{"pod", "data", "model"}``) a rank's
+specs are its blocks under the rule table (``models.sharding``), every
+kind as the reference's ``inputs`` shards it: the train state by
+``train.trainer.abstract_train_state`` (parameters under ``cfg.fsdp``,
+the optimizer ZeRO-1), the batch's rows over (pod, data), prefill's
+parameters, and decode's parameters and cache under the rules with the
+``cache_seq: ("model",)`` override when ``seq_shard`` is set.
+
 The audio family's ``src_embeds`` (max(S / 4, 128) encoder frames) and the
 vlm family's ``extra_embeds`` (the patch prefix) take the reference's
 shapes.  :func:`materialize` turns a spec tree into tensors on a device
@@ -31,7 +40,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import api
 from repro_torch.models.module import tree_leaves, tree_map
-from repro_torch.train.trainer import train_state_specs
+from repro_torch.models.sharding import make_rules, shard_shape
+from repro_torch.train.trainer import abstract_train_state, train_state_specs
 
 META = torch.device("meta")
 
@@ -52,9 +62,32 @@ def rank_rows(global_batch: int, n_ranks: int) -> int:
     return global_batch // n_ranks
 
 
+# The logical axes of a batch's leaves (the reference's specs of them).
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "mask": ("batch", "seq"),
+              "src_embeds": ("batch", "seq", "embed"),
+              "extra_embeds": ("batch", "seq", "embed")}
+
+
+def _grid_cut(specs, rules) -> dict:
+    """Meta blocks of a ParamSpec tree under ``rules``."""
+    return tree_map(lambda s: _meta(shard_shape(s.shape, rules.spec_of(s),
+                                                rules.grid), s.dtype), specs)
+
+
+def _cut_batch(batch: dict, rules) -> dict:
+    return {k: _meta(shard_shape(t.shape, rules.spec_for(
+        tuple(t.shape), BATCH_AXES[k]), rules.grid), t.dtype)
+        for k, t in batch.items()}
+
+
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
-                rows: int | None = None) -> dict:
-    """A rank's training / prefill batch (``rows`` overrides its B / P)."""
+                rows: int | None = None, *, grid=None) -> dict:
+    """A rank's training / prefill batch (``rows`` overrides its B / P);
+    on ``grid`` its block of the global batch."""
+    if grid is not None:
+        return _cut_batch(batch_specs(cfg, shape, rows=shape.global_batch),
+                          make_rules(grid, fsdp=cfg.fsdp))
     B = rank_rows(shape.global_batch, n_ranks) if rows is None else rows
     S = shape.seq_len
     out = {}
@@ -88,11 +121,21 @@ def _params(cfg: ModelConfig, n_ranks: int) -> dict:
 
 
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
-                 seq_shard: bool = True, rows: int | None = None) -> tuple:
+                 seq_shard: bool = True, rows: int | None = None,
+                 grid=None) -> tuple:
     """(params, cache, token, pos) of a rank's decode step: the whole batch
     (``rows`` overrides it), the cache's sequence cut over the ranks when
-    ``seq_shard``."""
+    ``seq_shard``; on ``grid`` the rank's blocks, the cache's sequence
+    over 'model' when ``seq_shard`` (the reference's override)."""
     B = shape.global_batch if rows is None else rows
+    if grid is not None:
+        rules = make_rules(grid, fsdp=cfg.fsdp, overrides=(
+            {"cache_seq": ("model",)} if seq_shard else None))
+        tok = _meta(shard_shape((B,), rules.spec_for((B,), ("batch",)),
+                                rules.grid), torch.int32)
+        return (_grid_cut(api.param_specs(cfg), rules),
+                _grid_cut(api.init_cache_specs(cfg, B, shape.seq_len), rules),
+                tok, tok.clone())
     shards = n_ranks if seq_shard else 1
     params = _params(cfg, n_ranks)
     cache = _from_specs(api.init_cache_specs(cfg, B, shape.seq_len, shards))
@@ -100,16 +143,23 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
 
 
 def prefill_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
-                  rows: int | None = None) -> tuple:
-    """(params, batch) of a rank's prefill."""
+                  rows: int | None = None, *, grid=None) -> tuple:
+    """(params, batch) of a rank's prefill (its blocks on ``grid``)."""
+    if grid is not None:
+        return (_grid_cut(api.param_specs(cfg),
+                          make_rules(grid, fsdp=cfg.fsdp)),
+                batch_specs(cfg, shape, grid=grid))
     return _params(cfg, n_ranks), batch_specs(cfg, shape, n_ranks, rows)
 
 
 def train_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1,
-                rows: int | None = None) -> tuple:
+                rows: int | None = None, *, grid=None) -> tuple:
     """(state, batch) of a rank's train step: the whole (replicated) state
-    but the rank's shard of an MoE model's experts, and the rank's
-    rows."""
+    but the rank's shard of an MoE model's experts, and the rank's rows;
+    on ``grid`` the rank's blocks of both."""
+    if grid is not None:
+        return (abstract_train_state(cfg, grid),
+                batch_specs(cfg, shape, grid=grid))
     return (_from_specs(train_state_specs(cfg, expert_shard(cfg, n_ranks))),
             batch_specs(cfg, shape, n_ranks, rows))
 

@@ -75,11 +75,13 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.core.collectives import copy_to, gather_from, reduce_from
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
 from .module import (ParamSpec, init_params, is_spec, stack_specs, tree_leaves,
                      tree_map)
+from .sharding import entry_axes, make_rules
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -243,6 +245,7 @@ class _LM(nn.Module):
         self.top = nn.ParameterDict({k: _frozen(v) for k, v in params.items()
                                      if torch.is_tensor(v)})
         self._grads = None
+        self.layout = None
 
     @classmethod
     def init(cls, cfg, generator: torch.Generator, device=None):
@@ -366,11 +369,16 @@ class EncDecLM(_LM):
                 (("decoder",), self.dec_layers)]
 
 
-def build_model(cfg, params: dict) -> _LM:
+def build_model(cfg, params: dict, layout: "GridLayout | None" = None
+                ) -> _LM:
     """The model of ``cfg``'s body on a parameter tree of
     :func:`param_specs`' layout: :class:`EncDecLM` for the audio family,
-    else :class:`DecoderLM`."""
-    return (EncDecLM if cfg.family == "audio" else DecoderLM)(cfg, params)
+    else :class:`DecoderLM`.  ``layout``: the tree is a rank's blocks on a
+    grid (:class:`GridLayout`), and the model's forward is the rank's
+    part of the tensor-parallel / FSDP forward."""
+    model = (EncDecLM if cfg.family == "audio" else DecoderLM)(cfg, params)
+    model.layout = layout
+    return model
 
 
 def init_model(cfg, generator: torch.Generator, device=None,
@@ -425,12 +433,16 @@ def _attend(q, k, v, cfg, causal=True):
                                block_kv=cfg.block_kv)
 
 
-def _apply_layer(layer, x, cfg, positions, aux, caches=None, ep=None):
+def _apply_layer(layer, x, cfg, positions, aux, caches=None, ep=None,
+                 lay=None):
     """One decoder layer on x (B, S, D); sums the MoE metrics into ``aux``;
     appends the layer's decode cache to ``caches`` when given (prefill's:
     an attention layer's rope'd k and its v, a mamba layer's state).
     ``ep``: ``(comm, replicated)`` of experts sharded over ranks, or
-    ``None``."""
+    ``None``.  ``lay``: the rank's :class:`GridLayout` (a dense layer of
+    the training forward: no cache, no experts)."""
+    if lay is not None:
+        return _grid_layer(lay.layer_tree(layer), x, cfg, positions, lay), aux
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
     if "attn" in layer.kinds:
         q, k, v = _project(layer.attn, h, cfg, positions)
@@ -471,25 +483,31 @@ def _remat(fn, cfg, model):
     while gradients flow to the model's parameters -- ``"full"`` saves
     nothing and recomputes ``fn`` in backward, ``"dots"`` saves only the
     products without batch dimensions; ``"none"``, or no gradients, runs
-    ``fn`` as it is."""
-    if (cfg.remat == "none" or not torch.is_grad_enabled()
+    ``fn`` as it is.  On a grid with FSDP (:class:`GridLayout`), ``"none"``
+    runs as ``"full"``: a layer's gathered weights are freed after its
+    forward and gathered again when backward recomputes it."""
+    remat = cfg.remat
+    if remat == "none" and model.layout is not None and model.layout.fsdp:
+        remat = "full"      # FSDP gathers a layer's weights again in backward
+    if (remat == "none" or not torch.is_grad_enabled()
             or not model.top["embedding"].requires_grad):
         return fn
-    if cfg.remat not in ("full", "dots"):
-        raise ValueError(f"remat={cfg.remat!r} must be 'full', 'dots' or "
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat={remat!r} must be 'full', 'dots' or "
                          "'none'")
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
     kw = {}
-    if cfg.remat == "dots":
+    if remat == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
             _dots_policy)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _apply_layers(layers, x, cfg, positions, aux, caches=None, ep=None):
+def _apply_layers(layers, x, cfg, positions, aux, caches=None, ep=None,
+                  lay=None):
     for layer in layers:
-        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches, ep)
+        x, aux = _apply_layer(layer, x, cfg, positions, aux, caches, ep, lay)
     return x, aux
 
 
@@ -511,7 +529,7 @@ def _decoder_stack(model, cfg, x, positions, caches=None, ep=None):
     block = _remat(_apply_layers, cfg, model)
     for i in range(0, len(model.layers), period):
         x, aux = block(model.layers[i:i + period], x, cfg, positions, aux,
-                       caches, ep)
+                       caches, ep, model.layout)
     return x, aux
 
 
@@ -563,9 +581,12 @@ def _cross_decoder_stack(model, cfg, x, enc, caches=None):
     return x, {}
 
 
-def _embed(model, cfg, batch: dict) -> torch.Tensor:
+def _embed(model, cfg, batch: dict, top=None) -> torch.Tensor:
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = L.embed(model.top, tokens.long()).to(cfg.dtype)
+    if model.layout is not None:
+        x = model.layout.embed(top, tokens.long()).to(cfg.dtype)
+    else:
+        x = L.embed(model.top, tokens.long()).to(cfg.dtype)
     extra = batch.get("extra_embeds")
     if extra is not None:
         extra = torch.as_tensor(extra, device=model.device)
@@ -586,7 +607,17 @@ def forward(model, cfg, batch: dict, comm=None, replicated: bool = False):
     world over which an MoE model's experts are sharded (the model holds
     the rank's shard, :func:`param_specs`); the batch is the rank's rows
     of the global batch, whose dispatch is one (``models.moe``), or with
-    ``replicated`` the same batch on every rank."""
+    ``replicated`` the same batch on every rank.  On a grid
+    (``model.layout``) the logits are the rank's vocab columns when the
+    vocab is cut over 'model'."""
+    lay = model.layout
+    if lay is not None:
+        top = lay.top_tree(model)
+        x = _embed(model, cfg, batch, top)
+        x, aux = _decoder_stack(model, cfg, x,
+                                _positions(x.shape[1], x.device))
+        x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)
+        return lay.unembed(top, x), aux
     if cfg.family == "audio":
         enc = _encoder_stack(model, cfg, batch["src_embeds"])
         x, aux = _cross_decoder_stack(model, cfg, _embed(model, cfg, batch),
@@ -614,9 +645,13 @@ def nll_sum(model, cfg, batch: dict, comm=None):
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     St = labels.shape[1]
     logits = logits[:, -St:, :].to(L.acc_dtype(logits.dtype))  # text only
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
-    nll = logz - gold
+    if model.layout is not None and model.layout.tp_vocab:
+        nll = model.layout.nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None],
+                                    dim=-1)[..., 0]
+        nll = logz - gold
     mask = batch.get("mask")
     mask = (torch.ones_like(nll) if mask is None else
             torch.as_tensor(mask, device=dev).to(nll.dtype))
@@ -779,6 +814,7 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
     flash-decoding over the cache's shards and the MoE layers all-gather
     their experts' outputs, and every rank ends the step with the same
     logits."""
+    _no_grid(model, "decode_step")
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
@@ -837,6 +873,7 @@ def prefill(model, cfg, batch: dict, max_seq: int | None = None,
     ``replicated``: experts sharded over the ranks, as in :func:`forward`
     (a serving engine's ranks prefill the same request: ``replicated``;
     a data-parallel prefill, each rank its rows)."""
+    _no_grid(model, "prefill")
     if cfg.family == "audio":
         return _prefill_encdec(model, cfg, batch, max_seq)
     x = _embed(model, cfg, batch)
@@ -876,3 +913,198 @@ def _prefill_encdec(model, cfg, batch, max_seq):
                "v": torch.nn.functional.pad(c["v"], pad),
                "xk": c["xk"], "xv": c["xv"]} for c in caches]
     return logits, {"decoder": _stack(layers)}
+
+
+# ---------------------------------------------------------------------------
+# A grid of ranks: tensor parallelism over 'model', FSDP over 'data'
+# ---------------------------------------------------------------------------
+# The reference's production layout (models.sharding's rule table on its
+# mesh) for the dense decoder family's training forward: attention cut by
+# heads / kv_heads, the MLP by its hidden columns (w1 / w3) and rows (w2),
+# the embedding and the tied unembedding by vocab rows, each region entered
+# by ``copy_to`` (identity, all-reduce of the gradient) and left by
+# ``reduce_from`` (all-reduce, identity backward) over 'model'; a leaf whose
+# dimension the guard dropped runs whole on every model rank with no
+# collective.  Under FSDP (``cfg.fsdp``) the non-TP 'embed' dimension of
+# every weight is cut over 'data' and gathered (``gather_from``: its
+# gradient reduce-scattered) just before use.
+
+GRID_QUEUE = "ROADMAP.md queue 1, 'The grid'"
+
+
+def check_grid_family(cfg, grid) -> None:
+    """Raise unless ``cfg`` trains on ``grid``: any family but MoE on a
+    grid whose 'model' axis is one rank (ZeRO-1 and data parallelism only),
+    the dense decoder family alone where 'model' > 1 or FSDP cuts the
+    weights.  Nothing is replicated in place of a layout not ported."""
+    if cfg.moe:
+        raise ValueError(
+            f"{cfg.name}: MoE experts over 'model' on a grid are not ported "
+            f"({GRID_QUEUE}); experts sharded over a 1-D world of ranks "
+            "train through train.elastic.run_data_parallel without a grid")
+    tp = grid.get("model", 1) > 1 or (cfg.fsdp and grid.get("data", 1) > 1)
+    if tp and cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): tensor parallelism / FSDP on a grid "
+            f"runs the dense decoder family only ({GRID_QUEUE}); this grid "
+            f"is {grid}")
+
+
+def grid_layout(cfg, comm) -> "GridLayout | None":
+    """The rank's :class:`GridLayout` on ``comm``'s grid (a
+    ``core.world.GridComm``), or ``None`` where the model runs as on one
+    rank (a 'model' axis of one rank, no FSDP cut): the grid is then
+    data-parallel with ZeRO-1 alone (``optim.adamw``)."""
+    check_grid_family(cfg, comm.grid)
+    layout = GridLayout(cfg, comm)
+    return layout if layout.model is not None or layout.fsdp else None
+
+
+def _data_dim(spec: tuple, skip: int = 0) -> int | None:
+    """The dimension of a spec cut over 'data' (less ``skip`` leading
+    dimensions), or ``None``."""
+    for i, e in enumerate(spec):
+        if "data" in entry_axes(e):
+            return i - skip
+    return None
+
+
+class GridLayout:
+    """A rank's part of the dense decoder on a grid (``comm``: its
+    ``core.world.GridComm``): which leaves the rule table cut over 'model'
+    (``tp_heads``, ``tp_kv``, ``tp_mlp``, ``tp_vocab``) and over 'data'
+    (FSDP), the 'model' and 'data' groups, and the layers' functions."""
+
+    def __init__(self, cfg, comm):
+        grid = comm.grid
+        rules = make_rules(grid, fsdp=cfg.fsdp)
+        self.specs = rules.tree(param_specs(cfg))
+        self.model = comm.model
+        self.data = comm.data
+        self.rank = comm.coords["model"]
+        self.group = cfg.resolved_q_heads // cfg.n_kv_heads
+        sub = self.specs["blocks"]["sub0"]
+        M = grid["model"]
+        self.tp_heads = M > 1 and sub["attn"]["wq"][2] == "model"
+        self.tp_kv = M > 1 and sub["attn"]["wk"][2] == "model"
+        self.tp_mlp = M > 1 and sub["mlp"]["w1"][2] == "model"
+        self.tp_vocab = M > 1 and self.specs["embedding"][0] == "model"
+        # (sublayer, leaf) -> the layer tensor's dim cut over 'data'
+        self.layer_dims = {}
+        for k, v in sub.items():
+            for n, spec in (v.items() if isinstance(v, dict) else
+                            [(None, v)]):
+                self.layer_dims[(k, n)] = _data_dim(spec, skip=1)
+        self.top_dims = {k: _data_dim(v) for k, v in self.specs.items()
+                         if not isinstance(v, dict)}
+        self.fsdp = self.data is not None and any(
+            d is not None for d in list(self.layer_dims.values())
+            + list(self.top_dims.values()))
+
+    def _gather(self, t, dim):
+        if not self.fsdp or dim is None:
+            return t
+        return gather_from(t, self.data, dim)
+
+    def layer_tree(self, layer) -> dict:
+        """The layer's parameters, each gathered whole over 'data' where
+        FSDP cuts it."""
+        out = {}
+        for k, v in layer.tree(lambda p: p).items():
+            out[k] = ({n: self._gather(t, self.layer_dims[(k, n)])
+                       for n, t in v.items()} if isinstance(v, dict)
+                      else self._gather(v, self.layer_dims[(k, None)]))
+        return out
+
+    def top_tree(self, model) -> dict:
+        """The unstacked leaves (embedding, final norm, lm_head), gathered
+        once a forward where FSDP cuts them."""
+        return {k: self._gather(v, self.top_dims[k])
+                for k, v in model.top.items()}
+
+    def embed(self, top, tokens):
+        """Vocab-parallel lookup: a token outside the rank's rows gives
+        zeros; the sum over 'model' is the row (exact: one term is not
+        zero)."""
+        emb = top["embedding"]
+        if not self.tp_vocab:
+            return emb[tokens]
+        V = emb.shape[0]
+        local = tokens - self.rank * V
+        inside = (local >= 0) & (local < V)
+        x = emb[local.clamp(0, V - 1)]
+        return reduce_from(torch.where(inside[..., None], x, 0), self.model)
+
+    def unembed(self, top, x):
+        """The logits of the rank's vocab columns (all of them where the
+        vocab is not cut)."""
+        if self.tp_vocab:
+            x = copy_to(x, self.model)
+        if "lm_head" in top:
+            return x @ top["lm_head"]
+        return x @ top["embedding"].T
+
+    def nll(self, logits, labels):
+        """Vocab-parallel cross entropy on the rank's columns (B, S, V / M)
+        of the padded vocab: logsumexp from the max all-reduce and a sum
+        all-reduce, the gold logit summed from its owner."""
+        m = self.model
+        V = logits.shape[-1]
+        with torch.no_grad():
+            gmax = m.all_reduce(logits.amax(dim=-1).contiguous(), op="max")
+        sumexp = reduce_from(torch.exp(logits - gmax[..., None]).sum(-1), m)
+        local = labels - self.rank * V
+        inside = (local >= 0) & (local < V)
+        gold = torch.take_along_dim(logits, local.clamp(0, V - 1)[..., None],
+                                    dim=-1)[..., 0]
+        gold = reduce_from(torch.where(inside, gold, 0), m)
+        return torch.log(sumexp) + gmax - gold
+
+
+def _grid_attention(p, h, cfg, positions, lay: GridLayout):
+    """Self-attention of the rank's q heads ``[r H / M, (r + 1) H / M)``,
+    one all-reduce over 'model' after ``wo``.  Where the kv heads are not
+    cut (the guard dropped them), every rank computes all of them and each
+    of its q heads h takes kv head h // G (the reference's grouping), and
+    the whole wk / wv take their gradient summed over the ranks.  Where
+    the q heads are not cut, attention runs whole on every rank."""
+    if not lay.tp_heads:
+        return _self_attention(p, h, cfg, positions, causal=True)
+    m = lay.model
+    h = copy_to(h, m)
+    if lay.tp_kv:
+        q, k, v = _project(p, h, cfg, positions)
+    else:
+        p = {n: copy_to(t, m) if n in ("wk", "wv", "bk", "bv") else t
+             for n, t in p.items()}
+        q, k, v = L.qkv_proj(p, h)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        Hl = q.shape[2]
+        kv = (lay.rank * Hl + torch.arange(Hl, device=q.device)) // lay.group
+        k, v = k.index_select(2, kv), v.index_select(2, kv)
+    return reduce_from(L.out_proj(p, _attend(q, k, v, cfg)), m)
+
+
+def _grid_mlp(p, h, lay: GridLayout):
+    """SwiGLU with w1 / w3 cut by columns and w2 by rows over 'model', one
+    all-reduce; whole on every rank where the guard dropped d_ff."""
+    if not lay.tp_mlp:
+        return L.swiglu(p, h)
+    return reduce_from(L.swiglu(p, copy_to(h, lay.model)), lay.model)
+
+
+def _grid_layer(p: dict, x, cfg, positions, lay: GridLayout):
+    """One dense decoder layer on a grid (``p``: its parameters, gathered
+    under FSDP)."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _grid_attention(p["attn"], h, cfg, positions, lay)
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + _grid_mlp(p["mlp"], h, lay)
+
+
+def _no_grid(model, name: str) -> None:
+    if model.layout is not None:
+        raise ValueError(f"{name} under tensor parallelism / FSDP is not "
+                         f"ported ({GRID_QUEUE}): serve from a model built "
+                         "without a grid layout")

@@ -49,6 +49,23 @@ def tree_leaves(tree, is_leaf=is_spec) -> list:
     return [tree]
 
 
+def tree_items(tree, is_leaf=is_spec, path: str = ""):
+    """``(path, leaf)`` over a nested dict in :func:`tree_leaves` order,
+    the path its keys joined by ``/``."""
+    if isinstance(tree, dict) and not is_leaf(tree):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], is_leaf,
+                                  f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def tensor_leaves(tree) -> list:
+    """The tensor leaves of a nested dict of tensors, in
+    :func:`tree_leaves` order."""
+    return tree_leaves(tree, is_leaf=torch.is_tensor)
+
+
 def stack_specs(tree, n: int, axis_name: str = "layers"):
     """Prepend a stacking dimension (the layer axis of the parameter
     layout)."""

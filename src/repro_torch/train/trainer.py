@@ -33,9 +33,23 @@ owner after the all-to-all's backward), the gradient norm adds the
 expert shards' squared norms with one scalar all-reduce, so clipping is
 the whole tree's, and AdamW updates each rank's own shard.
 
-The reference's ``train_step_shardings`` and ``abstract_train_state``
-(``NamedSharding`` / ``ShapeDtypeStruct`` trees for its mesh) have no
-twin.
+On a grid of ranks (``comm`` a ``core.world.GridComm``: (pod, data,
+model), ``models.sharding``) the step is the reference's production
+layout: every leaf a rank's block under the rule table
+(:func:`train_step_shardings`: parameters under ``cfg.fsdp``, the f32
+(master, m, v) under the fsdp rule set, ZeRO-1); a rank takes its rows of
+the batch by its (pod, data) coordinates; the dense decoder runs
+tensor-parallel over 'model' and, with ``cfg.fsdp``, gathers each layer's
+weights over 'data' just before use (``models.api.GridLayout``); the
+gradients are all-reduced over the batch's ranks (a leaf FSDP cuts is
+reduce-scattered over 'data' by its gather's backward instead, and
+all-reduced over 'pod'), and ``optim.adamw_update_zero`` updates the
+rank's optimizer blocks.  On a grid whose 'model' axis is one rank and
+without FSDP the model runs as on one rank: the data-parallel step with
+ZeRO-1, the same bits as the replicated world's (its gradients
+all-reduced in one buffer a dtype over the same ranks, its updates the
+same element operations).  :func:`abstract_train_state` is the rank's
+tree of ``meta`` tensors (the reference's ``ShapeDtypeStruct`` tree).
 """
 from __future__ import annotations
 
@@ -46,20 +60,22 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.engine import all_reduce_variadic
+from repro_torch.core.world import GridComm
 from repro_torch.data import TokenStream
 from repro_torch.data.regression import check_device
 from repro_torch.models import api, moe
-from repro_torch.models.module import ParamSpec, tree_leaves, tree_map
+from repro_torch.models.module import (ParamSpec, init_params, tensor_leaves,
+                                       tree_map)
+from repro_torch.core.grid import as_grid
+from repro_torch.models.sharding import (assemble, cut, make_rules,
+                                         shard_shape, spec_axes)
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                opt_state_specs)
+from repro_torch.optim.adamw import adamw_update_zero, zero_plan
 from repro_torch.optim.schedules import cosine_warmup
 
 TrainState = dict  # {"params", "opt": {"master", "m", "v"}, "step"}
 F32 = torch.float32
-
-
-def _leaves(tree) -> list:
-    return tree_leaves(tree, is_leaf=torch.is_tensor)
 
 
 # ---------------------------------------------------------------- specs ----
@@ -81,6 +97,87 @@ def train_state_specs(model_cfg, expert_shard: tuple | None = None) -> dict:
             "step": ParamSpec((), (), torch.int32, init="zeros")}
 
 
+def train_step_shardings(model_cfg, grid) -> tuple:
+    """(state specs, batch specs): every leaf's spec on ``grid`` (the
+    reference's ``NamedSharding`` trees as spec tuples,
+    ``models.sharding``): the parameters under the rule table with
+    ``cfg.fsdp``, (master, m, v) under the fsdp rule set (ZeRO-1), the
+    step replicated; the batch's rows over (pod, data)."""
+    prules = make_rules(grid, fsdp=model_cfg.fsdp)
+    zrules = make_rules(grid, fsdp=True)
+    specs = train_state_specs(model_cfg)
+    state = {"params": prules.tree(specs["params"]),
+             "opt": zrules.tree(specs["opt"]), "step": ()}
+    bspec = prules.spec_for((1 << 30, 1), ("batch", "seq"))
+    batch = {"tokens": bspec, "labels": bspec, "mask": bspec}
+    if model_cfg.family in ("vlm", "audio"):
+        key = "extra_embeds" if model_cfg.family == "vlm" else "src_embeds"
+        batch[key] = prules.spec_for((1 << 30, 1, 1),
+                                     ("batch", "seq", "embed"))
+    return state, batch
+
+
+def _map_specs(fn, specs, shardings):
+    """``fn(ParamSpec, spec)`` over a state's spec tree and its
+    shardings."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, specs[k], shardings[k]) for k in specs}
+    return fn(specs, shardings)
+
+
+def abstract_train_state(model_cfg, grid) -> dict:
+    """A rank's train state on ``grid`` as ``meta`` tensors of its blocks'
+    shapes and dtypes (nothing allocated; the reference's
+    ``ShapeDtypeStruct`` tree with shardings)."""
+    shardings, _ = train_step_shardings(model_cfg, grid)
+    return _map_specs(lambda s, sh: torch.empty(
+        shard_shape(s.shape, sh, grid), dtype=s.dtype, device="meta"),
+        train_state_specs(model_cfg), shardings)
+
+
+def gather_state(state, model_cfg, comm) -> TrainState | None:
+    """The logical train state from every rank's blocks on ``comm``'s
+    grid, on rank 0's host (``None`` on the other ranks; every rank must
+    call it): one all-gather over the grid a leaf, the replicated blocks
+    checked to be the same bits (``models.sharding.assemble``)."""
+    shardings, _ = train_step_shardings(model_cfg, comm.grid)
+
+    def walk(t, sh):
+        if isinstance(t, dict):
+            return {k: walk(t[k], sh[k]) for k in sorted(t)}
+        parts = comm.world.all_gather(t.contiguous()).cpu()
+        return (assemble(list(parts.unbind(0)), sh, comm.grid)
+                if comm.rank == 0 else None)
+    out = walk(state, shardings)
+    return out if comm.rank == 0 else None
+
+
+def place_fresh(params, model_cfg, comm) -> TrainState:
+    """A fresh train state's blocks on ``comm``'s grid from the whole
+    parameters ``params``: the parameter blocks copied, the master block
+    of each leaf its optimizer block in f32, m and v zeros."""
+    shardings, _ = train_step_shardings(model_cfg, comm.grid)
+    grid, at = comm.grid, comm.coords
+    master = _cut_tree(params, shardings["opt"]["master"], grid, at, F32)
+    zeros = (lambda: tree_map(torch.zeros_like, master,
+                              is_leaf=torch.is_tensor))
+    return {"params": _cut_tree(params, shardings["params"], grid, at),
+            "opt": {"master": master, "m": zeros(), "v": zeros()},
+            "step": torch.zeros((), dtype=torch.int32, device=comm.device)}
+
+
+def _cut_tree(tree, shardings, grid, coords, dtype=None, device=None):
+    """Each leaf's block at ``coords`` copied (contiguous), in ``dtype``
+    and on ``device`` when given."""
+    if isinstance(tree, dict):
+        return {k: _cut_tree(tree[k], shardings[k], grid, coords, dtype,
+                             device) for k in tree}
+    t = torch.as_tensor(tree)
+    return cut(t, shardings, grid, coords).to(
+        device=device or t.device, dtype=dtype or t.dtype,
+        memory_format=torch.contiguous_format, copy=True)
+
+
 # ----------------------------------------------------------- train step ----
 
 def _rows(batch: dict, lo: int, hi: int) -> dict:
@@ -91,7 +188,7 @@ def _reduce_grads(grads: dict, comm, sharded: list | None = None) -> None:
     """Sum the gradient buffers over the ranks in place: one all-reduce
     for each dtype among them, in that dtype.  ``sharded``: for each leaf,
     is it a rank's own expert shard (whole on its owner: not summed)?"""
-    leaves = _leaves(grads)
+    leaves = tensor_leaves(grads)
     by_dtype: dict = {}
     for g, own in zip(leaves, sharded or [False] * len(leaves)):
         if not own:
@@ -110,7 +207,10 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
     (and ``moe_aux_loss``), the step's ``grad_norm`` and ``lr``, as 0-d
     tensors.  ``comm``: this rank's handle on a data-parallel world
     (module docstring); an MoE state then holds the rank's shard of the
-    experts (:func:`expert_shard_of`)."""
+    experts (:func:`expert_shard_of`).  With a ``core.world.GridComm``
+    the step is the grid's (module docstring) on the rank's blocks."""
+    if isinstance(comm, GridComm):
+        return _make_grid_step(model_cfg, opt_cfg, microbatches, comm)
     P = 1 if comm is None else comm.size
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches} must be >= 1")
@@ -151,14 +251,31 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
             metrics = {**metrics, "loss": loss, "ppl_log": loss}
         return metrics
 
+    sharded = (moe.expert_mask(api.param_specs(model_cfg, expert_shard=shard))
+               if shard else None)
+
+    def update(params, grads, state):
+        return adamw_update(params, grads, state["opt"], state["step"],
+                            opt_cfg, comm=comm if shard else None,
+                            sharded=sharded)
+
+    return _step_loop(model_cfg, microbatches, None,
+                      lambda model, mb: backward(model, mb, sharded), update)
+
+
+def _step_loop(model_cfg, microbatches: int, layout, backward, update):
+    """The train step around a microbatch's ``backward(model, mb) ->
+    metrics`` (its gradients left in the model's buffers, reduced over the
+    ranks) and ``update(params, grads, state) -> (params, opt, metrics)``:
+    the model built on the state's parameters, the microbatches'
+    gradients accumulated in f32, the update, the step counted."""
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
         dev = state["step"].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        model = api.build_model(model_cfg, params).trainable()
-        sharded = moe.expert_mask(params) if shard else None
+        model = api.build_model(model_cfg, params, layout).trainable()
         if microbatches == 1:
-            metrics = backward(model, batch, sharded)
+            metrics = backward(model, batch)
             grads = model.grad_tree()
         else:
             B = len(batch["labels"])
@@ -172,20 +289,72 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
             for i in range(microbatches):
                 if i:
                     model.zero_grad_tree()
-                metrics = backward(model, _rows(batch, i * n, (i + 1) * n),
-                                   sharded)
-                for a, g in zip(_leaves(grads), _leaves(model.grad_tree())):
+                metrics = backward(model, _rows(batch, i * n, (i + 1) * n))
+                for a, g in zip(tensor_leaves(grads),
+                                tensor_leaves(model.grad_tree())):
                     a.add_(g.to(F32) / microbatches)
         with torch.no_grad():
-            _, _, om = adamw_update(params, grads, state["opt"],
-                                    state["step"], opt_cfg,
-                                    comm=comm if shard else None,
-                                    sharded=sharded)
+            _, _, om = update(params, grads, state)
         del model, grads
         state["step"] = state["step"] + 1
         return state, {**metrics, **om, "loss": metrics["loss"]}
 
     return train_step
+
+
+def _batch_index(comm: GridComm) -> tuple[int, int]:
+    """(this rank's index, count) of the batch's ranks, (pod, data)
+    row-major."""
+    index, count = 0, 1
+    for a in ("pod", "data"):
+        if a in comm.grid:
+            index = index * comm.grid[a] + comm.coords[a]
+            count *= comm.grid[a]
+    return index, count
+
+
+def _make_grid_step(model_cfg, opt_cfg: AdamWConfig, microbatches: int,
+                    comm: GridComm):
+    """The train step on a grid (module docstring)."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches={microbatches} must be >= 1")
+    layout = api.grid_layout(model_cfg, comm)
+    plan = zero_plan(api.param_specs(model_cfg), model_cfg.fsdp, comm.grid,
+                     comm.coords)
+    # a leaf FSDP cuts over 'data' is summed there by its gather's backward
+    cut_data = [layout is not None and layout.fsdp
+                and "data" in spec_axes(lp.param) for lp in plan]
+    at, nb = _batch_index(comm)
+    batch_comm, pod_comm = comm.batch, comm.axis("pod")
+
+    def backward(model, mb: dict) -> dict:
+        B = len(mb["labels"])
+        if B % nb:
+            raise ValueError(f"a microbatch of {B} rows does not split "
+                             f"over {nb} batch ranks")
+        mask = mb.get("mask")
+        count = torch.clamp_min(
+            torch.as_tensor(B * mb["labels"].shape[1], dtype=F32)
+            if mask is None else mask.sum(), 1)
+        n = B // nb
+        part, _, _ = api.nll_sum(model, model_cfg,
+                                 _rows(mb, at * n, (at + 1) * n))
+        total = part / count.to(part)
+        total.backward()
+        loss = total.detach()
+        grads = model.grad_tree()
+        if batch_comm is not None:
+            _reduce_grads(grads, batch_comm, cut_data)
+            loss = batch_comm.all_reduce(loss.reshape(1))[0]
+        if pod_comm is not None and any(cut_data):
+            _reduce_grads(grads, pod_comm, [not c for c in cut_data])
+        return {"loss": loss, "ppl_log": loss}
+
+    def update(params, grads, state):
+        return adamw_update_zero(params, grads, state["opt"], state["step"],
+                                 opt_cfg, plan, comm)
+
+    return _step_loop(model_cfg, microbatches, layout, backward, update)
 
 
 # ---------------------------------------------------------------- driver ----
@@ -220,17 +389,31 @@ class Trainer:
     (``api.init_shard``, the same stream on one rank), a checkpoint
     holds the whole (logical) state, gathered to rank 0's host before it
     writes it, and a restore cuts the rank's experts from it, so a state
-    written on P ranks restarts on any P' with E % P' == 0."""
+    written on P ranks restarts on any P' with E % P' == 0.
+
+    ``grid``: ``comm`` is the rank's ``core.world.GridComm`` on this grid
+    (``train.elastic.run_data_parallel(..., grid=...)``): the state is the
+    rank's blocks by the rules (:func:`train_step_shardings`), a fresh one
+    cut from the one-rank draw, a restored one from the logical tree;
+    :meth:`logical_state` assembles the whole tree on rank 0."""
 
     def __init__(self, model_cfg, run_cfg: TrainRunConfig, comm=None, *,
-                 device="cuda"):
+                 device="cuda", grid=None):
         self.model_cfg = model_cfg
         self.run_cfg = run_cfg
         self.comm = comm
+        if grid is not None and not (isinstance(comm, GridComm)
+                                     and comm.grid == as_grid(grid)):
+            raise ValueError(f"a Trainer on the grid {grid} takes the "
+                             "rank's GridComm on it (SolverWorld.run_grid)")
+        self.grid = comm.grid if isinstance(comm, GridComm) else None
+        if self.grid is not None:
+            api.check_grid_family(model_cfg, self.grid)
         self.device = (comm.device if comm is not None
                        else check_device(device))
         self.lead = comm is None or comm.rank == 0
-        self.expert_shard = expert_shard_of(model_cfg, comm)
+        self.expert_shard = (None if self.grid is not None
+                             else expert_shard_of(model_cfg, comm))
         self.opt_cfg = AdamWConfig(
             lr=cosine_warmup(run_cfg.lr, run_cfg.warmup, run_cfg.steps))
         self.stream = TokenStream(model_cfg.vocab, run_cfg.seq_len,
@@ -244,6 +427,10 @@ class Trainer:
     def _fresh_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(
             self.run_cfg.seed)
+        if self.grid is not None:
+            return place_fresh(init_params(api.param_specs(self.model_cfg),
+                                           gen, self.device),
+                               self.model_cfg, self.comm)
         params = api.init_shard(api.param_specs(self.model_cfg), gen,
                                 self.device, self.model_cfg,
                                 self.expert_shard or (0, 1))
@@ -258,8 +445,10 @@ class Trainer:
             if restored is not None:
                 from .elastic import reshard_state
                 state, extra, step = restored
-                state = reshard_state(state, self.model_cfg, self.device,
-                                      self.expert_shard)
+                state = reshard_state(
+                    state, self.model_cfg, self.device, self.expert_shard,
+                    grid=self.grid,
+                    coords=None if self.grid is None else self.comm.coords)
                 self.stream.load_state_dict(extra["data"])
                 self._log(f"[trainer] resumed from step {step}")
                 return state
@@ -272,7 +461,10 @@ class Trainer:
     def logical_state(self) -> TrainState | None:
         """The whole state: the rank's own where no experts are sharded;
         else gathered to rank 0's host one layer of a leaf at a time
-        (every rank must call it; the other ranks get ``None``)."""
+        (every rank must call it; the other ranks get ``None``); on a grid
+        assembled from the ranks' blocks (:func:`gather_state`)."""
+        if self.grid is not None:
+            return gather_state(self.state, self.model_cfg, self.comm)
         if self.expert_shard is None:
             return self.state
         return moe.gather_experts(self.state, self.comm)

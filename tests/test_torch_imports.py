@@ -111,14 +111,15 @@ NO_TWIN = {
         # a typing Protocol; the port's formulations are duck-typed
         "Formulation"},
     "repro.models": {
-        # the compile-only dry run's abstract arrays and mesh shardings
-        "abstract_params", "BASE_RULES", "ShardingRules", "constrain",
-        "make_rules"},
+        # the compile-only dry run's abstract arrays: the port's meta
+        # tensors (launch/inputs.py) take their place
+        "abstract_params",
+        # with_sharding_constraint on an activation: the port's
+        # activations are placed by the layers that compute them
+        "constrain"},
     "repro.configs": set(), "repro.data": set(),
     "repro.serve": set(), "repro.optim": set(),
-    "repro.train": {
-        # its mesh's NamedSharding / ShapeDtypeStruct trees
-        "train_step_shardings", "abstract_train_state"},
+    "repro.train": set(),
 }
 
 
@@ -127,15 +128,30 @@ def reference_exports():
     """``__all__`` of each reference package of NO_TWIN, read in one
     subprocess (the reference needs jax; the port's processes stay free of
     it)."""
-    code = ("import importlib, json\n"
-            f"print(json.dumps({{m: sorted(importlib.import_module(m).__all__)"
-            f" for m in {sorted(NO_TWIN)!r}}}))\n")
+    code = ("import importlib, inspect, json\n"
+            "out = {m: sorted(importlib.import_module(m).__all__)"
+            f" for m in {sorted(NO_TWIN)!r}}}\n"
+            "from repro.train.elastic import plan_mesh\n"
+            "out['plan_mesh'] = [(p.name, repr(p.default), str(p.kind))"
+            " for p in inspect.signature(plan_mesh).parameters.values()]\n"
+            "print(json.dumps(out))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
                                "JAX_PLATFORMS": "cpu"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_plan_mesh_signature_matches_the_reference(reference_exports):
+    """The grid planner takes the reference's arguments, defaults and
+    kinds (its arithmetic: ``test_torch_sharding.py``)."""
+    import inspect
+
+    from repro_torch.train.elastic import plan_mesh
+    got = [[p.name, repr(p.default), str(p.kind)]
+           for p in inspect.signature(plan_mesh).parameters.values()]
+    assert got == reference_exports["plan_mesh"]
 
 
 @pytest.mark.parametrize("ref", sorted(NO_TWIN))
