@@ -195,7 +195,7 @@ Phases (any failure raises; nothing is caught):
  16. the reference's production layout on a grid of four gloo ranks
      sharing the card (plain torch and collectives), llama3.2-3b at its
      published width cut to GRID_LAYERS layers (GRID_ZERO1_LAYERS in (a),
-     whose replicated world holds four whole states), f32, on phase 15's
+     whose replicated world holds four whole states), f32, on phase 14's
      world: (a) a (4, 1) grid,
      ZeRO-1 alone: every rank's blocks of the state after GRID_STEPS
      Trainer steps the same bytes as its cut of the replicated
@@ -212,7 +212,19 @@ Phases (any failure raises; nothing is caught):
      preset's width): the restored state has the saved bits;
      (e) the dry run's analytic records of every arch x shape on the
      reference's 16x16 and 2x16x16 meshes: none fails; a rank's train_4k
-     bytes of dbrx, jamba and llama3.2-3b.
+     bytes of dbrx, jamba and llama3.2-3b;
+ 17. serving in the reference's production layout on phase 14's world
+     laid out (2, 2) (plain torch and collectives), llama3.2-3b at its
+     published width: (a) prefill and SERVE_GRID_STEPS decode steps with
+     the cache's positions over 'model' and with its kv heads over it,
+     against the same calls in one process (logits a step, greedy
+     tokens; SERVE_GRID_LAYERS layers in f32, SERVE_GRID_F64_LAYERS in
+     f64), the collectives a step by kind and group, host ms in them, ms
+     a step against one process; (b) the bf16 engine at all 28 layers
+     (two slots a row) against the same grid's stepwise greedy oracle,
+     each rank's parameter and cache bytes against ``decode_specs(...,
+     grid=)``'s, prefill and decode ms beside the read bound, tok/s, each
+     rank's peak.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -317,6 +329,20 @@ TOL_BATCHED_DIST_F32 = 5e-7
 # cadence, in outer steps (1e5 outer steps of the primal at s = 16 are
 # about 15 minutes of solving at phase 3's step time).
 MTBF_OUTER = 1e5
+
+
+_CARD: list = []
+
+
+def card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (read
+    once; raises without ``nvidia-smi``)."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0])
+    return _CARD[0]
 
 
 def log(msg: str) -> None:
@@ -3762,17 +3788,18 @@ def lasso_check(gates, dev, stats) -> dict:
     return counts
 
 
-def dryrun_phase(seed: int, stats: dict, dev=None) -> dict:
+def dryrun_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     """Phase 14: (a) flash-decoding and (b) decode on a sequence-sharded
     cache on SEQ_RANKS gloo ranks sharing the card, (c) the LM dry run and
     roofline, (d) the batched solver dry-run cells verified on the ranks,
-    (e) the lasso entry point (counted: the returned launches).  Raises at
-    the end if any gate failed."""
-    from repro_torch.core import SolverWorld
+    (e) the lasso entry point (counted: the returned launches), on
+    ``world`` when given (its caller closes it).  Raises at the end if any
+    gate failed."""
     dev = torch.device("cuda") if dev is None else dev
     gates = Gates()
-    world, secs = timed(lambda: SolverWorld(SEQ_RANKS, device=dev))
-    log(f"  {SEQ_RANKS} gloo ranks spawned in {secs:.1f} s")
+    own = world is None
+    # 14d's solves need the ranks to load the built kernels
+    world = spawn_world(dev, SEQ_RANKS, kernels=True) if own else world
     try:
         for name, fn in (
                 ("14a", lambda: flash_decoding_check(world, gates, dev, seed,
@@ -3788,7 +3815,8 @@ def dryrun_phase(seed: int, stats: dict, dev=None) -> dict:
             log(f"  {name} took {secs:.1f} s")
             torch.cuda.empty_cache()
     finally:
-        world.close()
+        if own:
+            world.close()
     counts, secs = timed(lambda: lasso_check(gates, dev, stats))
     stats["phase14e_s"] = secs
     log(f"  14e took {secs:.1f} s")
@@ -4324,10 +4352,19 @@ def ep_records_check(gates, dev, stats) -> None:
                 "analytic records at 4 and 16 ranks ok")
 
 
-def spawn_world(dev, n_ranks: int):
+def release_ranks(world) -> None:
+    """Every rank's cached blocks given back to the card it shares (and
+    this process's), between two phases on one world."""
+    from repro_torch.launch.flash_decode import release_rank
+    world.run(release_rank, world.size)
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def spawn_world(dev, n_ranks: int, kernels: bool = False):
     from repro_torch.core import SolverWorld
     world, secs = timed(lambda: SolverWorld(n_ranks, device=dev,
-                                            kernels=False))
+                                            kernels=kernels))
     log(f"  {n_ranks} gloo ranks spawned in {secs:.1f} s")
     return world
 
@@ -4370,7 +4407,7 @@ def experts_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 16: the reference's production layout on a grid of ranks
 # ---------------------------------------------------------------------------
-# Four gloo ranks share the card: phase 15's world (as phases 9 and 14's);
+# Four gloo ranks share the card: phase 14's world, shared by phases 14-17;
 # weights reach them by CUDA IPC, each rank copies its blocks
 # (train.trainer.place_fresh).  llama3.2-3b at its published width cut to
 # GRID_LAYERS of its 28 layers in f32; 16a at GRID_ZERO1_LAYERS: its
@@ -4394,9 +4431,11 @@ def experts_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
 # agreed to 1.5e-16; one process with its rows regrouped moves as far,
 # launch/f32_spread.py).  16d uses the cpu-small preset's width
 # (launch/train.py): a checkpoint of the full width's state would be
-# 13 GB on the disk.
+# 13 GB on the disk.  16b / 16c run GRID_LAYERS = 2 of 28 layers (4 until
+# phase 17 came: its seconds are taken back here, a step of host-staged
+# gloo being about linear in the layers' bytes).
 GRID_RANKS = EP_RANKS
-GRID_LAYERS = 4
+GRID_LAYERS = 2
 GRID_ZERO1_LAYERS = 1
 GRID_F64_LAYERS = 1
 GRID_BATCH = (4, 512)
@@ -4590,7 +4629,7 @@ def grid_dryrun_check(gates, dev, stats) -> None:
 def grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     """Phase 16: the production layout on a grid of GRID_RANKS gloo ranks
     sharing the card (plain torch and collectives: the returned launch
-    counts are all zero), on ``world`` when given (phase 15's: its caller
+    counts are all zero), on ``world`` when given (phase 14's: its caller
     closes it).  Raises at the end if any gate failed."""
     dev = torch.device("cuda") if dev is None else dev
     gates = Gates()
@@ -4634,6 +4673,230 @@ def grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: serving in the reference's production layout on a grid of ranks
+# ---------------------------------------------------------------------------
+# Phase 14's four gloo ranks sharing the card, laid out (2, 2): tensor
+# parallelism over 'model', two slots a row over 'data', the decode cache's
+# positions over 'model' (cache_seq, the reference's decode_specs) or its
+# kv heads (seq_shard=False).  Cuts, and why: 17a runs llama3.2-3b at its
+# width and SERVE_GRID_LAYERS of 28 layers in f32 (the one-process run and
+# the ranks' blocks of 4 layers: 3.2 GB each; at fan-in, as 16b: the
+# reference's init makes f32's rounding chaotic with depth,
+# launch/f32_spread.py) and its f64 twin at SERVE_GRID_F64_LAYERS; 17b
+# serves the whole 28 layers in bf16 (6.4 GB of weights, 3.2 GB a rank).  Prompts: 17a's four rows of
+# SERVE_GRID_PROMPT tokens (lengths SERVE_GRID_LENS, right-padded) decode
+# SERVE_GRID_STEPS steps, the first replaying the last prompt token; rows
+# 0 and 1 cross the position shards' boundary at 64 of SERVE_GRID_MAX_SEQ.
+SERVE_GRID = (2, 2)
+SERVE_GRID_LAYERS = 4
+SERVE_GRID_F64_LAYERS = 1
+SERVE_GRID_PROMPT = 64
+SERVE_GRID_LENS = (64, 61, 57, 40)
+SERVE_GRID_MAX_SEQ = 128
+SERVE_GRID_STEPS = 8
+SERVE_GRID_TOL = 1e-4           # of each step's logits' norm (f32)
+SERVE_GRID_F64_TOL = 1e-10
+SERVE_ENGINE_PROMPTS = 4        # 17b: requests of SERVE_ENGINE_PROMPT tokens
+SERVE_ENGINE_PROMPT = 32
+SERVE_ENGINE_NEW = 8
+SERVE_ENGINE_MAX_SEQ = 64
+
+
+def serve_grid_params(layers: int, dtype, dev, seed: int) -> tuple:
+    """(cfg, params) of llama3.2-3b at its width cut to ``layers``, random
+    weights from ``seed`` at fan-in (:func:`attention_fan_in`)."""
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    cfg = grid_cfg(layers, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    attention_fan_in(params, cfg)
+    return cfg, params
+
+
+def serve_grid_prompts(cfg, dev, seed: int) -> tuple:
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    tokens = torch.randint(0, cfg.vocab, (len(SERVE_GRID_LENS),
+                                          SERVE_GRID_PROMPT), generator=gen,
+                           device=dev)
+    lens = torch.tensor(SERVE_GRID_LENS, device=dev)
+    tokens[torch.arange(SERVE_GRID_PROMPT, device=dev)[None, :]
+           >= lens[:, None]] = 0
+    return tokens, lens
+
+
+def step_errors(got, want) -> list:
+    """Each step's ||got - want|| / ||want|| of (steps + 1, B, V) logits."""
+    return [float(torch.linalg.norm(g.double() - w.double())
+                  / torch.linalg.norm(w.double())) for g, w in zip(got, want)]
+
+
+def calls_by_group(calls: dict) -> dict:
+    """A rank's ``Comm`` records by group as {group: {kind: calls}}."""
+    keys = (("all_reduce", "all_reduces"), ("max", "max_reduces"),
+            ("all_gather", "all_gathers"), ("all_to_all", "all_to_alls"))
+    out = {}
+    for group, c in calls.items():
+        kinds = {k: c[n] for k, n in keys if c[n]}
+        if kinds:
+            out[group] = kinds
+    return out
+
+
+def grid_serve_exactness(world, gates, dev, seed: int, stats) -> None:
+    """17a: prefill and SERVE_GRID_STEPS decode steps on SERVE_GRID under
+    both cache layouts against one process on the same weights (fed the
+    one process's tokens), f32 at SERVE_GRID_LAYERS layers and f64 at
+    SERVE_GRID_F64_LAYERS."""
+    from repro_torch.launch.grid_serve import grid_serve, one_process_serve
+    rec = {}
+    for tag, layers, dtype, tol in (
+            ("f32", SERVE_GRID_LAYERS, torch.float32, SERVE_GRID_TOL),
+            ("f64", SERVE_GRID_F64_LAYERS, torch.float64,
+             SERVE_GRID_F64_TOL)):
+        cfg, params = serve_grid_params(layers, dtype, dev, seed)
+        tokens, lens = serve_grid_prompts(cfg, dev, seed)
+        one = one_process_serve(cfg, params, tokens, lens,
+                                SERVE_GRID_MAX_SEQ, SERVE_GRID_STEPS)
+        one_ms = float(np.median(one["step_s"][1:])) * 1e3
+        for seq in (True, False):
+            name = f"{tag} {'cache_seq' if seq else 'kv heads'}"
+            got = grid_serve(world, SERVE_GRID, cfg, params, tokens, lens,
+                             SERVE_GRID_MAX_SEQ, SERVE_GRID_STEPS,
+                             feed=one["fed"].to(dev), seq_shard=seq)
+            errs = step_errors(got["logits"], one["logits"])
+            same = torch.equal(got["picks"], one["picks"])
+            ms = max(float(np.median(s[1:])) for s in got["step_s"]) * 1e3
+            pre_ms = max(got["prefill_s"]) * 1e3
+            host = [round(h * 1e3, 2) for h in got["host_s"]]
+            calls = calls_by_group(got["calls"][0])
+            pre_calls = calls_by_group(got["prefill_calls"][0])
+            rec[name] = {"errs": errs, "tokens_equal": same,
+                         "step_ms": ms, "one_process_step_ms": one_ms,
+                         "prefill_ms": pre_ms,
+                         "one_process_prefill_ms": one["prefill_s"] * 1e3,
+                         "host_ms": host, "calls_rank0": calls,
+                         "prefill_calls_rank0": pre_calls,
+                         "cache_shapes": got["cache_shapes"][0]}
+            gates.check(
+                f"17a {name} (2, 2) == one process",
+                max(errs) <= tol and same,
+                f"{card()}; {layers} layers {tag}: prefill + "
+                f"{SERVE_GRID_STEPS} decode steps, worst step's logits {max(errs):.2e} of "
+                f"their norm (tol {tol:g}); greedy tokens equal {same}; "
+                f"rank 0's cache block {got['cache_shapes'][0]['k']}; a "
+                f"decode step {ms:.2f} ms on the grid (the slowest rank, "
+                f"median of steps 2-{SERVE_GRID_STEPS}) against "
+                f"{one_ms:.2f} ms in one process, host ms in the "
+                f"collectives by rank {host}; rank 0's calls a step "
+                f"{calls}; prefill {pre_ms:.1f} ms against "
+                f"{one['prefill_s'] * 1e3:.1f} ms, its calls {pre_calls}")
+            torch.cuda.ipc_collect()
+        del params, one
+        torch.cuda.empty_cache()
+    stats["grid_17a"] = rec
+
+
+def grid_serve_engine(world, gates, dev, seed: int, stats) -> None:
+    """17b: the engine on SERVE_GRID at the full 28 layers in bf16,
+    against the same grid's stepwise greedy oracle (prefill + decode_step
+    as the engine calls them); each rank's parameter and cache bytes
+    against ``decode_specs(..., grid=)``'s."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch.grid_serve import grid_engine, grid_oracle
+    from repro_torch.models import api
+    from repro_torch.models.module import param_bytes
+    from repro_torch.serve import ServeConfig
+    layers = get_config("llama3_2_3b").n_layers
+    cfg, params = serve_grid_params(layers, torch.bfloat16, dev, seed)
+    gen = np.random.default_rng(seed + 18)
+    prompts = [list(map(int, gen.integers(1, cfg.vocab,
+                                          size=SERVE_ENGINE_PROMPT)))
+               for _ in range(SERVE_ENGINE_PROMPTS)]
+    sc = ServeConfig(max_seq=SERVE_ENGINE_MAX_SEQ,
+                     slots=SERVE_ENGINE_PROMPTS, min_bucket=32)
+    recs = grid_engine(world, SERVE_GRID, cfg, params, prompts,
+                       SERVE_ENGINE_NEW, sc)
+    torch.cuda.ipc_collect()
+    oracle = grid_oracle(world, SERVE_GRID, cfg, params, prompts,
+                         SERVE_ENGINE_NEW, sc)
+    torch.cuda.ipc_collect()
+    shape = ShapeConfig("serve", SERVE_ENGINE_MAX_SEQ, SERVE_ENGINE_PROMPTS,
+                        "decode")
+    p_specs, c_specs, _, _ = I.decode_specs(cfg, shape, grid=SERVE_GRID)
+    want_p, want_c = I.tree_bytes(p_specs), I.tree_bytes(c_specs)
+    outs = recs[0]["outs"]
+    same = all(r["outs"] == oracle["outs"] for r in recs)
+    sized = all(r["param_bytes"] == want_p and r["cache_bytes"] == want_c
+                for r in recs)
+    gen_s = max(r["generate_s"] for r in recs)
+    ntok = sum(len(o) for o in outs)
+    step_ms = max(float(np.median(s[1:])) for s in oracle["step_s"]) * 1e3
+    prefill_ms = max(max(s) for s in oracle["prefill_s"]) * 1e3
+    whole_bytes = param_bytes(api.param_specs(cfg))
+    # the card holds the four ranks: each weight is cut over 'model' and
+    # read by both rows, so a step reads 2 x the weights and the caches
+    card_bound = (len(recs) * (want_p + want_c)) / HBM_BYTES_PER_S * 1e3
+    rank_bound = (want_p + want_c) / HBM_BYTES_PER_S * 1e3
+    peaks = [round((r["peak_bytes"] or 0) / 1e9, 2) for r in recs]
+    stats["grid_17b"] = {
+        "tokens": outs, "oracle_equal": same, "bytes_equal": sized,
+        "param_bytes": want_p, "cache_bytes": want_c,
+        "whole_param_bytes": whole_bytes, "generate_s": gen_s,
+        "tok_s": ntok / gen_s, "step_ms": step_ms, "prefill_ms": prefill_ms,
+        "card_bound_ms": card_bound, "rank_bound_ms": rank_bound,
+        "peak_gb": peaks}
+    gates.check(
+        "17b bf16 engine on (2, 2) == the grid's stepwise greedy oracle",
+        same and sized and oracle["finite"] and all(
+            len(o) == SERVE_ENGINE_NEW for o in outs),
+        f"{card()}; {layers} layers bf16, {SERVE_ENGINE_PROMPTS} requests of "
+        f"{SERVE_ENGINE_PROMPT} tokens, {SERVE_ENGINE_NEW} new each, two "
+        f"slots a row: tokens {outs} equal to the oracle's {same}; logits "
+        f"finite {oracle['finite']}; a rank's parameters {want_p / 1e9:.3f} "
+        f"GB (whole {whole_bytes / 1e9:.3f}) and cache {want_c / 1e6:.2f} MB"
+        f", decode_specs' on every rank {sized}; generate {gen_s:.2f} s "
+        f"({ntok / gen_s:.1f} tok/s); the oracle's prefill {prefill_ms:.1f} "
+        f"ms a request, decode {step_ms:.2f} ms a step (the slowest rank, "
+        f"median of steps 2-{SERVE_ENGINE_NEW}) against the card's read "
+        f"bound {card_bound:.3f} ms (four ranks' blocks; a rank's "
+        f"{rank_bound:.3f} ms alone); peaks GB by rank {peaks}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def grid_serve_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
+    """Phase 17: serving on a (2, 2) grid of gloo ranks sharing the card
+    (plain torch and collectives: the returned launch counts are all
+    zero), on ``world`` when given (phase 14's: its caller closes it).
+    Raises at the end if any gate failed."""
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    own = world is None
+    world = spawn_world(dev, GRID_RANKS) if own else world
+    try:
+        for name, fn in (
+                ("17a", lambda: grid_serve_exactness(world, gates, dev, seed,
+                                                     stats)),
+                ("17b", lambda: grid_serve_engine(world, gates, dev, seed,
+                                                  stats))):
+            _, secs = timed(fn)
+            stats[f"phase{name}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+    finally:
+        if own:
+            world.close()
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 17 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -4657,10 +4920,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
 
     # -- 1. set-up ---------------------------------------------------------
     log("== 1. set-up")
@@ -4807,33 +5067,45 @@ def main() -> int:
     log(f"== 14. flash-decoding and decode on a sequence-sharded cache on "
         f"{SEQ_RANKS} gloo ranks, the LM dry run and roofline, the batched "
         "solver dry-run cells, the lasso entry point")
-    paths["lasso"], stats["phase14_s"] = timed(
-        lambda: dryrun_phase(args.seed, stats))
-    log(f"  phase 14 took {stats['phase14_s']:.1f} s")
-    torch.cuda.empty_cache()
-
-    # -- 15. experts sharded over ranks ---------------------------------------
-    log(f"== 15. experts sharded over {EP_RANKS} gloo ranks on one card: "
-        "dbrx's and jamba's MoE blocks, dbrx decode and serving, a "
-        "phi3.5-moe train step, the MoE dry-run cells (random weights)")
-    # phases 15 and 16 share one world of four gloo ranks (a spawn is
-    # 9-13 s)
-    world = spawn_world(dev, EP_RANKS)
+    # phases 14-17 share one world of four gloo ranks (a spawn is 9-13 s);
+    # its ranks give their cached blocks back to the card between phases
+    world = spawn_world(dev, SEQ_RANKS, kernels=True)
     try:
+        paths["lasso"], stats["phase14_s"] = timed(
+            lambda: dryrun_phase(args.seed, stats, world=world))
+        log(f"  phase 14 took {stats['phase14_s']:.1f} s")
+        release_ranks(world)
+
+        # -- 15. experts sharded over ranks -----------------------------------
+        log(f"== 15. experts sharded over {EP_RANKS} gloo ranks on one card "
+            "(phase 14's): dbrx's and jamba's MoE blocks, dbrx decode and "
+            "serving, a phi3.5-moe train step, the MoE dry-run cells "
+            "(random weights)")
         paths["experts"], stats["phase15_s"] = timed(
             lambda: experts_phase(args.seed, stats, world=world))
         log(f"  phase 15 took {stats['phase15_s']:.1f} s")
-        torch.cuda.empty_cache()
+        release_ranks(world)
 
         # -- 16. the production layout on a grid of ranks ---------------------
         log(f"== 16. the reference's production layout on a grid of "
-            f"{GRID_RANKS} gloo ranks on one card (phase 15's): ZeRO-1 on "
+            f"{GRID_RANKS} gloo ranks on one card (phase 14's): ZeRO-1 on "
             "(4, 1) against the replicated world, tensor parallelism (and "
             "FSDP) on (2, 2) against one process, a restart 2 x 2 -> 1 x 2, "
             "the dry run on 16x16 and 2x16x16 (random weights)")
         paths["grid"], stats["phase16_s"] = timed(
             lambda: grid_phase(args.seed, stats, world=world))
         log(f"  phase 16 took {stats['phase16_s']:.1f} s")
+        release_ranks(world)
+
+        # -- 17. serving in the production layout on a grid of ranks ----------
+        log(f"== 17. serving in the reference's production layout on a "
+            f"{SERVE_GRID} grid of {GRID_RANKS} gloo ranks on one card (phase "
+            "14's): prefill and decode under both cache layouts against one "
+            "process (f32 and f64), the bf16 engine at 28 layers against "
+            "the grid's greedy oracle (random weights)")
+        paths["grid serving"], stats["phase17_s"] = timed(
+            lambda: grid_serve_phase(args.seed, stats, world=world))
+        log(f"  phase 17 took {stats['phase17_s']:.1f} s")
     finally:
         world.close()
 

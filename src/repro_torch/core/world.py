@@ -77,8 +77,11 @@ def _numpy(t):
     return None if t is None else t.detach().cpu().numpy()
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
+def sync_device(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): the one
+    definition, for every timed region of the world's ranks and the
+    launch scripts."""
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
@@ -197,7 +200,7 @@ class _Rank:
                                                           device=dev)
         idx = torch.as_tensor(p["idx"], device=dev)
         before = _launches()
-        _sync(dev)
+        sync_device(dev)
         peak = p.get("peak") and dev.type == "cuda"
         if peak:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -207,7 +210,7 @@ class _Rank:
         with tap or contextlib.nullcontext():
             w, alpha, metrics = self._solve(p, form, plan, comm, Xl, idx,
                                             tensor)
-        _sync(dev)
+        sync_device(dev)
         wall = time.perf_counter() - t0
         after = _launches()
         return {"w": _numpy(w), "alpha": _numpy(alpha), "metrics": metrics,

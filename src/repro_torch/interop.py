@@ -162,7 +162,7 @@ def lm_params_from_reference(params_np, cfg, *, device, dtype=None,
     placed.  ``comm``: the model of the rank of a grid (a
     ``core.world.GridComm``): each leaf cut to the rank's block by the
     rule table, the model built with the rank's layout
-    (``api.grid_layout``)."""
+    (``api.grid_model``)."""
     import dataclasses
 
     from repro_torch.models import api
@@ -170,13 +170,9 @@ def lm_params_from_reference(params_np, cfg, *, device, dtype=None,
     if dtype != cfg.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     if comm is not None:
-        from repro_torch.models.sharding import cut, make_rules
-        rules = make_rules(comm.grid, fsdp=cfg.fsdp)
-        specs = api.param_specs(cfg)
-        params = _map2(lambda a, s: torch.as_tensor(np.array(cut(
-            _np(a), rules.spec_of(s), comm.grid, comm.coords)),
-            device=device).to(s.dtype), params_np, specs)
-        return api.build_model(cfg, params, api.grid_layout(cfg, comm))
+        return api.grid_model(cfg, _map2(
+            lambda a, s: torch.as_tensor(_np(a)).to(s.dtype), params_np,
+            api.param_specs(cfg)), comm, device)
     params = api._to_specs(
         _tree_to_torch(_cut(params_np, cfg, expert_shard), device, None),
         api.param_specs(cfg, expert_shard=expert_shard))

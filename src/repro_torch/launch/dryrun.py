@@ -87,6 +87,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import api
 from repro_torch.models.module import tree_leaves
 from repro_torch.core.grid import as_grid, grid_name, grid_size
+from repro_torch.core.world import sync_device
 from repro_torch.models.sharding import make_rules, shard_shape
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.trainer import make_train_step
@@ -261,11 +262,6 @@ def _output_bytes(cfg, shape, n_ranks: int, seq_shard: bool,
     return logits, I.tree_bytes(cache)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _rank_corner(comm, device, *, cfg, shape, rows: int, size: int,
                  seq_shard: bool, seed: int, timed: bool) -> dict:
     """One probe corner on one rank of ``size``: a counted run (the
@@ -283,14 +279,14 @@ def _rank_corner(comm, device, *, cfg, shape, rows: int, size: int,
             else torch.no_grad)
     if comm is not None:
         comm.reset()
-    _sync(device)
+    sync_device(device)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
     mode = CostMode()
     with mode, grad():
         out = step(*args)
-    _sync(device)
+    sync_device(device)
     rec = {"flops": mode.flops, "bytes": mode.bytes,
            "counters": None if comm is None else comm.counters(),
            "peak": None, "temp": None, "step_s": None}
@@ -300,10 +296,10 @@ def _rank_corner(comm, device, *, cfg, shape, rows: int, size: int,
     del out
     if timed and cuda:      # a CPU run's time is no device metric
         with grad():
-            _sync(device)
+            sync_device(device)
             t0 = time.perf_counter()
             out = step(*args)
-            _sync(device)
+            sync_device(device)
             rec["step_s"] = time.perf_counter() - t0
         del out
     del args

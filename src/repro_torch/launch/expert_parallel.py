@@ -19,7 +19,8 @@ import time
 
 import torch
 
-from repro_torch.launch.flash_decode import _greedy, _release, _sync
+from repro_torch.core.world import sync_device
+from repro_torch.launch.flash_decode import _greedy, _release
 from repro_torch.models import api, moe
 from repro_torch.models.module import tree_map
 from repro_torch.optim import AdamWConfig, init_opt_state
@@ -65,12 +66,12 @@ def _block_rank(comm, device, *, cfg, params, x, replicated: bool,
     secs, counters = [], []
     for _ in range(reps):
         comm.reset()
-        _sync(device)
+        sync_device(device)
         wire = WireTap()
         t0 = time.perf_counter()
         with torch.set_grad_enabled(grad), wire:
             out, metrics = moe.moe_block(p, xs, cfg, comm, replicated)
-        _sync(device)
+        sync_device(device)
         secs.append(time.perf_counter() - t0)
         counters.append(comm.counters())
     rec = {"out": out.detach().cpu(), "block_s": secs, "counters": counters,
@@ -329,11 +330,11 @@ def _train_rank(comm, device, *, cfg, params, batch, lr: float, want=None,
     rec = {"forward": {k: float(v) for k, v in fwd.items()}, "step_s": []}
     for i in range(steps):
         comm.reset()
-        _sync(device)
+        sync_device(device)
         _reset_peak(device)
         t0 = time.perf_counter()
         st, metrics = step(st, batch)
-        _sync(device)
+        sync_device(device)
         rec["step_s"].append(time.perf_counter() - t0)
         if i == 0:
             rec["metrics"] = {k: float(v) for k, v in metrics.items()}

@@ -19,20 +19,21 @@ import time
 
 import torch
 
+from repro_torch.core.world import sync_device
 from repro_torch.data.regression import check_device
 from repro_torch.models import api
 from repro_torch.models import layers as L
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _release(device) -> None:
     """Give a rank's cached blocks back to the card it shares."""
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+
+
+def release_rank(comm, device) -> None:
+    """:func:`_release` as a rank function (``SolverWorld.run``)."""
+    _release(device)
 
 
 def _flash_rank(comm, device, *, q, cache_k, cache_v, pos) -> dict:
@@ -44,7 +45,7 @@ def _flash_rank(comm, device, *, q, cache_k, cache_v, pos) -> dict:
     comm.reset()
     out = L.decode_attention_seqsharded(q.to(device), ck, cv,
                                         pos.to(device), comm=comm)
-    _sync(device)
+    sync_device(device)
     rec = {"out": out.cpu(), "counters": comm.counters()}
     del ck, cv, out
     _release(device)
@@ -81,12 +82,12 @@ def _greedy(model, cfg, cache, token, pos, steps: int, comm=None,
             for c in (comm, expert_comm):
                 if c is not None:
                     c.reset()
-            _sync(device)
+            sync_device(device)
             t0 = time.perf_counter()
             logits, cache = api.decode_step(model, cfg, cache, token, pos,
                                             comm=comm,
                                             expert_comm=expert_comm)
-            _sync(device)
+            sync_device(device)
             secs.append(time.perf_counter() - t0)
             reduces.append(0 if comm is None else comm.all_reduces)
             gathers.append(0 if expert_comm is None

@@ -16,7 +16,8 @@ import time
 
 import torch
 
-from repro_torch.launch.flash_decode import _release, _sync
+from repro_torch.core.world import sync_device
+from repro_torch.launch.flash_decode import _release
 from repro_torch.models.module import tensor_leaves, tree_items, tree_map
 from repro_torch.models.sharding import cut, spec_axes
 from repro_torch.optim import AdamWConfig
@@ -40,10 +41,10 @@ def _rank_steps(comm, device, *, cfg, params, batch, steps: int, lr: float,
     secs, metrics, out = [], [], {}
     for i in range(steps):
         comm.reset()
-        _sync(device)
+        sync_device(device)
         t0 = time.perf_counter()
         state, m = step(state, batch)
-        _sync(device)
+        sync_device(device)
         secs.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
         if want is not None and i == 0:
@@ -147,10 +148,10 @@ def one_process_steps(cfg, params: dict, batch: dict, *, steps: int = 1,
     step = make_train_step(cfg, AdamWConfig(lr=lr))
     secs, metrics = [], None
     for _ in range(steps):
-        _sync(dev)
+        sync_device(dev)
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
-        _sync(dev)
+        sync_device(dev)
         secs.append(time.perf_counter() - t0)
     return {k: float(v) for k, v in metrics.items()}, state, secs
 
@@ -203,10 +204,10 @@ def _rank_zero1_vs_replicated(comm, device, *, cfg, run_cfg) -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         trainer = Trainer(cfg, run_cfg, c)
-        _sync(device)
+        sync_device(device)
         t0 = time.perf_counter()
         history = trainer.run()
-        _sync(device)
+        sync_device(device)
         secs = time.perf_counter() - t0
         out[tag] = {
             "history": history, "run_s": secs,

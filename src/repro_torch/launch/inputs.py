@@ -25,7 +25,8 @@ kind as the reference's ``inputs`` shards it: the train state by
 ``train.trainer.abstract_train_state`` (parameters under ``cfg.fsdp``,
 the optimizer ZeRO-1), the batch's rows over (pod, data), prefill's
 parameters, and decode's parameters and cache under the rules with the
-``cache_seq: ("model",)`` override when ``seq_shard`` is set.
+``cache_seq: ("model",)`` override when ``seq_shard`` is set
+(``models.api.cache_rules``, the rules the grid's decode step runs on).
 
 The audio family's ``src_embeds`` (max(S / 4, 128) encoder frames) and the
 vlm family's ``extra_embeds`` (the patch prefix) take the reference's
@@ -129,8 +130,7 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, n_ranks: int = 1, *,
     over 'model' when ``seq_shard`` (the reference's override)."""
     B = shape.global_batch if rows is None else rows
     if grid is not None:
-        rules = make_rules(grid, fsdp=cfg.fsdp, overrides=(
-            {"cache_seq": ("model",)} if seq_shard else None))
+        rules = api.cache_rules(cfg, grid, seq_shard)
         tok = _meta(shard_shape((B,), rules.spec_for((B,), ("batch",)),
                                 rules.grid), torch.int32)
         return (_grid_cut(api.param_specs(cfg), rules),

@@ -14,11 +14,16 @@ a model built from it, :func:`build_model`):
   forward(model, cfg, batch[, comm])       -> (logits, aux)
   loss_fn(model, cfg, batch[, comm])       -> (loss, metrics)
   init_cache_specs(cfg, batch, max_seq)    -> cache ParamSpec tree
-  init_cache(cfg, batch, max_seq, device)  -> zero cache
-  prefill(model, cfg, batch, max_seq)      -> (logits_last, cache)
-  decode_step(model, cfg, cache, tok, pos[, comm, expert_comm])
+  init_cache(cfg, batch, max_seq, device[, grid, seq_shard])
+                                           -> zero cache (a rank's block)
+  prefill(model, cfg, batch, max_seq[, seq_shard])
+                                           -> (logits_last, cache)
+  decode_step(model, cfg, cache, tok, pos[, comm, expert_comm, seq_shard])
                                            -> (logits, cache)
   shard_cache(cache, cfg, rank, n_shards)  -> a rank's sequence shard
+  cut_cache(cache, cfg, grid, coords[, seq_shard])
+                                           -> a rank's block on a grid
+  grid_model(cfg, params, comm)            -> a rank's model on a grid
 
 The reference scans one superblock (the lcm of the attention interleave
 and the MoE period) over a stacked layer axis; here the layers are an
@@ -56,6 +61,15 @@ take the rank's ``comm`` (its rows of the global batch, or with
 (the reference shards dbrx's and jamba's other weights FSDP-style over
 'data'; the port replicates them).
 
+On a grid of ranks (:class:`GridLayout`, the reference's production
+layout; section "A grid of ranks" below) the dense decoder family trains
+and serves: ``prefill`` and ``decode_step`` of a rank's model
+(:func:`grid_model`) take the rank's (pod, data) rows and give the logits
+of its vocab columns, and the decode cache is cut as the reference's
+``decode_specs`` cut it (:func:`cache_rules`): by default its positions
+over 'model' (``cache_seq: ("model",)``; flash-decoding over the 'model'
+group), with ``seq_shard=False`` its kv heads (Megatron's decode).
+
 Serving keeps the parameters frozen.  Training calls
 :meth:`_LM.trainable`: every parameter requires grad, and backward adds
 each gradient in place into buffers laid out as the parameter tree
@@ -81,7 +95,7 @@ from . import mamba2 as M
 from . import moe as MOE
 from .module import (ParamSpec, init_params, is_spec, stack_specs, tree_leaves,
                      tree_map)
-from .sharding import entry_axes, make_rules
+from .sharding import cut_tree, entry_axes, make_rules, shard_shape
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -439,10 +453,11 @@ def _apply_layer(layer, x, cfg, positions, aux, caches=None, ep=None,
     appends the layer's decode cache to ``caches`` when given (prefill's:
     an attention layer's rope'd k and its v, a mamba layer's state).
     ``ep``: ``(comm, replicated)`` of experts sharded over ranks, or
-    ``None``.  ``lay``: the rank's :class:`GridLayout` (a dense layer of
-    the training forward: no cache, no experts)."""
+    ``None``.  ``lay``: the rank's :class:`GridLayout` (a dense layer;
+    prefill's cache holds the kv heads the rank holds; no experts)."""
     if lay is not None:
-        return _grid_layer(lay.layer_tree(layer), x, cfg, positions, lay), aux
+        return _grid_layer(lay.layer_tree(layer), x, cfg, positions, lay,
+                           caches), aux
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
     if "attn" in layer.kinds:
         q, k, v = _project(layer.attn, h, cfg, positions)
@@ -739,12 +754,50 @@ def init_cache_specs(cfg, batch: int, max_seq: int,
     return {"blocks": stack_specs(sub, cfg.n_layers // period)}
 
 
+def cache_rules(cfg, grid, seq_shard: bool = True):
+    """The rules that cut the decode cache on ``grid``: the rule table
+    (``cfg.fsdp``'s) with the reference's ``cache_seq: ("model",)``
+    override when ``seq_shard`` -- the cache's positions over 'model', its
+    kv heads then whole on a rank (an axis cuts one dimension of a tensor)
+    -- and without it the kv heads over 'model' where they divide.  The
+    slots go over (pod, data) either way."""
+    return make_rules(grid, fsdp=cfg.fsdp, overrides=(
+        {"cache_seq": ("model",)} if seq_shard else None))
+
+
+def cache_shardings(cfg, batch: int, max_seq: int, grid,
+                    seq_shard: bool = True) -> dict:
+    """The spec (one entry a dimension, ``models.sharding``) of every leaf
+    of the decode cache of ``batch`` slots on ``grid``."""
+    return cache_rules(cfg, grid, seq_shard).tree(
+        init_cache_specs(cfg, batch, max_seq))
+
+
 def init_cache(cfg, batch: int, max_seq: int, device,
-               seq_shards: int = 1) -> dict:
-    """A zero cache of :func:`init_cache_specs` on ``device``."""
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                          device=device),
-                    init_cache_specs(cfg, batch, max_seq, seq_shards))
+               seq_shards: int = 1, *, grid=None,
+               seq_shard: bool = True) -> dict:
+    """A zero cache of :func:`init_cache_specs` on ``device``; on ``grid``
+    the block of it that a rank holds (:func:`cache_rules`: ``batch`` is
+    the global slot count, cut over (pod, data))."""
+    if grid is None:
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=device),
+                        init_cache_specs(cfg, batch, max_seq, seq_shards))
+    rules = cache_rules(cfg, grid, seq_shard)
+    return tree_map(lambda s: torch.zeros(
+        shard_shape(s.shape, rules.spec_of(s), rules.grid), dtype=s.dtype,
+        device=device), init_cache_specs(cfg, batch, max_seq))
+
+
+def cut_cache(cache: dict, cfg, grid, coords: dict,
+              seq_shard: bool = True) -> dict:
+    """The block of a whole cache (all slots, every position) that the
+    rank at ``coords`` holds on ``grid`` (a copy): :func:`shard_cache`'s
+    twin on a grid, the layout of ``init_cache(..., grid=grid)``."""
+    leaf = next(iter(next(iter(cache["blocks"].values())).values()))
+    B, S = leaf.shape[1], leaf.shape[2]
+    return cut_tree(cache, cache_shardings(cfg, B, S, grid, seq_shard),
+                    grid, coords)
 
 
 def shard_cache(cache: dict, cfg, rank: int, n_shards: int) -> dict:
@@ -800,7 +853,8 @@ def _decode_self_attention(p, c, h, cfg, pos, rows, comm=None):
 
 
 def decode_step(model, cfg, cache: dict, token: torch.Tensor,
-                pos: torch.Tensor, comm=None, expert_comm=None):
+                pos: torch.Tensor, comm=None, expert_comm=None,
+                seq_shard: bool = True):
     """One decode step.  token (B,) integer, pos (B,) current positions.
     Writes each layer's new k / v row at ``pos``, and each mamba layer's
     new state, into ``cache`` in place.  Returns (logits (B, Vpad),
@@ -813,8 +867,19 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
     combine: with both (the same world or two), attention is
     flash-decoding over the cache's shards and the MoE layers all-gather
     their experts' outputs, and every rank ends the step with the same
-    logits."""
-    _no_grid(model, "decode_step")
+    logits.
+
+    A rank's model on a grid (``model.layout``, :func:`grid_model`) takes
+    the rank's (pod, data) rows of token and pos and its block of the cache
+    (``init_cache(..., grid=, seq_shard=)``, or :func:`prefill`'s), and
+    returns the logits of its vocab columns (:func:`_grid_decode_step`);
+    ``comm`` and ``expert_comm`` are then ``None``."""
+    if model.layout is not None:
+        if comm is not None or expert_comm is not None:
+            raise ValueError("decode_step on a grid takes the rank's groups "
+                             "from its model's layout: comm / expert_comm "
+                             "must be None")
+        return _grid_decode_step(model, cfg, cache, token, pos, seq_shard)
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
@@ -864,7 +929,7 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
 
 
 def prefill(model, cfg, batch: dict, max_seq: int | None = None,
-            comm=None, replicated: bool = False):
+            comm=None, replicated: bool = False, seq_shard: bool = True):
     """Run the full-context forward and build the decode cache: every
     attention layer's rope'd k and its v, zero-padded from S to
     ``max_seq``, and every mamba layer's state after the last position (the
@@ -872,8 +937,15 @@ def prefill(model, cfg, batch: dict, max_seq: int | None = None,
     (logits at the last position (B, Vpad), cache).  ``comm`` /
     ``replicated``: experts sharded over the ranks, as in :func:`forward`
     (a serving engine's ranks prefill the same request: ``replicated``;
-    a data-parallel prefill, each rank its rows)."""
-    _no_grid(model, "prefill")
+    a data-parallel prefill, each rank its rows).  A rank's model on a
+    grid takes the rank's (pod, data) rows and returns the logits of its
+    vocab columns and the cache in the decode step's layout
+    (:func:`_grid_prefill`; ``seq_shard`` as in :func:`decode_step`)."""
+    if model.layout is not None:
+        if comm is not None:
+            raise ValueError("prefill on a grid takes the rank's groups from "
+                             "its model's layout: comm must be None")
+        return _grid_prefill(model, cfg, batch, max_seq, seq_shard)
     if cfg.family == "audio":
         return _prefill_encdec(model, cfg, batch, max_seq)
     x = _embed(model, cfg, batch)
@@ -919,45 +991,72 @@ def _prefill_encdec(model, cfg, batch, max_seq):
 # A grid of ranks: tensor parallelism over 'model', FSDP over 'data'
 # ---------------------------------------------------------------------------
 # The reference's production layout (models.sharding's rule table on its
-# mesh) for the dense decoder family's training forward: attention cut by
-# heads / kv_heads, the MLP by its hidden columns (w1 / w3) and rows (w2),
-# the embedding and the tied unembedding by vocab rows, each region entered
-# by ``copy_to`` (identity, all-reduce of the gradient) and left by
+# mesh) for the dense decoder family's forward: attention cut by heads /
+# kv_heads, the MLP by its hidden columns (w1 / w3) and rows (w2), the
+# embedding and the tied unembedding by vocab rows, each region entered by
+# ``copy_to`` (identity, all-reduce of the gradient) and left by
 # ``reduce_from`` (all-reduce, identity backward) over 'model'; a leaf whose
 # dimension the guard dropped runs whole on every model rank with no
 # collective.  Under FSDP (``cfg.fsdp``) the non-TP 'embed' dimension of
 # every weight is cut over 'data' and gathered (``gather_from``: its
 # gradient reduce-scattered) just before use.
+#
+# Serving runs the same layers.  Prefill is the forward on the rank's
+# (pod, data) rows, keeping each layer's rope'd k and its v, and hands the
+# decode step its cache in the decode step's layout (:func:`_grid_cache`:
+# under ``cache_seq: ("model",)`` one all-to-all over 'model' turns the
+# rank's kv heads at every position into every kv head at its positions);
+# the reference's prefill leaves that layout to GSPMD.  A decode step's
+# attention (:func:`_grid_decode_attention`) is flash-decoding over the
+# 'model' group on a position-cut cache (the rank's q heads and new k / v
+# gathered, one max and one sum all-reduce, one all-reduce after wo), or
+# Megatron's on a head-cut cache (one all-reduce after wo).  Tokens come
+# from the vocab-cut logits by one all-gather (:meth:`GridLayout.greedy`,
+# :meth:`GridLayout.whole_vocab`).
 
 GRID_QUEUE = "ROADMAP.md queue 1, 'The grid'"
 
 
 def check_grid_family(cfg, grid) -> None:
-    """Raise unless ``cfg`` trains on ``grid``: any family but MoE on a
-    grid whose 'model' axis is one rank (ZeRO-1 and data parallelism only),
-    the dense decoder family alone where 'model' > 1 or FSDP cuts the
-    weights.  Nothing is replicated in place of a layout not ported."""
+    """Raise unless ``cfg`` trains and serves on ``grid``: any family but
+    MoE on a grid whose 'model' axis is one rank (data parallelism: the
+    train step's ZeRO-1, the engine's rows of slots), the dense decoder
+    family alone where 'model' > 1 or FSDP cuts the weights.  Nothing is
+    replicated in place of a layout not ported."""
     if cfg.moe:
         raise ValueError(
             f"{cfg.name}: MoE experts over 'model' on a grid are not ported "
             f"({GRID_QUEUE}); experts sharded over a 1-D world of ranks "
-            "train through train.elastic.run_data_parallel without a grid")
+            "train through train.elastic.run_data_parallel and serve through "
+            "Engine(..., comm=), without a grid")
     tp = grid.get("model", 1) > 1 or (cfg.fsdp and grid.get("data", 1) > 1)
     if tp and cfg.family != "dense":
         raise ValueError(
             f"{cfg.name} ({cfg.family}): tensor parallelism / FSDP on a grid "
-            f"runs the dense decoder family only ({GRID_QUEUE}); this grid "
-            f"is {grid}")
+            f"trains and serves the dense decoder family only "
+            f"({GRID_QUEUE}); this grid is {grid}")
 
 
 def grid_layout(cfg, comm) -> "GridLayout | None":
     """The rank's :class:`GridLayout` on ``comm``'s grid (a
     ``core.world.GridComm``), or ``None`` where the model runs as on one
     rank (a 'model' axis of one rank, no FSDP cut): the grid is then
-    data-parallel with ZeRO-1 alone (``optim.adamw``)."""
+    data-parallel (ZeRO-1 alone, ``optim.adamw``; the engine's rows)."""
     check_grid_family(cfg, comm.grid)
     layout = GridLayout(cfg, comm)
     return layout if layout.model is not None or layout.fsdp else None
+
+
+def grid_model(cfg, params: dict, comm, device=None) -> _LM:
+    """The model of the rank at ``comm``'s coordinates (a
+    ``core.world.GridComm``) from the whole parameter tree ``params``:
+    each leaf's block by the rule table, copied onto ``device`` (default:
+    ``comm.device``), the model built with the rank's layout
+    (:func:`grid_layout`; raises for a family the grid does not run)."""
+    layout = grid_layout(cfg, comm)
+    specs = make_rules(comm.grid, fsdp=cfg.fsdp).tree(param_specs(cfg))
+    return build_model(cfg, cut_tree(params, specs, comm.grid, comm.coords,
+                                     device=device or comm.device), layout)
 
 
 def _data_dim(spec: tuple, skip: int = 0) -> int | None:
@@ -978,6 +1077,7 @@ class GridLayout:
     def __init__(self, cfg, comm):
         grid = comm.grid
         rules = make_rules(grid, fsdp=cfg.fsdp)
+        self.grid = grid
         self.specs = rules.tree(param_specs(cfg))
         self.model = comm.model
         self.data = comm.data
@@ -1060,30 +1160,73 @@ class GridLayout:
         gold = reduce_from(torch.where(inside, gold, 0), m)
         return torch.log(sumexp) + gmax - gold
 
+    def greedy(self, logits, vocab: int) -> torch.Tensor:
+        """``torch.argmax`` over the unpadded vocabulary of the whole rows
+        whose vocab columns the ranks hold (``logits`` (B, V / M)): each
+        rank's (max, first index at it) over its columns -- the padded
+        columns, which lie in the last rank's block, masked -- one
+        all-gather of those (B, 2) pairs over 'model' (exact in f64), then
+        the highest max and the lowest index at it, argmax's first-index
+        rule.  Every model rank returns the same tokens (B,)."""
+        if not self.tp_vocab:
+            return torch.argmax(logits[:, :vocab], dim=-1)
+        V = logits.shape[-1]
+        col = self.rank * V + torch.arange(V, device=logits.device)
+        masked = logits.masked_fill(col >= vocab, -math.inf)
+        idx = torch.argmax(masked, dim=-1)
+        best = torch.take_along_dim(masked, idx[:, None], dim=-1)[:, 0]
+        pairs = torch.stack([best.double(), (idx + self.rank * V).double()],
+                            dim=-1)
+        allp = self.model.all_gather(pairs)                 # (M, B, 2)
+        top = allp[..., 0].amax(dim=0)
+        at = torch.where(allp[..., 0] == top, allp[..., 1], math.inf)
+        return at.amin(dim=0).long()
 
-def _grid_attention(p, h, cfg, positions, lay: GridLayout):
+    def whole_vocab(self, logits):
+        """The whole rows (B, Vpad) of the ranks' vocab columns: one
+        all-gather over 'model' (the same bits on every model rank)."""
+        return torch.cat(self.model.all_gather(logits.contiguous()).unbind(0),
+                         dim=-1)
+
+
+def _grid_attention(p, h, cfg, positions, lay: GridLayout, kv=None):
     """Self-attention of the rank's q heads ``[r H / M, (r + 1) H / M)``,
     one all-reduce over 'model' after ``wo``.  Where the kv heads are not
     cut (the guard dropped them), every rank computes all of them and each
     of its q heads h takes kv head h // G (the reference's grouping), and
     the whole wk / wv take their gradient summed over the ranks.  Where
-    the q heads are not cut, attention runs whole on every rank."""
-    if not lay.tp_heads:
-        return _self_attention(p, h, cfg, positions, causal=True)
+    the q heads are not cut, attention runs whole on every rank.  ``kv``:
+    a list that takes the rope'd k and the v of the kv heads the rank
+    holds (prefill's cache)."""
     m = lay.model
-    h = copy_to(h, m)
-    if lay.tp_kv:
+    if not lay.tp_heads:
         q, k, v = _project(p, h, cfg, positions)
+        out = L.out_proj(p, _attend(q, k, v, cfg))
     else:
-        p = {n: copy_to(t, m) if n in ("wk", "wv", "bk", "bv") else t
-             for n, t in p.items()}
-        q, k, v = L.qkv_proj(p, h)
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
-        Hl = q.shape[2]
-        kv = (lay.rank * Hl + torch.arange(Hl, device=q.device)) // lay.group
-        k, v = k.index_select(2, kv), v.index_select(2, kv)
-    return reduce_from(L.out_proj(p, _attend(q, k, v, cfg)), m)
+        h = copy_to(h, m)
+        if lay.tp_kv:
+            q, k, v = _project(p, h, cfg, positions)
+            kk, vv = k, v
+        else:
+            p = {n: copy_to(t, m) if n in ("wk", "wv", "bk", "bv") else t
+                 for n, t in p.items()}
+            q, k, v = L.qkv_proj(p, h)
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+            kk, vv = _kv_of_rank(k, lay, q.shape[2]), _kv_of_rank(
+                v, lay, q.shape[2])
+        out = reduce_from(L.out_proj(p, _attend(q, kk, vv, cfg)), m)
+    if kv is not None:
+        kv.append({"k": k, "v": v})
+    return out
+
+
+def _kv_of_rank(t, lay: GridLayout, heads: int):
+    """The kv head of each of the rank's ``heads`` q heads (h // G of the
+    global q head h), from every kv head (dim 2): a copy."""
+    at = (lay.rank * heads + torch.arange(heads, device=t.device)) \
+        // lay.group
+    return t.index_select(2, at)
 
 
 def _grid_mlp(p, h, lay: GridLayout):
@@ -1094,17 +1237,165 @@ def _grid_mlp(p, h, lay: GridLayout):
     return reduce_from(L.swiglu(p, copy_to(h, lay.model)), lay.model)
 
 
-def _grid_layer(p: dict, x, cfg, positions, lay: GridLayout):
+def _grid_layer(p: dict, x, cfg, positions, lay: GridLayout, caches=None):
     """One dense decoder layer on a grid (``p``: its parameters, gathered
-    under FSDP)."""
+    under FSDP); appends the layer's k / v to ``caches`` when given."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + _grid_attention(p["attn"], h, cfg, positions, lay)
+    x = x + _grid_attention(p["attn"], h, cfg, positions, lay, caches)
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + _grid_mlp(p["mlp"], h, lay)
 
 
-def _no_grid(model, name: str) -> None:
-    if model.layout is not None:
-        raise ValueError(f"{name} under tensor parallelism / FSDP is not "
-                         f"ported ({GRID_QUEUE}): serve from a model built "
-                         "without a grid layout")
+# ------------------------------------------------------- serving on a grid --
+
+def _seq_cut(lay: GridLayout, seq_shard: bool) -> bool:
+    """Is the cache's position axis cut over 'model' (``cache_seq``)?"""
+    return seq_shard and lay.model is not None
+
+
+def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
+                seq_shard: bool) -> dict:
+    """Prefill's per-layer k / v (B, S, heads the rank holds, Dh) as the
+    decode step's cache block (:func:`cache_rules`), zero-padded to
+    ``max_seq`` (the padding lands on the shard that owns those
+    positions).  Under ``cache_seq`` the rank keeps its S / M positions of
+    every kv head: where the ranks hold their kv heads, one all-to-all over
+    'model' of every layer's k and v at once (each rank sends rank q its
+    heads at q's positions); where each holds all of them, a slice."""
+    k = torch.stack([c["k"] for c in caches])      # (layers, B, S, h, Dh)
+    v = torch.stack([c["v"] for c in caches])
+    S = k.shape[2]
+    if max_seq < S:
+        raise ValueError(f"max_seq={max_seq} is shorter than the prompt "
+                         f"({S} positions)")
+    kv = torch.nn.functional.pad(torch.stack([k, v]),
+                                 (0, 0, 0, 0, 0, max_seq - S)).to(cfg.dtype)
+    if _seq_cut(lay, seq_shard):
+        M, r = lay.model.size, lay.rank
+        Sl = _shard_len(max_seq, M)
+        if kv.shape[4] < cfg.n_kv_heads:            # the rank's kv heads
+            two, n, B, _, h, Dh = kv.shape
+            send = kv.reshape(two, n, B, M, Sl, h, Dh).movedim(3, 0)
+            recv = lay.model.all_to_all(send.reshape(M, -1), [1] * M,
+                                        [1] * M)
+            kv = recv.reshape(M, two, n, B, Sl, h, Dh).permute(
+                1, 2, 3, 4, 0, 5, 6).reshape(two, n, B, Sl, M * h, Dh)
+        else:
+            kv = kv[:, :, :, r * Sl:(r + 1) * Sl]
+    period = _superblock_period(cfg)
+    return {"blocks": {f"sub{j}": {"k": kv[0, j::period].contiguous(),
+                                   "v": kv[1, j::period].contiguous()}
+                       for j in range(period)}}
+
+
+def _grid_prefill(model, cfg, batch: dict, max_seq, seq_shard: bool):
+    """:func:`prefill` of a rank's model on a grid: the tensor-parallel
+    forward on the rank's rows, the last position's logits of the rank's
+    vocab columns, the cache block of :func:`_grid_cache`."""
+    lay = model.layout
+    check_grid_family(cfg, lay.grid)
+    top = lay.top_tree(model)
+    x = _embed(model, cfg, batch, top)
+    S = x.shape[1]
+    caches: list = []
+    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches)
+    x = L.rmsnorm(x[:, -1:, :], top["final_norm"], cfg.norm_eps)
+    logits = lay.unembed(top, x)[:, 0, :]
+    return logits, _grid_cache(caches, cfg, lay, max_seq or S, seq_shard)
+
+
+def _gather_heads(parts: list, m) -> list:
+    """Each (B, 1, h, Dh) of ``parts`` with the heads of every rank of the
+    'model' group, in rank order (the global head order): one all-gather
+    of them packed."""
+    B = parts[0].shape[0]
+    flat = torch.cat([t.reshape(B, -1) for t in parts], dim=1)
+    allp = m.all_gather(flat)                       # (M, B, n)
+    out, at = [], 0
+    for t in parts:
+        n = t[0].numel()
+        h, Dh = t.shape[2], t.shape[3]
+        out.append(allp[:, :, at:at + n].reshape(m.size, B, h, Dh)
+                   .permute(1, 0, 2, 3).reshape(B, 1, m.size * h, Dh))
+        at += n
+    return out
+
+
+def _grid_decode_attention(p, c, h, cfg, pos, rows, lay: GridLayout,
+                           seq_shard: bool):
+    """A decode step's self-attention on a rank of a grid; ``c`` the
+    layer's cache block.  Position-cut cache (``cache_seq`` over 'model'):
+    the rank's q heads, and its new k / v where wk / wv are cut, gathered
+    over 'model' (one all-gather); the new row written, every kv head, only
+    on the rank that owns ``pos`` (elsewhere the slot it would clamp to is
+    rewritten with its own bytes: no host wait); flash-decoding of every
+    head over the group (``layers.decode_attention_seqsharded``: one max
+    and one sum all-reduce); the rank's heads kept for its rows of wo, one
+    all-reduce.  Head-cut cache (``seq_shard=False``, Megatron's): the
+    rank's q heads against the kv heads it holds (h // G's where the guard
+    kept them whole), one all-reduce after wo.  Where the q heads are not
+    cut, every rank computes every head (flash-decoding still runs over
+    the group on a position-cut cache) and no all-reduce follows wo."""
+    m = lay.model
+    q, k, v = L.qkv_proj(p, h)
+    q = L.rope(q, pos[:, None], cfg.rope_theta)
+    k = L.rope(k, pos[:, None], cfg.rope_theta)
+    Hl = q.shape[2]
+    if _seq_cut(lay, seq_shard):
+        if c["k"].shape[2] != cfg.n_kv_heads:
+            raise ValueError("decode_step(seq_shard=True) needs a cache "
+                             "whose positions are cut over 'model' "
+                             "(init_cache / prefill with seq_shard=True)")
+        if lay.tp_heads and lay.tp_kv:
+            q, k, v = _gather_heads([q, k, v], m)
+        elif lay.tp_heads:
+            q, = _gather_heads([q], m)
+        S_local = c["k"].shape[1]
+        lo = lay.rank * S_local
+        own = ((pos >= lo) & (pos < lo + S_local))[:, None, None]
+        at = (pos - lo).clamp(0, S_local - 1)
+        for name, new in (("k", k), ("v", v)):
+            leaf = c[name]
+            leaf[rows, at] = torch.where(own, new[:, 0].to(leaf.dtype),
+                                         leaf[rows, at])
+        out = L.decode_attention_seqsharded(q, c["k"], c["v"], pos, comm=m)
+        if lay.tp_heads:
+            out = out[:, :, lay.rank * Hl:(lay.rank + 1) * Hl]
+    else:
+        if c["k"].shape[2] != k.shape[2]:
+            raise ValueError("decode_step(seq_shard=False) needs a cache "
+                             "whose kv heads are cut as wk's "
+                             "(init_cache / prefill with seq_shard=False)")
+        c["k"][rows, pos] = k[:, 0].to(c["k"].dtype)
+        c["v"][rows, pos] = v[:, 0].to(c["v"].dtype)
+        ck, cv = c["k"], c["v"]
+        if lay.tp_heads and not lay.tp_kv:
+            ck, cv = _kv_of_rank(ck, lay, Hl), _kv_of_rank(cv, lay, Hl)
+        out = L.decode_attention(q, ck, cv, pos)
+    out = L.out_proj(p, out)
+    return reduce_from(out, m) if lay.tp_heads else out
+
+
+def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool):
+    """:func:`decode_step` of a rank's model on a grid: the token in by the
+    vocab-parallel lookup (one all-reduce), each layer's weights gathered
+    under FSDP, :func:`_grid_decode_attention` and the tensor-parallel MLP
+    (one all-reduce), the logits of the rank's vocab columns."""
+    lay = model.layout
+    check_grid_family(cfg, lay.grid)
+    dev = model.device
+    token = torch.as_tensor(token, device=dev).long()
+    pos = torch.as_tensor(pos, device=dev).long()
+    rows = torch.arange(token.shape[0], device=dev)
+    top = lay.top_tree(model)
+    x = lay.embed(top, token[:, None]).to(cfg.dtype)         # (B, 1, D)
+    for i, layer in enumerate(model.layers):
+        p = lay.layer_tree(layer)
+        c = _layer_cache(cache, cfg, i)
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = x + _grid_decode_attention(p["attn"], c, h, cfg, pos, rows, lay,
+                                       seq_shard)
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + _grid_mlp(p["mlp"], h, lay)
+    x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)
+    return lay.unembed(top, x)[:, 0, :], cache

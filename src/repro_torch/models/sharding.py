@@ -18,9 +18,9 @@ Ranks lie on the grid in row-major order of its axes (pod, data, model):
 rank ``((p D) + d) M + m`` is at ``{"pod": p, "data": d, "model": m}``, as
 a device mesh orders its devices (``core.grid``).  What torch needs beyond the rules:
 :func:`shard_shape` (a rank's block of a dimension-cut tensor),
-:func:`cut` (the rank's block of a whole tensor, a view) and
-:func:`assemble` (the whole tensor from every rank's block, the
-replicated copies checked to be the same bits).
+:func:`cut` (the rank's block of a whole tensor, a view; :func:`cut_tree`
+a copy of every leaf's) and :func:`assemble` (the whole tensor from every
+rank's block, the replicated copies checked to be the same bits).
 
 The reference's ``constrain`` (``with_sharding_constraint`` on an
 activation) has no twin: a compiler places the reference's activations,
@@ -167,6 +167,19 @@ def cut(t, spec: tuple, grid, coords: dict):
         size = dim // n
         idx.append(slice(i * size, (i + 1) * size))
     return t[tuple(idx)]
+
+
+def cut_tree(tree, specs, grid, coords: dict, dtype=None, device=None):
+    """:func:`cut` of every leaf of ``tree`` by the spec at its path in
+    ``specs``, copied contiguous (in ``dtype`` and on ``device`` when
+    given; a leaf may be a tensor or a numpy array)."""
+    if isinstance(tree, dict):
+        return {k: cut_tree(tree[k], specs[k], grid, coords, dtype, device)
+                for k in tree}
+    t = torch.as_tensor(tree)
+    return cut(t, specs, grid, coords).to(
+        device=device or t.device, dtype=dtype or t.dtype,
+        memory_format=torch.contiguous_format, copy=True)
 
 
 def assemble(blocks: list, spec: tuple, grid) -> torch.Tensor:

@@ -40,6 +40,22 @@ runs an engine on the same requests (replicated), and each prefill and
 decode call dispatches over the world (``replicated=True``: one
 all-gather of the experts' outputs an MoE layer), so every rank computes
 the same logits and samples the same tokens as the one-rank engine.
+
+``Engine(..., grid=...)`` serves the dense decoder family on a grid of
+ranks in the reference's production layout (``grid``: the rank's
+``core.world.GridComm``; ``model``: the rank's model,
+``models.api.grid_model``): each (pod, data) row of the grid serves its own
+share of the requests (request i goes to row i mod R of the R rows) on
+``slots / R`` slots, and the row's model ranks run the same engine in step
+(tensor parallelism over 'model'; the cache cut as ``seq_shard`` says,
+``models.api.cache_rules``).  Greedy tokens come from the vocab-cut logits
+by one all-gather of each rank's (max, first index) over 'model'
+(``GridLayout.greedy``); a temperature draw gathers the whole rows (one
+all-gather) and draws with the row's generator, seeded ``seed + row``, so
+every model rank of a row draws the same tokens.  The rows step
+independently; :meth:`Engine.generate` ends with one all-reduce over
+(pod, data) that gives every rank every request's tokens.  FSDP is
+refused: its per-layer gathers over 'data' would need the rows in step.
 """
 from __future__ import annotations
 
@@ -65,8 +81,28 @@ class ServeConfig:
 RECURRENT = ("ssm", "hybrid")          # families with mamba state
 
 
+def sample_tokens(logits: torch.Tensor, vocab: int, temperature: float,
+                  generator: torch.Generator, layout=None) -> torch.Tensor:
+    """Tokens from logits (rows, Vpad): argmax over the unpadded
+    vocabulary, or a draw at ``temperature`` from ``generator``.  With
+    ``layout`` (a rank's ``api.GridLayout``) whose vocab is cut over
+    'model', ``logits`` are the rank's columns: greedy by
+    ``GridLayout.greedy``, a draw from the rows gathered whole (module
+    docstring)."""
+    if layout is not None and layout.tp_vocab:
+        if temperature <= 0:
+            return layout.greedy(logits, vocab)
+        logits = layout.whole_vocab(logits)
+    logits = logits[:, :vocab]                   # mask vocab padding
+    if temperature > 0:
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
 class Engine:
-    def __init__(self, model_cfg, model, cfg: ServeConfig, comm=None):
+    def __init__(self, model_cfg, model, cfg: ServeConfig, comm=None,
+                 grid=None, seq_shard: bool = True):
         if model_cfg.family == "audio":
             raise ValueError(
                 f"{model_cfg.name}: the engine serves decoders; an "
@@ -78,12 +114,47 @@ class Engine:
         self.cfg = cfg
         self.model = model
         self.comm = comm
+        self.grid = grid
+        self.seq_shard = seq_shard
+        self.row, self.rows = 0, 1
+        if grid is not None:
+            self._check_grid(model_cfg, model, comm, grid)
+            batch = grid.batch
+            if batch is not None:
+                self.row, self.rows = batch.rank, batch.size
+            if cfg.slots % self.rows:
+                raise ValueError(f"{cfg.slots} slots do not split over the "
+                                 f"grid's {self.rows} rows")
+        self.slots = cfg.slots // self.rows          # this rank's slots
         self.device = model.device
-        self.cache = api.init_cache(model_cfg, cfg.slots, cfg.max_seq,
-                                    self.device)
-        self.pos = np.zeros((cfg.slots,), np.int32)       # next write position
-        self.table = SlotTable(cfg.slots)
-        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.cache = api.init_cache(
+            model_cfg, cfg.slots, cfg.max_seq, self.device,
+            grid=None if grid is None else grid.grid, seq_shard=seq_shard)
+        self.pos = np.zeros((self.slots,), np.int32)     # next write position
+        self.table = SlotTable(self.slots)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + self.row)
+
+    @staticmethod
+    def _check_grid(model_cfg, model, comm, grid) -> None:
+        """Raise for a grid the engine does not serve on: a family the grid
+        does not run (``api.check_grid_family``), a model that is not the
+        rank's on a grid of model > 1 (nothing is replicated in its
+        place), FSDP, or ``comm`` beside it."""
+        if comm is not None:
+            raise ValueError("comm= (experts over a 1-D world of ranks) and "
+                             "grid= do not combine")
+        api.check_grid_family(model_cfg, grid.grid)
+        lay = model.layout
+        if lay is None and grid.grid["model"] > 1:
+            raise ValueError("on a grid with model > 1 the engine serves the "
+                             "rank's model (api.grid_model), not a whole one")
+        if lay is not None and lay.fsdp:
+            raise ValueError(
+                f"{model_cfg.name}: FSDP on a grid is not served by the "
+                f"engine (its rows step independently; FSDP's gathers over "
+                f"'data' need them in step) -- use api.prefill / "
+                f"api.decode_step ({api.GRID_QUEUE})")
 
     # The slot bookkeeping lives in the shared table; these views keep the
     # reference engine's surface.
@@ -129,7 +200,7 @@ class Engine:
         out = {}
         waiting = [s for s in self.table.active_slots() if s not in fresh]
         if waiting:
-            tok = np.zeros((self.cfg.slots,), np.int32)
+            tok = np.zeros((self.slots,), np.int32)
             for s in waiting:
                 req = self.table.request_in(s)
                 tok[s] = (req.out[-1] if req.out else req.payload[-1])
@@ -151,6 +222,28 @@ class Engine:
         return produced
 
     def generate(self, prompts, max_new: int) -> list[list[int]]:
+        """Every prompt's tokens (up to ``max_new`` each).  On a grid the
+        rank's row serves prompts row, row + R, ...; every rank returns
+        every request's tokens (:meth:`_join_rows`)."""
+        if self.grid is None:
+            return self._generate(prompts, max_new)
+        mine = list(range(self.row, len(prompts), self.rows))
+        outs = self._generate([prompts[i] for i in mine], max_new)
+        return self._join_rows(len(prompts), mine, outs, max_new)
+
+    def _join_rows(self, n: int, mine: list, outs: list,
+                   max_new: int) -> list[list[int]]:
+        """Every row's requests' tokens on every rank: a (n, max_new) table
+        of -1 holding this row's, one max all-reduce over (pod, data)."""
+        table = torch.full((n, max_new), -1, dtype=torch.int64)
+        for i, out in zip(mine, outs):
+            table[i, :len(out)] = torch.tensor(out, dtype=torch.int64)
+        if self.rows > 1:
+            table = self.grid.batch.all_reduce(table.to(self.device),
+                                               op="max").cpu()
+        return [[t for t in row if t >= 0] for row in table.tolist()]
+
+    def _generate(self, prompts, max_new: int) -> list[list[int]]:
         rids = [self.add_request(p) for p in prompts]
         budget = {r: max_new for r in rids}
         while any(not self.requests[r].done and budget[r] > 0 for r in rids):
@@ -166,28 +259,24 @@ class Engine:
 
     # ----------------------------------------------------------- internal --
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Tokens from logits (rows, Vpad): argmax over the unpadded
-        vocabulary, or a draw at the temperature."""
-        logits = logits[:, :self.mc.vocab]           # mask vocab padding
-        if self.cfg.temperature > 0:
-            probs = torch.softmax(logits.float() / self.cfg.temperature,
-                                  dim=-1)
-            return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        return torch.argmax(logits, dim=-1)
+        return sample_tokens(logits, self.mc.vocab, self.cfg.temperature,
+                             self._gen, self.model.layout)
 
     def _decode(self, tok: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """One decode call for every slot; the sampled tokens (slots,)."""
         logits, self.cache = api.decode_step(
             self.model, self.mc, self.cache,
             torch.from_numpy(tok).to(self.device),
-            torch.from_numpy(pos).to(self.device), expert_comm=self.comm)
+            torch.from_numpy(pos).to(self.device), expert_comm=self.comm,
+            seq_shard=self.seq_shard)
         return self._sample(logits)
 
     def _prefill(self, tokens: np.ndarray):
         return api.prefill(self.model, self.mc,
                            {"tokens": torch.from_numpy(tokens).to(
                                self.device)}, max_seq=self.cfg.max_seq,
-                           comm=self.comm, replicated=True)
+                           comm=self.comm, replicated=True,
+                           seq_shard=self.seq_shard)
 
     def _state_of(self, slots) -> list:
         """Copies of the recurrent leaves' stripes of ``slots`` (the mamba

@@ -34,8 +34,8 @@ from repro_torch.core.engine import check_positive_int
 from repro_torch.models import moe
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.core.grid import as_grid
-from .trainer import (Trainer, _cut_tree, train_state_specs,
-                      train_step_shardings)
+from repro_torch.models.sharding import cut_tree
+from .trainer import Trainer, train_state_specs, train_step_shardings
 
 
 def plan_mesh(n_devices: int, tp: int = 16, pods: int | None = None
@@ -83,7 +83,7 @@ def reshard_state(state, model_cfg, device, expert_shard: tuple | None = None,
     if grid is not None:
         grid = as_grid(grid)
         shardings, _ = train_step_shardings(model_cfg, grid)
-        return _cut_tree(state, shardings, grid, coords, device=device)
+        return cut_tree(state, shardings, grid, coords, device=device)
     if expert_shard is not None and model_cfg.moe:
         moe.check_expert_shards(model_cfg.moe.num_experts, expert_shard[1])
         state = moe.map_experts(lambda t: t.to(device, copy=True),

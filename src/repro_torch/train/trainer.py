@@ -67,7 +67,7 @@ from repro_torch.models import api, moe
 from repro_torch.models.module import (ParamSpec, init_params, tensor_leaves,
                                        tree_map)
 from repro_torch.core.grid import as_grid
-from repro_torch.models.sharding import (assemble, cut, make_rules,
+from repro_torch.models.sharding import (assemble, cut_tree, make_rules,
                                          shard_shape, spec_axes)
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                opt_state_specs)
@@ -158,24 +158,12 @@ def place_fresh(params, model_cfg, comm) -> TrainState:
     of each leaf its optimizer block in f32, m and v zeros."""
     shardings, _ = train_step_shardings(model_cfg, comm.grid)
     grid, at = comm.grid, comm.coords
-    master = _cut_tree(params, shardings["opt"]["master"], grid, at, F32)
+    master = cut_tree(params, shardings["opt"]["master"], grid, at, F32)
     zeros = (lambda: tree_map(torch.zeros_like, master,
                               is_leaf=torch.is_tensor))
-    return {"params": _cut_tree(params, shardings["params"], grid, at),
+    return {"params": cut_tree(params, shardings["params"], grid, at),
             "opt": {"master": master, "m": zeros(), "v": zeros()},
             "step": torch.zeros((), dtype=torch.int32, device=comm.device)}
-
-
-def _cut_tree(tree, shardings, grid, coords, dtype=None, device=None):
-    """Each leaf's block at ``coords`` copied (contiguous), in ``dtype``
-    and on ``device`` when given."""
-    if isinstance(tree, dict):
-        return {k: _cut_tree(tree[k], shardings[k], grid, coords, dtype,
-                             device) for k in tree}
-    t = torch.as_tensor(tree)
-    return cut(t, shardings, grid, coords).to(
-        device=device or t.device, dtype=dtype or t.dtype,
-        memory_format=torch.contiguous_format, copy=True)
 
 
 # ----------------------------------------------------------- train step ----
