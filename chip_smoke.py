@@ -135,7 +135,7 @@ Phases (any failure raises; nothing is caught):
      weights, f32 master, remat "full") at 2 x 2048 tokens a step through
      Trainer.run on the TokenStream: ms a step, tok/s, the share of the
      bf16 dense rate, the AdamW update's ms, the allocator's peak and the
-     idle share of two traced steps; (d) microbatches 2 against 1 in f32
+     idle share of a traced step; (d) microbatches 2 against 1 in f32
      at 8 layers; (e) the cpu-small preset's 200 steps through
      launch/train.py (the loss falls) and exact resume from a checkpoint
      in deterministic mode; (f) the elastic restart of granite-3-2b
@@ -199,8 +199,8 @@ Phases (any failure raises; nothing is caught):
      world: (a) a (4, 1) grid,
      ZeRO-1 alone: every rank's blocks of the state after GRID_STEPS
      Trainer steps the same bytes as its cut of the replicated
-     data-parallel world's (SHA-256 a leaf), each rank's optimizer bytes
-     a quarter of the replicated; (b) a (2, 2) grid, tensor parallelism
+     data-parallel world's (SHA-256 a leaf), every master block moved
+     by them, each rank's optimizer bytes a quarter of the replicated; (b) a (2, 2) grid, tensor parallelism
      over 'model' and ZeRO-1 over 'data', against the same step in one
      process (loss, grad norm, each leaf's m and master move: 15c's
      gates), ms
@@ -224,7 +224,23 @@ Phases (any failure raises; nothing is caught):
      (two slots a row) against the same grid's stepwise greedy oracle,
      each rank's parameter and cache bytes against ``decode_specs(...,
      grid=)``'s, prefill and decode ms beside the read bound, tok/s, each
-     rank's peak.
+     rank's peak;
+ 18. the encoder-decoder and the vlm in that layout on phase 14's world
+     laid out (2, 2) (plain torch and collectives; counted, the "grid
+     families" path, all zero), at their published widths, random
+     weights from --seed: (a) a train step of seamless-m4t-large-v2
+     (FAMILY_TRAIN_LAYERS + as many encoder layers, f32, fan-in) against
+     one process at 15c's gates, its f64 twin's loss at 1e-10, ms a step,
+     host ms in the collectives, each rank's peak; (b) seamless serving:
+     4 prompts of 64 tokens on 128 encoder frames, prefill and 8 decode
+     steps under both cache layouts against one process (f32 logits 1e-4
+     of their norm and tokens equal, f64 1e-10), the collectives a step
+     by kind and group, then bf16 at all 24 + 24 layers: ms a step beside
+     the card's read bound, tok/s, finite logits, each rank's bytes
+     against ``decode_specs(..., grid=)``'s; (c) llava-next-34b behind
+     its 2880-patch prefix: the same serving gates (2 layers f32, 1 f64),
+     a train step at 1 layer on the ranks laid out (1, 4) against one
+     process, bf16 timing at LLAVA_BF16_LAYERS of 60 layers.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -3086,8 +3102,9 @@ def families_phase(seed: int, stats: dict, dev=None) -> dict:
 # (28 layers, bf16 weights, f32 master, remat "full", microbatches 1) at
 # TRAIN_FULL_BATCH (4096 tokens a step), TRAIN_WARM steps then TRAIN_TIMED
 # timed ones through Trainer.run on the TokenStream; the AdamW update timed
-# by CUDA events inside the steps; the device-idle share of two traced
-# steps.  No checkpoint of this state (about 45 GB of host memory).  (d)
+# by CUDA events inside the steps; the device-idle share of a traced step
+# (two until phase 18 came: its seconds are taken back here).  No
+# checkpoint of this state (about 45 GB of host memory).  (d)
 # microbatches 2 against 1 on the same global batch, f32, at ACCUM_LAYERS
 # layers (two f32 states, the f32 accumulators and the gradients of the
 # full depth do not fit the card): the gradient of the mean of two
@@ -3159,17 +3176,27 @@ def worst_leaf(got, want, base=None) -> tuple:
 
 
 def attention_fan_in(params: dict, cfg) -> None:
-    """Rescale, in place, the attention projections of a parameter tree
+    """Rescale, in place, the projections of every attention (decoder,
+    encoder, cross) of a parameter tree
     drawn by ``init_params`` to the fan-in of their contraction: the
     reference's init divides by the axis before last, the heads for wq /
     wk / wv (24 or 8, not d_model 3072) and head_dim for wo (128, not
     heads x head_dim), which makes llama3.2-3b's scores about 200 wide and
     its gradient grow about 8x a layer (PERF.md, PR 23)."""
-    for sub in params["blocks"].values():
-        a = sub["attn"]
+    for a in attention_trees(params):
         for k in ("wq", "wk", "wv"):
             a[k].mul_(math.sqrt(a[k].shape[-2] / cfg.d_model))
         a["wo"].mul_(1 / math.sqrt(a["wo"].shape[-3]))
+
+
+def attention_trees(tree: dict):
+    """Every attention's leaves (``attn`` / ``cross``) in a parameter
+    tree."""
+    for k, v in tree.items():
+        if k in ("attn", "cross"):
+            yield v
+        elif isinstance(v, dict):
+            yield from attention_trees(v)
 
 
 def clone_tree(tree):
@@ -3352,8 +3379,8 @@ def train_full_width(cfg, gates, dev, stats) -> None:
         f"({peak / 1e9:.2f} GB against {state_bytes / 1e9:.2f} GB of state;"
         f" card {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
         " GiB)")
-    prof = profile_run(lambda: tr.run(int(tr.state["step"]) + 2),
-                       "13c two training steps", 8)
+    prof = profile_run(lambda: tr.run(int(tr.state["step"]) + 1),
+                       "13c one training step", 8)
     # every f32 master leaf moves (weight decay reaches the norms too);
     # a bf16 norm of ones can round back to 1 in a few steps
     moved = {part: sum(not torch.equal(t.reshape(-1)[:4096], probes[k])
@@ -3366,7 +3393,7 @@ def train_full_width(cfg, gates, dev, stats) -> None:
     total = torch.cuda.get_device_properties(0).total_memory
     final_step = int(tr.state["step"])
     gates.check("13c full-width steps",
-                finite and final_step == TRAIN_WARM + TRAIN_TIMED + 4
+                finite and final_step == TRAIN_WARM + TRAIN_TIMED + 2
                 and moved["opt/master/"] == leaves and moved["params/"] > 0
                 and peak < total,
                 f"finite {finite}, step {final_step}, leaves moved: master "
@@ -3515,25 +3542,29 @@ def elastic_case(world, cfg, rc, dev, ckpt_dir: str) -> dict:
             "replicas": [len(out_a["digests"]), len(out_b["digests"])]}
 
 
-def train_elastic(gates, dev, stats) -> None:
+def train_elastic(gates, dev, stats, world=None) -> None:
     """13f: the elastic restart of granite-3-2b reduced (bf16, as in the
     reference's check, then in f32) and of phi3.5-moe reduced in f32 (its
     four experts sharded over the ranks, one a rank, then two),
     ELASTIC_RANKS[0] -> ELASTIC_RANKS[1] gloo ranks sharing the card,
-    against one rank; an MoE config refused on 3 ranks (E = 4)."""
+    against one rank; an MoE config refused on 3 ranks (E = 4).  On
+    ``world`` when given (the world phases 13f-18 share: its caller
+    closes it), else on a world of its own."""
+    import contextlib
     import tempfile
 
     from repro_torch.configs import get_reduced
-    from repro_torch.core import SolverWorld
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainRunConfig, make_train_step
     bf16 = get_reduced("granite_3_2b")
     rc = TrainRunConfig(steps=4, global_batch=8, seq_len=32, lr=1e-3,
                         warmup=1, save_every=2, log_every=1)
-    world, secs = timed(lambda: SolverWorld(ELASTIC_RANKS[0], device=dev,
-                                            kernels=False))
+    own = world is None
+    secs = 0.0
+    if own:
+        world, secs = timed(lambda: spawn_world(dev, ELASTIC_RANKS[0]))
     rec = {"spawn_s": secs}
-    with world:
+    with world if own else contextlib.nullcontext():
         for tag, cfg in (("bf16", bf16), ("f32", dataclasses.replace(
                 bf16, dtype=torch.float32, param_dtype=torch.float32))):
             with tempfile.TemporaryDirectory() as d:
@@ -3554,8 +3585,8 @@ def train_elastic(gates, dev, stats) -> None:
         except ValueError as e:
             rec["moe_split"] = ("refused" if "E=4" in str(e)
                                 else f"another error: {e}")
-    log(f"  13f {bf16.name}: {ELASTIC_RANKS[0]} gloo ranks spawned in "
-        f"{secs:.1f} s")
+    log(f"  13f {bf16.name} on {ELASTIC_RANKS[0]} gloo ranks"
+        + (f" spawned in {secs:.1f} s" if own else " (the shared world)"))
     for tag, (tol_loss, tol_move) in (*TOL_ELASTIC.items(),
                                       ("moe f32", TOL_ELASTIC["f32"])):
         r = rec[tag]
@@ -3575,10 +3606,10 @@ def train_elastic(gates, dev, stats) -> None:
     stats["train_elastic"] = rec
 
 
-def train_phase(seed: int, stats: dict, dev=None) -> dict:
+def train_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     """Phase 13: training (plain torch, as in the reference: no TPU kernel
-    on this path; the returned launch counts are all zero).  Raises at the
-    end if any gate failed."""
+    on this path; the returned launch counts are all zero); 13f on
+    ``world`` when given.  Raises at the end if any gate failed."""
     from repro_torch.configs import get_config
     dev = torch.device("cuda") if dev is None else dev
     gates = Gates()
@@ -3591,7 +3622,7 @@ def train_phase(seed: int, stats: dict, dev=None) -> dict:
             ("13d", lambda: train_accumulation(cfg, gates, gen, dev, stats,
                                                seed)),
             ("13e", lambda: train_learning(gates, dev, stats, seed)),
-            ("13f", lambda: train_elastic(gates, dev, stats))):
+            ("13f", lambda: train_elastic(gates, dev, stats, world))):
         _, secs = timed(fn)
         stats[f"phase{name}_s"] = secs
         log(f"  {name} took {secs:.1f} s")
@@ -4407,7 +4438,7 @@ def experts_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 16: the reference's production layout on a grid of ranks
 # ---------------------------------------------------------------------------
-# Four gloo ranks share the card: phase 14's world, shared by phases 14-17;
+# Four gloo ranks share the card: phase 14's world, shared by phases 13f-18;
 # weights reach them by CUDA IPC, each rank copies its blocks
 # (train.trainer.place_fresh).  llama3.2-3b at its published width cut to
 # GRID_LAYERS of its 28 layers in f32; 16a at GRID_ZERO1_LAYERS: its
@@ -4431,15 +4462,19 @@ def experts_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
 # agreed to 1.5e-16; one process with its rows regrouped moves as far,
 # launch/f32_spread.py).  16d uses the cpu-small preset's width
 # (launch/train.py): a checkpoint of the full width's state would be
-# 13 GB on the disk.  16b / 16c run GRID_LAYERS = 2 of 28 layers (4 until
-# phase 17 came: its seconds are taken back here, a step of host-staged
-# gloo being about linear in the layers' bytes).
+# 13 GB on the disk.  16b / 16c run GRID_LAYERS = 1 of 28 layers (4 until
+# phase 17 came, 2 until phase 18 came: their seconds are taken back here,
+# a step of host-staged gloo being about linear in the layers' bytes;
+# phase 18a steps 2 + 2 layers of the same grid code in f32).
 GRID_RANKS = EP_RANKS
-GRID_LAYERS = 2
+GRID_LAYERS = 1
 GRID_ZERO1_LAYERS = 1
 GRID_F64_LAYERS = 1
 GRID_BATCH = (4, 512)
-GRID_STEPS = 2                  # 16a's; 16b / 16c take one
+GRID_STEPS = 1                  # 16a's (2 until phase 18 came, the first
+                                # at lr 0 under warmup 1: warmup 0 makes
+                                # the one step move every master block);
+                                # 16b / 16c take one too
 GRID_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "m": 1e-3, "master": 2e-2}
 GRID_F64_TOL = 1e-10
 GRID_MESHES = ("single", "multi")
@@ -4458,11 +4493,14 @@ def grid_zero1_check(world, gates, dev, seed: int, stats) -> None:
     cfg = grid_cfg(GRID_ZERO1_LAYERS, torch.float32)
     B, S = GRID_BATCH
     run = TrainRunConfig(steps=GRID_STEPS, global_batch=B, seq_len=S,
-                         lr=1e-4, warmup=1, log_every=1, seed=seed)
+                         lr=1e-4, warmup=0, log_every=1, seed=seed)
     outs = zero1_against_replicated(world, (GRID_RANKS, 1), cfg, run)
     same = all(o["replicated"]["digests"] == o["grid"]["digests"]
                and [h["loss"] for h in o["replicated"]["history"]]
                == [h["loss"] for h in o["grid"]["history"]] for o in outs)
+    moved = all(o["grid"]["start"] and all(
+        d != dict(o["grid"]["digests"])[k] for k, d in o["grid"]["start"])
+        for o in outs)
     opt = [(o["grid"]["opt_bytes"], o["replicated"]["opt_bytes"])
            for o in outs]
     quarter = all(g * GRID_RANKS == r for g, r in opt)
@@ -4478,10 +4516,11 @@ def grid_zero1_check(world, gates, dev, seed: int, stats) -> None:
                   for k in ("grid", "replicated")}}
     gates.check(
         "16a ZeRO-1 on (4, 1) == the replicated world",
-        same and quarter and all(math.isfinite(h["loss"]) for h in hist),
+        same and moved and quarter
+        and all(math.isfinite(h["loss"]) for h in hist),
         f"{GRID_ZERO1_LAYERS} layers, f32, {GRID_STEPS} steps of {B} x {S} "
         f"tokens: every leaf's block the same bytes on each rank "
-        f"{same}, losses {[round(h['loss'], 6) for h in hist]}, grad norm "
+        f"{same}, every master block moved {moved}, losses {[round(h['loss'], 6) for h in hist]}, grad norm "
         f"{[round(h['grad_norm'], 4) for h in hist]}; optimizer GB a rank "
         f"{[round(g / 1e9, 3) for g, _ in opt]} against "
         f"{[round(r / 1e9, 3) for _, r in opt]} replicated (a quarter: "
@@ -4490,21 +4529,26 @@ def grid_zero1_check(world, gates, dev, seed: int, stats) -> None:
         f"(host-staged gloo)")
 
 
-def grid_one_process(cfg, dev, seed: int) -> tuple:
-    """Weights, a batch and one train step of ``cfg`` in this process:
-    (params, batch, the step's metrics, {"master", "m"} after it, its
-    ms)."""
+def grid_one_process(cfg, dev, seed: int, shape=None) -> tuple:
+    """Weights from ``seed`` at fan-in, a batch of ``shape`` (B, S)
+    (GRID_BATCH; the family's frontend embeddings with it,
+    ``train.trainer.frontend_embeds``) and one train step of ``cfg`` in
+    this process: (params, batch, the step's metrics, {"master", "m"}
+    after it, its ms)."""
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.models import api
     from repro_torch.models.module import init_params
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import frontend_embeds
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(api.param_specs(cfg), gen, dev)
     attention_fan_in(params, cfg)
-    B, S = GRID_BATCH
+    B, S = shape or GRID_BATCH
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              synthetic_lm_batch(cfg.vocab, S, B, seed=seed).items()}
+    batch.update({k: torch.from_numpy(v).to(dev) for k, v in
+                  frontend_embeds(cfg, B, S, seed, 0).items()})
     state = {"params": clone_tree(params), "opt": init_opt_state(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     step = make_train_step(cfg, AdamWConfig(lr=1e-3))
@@ -4520,22 +4564,37 @@ def grid_tp_check(world, gates, seed: int, stats, tag: str, fsdp: bool,
                   one: tuple, one64: tuple) -> None:
     """16b / 16c: (2, 2), tensor parallelism and ZeRO-1 (with ``fsdp``
     FSDP too), against one process in f32 and in f64."""
+    grid_step_check(world, gates, stats, tag,
+                    grid_cfg(GRID_LAYERS, torch.float32, fsdp=fsdp), one,
+                    grid_cfg(GRID_F64_LAYERS, torch.float64, fsdp=fsdp),
+                    one64, f"{GRID_LAYERS} layer",
+                    f"{GRID_F64_LAYERS} layer")
+
+
+def grid_step_check(world, gates, stats, tag: str, cfg, one: tuple,
+                    cfg64=None, one64: tuple | None = None,
+                    depth: str = "", depth64: str = "",
+                    grid: tuple = (2, 2)) -> None:
+    """One train step of ``cfg`` on ``grid`` against the one process's
+    (``one``: :func:`grid_one_process`'s) at 15c's gates, and with
+    ``cfg64`` the f64 twin's loss at GRID_F64_TOL; ms a step, host ms in
+    the collectives, each rank's peak."""
     from repro_torch.launch.grid_train import grid_train_steps
-    grid = (2, 2)
     params, batch, m1, want, one_ms = one
-    cfg = grid_cfg(GRID_LAYERS, torch.float32, fsdp=fsdp)
     got = grid_train_steps(world, grid, cfg, params, batch, keep=False,
                            want=want)
+    rel64 = None
+    if cfg64 is not None:
+        p64, b64, m64, _, _ = one64
+        g64 = grid_train_steps(world, grid, cfg64, p64, b64, keep=False)
+        rel64 = {k: abs(g64["first"][k] - m64[k]) / abs(m64[k])
+                 for k in ("loss", "grad_norm")}
+    fsdp = cfg.fsdp
     tm = got["first"]
     rel = {k: abs(tm[k] - m1[k]) / abs(m1[k]) for k in ("loss", "grad_norm")}
     worst = {k: max(((n, e) for n, e in got["err"].items()
                      if n.startswith(k + "/")), key=lambda kv: kv[1])
              for k in ("master", "m")}
-    p64, b64, m64, _, _ = one64
-    cfg64 = grid_cfg(GRID_F64_LAYERS, torch.float64, fsdp=fsdp)
-    g64 = grid_train_steps(world, grid, cfg64, p64, b64, keep=False)
-    rel64 = {k: abs(g64["first"][k] - m64[k]) / abs(m64[k])
-             for k in ("loss", "grad_norm")}
     ms = max(s[-1] for s in got["step_s"]) * 1e3
     host_ms = [round(h * 1e3, 1) for h in got["host_s"]]
     peaks = [round((b or 0) / 1e9, 2) for b in got["peak_bytes"]]
@@ -4547,20 +4606,22 @@ def grid_tp_check(world, gates, seed: int, stats, tag: str, fsdp: bool,
                             "calls_rank0": kinds,
                             "opt_gb": [b / 1e9 for b in got["opt_bytes"]]}
     gates.check(
-        f"{tag} (2, 2){' FSDP' if fsdp else ''} == one process",
+        f"{tag} {grid}{' FSDP' if fsdp else ''} == one process",
         rel["loss"] <= GRID_TOL["loss"]
         and rel["grad_norm"] <= GRID_TOL["grad_norm"]
         and worst["m"][1] <= GRID_TOL["m"]
         and worst["master"][1] <= GRID_TOL["master"]
-        and rel64["loss"] <= GRID_F64_TOL,
-        f"{GRID_LAYERS} layers f32, one step: loss "
+        and (rel64 is None or rel64["loss"] <= GRID_F64_TOL),
+        f"{card()}; {cfg.name} {depth} f32, one step: loss "
         f"{tm['loss']:.6f} (rel {rel['loss']:.1e}), grad norm "
         f"{tm['grad_norm']:.4f} (rel {rel['grad_norm']:.1e}), worst master "
         f"move {worst['master'][0]} {worst['master'][1]:.2e} (tol "
         f"{GRID_TOL['master']:g}), worst m {worst['m'][0]} "
-        f"{worst['m'][1]:.2e} (tol {GRID_TOL['m']:g}); f64 at {GRID_F64_LAYERS} layer: loss rel "
-        f"{rel64['loss']:.1e} (tol {GRID_F64_TOL:g}), grad norm rel "
-        f"{rel64['grad_norm']:.1e}; the step {ms:.1f} ms on the grid (the "
+        f"{worst['m'][1]:.2e} (tol {GRID_TOL['m']:g}); "
+        + ("no f64 twin" if rel64 is None else
+           f"f64 at {depth64}: loss rel {rel64['loss']:.1e} (tol "
+           f"{GRID_F64_TOL:g}), grad norm rel {rel64['grad_norm']:.1e}")
+        + f"; the step {ms:.1f} ms on the grid (the "
         f"slowest rank) against {one_ms:.1f} ms in one process (each the "
         f"first); host "
         f"ms in the collectives by rank {host_ms}; rank 0's (all-reduce, "
@@ -4897,6 +4958,300 @@ def grid_serve_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the encoder-decoder and the vlm on a grid of ranks
+# ---------------------------------------------------------------------------
+# Phase 14's four gloo ranks sharing the card, laid out (2, 2): tensor
+# parallelism over 'model' of seamless-m4t-large-v2's encoder, decoder and
+# cross-attention and of llava-next-34b's decoder behind its 2880-patch
+# prefix, ZeRO-1 over 'data'; both at their published widths, random
+# weights from --seed at fan-in (attention_fan_in, as 16b / 17a: the
+# reference's init makes f32's rounding chaotic with depth), the frames and
+# patches N(0, 0.02^2) from --seed (train.trainer.frontend_embeds).  Cuts,
+# and why (a one-process run and the ranks' blocks share the card, and the
+# phase's seconds are paid by cuts of earlier phases): 18a trains seamless
+# at FAMILY_TRAIN_LAYERS + as many encoder layers of 24 + 24 (its
+# 256256-row embedding and lm_head are 1.05 GB of f32 each), its f64 twin
+# at FAMILY_F64_LAYERS; 18b serves it at FAMILY_SERVE_LAYERS (f32) and
+# FAMILY_F64_LAYERS (f64) against one process, then bf16 at all 24 + 24;
+# 18c holds llava at FAMILY_SERVE_LAYERS (f32) / FAMILY_F64_LAYERS (f64) of
+# 60 against one process (a layer is 558 M parameters, the untied
+# embeddings 918 M: 8.1 / 11.8 GB whole), trains LLAVA_TRAIN_LAYERS layer
+# on the ranks laid out LLAVA_TRAIN_GRID, and times bf16 at
+# LLAVA_BF16_LAYERS of 60.  Why (1, 4) for llava's step: its f32 state on
+# (2, 2) (a rank's 2.96 GB of weights, as much gradient, 4.4 GB of ZeRO-1
+# state and the gradient all-reduce's two 2.96 GB buffers) beside the one
+# process's weights and result (17.7 GB) ran the card out of memory, and
+# with FSDP over 'data' to fit, the step's host-staged gathers and
+# reduce-scatters took 28 s of the part's 68 (the first card runs); on
+# (1, 4) every rank is on 'model' (56 / 8 heads, d_ff 20480 and vocab
+# 64000 divide 4) and nothing crosses 'data'; every rank takes every row,
+# and at 4 rows of 3008 positions a rank's step (7.4 GB of state, the
+# chunked attention's saved blocks recomputed in backward) ran the card
+# out of memory again, so LLAVA_TRAIN_BATCH is 2 rows.
+# The vlm's ZeRO-1 and FSDP on (2, 2) are held on the CPU
+# (tests/test_torch_grid_families.py).  Prompts: four rows of
+# FAMILY_PROMPT tokens (lengths SERVE_GRID_LENS, right-padded), seamless's
+# with cross_frames(FAMILY_MAX_SEQ) = 128 frames a row, llava's after its
+# prefix (positions 2880 on).
+FAMILY_GRID = (2, 2)
+FAMILY_TRAIN_LAYERS = 2
+FAMILY_F64_LAYERS = 1
+FAMILY_SERVE_LAYERS = 2
+FAMILY_TRAIN_BATCH = (4, 256)   # rows x tokens; seamless's 128 frames a row
+LLAVA_TRAIN_LAYERS = 1
+LLAVA_TRAIN_GRID = (1, 4)
+LLAVA_TRAIN_BATCH = (2, 128)    # text tokens after the 2880 patches
+LLAVA_BF16_LAYERS = 8
+FAMILY_PROMPT = 64
+FAMILY_MAX_SEQ = 128            # seamless's; llava's adds its prefix
+FAMILY_STEPS = 8
+FAMILY_BF16_STEPS = 4           # the bf16 timing's decode steps
+
+
+def family_cfg(arch: str, layers: int, dtype, **kw):
+    """``arch`` at its published width cut to ``layers`` decoder (and as
+    many encoder) layers, in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depth = {"n_layers": layers}
+    if cfg.family == "audio":
+        depth["enc_layers"] = layers
+    return dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
+                               **depth, **kw)
+
+
+def family_params(cfg, dev, seed: int) -> dict:
+    """Random weights of ``cfg`` from ``seed`` at fan-in."""
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(api.param_specs(cfg), gen, dev)
+    attention_fan_in(params, cfg)
+    return params
+
+
+def family_prompts(cfg, dev, seed: int) -> tuple:
+    """(tokens, lens, embeds, max_seq): four prompts of FAMILY_PROMPT
+    tokens (SERVE_GRID_LENS real), the family's frontend embeddings a row
+    (seamless's api.cross_frames(FAMILY_MAX_SEQ) frames), and the cache's
+    positions (llava's count its prefix)."""
+    from repro_torch.train.trainer import frontend_embeds
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    B = len(SERVE_GRID_LENS)
+    tokens = torch.randint(0, cfg.vocab, (B, FAMILY_PROMPT), generator=gen,
+                           device=dev)
+    lens = torch.tensor(SERVE_GRID_LENS, device=dev)
+    tokens[torch.arange(FAMILY_PROMPT, device=dev)[None, :]
+           >= lens[:, None]] = 0
+    max_seq = FAMILY_MAX_SEQ        # the audio family's frames: its cross
+    (emb,) = frontend_embeds(cfg, B, max_seq, seed, 0).values()
+    if cfg.family == "vlm":
+        max_seq += cfg.frontend_tokens
+    return tokens, lens, torch.from_numpy(emb).to(dev, cfg.dtype), max_seq
+
+
+def family_serve_exactness(world, gates, dev, seed: int, arch: str,
+                           tag: str) -> dict:
+    """18b / 18c: prefill and FAMILY_STEPS decode steps on FAMILY_GRID
+    under both cache layouts against one process on the same weights (fed
+    the one process's tokens), f32 at FAMILY_SERVE_LAYERS layers and f64
+    at FAMILY_F64_LAYERS."""
+    from repro_torch.launch.grid_serve import grid_serve, one_process_serve
+    rec = {}
+    for dt, layers, dtype, tol in (
+            ("f32", FAMILY_SERVE_LAYERS, torch.float32, SERVE_GRID_TOL),
+            ("f64", FAMILY_F64_LAYERS, torch.float64, SERVE_GRID_F64_TOL)):
+        cfg = family_cfg(arch, layers, dtype)
+        params = family_params(cfg, dev, seed)
+        tokens, lens, embeds, max_seq = family_prompts(cfg, dev, seed)
+        one = one_process_serve(cfg, params, tokens, lens, max_seq,
+                                FAMILY_STEPS, embeds=embeds)
+        one_ms = float(np.median(one["step_s"][1:])) * 1e3
+        for seq in (True, False):
+            name = f"{dt} {'cache_seq' if seq else 'kv heads'}"
+            got = grid_serve(world, FAMILY_GRID, cfg, params, tokens, lens,
+                             max_seq, FAMILY_STEPS, feed=one["fed"].to(dev),
+                             seq_shard=seq, embeds=embeds)
+            errs = step_errors(got["logits"], one["logits"])
+            same = torch.equal(got["picks"], one["picks"])
+            ms = max(float(np.median(s[1:])) for s in got["step_s"]) * 1e3
+            pre_ms = max(got["prefill_s"]) * 1e3
+            host = [round(h * 1e3, 2) for h in got["host_s"]]
+            calls = calls_by_group(got["calls"][0])
+            pre_calls = calls_by_group(got["prefill_calls"][0])
+            shapes = got["cache_shapes"][0]
+            rec[name] = {"errs": errs, "tokens_equal": same, "step_ms": ms,
+                         "one_process_step_ms": one_ms, "prefill_ms": pre_ms,
+                         "one_process_prefill_ms": one["prefill_s"] * 1e3,
+                         "host_ms": host, "calls_rank0": calls,
+                         "prefill_calls_rank0": pre_calls,
+                         "cache_shapes": shapes}
+            gates.check(
+                f"{tag} {cfg.name} {name} (2, 2) == one process",
+                max(errs) <= tol and same,
+                f"{card()}; {layers} layers {dt}: prefill + {FAMILY_STEPS} "
+                f"decode steps, worst step's logits {max(errs):.2e} of their "
+                f"norm (tol {tol:g}); greedy tokens equal {same}; rank 0's "
+                f"cache block {shapes}; a decode step {ms:.2f} ms on the "
+                f"grid (the slowest rank, median of steps 2-{FAMILY_STEPS}) "
+                f"against {one_ms:.2f} ms in one process, host ms in the "
+                f"collectives by rank {host}; rank 0's calls a step {calls}; "
+                f"prefill {pre_ms:.1f} ms against "
+                f"{one['prefill_s'] * 1e3:.1f} ms, its calls {pre_calls}")
+            del got
+            torch.cuda.ipc_collect()
+        del params, one, embeds
+        torch.cuda.empty_cache()
+    return rec
+
+
+def grid_read_bound_ms(cfg, p_specs, c_specs, ranks: int) -> tuple:
+    """The card's least time for one decode step of ``ranks`` ranks on it,
+    each reading its parameter blocks that a step reads (not the encoder,
+    nor the cross-attention's k / v projections, whose outputs the cache
+    holds; of untied embeddings only a row) and its cache block once:
+    (ms, a rank's weight bytes read, its cache bytes)."""
+    from repro_torch.launch import inputs as I
+    skip = {"encoder", "enc_norm"} | (
+        set() if cfg.tie_embeddings else {"embedding"})
+    read = {k: v for k, v in p_specs.items() if k not in skip}
+    if "decoder" in read:
+        cross = {k: v for k, v in read["decoder"]["cross"].items()
+                 if k not in ("wk", "wv", "bk", "bv")}
+        read["decoder"] = dict(read["decoder"], cross=cross)
+    weights = I.tree_bytes(read)
+    cache = I.tree_bytes(c_specs)
+    return (ranks * (weights + cache) / HBM_BYTES_PER_S * 1e3, weights,
+            cache)
+
+
+def family_serve_timing(world, gates, dev, seed: int, arch: str, tag: str,
+                        layers: int) -> dict:
+    """18b / 18c: bf16 prefill and FAMILY_BF16_STEPS greedy decode steps on
+    FAMILY_GRID (the cache's positions over 'model'): ms a step beside
+    the card's read bound, tok/s, finite logits, each rank's parameter
+    and cache bytes against ``decode_specs(..., grid=)``'s."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch.grid_serve import grid_serve
+    cfg = family_cfg(arch, layers, torch.bfloat16)
+    params = family_params(cfg, dev, seed)
+    tokens, lens, embeds, max_seq = family_prompts(cfg, dev, seed)
+    got = grid_serve(world, FAMILY_GRID, cfg, params, tokens, lens, max_seq,
+                     FAMILY_BF16_STEPS, embeds=embeds)
+    B = tokens.shape[0]
+    shape = ShapeConfig("serve", max_seq, B, "decode")
+    p_specs, c_specs, _, _ = I.decode_specs(cfg, shape, grid=FAMILY_GRID)
+    want_p, want_c = I.tree_bytes(p_specs), I.tree_bytes(c_specs)
+    sized = all(p == want_p and c == want_c for p, c in
+                zip(got["param_bytes"], got["cache_bytes"]))
+    finite = bool(torch.isfinite(got["logits"]).all())
+    ms = max(float(np.median(s[1:])) for s in got["step_s"]) * 1e3
+    pre_ms = max(got["prefill_s"]) * 1e3
+    bound, read_w, read_c = grid_read_bound_ms(cfg, p_specs, c_specs,
+                                               len(got["step_s"]))
+    steps_s = max(sum(s) for s in got["step_s"])
+    tok_s = B * FAMILY_BF16_STEPS / steps_s
+    peaks = [round((b or 0) / 1e9, 2) for b in got["peak_bytes"]]
+    calls = calls_by_group(got["calls"][0])
+    rec = {"layers": layers, "step_ms": ms, "prefill_ms": pre_ms,
+           "bound_ms": bound, "read_weight_bytes": read_w,
+           "cache_bytes": want_c, "param_bytes": want_p,
+           "bytes_equal": sized, "finite": finite, "tok_s": tok_s,
+           "peak_gb": peaks, "calls_rank0": calls,
+           "host_ms": [round(h * 1e3, 2) for h in got["host_s"]]}
+    gates.check(
+        f"{tag} {cfg.name} bf16 on (2, 2): finite, decode_specs' bytes",
+        finite and sized,
+        f"{card()}; {layers} layers bf16, {B} prompts of {FAMILY_PROMPT} "
+        f"tokens into {max_seq} positions, {FAMILY_BF16_STEPS} greedy steps: "
+        f"logits finite {finite}; a rank's parameters {want_p / 1e9:.3f} "
+        f"GB and cache {want_c / 1e6:.2f} MB, decode_specs' on every rank "
+        f"{sized}; prefill {pre_ms:.1f} ms; decode {ms:.2f} ms a step (the "
+        f"slowest rank, median of steps 2-{FAMILY_BF16_STEPS}) against the "
+        f"card's read bound {bound:.3f} ms (four ranks each reading "
+        f"{read_w / 1e9:.3f} GB of weights and its cache); {tok_s:.1f} "
+        f"tok/s over the decode steps; rank 0's calls a step {calls}; "
+        f"peaks GB by rank {peaks}")
+    del params, got
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seamless_grid_train(world, gates, dev, seed: int, stats) -> None:
+    """18a: one train step of seamless at FAMILY_TRAIN_LAYERS + as many
+    encoder layers on (2, 2) against one process at 15c's gates, the f64
+    twin's loss at GRID_F64_TOL."""
+    arch = "seamless_m4t_large_v2"
+    cfg = family_cfg(arch, FAMILY_TRAIN_LAYERS, torch.float32)
+    cfg64 = family_cfg(arch, FAMILY_F64_LAYERS, torch.float64)
+    one = grid_one_process(cfg, dev, seed, FAMILY_TRAIN_BATCH)
+    one64 = grid_one_process(cfg64, dev, seed, FAMILY_TRAIN_BATCH)
+    grid_step_check(world, gates, stats, "18a", cfg, one, cfg64, one64,
+                    f"{FAMILY_TRAIN_LAYERS} + {FAMILY_TRAIN_LAYERS} layers",
+                    f"{FAMILY_F64_LAYERS} + {FAMILY_F64_LAYERS}")
+    del one, one64
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def llava_grid_train(world, gates, dev, seed: int, stats) -> None:
+    """18c: one train step of llava at LLAVA_TRAIN_LAYERS layer on
+    LLAVA_TRAIN_GRID against one process at 15c's gates (the phase
+    comment says why on that grid)."""
+    cfg = family_cfg("llava_next_34b", LLAVA_TRAIN_LAYERS, torch.float32)
+    one = grid_one_process(cfg, dev, seed, LLAVA_TRAIN_BATCH)
+    grid_step_check(world, gates, stats, "18c train", cfg, one,
+                    depth=f"{LLAVA_TRAIN_LAYERS} layer",
+                    grid=LLAVA_TRAIN_GRID)
+    del one
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def family_grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
+    """Phase 18: seamless and llava trained and served on a (2, 2) grid
+    of gloo ranks sharing the card (plain torch and collectives: the
+    returned launch counts are all zero), on ``world`` when given (phase
+    14's: its caller closes it).  Raises at the end if any gate failed."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    own = world is None
+    world = spawn_world(dev, GRID_RANKS) if own else world
+    def serve(tag, arch, bf16_layers):
+        stats[f"grid_{tag}"] = {
+            "exact": family_serve_exactness(world, gates, dev, seed, arch,
+                                            tag),
+            "bf16": family_serve_timing(world, gates, dev, seed, arch, tag,
+                                        bf16_layers)}
+    try:
+        for name, fn in (
+                ("18a", lambda: seamless_grid_train(world, gates, dev, seed,
+                                                    stats)),
+                ("18b", lambda: serve("18b", "seamless_m4t_large_v2",
+                                      get_config("seamless_m4t_large_v2")
+                                      .n_layers)),
+                ("18c serve", lambda: serve("18c", "llava_next_34b",
+                                            LLAVA_BF16_LAYERS)),
+                ("18c train", lambda: llava_grid_train(world, gates, dev,
+                                                       seed, stats))):
+            _, secs = timed(fn)
+            stats[f"phase{name.replace(' ', '_')}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            release_ranks(world)
+    finally:
+        if own:
+            world.close()
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 18 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -5054,23 +5409,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 13. training ---------------------------------------------------------
-    log("== 13. training: llama3.2-3b's gradients and step card against CPU "
-        "(f64, 2 layers), its full config's steps (bf16, 28 layers), "
-        "gradient accumulation, cpu-small's learning and exact resume, the "
-        "elastic restart (random weights)")
-    paths["train"], stats["phase13_s"] = timed(
-        lambda: train_phase(args.seed, stats))
-    log(f"  phase 13 took {stats['phase13_s']:.1f} s")
-    torch.cuda.empty_cache()
-
-    # -- 14. the dry run, flash-decoding, the batched cells, lasso ----------
-    log(f"== 14. flash-decoding and decode on a sequence-sharded cache on "
-        f"{SEQ_RANKS} gloo ranks, the LM dry run and roofline, the batched "
-        "solver dry-run cells, the lasso entry point")
-    # phases 14-17 share one world of four gloo ranks (a spawn is 9-13 s);
+    # phases 13f-18 share one world of four gloo ranks (a spawn is 9-13 s);
     # its ranks give their cached blocks back to the card between phases
     world = spawn_world(dev, SEQ_RANKS, kernels=True)
     try:
+        log("== 13. training: llama3.2-3b's gradients and step card against "
+            "CPU (f64, 2 layers), its full config's steps (bf16, 28 "
+            "layers), gradient accumulation, cpu-small's learning and exact "
+            "resume, the elastic restart (random weights)")
+        paths["train"], stats["phase13_s"] = timed(
+            lambda: train_phase(args.seed, stats, world=world))
+        log(f"  phase 13 took {stats['phase13_s']:.1f} s")
+        torch.cuda.empty_cache()
+        release_ranks(world)
+
+        # -- 14. the dry run, flash-decoding, the batched cells, lasso ------
+        log(f"== 14. flash-decoding and decode on a sequence-sharded cache "
+            f"on {SEQ_RANKS} gloo ranks, the LM dry run and roofline, the "
+            "batched solver dry-run cells, the lasso entry point")
         paths["lasso"], stats["phase14_s"] = timed(
             lambda: dryrun_phase(args.seed, stats, world=world))
         log(f"  phase 14 took {stats['phase14_s']:.1f} s")
@@ -5106,6 +5462,17 @@ def main() -> int:
         paths["grid serving"], stats["phase17_s"] = timed(
             lambda: grid_serve_phase(args.seed, stats, world=world))
         log(f"  phase 17 took {stats['phase17_s']:.1f} s")
+        release_ranks(world)
+
+        # -- 18. the encoder-decoder and the vlm on a grid of ranks -----------
+        log(f"== 18. seamless-m4t-large-v2 and llava-next-34b on a "
+            f"{FAMILY_GRID} grid of {GRID_RANKS} gloo ranks on one card "
+            "(phase 14's): a train step of each against one process, "
+            "prefill and decode under both cache layouts against one "
+            "process (f32 and f64), bf16 decode timing (random weights)")
+        paths["grid families"], stats["phase18_s"] = timed(
+            lambda: family_grid_phase(args.seed, stats, world=world))
+        log(f"  phase 18 took {stats['phase18_s']:.1f} s")
     finally:
         world.close()
 

@@ -15,7 +15,11 @@ A run of :func:`grid_serve` prefills prompts right-padded to one length
 (row b's ``lens[b]`` tokens are real) and decodes ``steps`` tokens: step 0
 replays each row's last prompt token at ``lens - 1`` (as the engine does),
 step t feeds ``feed[t]`` (another run's tokens, so that two runs' logits
-stay comparable) or the run's own greedy token.
+stay comparable) or the run's own greedy token.  ``embeds`` feeds the
+frontend's embeddings with the tokens: the audio family's encoder frames
+(``src_embeds``), the vlm's patch prefix (``extra_embeds``, whose
+positions come before the prompt's: a row's positions are shifted by the
+prefix's length).
 """
 from __future__ import annotations
 
@@ -29,10 +33,13 @@ from repro_torch.core.world import sync_device
 from repro_torch.launch.flash_decode import _release
 from repro_torch.launch.inputs import tree_bytes
 from repro_torch.models import api
-from repro_torch.models.sharding import assemble, cut, make_rules
+from repro_torch.models.module import tree_map
+from repro_torch.models.sharding import (assemble, assemble_tree, cut,
+                                         make_rules)
 from repro_torch.serve import Engine
 from repro_torch.serve.engine import sample_tokens
 from repro_torch.serve.slots import bucket_pow2
+from repro_torch.train.trainer import frontend_key
 
 
 def rank_rows(t: torch.Tensor, comm) -> torch.Tensor:
@@ -40,6 +47,11 @@ def rank_rows(t: torch.Tensor, comm) -> torch.Tensor:
     spec = make_rules(comm.grid).spec_for(
         tuple(t.shape), ("batch",) + (None,) * (t.dim() - 1))
     return cut(t, spec, comm.grid, comm.coords)
+
+
+def _first_layer(cache: dict) -> dict:
+    """The stacked leaves of a cache's first (or only) group of layers."""
+    return cache["decoder"] if "decoder" in cache else cache["blocks"]["sub0"]
 
 
 def _greedy(model, logits, vocab: int) -> torch.Tensor:
@@ -54,18 +66,25 @@ def _param_bytes(model) -> int:
 
 
 def _serve_loop(model, cfg, tokens, lens, max_seq: int, steps: int, feed,
-                seq_shard: bool, device, comm=None) -> dict:
+                seq_shard: bool, device, comm=None, embeds=None) -> dict:
     """Prefill and ``steps`` decode steps of ``model`` (module docstring),
     each timed; with ``comm`` (a ``GridComm``) the collectives of the
     last step by group and their host seconds, and the prefill's."""
     out = {"logits": [], "picks": [], "fed": [], "step_s": []}
+    batch, off, enc_len = {"tokens": tokens}, 0, None
+    if embeds is not None:
+        batch[frontend_key(cfg)] = embeds
+        if cfg.family == "vlm":             # the prefix's positions first
+            off = embeds.shape[1]
+        else:
+            enc_len = embeds.shape[1]
     with torch.no_grad():
         if comm is not None:
             comm.reset()
         sync_device(device)
         t0 = time.perf_counter()
-        logits, cache = api.prefill(model, cfg, {"tokens": tokens},
-                                    max_seq=max_seq, seq_shard=seq_shard)
+        logits, cache = api.prefill(model, cfg, batch, max_seq=max_seq,
+                                    seq_shard=seq_shard)
         sync_device(device)
         out["prefill_s"] = time.perf_counter() - t0
         if comm is not None:
@@ -81,8 +100,9 @@ def _serve_loop(model, cfg, tokens, lens, max_seq: int, steps: int, feed,
             sync_device(device)
             t0 = time.perf_counter()
             logits, cache = api.decode_step(model, cfg, cache, cur,
-                                            lens - 1 + t,
-                                            seq_shard=seq_shard)
+                                            off + lens - 1 + t,
+                                            seq_shard=seq_shard,
+                                            enc_len=enc_len)
             sync_device(device)
             out["step_s"].append(time.perf_counter() - t0)
             if comm is not None:
@@ -96,7 +116,8 @@ def _serve_loop(model, cfg, tokens, lens, max_seq: int, steps: int, feed,
 
 
 def _rank_serve(comm, device, *, cfg, params, tokens, lens, max_seq: int,
-                steps: int, feed, seq_shard: bool, keep_cache: bool) -> dict:
+                steps: int, feed, seq_shard: bool, keep_cache: bool,
+                embeds=None) -> dict:
     """One rank: its model, :func:`_serve_loop` on its rows, its logits
     blocks, picks, timings, collectives, bytes and peak."""
     device = torch.device(device)
@@ -107,17 +128,16 @@ def _rank_serve(comm, device, *, cfg, params, tokens, lens, max_seq: int,
     rows = (lambda t: rank_rows(t, comm).to(device))
     out = _serve_loop(model, cfg, rows(tokens), rows(lens), max_seq, steps,
                       None if feed is None else rows(feed.T).T, seq_shard,
-                      device, comm)
+                      device, comm, None if embeds is None else rows(embeds))
     cache = out.pop("cache")
     out.update({
         "cache_bytes": tree_bytes(cache),
         "cache_shapes": {k: tuple(v.shape)
-                         for k, v in cache["blocks"]["sub0"].items()},
+                         for k, v in _first_layer(cache).items()},
         "param_bytes": _param_bytes(model),
         "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda
         else None,
-        "cache": ({s: {k: v.cpu() for k, v in leaves.items()}
-                   for s, leaves in cache["blocks"].items()}
+        "cache": (tree_map(lambda t: t.cpu(), cache, is_leaf=torch.is_tensor)
                   if keep_cache else None)})
     del model, cache
     _release(device)
@@ -126,7 +146,7 @@ def _rank_serve(comm, device, *, cfg, params, tokens, lens, max_seq: int,
 
 def grid_serve(world, grid, cfg, params: dict, tokens, lens, max_seq: int,
                steps: int, *, feed=None, seq_shard: bool = True,
-               keep_cache: bool = False) -> dict:
+               keep_cache: bool = False, embeds=None) -> dict:
     """Prefill of ``tokens`` (B, S; row b's first ``lens[b]`` real) and
     ``steps`` decode steps of ``cfg`` on ``grid`` (the first ranks of
     ``world``) from the whole parameter tree ``params``.  Returns the
@@ -135,12 +155,14 @@ def grid_serve(world, grid, cfg, params: dict, tokens, lens, max_seq: int,
     same bits), with ``keep_cache`` the cache after the last step
     assembled, and each rank's ``step_s``, ``prefill_s``, ``calls`` (the
     last step's ``Comm`` record a group), ``host_s``, ``prefill_calls``,
-    ``param_bytes``, ``cache_bytes``, ``cache_shapes``, ``peak_bytes``."""
+    ``param_bytes``, ``cache_bytes``, ``cache_shapes``, ``peak_bytes``.
+    ``embeds``: the family's frontend embeddings (B, F, D), module
+    docstring."""
     g = as_grid(grid)
     outs = world.run_grid(_rank_serve, g, cfg=cfg, params=params,
                           tokens=tokens, lens=lens, max_seq=max_seq,
                           steps=steps, feed=feed, seq_shard=seq_shard,
-                          keep_cache=keep_cache)
+                          keep_cache=keep_cache, embeds=embeds)
     B = tokens.shape[0]
     rules = make_rules(g, fsdp=cfg.fsdp)
     lspec = rules.spec_for((B, cfg.padded_vocab), ("batch", "vocab"))
@@ -152,11 +174,10 @@ def grid_serve(world, grid, cfg, params: dict, tokens, lens, max_seq: int,
                                        bspec, g) for t in range(steps)]),
         "cache": None}
     if keep_cache:
-        specs = api.cache_shardings(cfg, B, max_seq, g, seq_shard)["blocks"]
-        res["cache"] = {"blocks": {
-            s: {k: assemble([o["cache"][s][k] for o in outs], spec, g)
-                for k, spec in leaves.items()}
-            for s, leaves in specs.items()}}
+        res["cache"] = assemble_tree(
+            [o["cache"] for o in outs],
+            api.cache_shardings(cfg, B, max_seq, g, seq_shard, frames=(
+                embeds.shape[1] if cfg.family == "audio" else None)), g)
     for k in ("step_s", "prefill_s", "calls", "host_s", "prefill_calls",
               "param_bytes", "cache_bytes", "cache_shapes", "peak_bytes"):
         res[k] = [o.get(k) for o in outs]
@@ -164,7 +185,7 @@ def grid_serve(world, grid, cfg, params: dict, tokens, lens, max_seq: int,
 
 
 def one_process_serve(cfg, params: dict, tokens, lens, max_seq: int,
-                      steps: int, *, feed=None) -> dict:
+                      steps: int, *, feed=None, embeds=None) -> dict:
     """The same prefill and decode steps in this process on ``params``'
     device: ``logits`` (steps + 1, B, Vpad), ``picks``, ``fed`` (the
     tokens each step took), ``cache``, ``step_s``, ``prefill_s``."""
@@ -172,7 +193,7 @@ def one_process_serve(cfg, params: dict, tokens, lens, max_seq: int,
     dev = model.device
     out = _serve_loop(model, cfg, tokens.to(dev), lens.to(dev), max_seq,
                       steps, None if feed is None else feed.to(dev), True,
-                      dev)
+                      dev, embeds=None if embeds is None else embeds.to(dev))
     for k in ("logits", "picks", "fed"):
         out[k] = torch.stack(out[k])
     return out

@@ -175,14 +175,18 @@ def restore_on_grid(world, grid, cfg, run_cfg) -> dict:
     return world.run_grid(_rank_restore, grid, cfg=cfg, run_cfg=run_cfg)[0]
 
 
-def _block_digests(state, cfg, comm, cut_blocks: bool) -> list:
+def _block_digests(state, cfg, comm, cut_blocks: bool,
+                   prefix: str = "") -> list:
     """SHA-256 of each leaf's block at the rank's coordinates (cut from a
-    whole replicated state with ``cut_blocks``), leaves in tree order."""
+    whole replicated state with ``cut_blocks``), leaves in tree order;
+    only the leaves whose path starts with ``prefix``."""
     import hashlib
     shardings, _ = train_step_shardings(cfg, comm.grid)
     specs = dict(tree_items(shardings, torch.is_tensor))
     out = []
     for k, t in tree_items(state, torch.is_tensor):
+        if not k.startswith(prefix):
+            continue
         if cut_blocks:
             t = cut(t, specs[k], comm.grid, comm.coords)
         h = hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(
@@ -195,7 +199,9 @@ def _rank_zero1_vs_replicated(comm, device, *, cfg, run_cfg) -> dict:
     """One rank: the Trainer on the grid's ranks as a replicated
     data-parallel world (``comm.world``), its state's blocks at the rank's
     coordinates digested, then the Trainer on the grid (ZeRO-1), its
-    blocks digested; each run's history, optimizer bytes and peak."""
+    blocks digested; each run's history, optimizer bytes and peak, and
+    the digests of its master blocks before the run (``start``: a step
+    that moved them changes every one)."""
     from repro_torch.train import Trainer
     cuda = torch.device(device).type == "cuda"
     out = {}
@@ -204,13 +210,16 @@ def _rank_zero1_vs_replicated(comm, device, *, cfg, run_cfg) -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         trainer = Trainer(cfg, run_cfg, c)
+        start = _block_digests(trainer.state, cfg, comm,
+                               cut_blocks=tag == "replicated",
+                               prefix="opt/master/")
         sync_device(device)
         t0 = time.perf_counter()
         history = trainer.run()
         sync_device(device)
         secs = time.perf_counter() - t0
         out[tag] = {
-            "history": history, "run_s": secs,
+            "history": history, "run_s": secs, "start": start,
             "digests": _block_digests(trainer.state, cfg, comm,
                                       cut_blocks=tag == "replicated"),
             "opt_bytes": sum(t.numel() * t.element_size()

@@ -14,7 +14,8 @@ no encoder frames.
 (``launch.train.choose_layout``): ``none`` serves on one device, ``DxM`` on
 a grid of D x M ranks in the reference's production layout (one nccl rank
 a card; with ``--device cpu`` gloo ranks on the CPU; the dense decoder
-family where M > 1, ``models.api.check_grid_family``, else it raises),
+and the vlm where M > 1, ``models.api.check_grid_family``, else it
+raises),
 ``auto`` on ``plan_mesh``'s grid of every local card where the family
 runs on it, else on one card (the line says why).  ``--seq-shard-decode
 true|false`` is the reference dry run's flag: the decode cache's positions
@@ -34,6 +35,7 @@ from repro_torch.launch.train import choose_layout
 from repro_torch.models import api
 from repro_torch.models.module import init_params
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve.engine import check_served
 
 
 def main(argv=None) -> list[list[int]]:
@@ -61,6 +63,7 @@ def main(argv=None) -> list[list[int]]:
 
     device = check_device(args.device)
     cfg = (get_config if args.full else get_reduced)(args.arch)
+    check_served(cfg)               # before any rank starts
     ranks, grid, why = choose_layout(
         cfg, args.mesh,
         torch.cuda.device_count() if device.type == "cuda" else 0)

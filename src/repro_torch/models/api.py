@@ -62,13 +62,14 @@ take the rank's ``comm`` (its rows of the global batch, or with
 'data'; the port replicates them).
 
 On a grid of ranks (:class:`GridLayout`, the reference's production
-layout; section "A grid of ranks" below) the dense decoder family trains
-and serves: ``prefill`` and ``decode_step`` of a rank's model
-(:func:`grid_model`) take the rank's (pod, data) rows and give the logits
-of its vocab columns, and the decode cache is cut as the reference's
-``decode_specs`` cut it (:func:`cache_rules`): by default its positions
-over 'model' (``cache_seq: ("model",)``; flash-decoding over the 'model'
-group), with ``seq_shard=False`` its kv heads (Megatron's decode).
+layout; section "A grid of ranks" below) the dense decoder, the vlm and
+the encoder-decoder train and serve: ``prefill`` and ``decode_step`` of a
+rank's model (:func:`grid_model`) take the rank's (pod, data) rows and
+give the logits of its vocab columns, and the decode cache is cut as the
+reference's ``decode_specs`` cut it (:func:`cache_shardings`): by default
+its positions over 'model' (``cache_seq: ("model",)``; flash-decoding
+over the 'model' group), with ``seq_shard=False`` its kv heads
+(Megatron's decode).
 
 Serving keeps the parameters frozen.  Training calls
 :meth:`_LM.trainable`: every parameter requires grad, and backward adds
@@ -95,7 +96,9 @@ from . import mamba2 as M
 from . import moe as MOE
 from .module import (ParamSpec, init_params, is_spec, stack_specs, tree_leaves,
                      tree_map)
-from .sharding import cut_tree, entry_axes, make_rules, shard_shape
+from repro_torch.core.grid import as_grid
+from .sharding import (cut_tree, entry_axes, make_rules, map_specs,
+                       shard_shape)
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -553,25 +556,37 @@ def _self_attention(p, x, cfg, positions, causal):
     return L.out_proj(p, _attend(q, k, v, cfg, causal))
 
 
-def _encoder_layer(layer, x, cfg, positions):
+def _encoder_layer(layer, x, cfg, positions, lay=None):
+    """One encoder layer; ``lay``: the rank's :class:`GridLayout`."""
+    if lay is not None:
+        return _grid_encoder_layer(lay.layer_tree(layer), x, cfg, positions,
+                                   lay)
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
     x = x + _self_attention(layer.attn, h, cfg, positions, causal=False)
     h = L.rmsnorm(x, layer.ln2, cfg.norm_eps)
     return x + L.swiglu(layer.mlp, h)
 
 
-def _encoder_stack(model, cfg, src):
+def _encoder_stack(model, cfg, src, top=None):
     """The bidirectional encoder on the frame embeddings (each layer under
-    :func:`_remat`), then enc_norm."""
+    :func:`_remat`), then enc_norm (``top``'s on a grid: gathered under
+    FSDP)."""
     x = torch.as_tensor(src, device=model.device).to(cfg.dtype)
     positions = _positions(x.shape[1], x.device)
     block = _remat(_encoder_layer, cfg, model)
     for layer in model.enc_layers:
-        x = block(layer, x, cfg, positions)
-    return L.rmsnorm(x, model.top["enc_norm"], cfg.norm_eps)
+        x = block(layer, x, cfg, positions, model.layout)
+    top = model.top if top is None else top
+    return L.rmsnorm(x, top["enc_norm"], cfg.norm_eps)
 
 
-def _cross_decoder_layer(layer, x, cfg, positions, enc, caches=None):
+def _cross_decoder_layer(layer, x, cfg, positions, enc, caches=None,
+                         lay=None):
+    """One decoder layer of the enc-dec body; ``lay``: the rank's
+    :class:`GridLayout`."""
+    if lay is not None:
+        return _grid_cross_layer(lay.layer_tree(layer), x, cfg, positions,
+                                 enc, lay, caches)
     h = L.rmsnorm(x, layer.ln1, cfg.norm_eps)
     q, k, v = _project(layer.attn, h, cfg, positions)
     x = x + L.out_proj(layer.attn, _attend(q, k, v, cfg))
@@ -588,11 +603,17 @@ def _cross_decoder_layer(layer, x, cfg, positions, enc, caches=None):
 def _cross_decoder_stack(model, cfg, x, enc, caches=None):
     """The text decoder: causal self-attention, cross-attention to the
     encoder's output, MLP (each layer under :func:`_remat`).  Appends each
-    layer's self k / v and cross xk / xv to ``caches`` when given."""
+    layer's self k / v and cross xk / xv to ``caches`` when given.  On a
+    grid whose q heads are cut over 'model', the encoder's output (whole
+    on every model rank) enters the tensor-parallel regions once: its
+    gradient, summed over the layers, is all-reduced over 'model' once."""
+    lay = model.layout
+    if lay is not None and lay.tp_heads:
+        enc = copy_to(enc, lay.model)
     positions = _positions(x.shape[1], x.device)
     block = _remat(_cross_decoder_layer, cfg, model)
     for layer in model.dec_layers:
-        x = block(layer, x, cfg, positions, enc, caches)
+        x = block(layer, x, cfg, positions, enc, caches, lay)
     return x, {}
 
 
@@ -626,24 +647,18 @@ def forward(model, cfg, batch: dict, comm=None, replicated: bool = False):
     (``model.layout``) the logits are the rank's vocab columns when the
     vocab is cut over 'model'."""
     lay = model.layout
-    if lay is not None:
-        top = lay.top_tree(model)
-        x = _embed(model, cfg, batch, top)
-        x, aux = _decoder_stack(model, cfg, x,
-                                _positions(x.shape[1], x.device))
-        x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)
-        return lay.unembed(top, x), aux
+    top = model.top if lay is None else lay.top_tree(model)
     if cfg.family == "audio":
-        enc = _encoder_stack(model, cfg, batch["src_embeds"])
-        x, aux = _cross_decoder_stack(model, cfg, _embed(model, cfg, batch),
-                                      enc)
+        enc = _encoder_stack(model, cfg, batch["src_embeds"], top)
+        x, aux = _cross_decoder_stack(model, cfg,
+                                      _embed(model, cfg, batch, top), enc)
     else:
-        x = _embed(model, cfg, batch)
+        x = _embed(model, cfg, batch, top)
         x, aux = _decoder_stack(model, cfg, x,
                                 _positions(x.shape[1], x.device),
                                 ep=_expert_parallel(cfg, comm, replicated))
-    x = L.rmsnorm(x, model.top["final_norm"], cfg.norm_eps)
-    return L.unembed(model.top, x), aux
+    x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)
+    return (L.unembed(top, x) if lay is None else lay.unembed(top, x)), aux
 
 
 def nll_sum(model, cfg, batch: dict, comm=None):
@@ -729,6 +744,12 @@ def _shard_len(max_seq: int, seq_shards: int) -> int:
     return max_seq // seq_shards
 
 
+def cross_frames(max_seq: int) -> int:
+    """The encoder frames the decode cache's cross k / v hold for a cache
+    of ``max_seq`` positions: the reference's max(max_seq // 4, 128)."""
+    return max(max_seq // 4, 128)
+
+
 def init_cache_specs(cfg, batch: int, max_seq: int,
                      seq_shards: int = 1) -> dict:
     """ParamSpec tree of the decode cache, the reference's layout.  The
@@ -741,7 +762,7 @@ def init_cache_specs(cfg, batch: int, max_seq: int,
     if cfg.family == "audio":
         hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
         self_shape = (batch, local, hkv, dh)
-        cross_shape = (batch, max(max_seq // 4, 128), hkv, dh)
+        cross_shape = (batch, cross_frames(max_seq), hkv, dh)
         axes = ("batch", "cache_seq", "kv_heads", "head_dim")
         layer = {"k": ParamSpec(self_shape, axes, cfg.dtype, init="zeros"),
                  "v": ParamSpec(self_shape, axes, cfg.dtype, init="zeros"),
@@ -766,38 +787,58 @@ def cache_rules(cfg, grid, seq_shard: bool = True):
 
 
 def cache_shardings(cfg, batch: int, max_seq: int, grid,
-                    seq_shard: bool = True) -> dict:
+                    seq_shard: bool = True,
+                    frames: int | None = None) -> dict:
     """The spec (one entry a dimension, ``models.sharding``) of every leaf
-    of the decode cache of ``batch`` slots on ``grid``."""
-    return cache_rules(cfg, grid, seq_shard).tree(
+    of the decode cache of ``batch`` slots on ``grid``: :func:`cache_rules`'
+    but for the audio family's cross k / v under ``cache_seq``, whose
+    ``frames`` (the encoder's; :func:`cross_frames`' count by default, the
+    reference's ``decode_specs``) are cut over 'model' only where they
+    divide it and are otherwise whole on every model rank, every kv head
+    (the rule table would cut their kv heads instead; a cross cache is
+    never padded: :func:`_cross_cut`)."""
+    tree = cache_rules(cfg, grid, seq_shard).tree(
         init_cache_specs(cfg, batch, max_seq))
+    if cfg.family == "audio" and seq_shard:
+        F = cross_frames(max_seq) if frames is None else frames
+        k = tree["decoder"]["k"]        # (layers, batch, positions, heads, dh)
+        cut = F % as_grid(grid)["model"] == 0
+        for name in ("xk", "xv"):
+            tree["decoder"][name] = k[:2] + ((k[2] if cut else None),) + k[3:]
+    return tree
 
 
 def init_cache(cfg, batch: int, max_seq: int, device,
                seq_shards: int = 1, *, grid=None,
                seq_shard: bool = True) -> dict:
     """A zero cache of :func:`init_cache_specs` on ``device``; on ``grid``
-    the block of it that a rank holds (:func:`cache_rules`: ``batch`` is
-    the global slot count, cut over (pod, data))."""
+    the block of it that a rank holds (:func:`cache_shardings`: ``batch``
+    is the global slot count, cut over (pod, data))."""
     if grid is None:
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=device),
                         init_cache_specs(cfg, batch, max_seq, seq_shards))
-    rules = cache_rules(cfg, grid, seq_shard)
-    return tree_map(lambda s: torch.zeros(
-        shard_shape(s.shape, rules.spec_of(s), rules.grid), dtype=s.dtype,
-        device=device), init_cache_specs(cfg, batch, max_seq))
+    grid = as_grid(grid)
+    return map_specs(lambda s, sh: torch.zeros(
+        shard_shape(s.shape, sh, grid), dtype=s.dtype, device=device),
+        init_cache_specs(cfg, batch, max_seq),
+        cache_shardings(cfg, batch, max_seq, grid, seq_shard))
 
 
 def cut_cache(cache: dict, cfg, grid, coords: dict,
               seq_shard: bool = True) -> dict:
     """The block of a whole cache (all slots, every position) that the
     rank at ``coords`` holds on ``grid`` (a copy): :func:`shard_cache`'s
-    twin on a grid, the layout of ``init_cache(..., grid=grid)``."""
-    leaf = next(iter(next(iter(cache["blocks"].values())).values()))
+    twin on a grid, the layout of ``init_cache(..., grid=grid)`` (the
+    audio family's cross k / v at the frames they hold)."""
+    subs = ([cache["decoder"]] if "decoder" in cache
+            else list(cache["blocks"].values()))
+    leaf = next((s["k"] for s in subs if "k" in s),
+                next(iter(subs[0].values())))
     B, S = leaf.shape[1], leaf.shape[2]
-    return cut_tree(cache, cache_shardings(cfg, B, S, grid, seq_shard),
-                    grid, coords)
+    frames = cache["decoder"]["xk"].shape[2] if "decoder" in cache else None
+    return cut_tree(cache, cache_shardings(cfg, B, S, grid, seq_shard,
+                                           frames), grid, coords)
 
 
 def shard_cache(cache: dict, cfg, rank: int, n_shards: int) -> dict:
@@ -854,7 +895,7 @@ def _decode_self_attention(p, c, h, cfg, pos, rows, comm=None):
 
 def decode_step(model, cfg, cache: dict, token: torch.Tensor,
                 pos: torch.Tensor, comm=None, expert_comm=None,
-                seq_shard: bool = True):
+                seq_shard: bool = True, enc_len: int | None = None):
     """One decode step.  token (B,) integer, pos (B,) current positions.
     Writes each layer's new k / v row at ``pos``, and each mamba layer's
     new state, into ``cache`` in place.  Returns (logits (B, Vpad),
@@ -873,13 +914,19 @@ def decode_step(model, cfg, cache: dict, token: torch.Tensor,
     the rank's (pod, data) rows of token and pos and its block of the cache
     (``init_cache(..., grid=, seq_shard=)``, or :func:`prefill`'s), and
     returns the logits of its vocab columns (:func:`_grid_decode_step`);
-    ``comm`` and ``expert_comm`` are then ``None``."""
+    ``comm`` and ``expert_comm`` are then ``None``.  ``enc_len``: the
+    audio family's encoder frame count (prefill's ``src_embeds`` length),
+    which a rank's model on a grid whose cache's positions are cut over
+    'model' needs (the rank's block of the cross cache does not say
+    whether its frames were cut: :func:`_cross_cut`); elsewhere the
+    cache's cross k / v hold every frame and ``enc_len`` is not read."""
     if model.layout is not None:
         if comm is not None or expert_comm is not None:
             raise ValueError("decode_step on a grid takes the rank's groups "
                              "from its model's layout: comm / expert_comm "
                              "must be None")
-        return _grid_decode_step(model, cfg, cache, token, pos, seq_shard)
+        return _grid_decode_step(model, cfg, cache, token, pos, seq_shard,
+                                 enc_len)
     dev = model.device
     token = torch.as_tensor(token, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
@@ -991,38 +1038,48 @@ def _prefill_encdec(model, cfg, batch, max_seq):
 # A grid of ranks: tensor parallelism over 'model', FSDP over 'data'
 # ---------------------------------------------------------------------------
 # The reference's production layout (models.sharding's rule table on its
-# mesh) for the dense decoder family's forward: attention cut by heads /
-# kv_heads, the MLP by its hidden columns (w1 / w3) and rows (w2), the
-# embedding and the tied unembedding by vocab rows, each region entered by
-# ``copy_to`` (identity, all-reduce of the gradient) and left by
-# ``reduce_from`` (all-reduce, identity backward) over 'model'; a leaf whose
-# dimension the guard dropped runs whole on every model rank with no
-# collective.  Under FSDP (``cfg.fsdp``) the non-TP 'embed' dimension of
-# every weight is cut over 'data' and gathered (``gather_from``: its
-# gradient reduce-scattered) just before use.
+# mesh) for the attention families' forward (the dense decoder, the vlm --
+# the decoder behind its patch prefix -- and the encoder-decoder):
+# attention cut by heads / kv_heads, the MLP by its hidden columns (w1 /
+# w3) and rows (w2), the embedding and the unembedding by vocab rows, each
+# region entered by ``copy_to`` (identity, all-reduce of the gradient) and
+# left by ``reduce_from`` (all-reduce, identity backward) over 'model'; a
+# leaf whose dimension the guard dropped runs whole on every model rank
+# with no collective.  The encoder's layers are the decoder's, bidirectional;
+# a decoder layer's cross-attention takes its q heads from the layer's
+# input and its k / v heads from the encoder's output (whole on every
+# model rank, entering the regions once), one all-reduce after wo.  Under
+# FSDP (``cfg.fsdp``) the non-TP 'embed' dimension of every weight is cut
+# over 'data' and gathered (``gather_from``: its gradient reduce-scattered)
+# just before use.
 #
 # Serving runs the same layers.  Prefill is the forward on the rank's
-# (pod, data) rows, keeping each layer's rope'd k and its v, and hands the
-# decode step its cache in the decode step's layout (:func:`_grid_cache`:
-# under ``cache_seq: ("model",)`` one all-to-all over 'model' turns the
-# rank's kv heads at every position into every kv head at its positions);
-# the reference's prefill leaves that layout to GSPMD.  A decode step's
-# attention (:func:`_grid_decode_attention`) is flash-decoding over the
-# 'model' group on a position-cut cache (the rank's q heads and new k / v
-# gathered, one max and one sum all-reduce, one all-reduce after wo), or
-# Megatron's on a head-cut cache (one all-reduce after wo).  Tokens come
-# from the vocab-cut logits by one all-gather (:meth:`GridLayout.greedy`,
+# (pod, data) rows, keeping each layer's rope'd k and its v (and the cross
+# k / v of the encoder's frames), and hands the decode step its cache in
+# the decode step's layout (:func:`_grid_cache`: under ``cache_seq:
+# ("model",)`` one all-to-all over 'model' turns the rank's kv heads at
+# every position into every kv head at its positions; a cross cache whose
+# frames do not divide 'model' is kept whole, never padded, and the decode
+# step is told the frame count, ``enc_len``, to know which); the
+# reference's prefill leaves that layout to GSPMD.  A decode step's
+# attention (:func:`_grid_decode_attention`, the cross-attention's
+# :func:`_grid_decode_cross`) is flash-decoding over the 'model' group on
+# a position-cut cache (the rank's q heads, and the new k / v, gathered;
+# one max and one sum all-reduce; one all-reduce after wo), or Megatron's
+# on a head-cut or whole one (one all-reduce after wo).  Tokens come from
+# the vocab-cut logits by one all-gather (:meth:`GridLayout.greedy`,
 # :meth:`GridLayout.whole_vocab`).
 
 GRID_QUEUE = "ROADMAP.md queue 1, 'The grid'"
+GRID_FAMILIES = ("dense", "vlm", "audio")
 
 
 def check_grid_family(cfg, grid) -> None:
     """Raise unless ``cfg`` trains and serves on ``grid``: any family but
     MoE on a grid whose 'model' axis is one rank (data parallelism: the
-    train step's ZeRO-1, the engine's rows of slots), the dense decoder
-    family alone where 'model' > 1 or FSDP cuts the weights.  Nothing is
-    replicated in place of a layout not ported."""
+    train step's ZeRO-1, the engine's rows of slots), the attention
+    families (dense, vlm, audio) alone where 'model' > 1 or FSDP cuts the
+    weights.  Nothing is replicated in place of a layout not ported."""
     if cfg.moe:
         raise ValueError(
             f"{cfg.name}: MoE experts over 'model' on a grid are not ported "
@@ -1030,11 +1087,12 @@ def check_grid_family(cfg, grid) -> None:
             "train through train.elastic.run_data_parallel and serve through "
             "Engine(..., comm=), without a grid")
     tp = grid.get("model", 1) > 1 or (cfg.fsdp and grid.get("data", 1) > 1)
-    if tp and cfg.family != "dense":
+    if tp and cfg.family not in GRID_FAMILIES:
         raise ValueError(
             f"{cfg.name} ({cfg.family}): tensor parallelism / FSDP on a grid "
-            f"trains and serves the dense decoder family only "
-            f"({GRID_QUEUE}); this grid is {grid}")
+            f"trains and serves the {', '.join(GRID_FAMILIES)} families only "
+            f"(mamba's 'inner' over 'model': {GRID_QUEUE}); this grid is "
+            f"{grid}")
 
 
 def grid_layout(cfg, comm) -> "GridLayout | None":
@@ -1069,10 +1127,12 @@ def _data_dim(spec: tuple, skip: int = 0) -> int | None:
 
 
 class GridLayout:
-    """A rank's part of the dense decoder on a grid (``comm``: its
+    """A rank's part of an attention model on a grid (``comm``: its
     ``core.world.GridComm``): which leaves the rule table cut over 'model'
-    (``tp_heads``, ``tp_kv``, ``tp_mlp``, ``tp_vocab``) and over 'data'
-    (FSDP), the 'model' and 'data' groups, and the layers' functions."""
+    (``tp_heads``, ``tp_kv``, ``tp_mlp``, ``tp_vocab``; every attention of
+    a layer -- the encoder's, the decoder's self and cross -- has one
+    spec, and so has every MLP) and over 'data' (FSDP), the 'model' and
+    'data' groups, and the layers' functions."""
 
     def __init__(self, cfg, comm):
         grid = comm.grid
@@ -1083,7 +1143,9 @@ class GridLayout:
         self.data = comm.data
         self.rank = comm.coords["model"]
         self.group = cfg.resolved_q_heads // cfg.n_kv_heads
-        sub = self.specs["blocks"]["sub0"]
+        stacks = ([self.specs["encoder"], self.specs["decoder"]]
+                  if cfg.family == "audio" else [self.specs["blocks"]["sub0"]])
+        sub = stacks[-1]
         M = grid["model"]
         self.tp_heads = M > 1 and sub["attn"]["wq"][2] == "model"
         self.tp_kv = M > 1 and sub["attn"]["wk"][2] == "model"
@@ -1091,10 +1153,11 @@ class GridLayout:
         self.tp_vocab = M > 1 and self.specs["embedding"][0] == "model"
         # (sublayer, leaf) -> the layer tensor's dim cut over 'data'
         self.layer_dims = {}
-        for k, v in sub.items():
-            for n, spec in (v.items() if isinstance(v, dict) else
-                            [(None, v)]):
-                self.layer_dims[(k, n)] = _data_dim(spec, skip=1)
+        for stack in stacks:
+            for k, v in stack.items():
+                for n, spec in (v.items() if isinstance(v, dict) else
+                                [(None, v)]):
+                    self.layer_dims[(k, n)] = _data_dim(spec, skip=1)
         self.top_dims = {k: _data_dim(v) for k, v in self.specs.items()
                          if not isinstance(v, dict)}
         self.fsdp = self.data is not None and any(
@@ -1117,8 +1180,9 @@ class GridLayout:
         return out
 
     def top_tree(self, model) -> dict:
-        """The unstacked leaves (embedding, final norm, lm_head), gathered
-        once a forward where FSDP cuts them."""
+        """The unstacked leaves (embedding, final norm, lm_head, the
+        encoder's enc_norm), gathered once a forward where FSDP cuts
+        them."""
         return {k: self._gather(v, self.top_dims[k])
                 for k, v in model.top.items()}
 
@@ -1189,7 +1253,8 @@ class GridLayout:
                          dim=-1)
 
 
-def _grid_attention(p, h, cfg, positions, lay: GridLayout, kv=None):
+def _grid_attention(p, h, cfg, positions, lay: GridLayout, kv=None,
+                    causal: bool = True):
     """Self-attention of the rank's q heads ``[r H / M, (r + 1) H / M)``,
     one all-reduce over 'model' after ``wo``.  Where the kv heads are not
     cut (the guard dropped them), every rank computes all of them and each
@@ -1197,27 +1262,60 @@ def _grid_attention(p, h, cfg, positions, lay: GridLayout, kv=None):
     the whole wk / wv take their gradient summed over the ranks.  Where
     the q heads are not cut, attention runs whole on every rank.  ``kv``:
     a list that takes the rope'd k and the v of the kv heads the rank
-    holds (prefill's cache)."""
+    holds (prefill's cache).  ``causal=False``: the encoder's."""
     m = lay.model
     if not lay.tp_heads:
         q, k, v = _project(p, h, cfg, positions)
-        out = L.out_proj(p, _attend(q, k, v, cfg))
+        out = L.out_proj(p, _attend(q, k, v, cfg, causal))
     else:
         h = copy_to(h, m)
         if lay.tp_kv:
             q, k, v = _project(p, h, cfg, positions)
             kk, vv = k, v
         else:
-            p = {n: copy_to(t, m) if n in ("wk", "wv", "bk", "bv") else t
-                 for n, t in p.items()}
+            p = _whole_kv_weights(p, m)
             q, k, v = L.qkv_proj(p, h)
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
             kk, vv = _kv_of_rank(k, lay, q.shape[2]), _kv_of_rank(
                 v, lay, q.shape[2])
-        out = reduce_from(L.out_proj(p, _attend(q, kk, vv, cfg)), m)
+        out = reduce_from(L.out_proj(p, _attend(q, kk, vv, cfg, causal)), m)
     if kv is not None:
         kv.append({"k": k, "v": v})
+    return out
+
+
+def _whole_kv_weights(p, m) -> dict:
+    """The attention leaves with wk / wv (and their biases) entering the
+    region by ``copy_to``: whole on every rank, their gradient summed."""
+    return {n: copy_to(t, m) if n in ("wk", "wv", "bk", "bv") else t
+            for n, t in p.items()}
+
+
+def _grid_cross_attention(p, h, enc, cfg, lay: GridLayout, kv=None):
+    """Cross-attention of the rank's q heads (from the decoder's ``h``) to
+    the encoder's output ``enc`` (whole on every model rank; it entered
+    the region in :func:`_cross_decoder_stack`), no rope, every frame
+    seen, one all-reduce over 'model' after ``wo``; kv heads as in
+    :func:`_grid_attention` (h // G's where the guard keeps them whole).
+    ``kv``: a list that takes the cross k / v of the kv heads the rank
+    holds (prefill's cache)."""
+    m = lay.model
+    if not lay.tp_heads:
+        q, k, v = L.qkv_proj(p, h, enc)
+        out = L.out_proj(p, _attend(q, k, v, cfg, causal=False))
+    else:
+        h = copy_to(h, m)
+        if not lay.tp_kv:
+            p = _whole_kv_weights(p, m)
+        q, k, v = L.qkv_proj(p, h, enc)
+        kk, vv = ((k, v) if lay.tp_kv else
+                  (_kv_of_rank(k, lay, q.shape[2]),
+                   _kv_of_rank(v, lay, q.shape[2])))
+        out = reduce_from(L.out_proj(p, _attend(q, kk, vv, cfg,
+                                                causal=False)), m)
+    if kv is not None:
+        kv.append({"xk": k, "xv": v})
     return out
 
 
@@ -1246,6 +1344,31 @@ def _grid_layer(p: dict, x, cfg, positions, lay: GridLayout, caches=None):
     return x + _grid_mlp(p["mlp"], h, lay)
 
 
+def _grid_encoder_layer(p: dict, x, cfg, positions, lay: GridLayout):
+    """One encoder layer on a grid: bidirectional attention, the MLP."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _grid_attention(p["attn"], h, cfg, positions, lay, causal=False)
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + _grid_mlp(p["mlp"], h, lay)
+
+
+def _grid_cross_layer(p: dict, x, cfg, positions, enc, lay: GridLayout,
+                      caches=None):
+    """One decoder layer of the enc-dec body on a grid: causal
+    self-attention, cross-attention to ``enc``, the MLP; appends the
+    layer's k / v and cross xk / xv to ``caches`` when given."""
+    kv = None if caches is None else []
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + _grid_attention(p["attn"], h, cfg, positions, lay, kv)
+    h = L.rmsnorm(x, p["lnx"], cfg.norm_eps)
+    x = x + _grid_cross_attention(p["cross"], h, enc, cfg, lay, kv)
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + _grid_mlp(p["mlp"], h, lay)
+    if caches is not None:
+        caches.append({**kv[0], **kv[1]})
+    return x
+
+
 # ------------------------------------------------------- serving on a grid --
 
 def _seq_cut(lay: GridLayout, seq_shard: bool) -> bool:
@@ -1253,15 +1376,57 @@ def _seq_cut(lay: GridLayout, seq_shard: bool) -> bool:
     return seq_shard and lay.model is not None
 
 
+def _cross_cut(lay: GridLayout, seq_shard: bool, frames: int,
+               held: int | None = None) -> bool:
+    """Are a cross cache's ``frames`` (the encoder's) cut over 'model'
+    (:func:`cache_shardings`)?  Under ``cache_seq`` on 'model' > 1 where
+    they divide the group, else whole on every rank: a cross cache is
+    never padded, since the decode step attends every cached frame.  A
+    rank's block alone cannot tell a cut cache from a whole one (F / M
+    frames of a cut one may be F' whole ones), so the decode step is told
+    ``frames`` and checks the rank's ``held`` frames against them."""
+    cut = _seq_cut(lay, seq_shard) and frames % lay.model.size == 0
+    if held is not None and held != (frames // lay.model.size if cut
+                                     else frames):
+        raise ValueError(
+            f"a cross cache block of {held} frames on this rank of a grid, "
+            f"for an encoder of {frames} frames (enc_len): the cache's "
+            f"frames are cut over 'model' only under cache_seq where they "
+            f"divide it, else whole")
+    return cut
+
+
+def _to_positions(t, M: int):
+    """(two, n, B, S, h, Dh) as M rows for an all-to-all over 'model': row
+    q holds positions ``[q S / M, (q + 1) S / M)``."""
+    two, n, B, S, h, Dh = t.shape
+    return t.reshape(two, n, B, M, S // M, h, Dh).movedim(3, 0).reshape(
+        M, -1)
+
+
+def _from_heads(rows, shape: tuple, M: int):
+    """The all-to-all's M rows (rank q's kv heads at this rank's
+    positions, ``shape`` (two, n, B, S / M, h, Dh) each) as every kv head
+    at those positions, in the global head order."""
+    two, n, B, Sl, h, Dh = shape
+    return rows.reshape(M, two, n, B, Sl, h, Dh).permute(
+        1, 2, 3, 4, 0, 5, 6).reshape(two, n, B, Sl, M * h, Dh)
+
+
 def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
                 seq_shard: bool) -> dict:
     """Prefill's per-layer k / v (B, S, heads the rank holds, Dh) as the
-    decode step's cache block (:func:`cache_rules`), zero-padded to
+    decode step's cache block (:func:`cache_shardings`), zero-padded to
     ``max_seq`` (the padding lands on the shard that owns those
     positions).  Under ``cache_seq`` the rank keeps its S / M positions of
     every kv head: where the ranks hold their kv heads, one all-to-all over
     'model' of every layer's k and v at once (each rank sends rank q its
-    heads at q's positions); where each holds all of them, a slice."""
+    heads at q's positions); where each holds all of them, a slice.  The
+    audio family's cross xk / xv stay at the encoder's length, never
+    padded: under ``cache_seq`` their frames go with the same all-to-all
+    (or slice) where they divide 'model', and are otherwise whole, every
+    kv head on every rank (one all-gather of the rank's heads where it
+    holds its own); on a head-cut cache they keep the rank's kv heads."""
     k = torch.stack([c["k"] for c in caches])      # (layers, B, S, h, Dh)
     v = torch.stack([c["v"] for c in caches])
     S = k.shape[2]
@@ -1270,18 +1435,41 @@ def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
                          f"({S} positions)")
     kv = torch.nn.functional.pad(torch.stack([k, v]),
                                  (0, 0, 0, 0, 0, max_seq - S)).to(cfg.dtype)
+    xkv, cut = None, False
+    if cfg.family == "audio":
+        xkv = torch.stack([torch.stack([c[n] for c in caches])
+                           for n in ("xk", "xv")]).to(cfg.dtype)
+        cut = _cross_cut(lay, seq_shard, xkv.shape[3])
     if _seq_cut(lay, seq_shard):
         M, r = lay.model.size, lay.rank
         Sl = _shard_len(max_seq, M)
         if kv.shape[4] < cfg.n_kv_heads:            # the rank's kv heads
-            two, n, B, _, h, Dh = kv.shape
-            send = kv.reshape(two, n, B, M, Sl, h, Dh).movedim(3, 0)
-            recv = lay.model.all_to_all(send.reshape(M, -1), [1] * M,
-                                        [1] * M)
-            kv = recv.reshape(M, two, n, B, Sl, h, Dh).permute(
-                1, 2, 3, 4, 0, 5, 6).reshape(two, n, B, Sl, M * h, Dh)
+            parts = [kv] + ([xkv] if cut else [])
+            rows = lay.model.all_to_all(
+                torch.cat([_to_positions(t, M) for t in parts], dim=1),
+                [1] * M, [1] * M)
+            out, at = [], 0
+            for t in parts:
+                n = t.numel() // M
+                shape = t.shape[:3] + (t.shape[3] // M,) + t.shape[4:]
+                out.append(_from_heads(rows[:, at:at + n], shape, M))
+                at += n
+            kv = out[0]
+            if cut:
+                xkv = out[1]
+            elif xkv is not None:               # whole: every kv head
+                xkv = lay.model.all_gather(xkv.contiguous()).permute(
+                    1, 2, 3, 4, 0, 5, 6).reshape(
+                    xkv.shape[:4] + (M * xkv.shape[4], xkv.shape[5]))
         else:
             kv = kv[:, :, :, r * Sl:(r + 1) * Sl]
+            if cut:
+                Fl = xkv.shape[3] // M
+                xkv = xkv[:, :, :, r * Fl:(r + 1) * Fl]
+    if xkv is not None:
+        return {"decoder": {"k": kv[0].contiguous(), "v": kv[1].contiguous(),
+                            "xk": xkv[0].contiguous(),
+                            "xv": xkv[1].contiguous()}}
     period = _superblock_period(cfg)
     return {"blocks": {f"sub{j}": {"k": kv[0, j::period].contiguous(),
                                    "v": kv[1, j::period].contiguous()}
@@ -1290,15 +1478,20 @@ def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
 
 def _grid_prefill(model, cfg, batch: dict, max_seq, seq_shard: bool):
     """:func:`prefill` of a rank's model on a grid: the tensor-parallel
-    forward on the rank's rows, the last position's logits of the rank's
-    vocab columns, the cache block of :func:`_grid_cache`."""
+    forward on the rank's rows (the audio family's encoder on its rows of
+    ``src_embeds`` first), the last position's logits of the rank's vocab
+    columns, the cache block of :func:`_grid_cache`."""
     lay = model.layout
     check_grid_family(cfg, lay.grid)
     top = lay.top_tree(model)
     x = _embed(model, cfg, batch, top)
     S = x.shape[1]
     caches: list = []
-    x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches)
+    if cfg.family == "audio":
+        enc = _encoder_stack(model, cfg, batch["src_embeds"], top)
+        x, _ = _cross_decoder_stack(model, cfg, x, enc, caches)
+    else:
+        x, _ = _decoder_stack(model, cfg, x, _positions(S, x.device), caches)
     x = L.rmsnorm(x[:, -1:, :], top["final_norm"], cfg.norm_eps)
     logits = lay.unembed(top, x)[:, 0, :]
     return logits, _grid_cache(caches, cfg, lay, max_seq or S, seq_shard)
@@ -1376,11 +1569,58 @@ def _grid_decode_attention(p, c, h, cfg, pos, rows, lay: GridLayout,
     return reduce_from(out, m) if lay.tp_heads else out
 
 
-def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool):
+def _grid_decode_cross(p, c, h, cfg, lay: GridLayout, seq_shard: bool,
+                       enc_len: int | None):
+    """A decode step's cross-attention on a rank of a grid; ``c`` the
+    layer's cache block of an encoder of ``enc_len`` frames (needed only
+    where the cache's positions are cut over 'model'), every cached frame
+    attended (the reference's decode attends at enc_len - 1).  Frames cut
+    over 'model' (:func:`_cross_cut`): the rank's q heads gathered over
+    'model' (one
+    all-gather), flash-decoding of every head over the group with no frame
+    masked (``layers.decode_attention_seqsharded``: one max and one sum
+    all-reduce), the rank's heads kept for its rows of wo, one all-reduce.
+    A head-cut or whole cross cache: the rank's q heads against the kv
+    heads it holds (h // G's of a whole one), one all-reduce after wo.
+    Where the q heads are not cut, every rank computes every head and no
+    all-reduce follows wo."""
+    m = lay.model
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    Hl = q.shape[2]
+    xk, xv = c["xk"], c["xv"]
+    cut = False
+    if _seq_cut(lay, seq_shard):
+        if enc_len is None:
+            raise ValueError(
+                "decode_step of the audio family on a grid with the cache's "
+                "positions over 'model' needs enc_len (the encoder's frame "
+                "count, prefill's src_embeds length): a rank's cross cache "
+                "block does not say whether its frames were cut")
+        cut = _cross_cut(lay, seq_shard, enc_len, held=xk.shape[1])
+    if cut:
+        if lay.tp_heads:
+            q, = _gather_heads([q], m)
+        out = L.decode_attention_seqsharded(q, xk, xv,
+                                            xk.shape[1] * m.size - 1, comm=m)
+        if lay.tp_heads:
+            out = out[:, :, lay.rank * Hl:(lay.rank + 1) * Hl]
+    else:
+        if lay.tp_heads and xk.shape[2] == cfg.n_kv_heads:
+            xk, xv = _kv_of_rank(xk, lay, Hl), _kv_of_rank(xv, lay, Hl)
+        out = L.decode_attention(q, xk, xv, xk.shape[1] - 1)
+    out = L.out_proj(p, out)
+    return reduce_from(out, m) if lay.tp_heads else out
+
+
+def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool,
+                      enc_len: int | None = None):
     """:func:`decode_step` of a rank's model on a grid: the token in by the
     vocab-parallel lookup (one all-reduce), each layer's weights gathered
-    under FSDP, :func:`_grid_decode_attention` and the tensor-parallel MLP
-    (one all-reduce), the logits of the rank's vocab columns."""
+    under FSDP, :func:`_grid_decode_attention` (and the enc-dec body's
+    :func:`_grid_decode_cross`) and the tensor-parallel MLP (one
+    all-reduce), the logits of the rank's vocab columns."""
     lay = model.layout
     check_grid_family(cfg, lay.grid)
     dev = model.device
@@ -1389,12 +1629,17 @@ def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool):
     rows = torch.arange(token.shape[0], device=dev)
     top = lay.top_tree(model)
     x = lay.embed(top, token[:, None]).to(cfg.dtype)         # (B, 1, D)
-    for i, layer in enumerate(model.layers):
+    layers = model.dec_layers if cfg.family == "audio" else model.layers
+    for i, layer in enumerate(layers):
         p = lay.layer_tree(layer)
         c = _layer_cache(cache, cfg, i)
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         x = x + _grid_decode_attention(p["attn"], c, h, cfg, pos, rows, lay,
                                        seq_shard)
+        if "cross" in p:
+            h = L.rmsnorm(x, p["lnx"], cfg.norm_eps)
+            x = x + _grid_decode_cross(p["cross"], c, h, cfg, lay, seq_shard,
+                                       enc_len)
         h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + _grid_mlp(p["mlp"], h, lay)
     x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)

@@ -182,6 +182,23 @@ def cut_tree(tree, specs, grid, coords: dict, dtype=None, device=None):
         memory_format=torch.contiguous_format, copy=True)
 
 
+def map_specs(fn, specs, shardings):
+    """``fn(ParamSpec, spec)`` over a spec tree and its shardings (the
+    same keys), as a tree of the results."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k], shardings[k]) for k in specs}
+    return fn(specs, shardings)
+
+
+def assemble_tree(trees: list, specs, grid):
+    """:func:`assemble` of every leaf of the ranks' ``trees`` (rank order)
+    by the spec at its path in ``specs``."""
+    if isinstance(specs, dict):
+        return {k: assemble_tree([t[k] for t in trees], specs[k], grid)
+                for k in specs}
+    return assemble(trees, specs, grid)
+
+
 def assemble(blocks: list, spec: tuple, grid) -> torch.Tensor:
     """The whole tensor from every rank's block (``blocks`` in rank
     order).  Ranks that hold the same block (the axes ``spec`` does not

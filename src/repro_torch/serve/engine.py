@@ -41,8 +41,9 @@ decode call dispatches over the world (``replicated=True``: one
 all-gather of the experts' outputs an MoE layer), so every rank computes
 the same logits and samples the same tokens as the one-rank engine.
 
-``Engine(..., grid=...)`` serves the dense decoder family on a grid of
-ranks in the reference's production layout (``grid``: the rank's
+``Engine(..., grid=...)`` serves the dense decoder and the vlm (text-only
+requests, as on one rank) on a grid of ranks in the reference's
+production layout (``grid``: the rank's
 ``core.world.GridComm``; ``model``: the rank's model,
 ``models.api.grid_model``): each (pod, data) row of the grid serves its own
 share of the requests (request i goes to row i mod R of the R rows) on
@@ -100,16 +101,22 @@ def sample_tokens(logits: torch.Tensor, vocab: int, temperature: float,
     return torch.argmax(logits, dim=-1)
 
 
+def check_served(model_cfg) -> None:
+    """Raise for a family the engine does not serve: the encoder-decoder,
+    whose prefill also needs the encoder's frames."""
+    if model_cfg.family == "audio":
+        raise ValueError(
+            f"{model_cfg.name}: the engine serves decoders; an "
+            f"encoder-decoder's prefill also needs the encoder's frames "
+            f"(src_embeds), which a token request does not carry (the "
+            f"reference's engine hands prefill the tokens alone) -- use "
+            f"api.prefill and api.decode_step")
+
+
 class Engine:
     def __init__(self, model_cfg, model, cfg: ServeConfig, comm=None,
                  grid=None, seq_shard: bool = True):
-        if model_cfg.family == "audio":
-            raise ValueError(
-                f"{model_cfg.name}: the engine serves decoders; an "
-                f"encoder-decoder's prefill also needs the encoder's frames "
-                f"(src_embeds), which a token request does not carry (the "
-                f"reference's engine hands prefill the tokens alone) -- use "
-                f"api.prefill and api.decode_step")
+        check_served(model_cfg)
         self.mc = model_cfg
         self.cfg = cfg
         self.model = model

@@ -38,8 +38,9 @@ model), ``models.sharding``) the step is the reference's production
 layout: every leaf a rank's block under the rule table
 (:func:`train_step_shardings`: parameters under ``cfg.fsdp``, the f32
 (master, m, v) under the fsdp rule set, ZeRO-1); a rank takes its rows of
-the batch by its (pod, data) coordinates; the dense decoder runs
-tensor-parallel over 'model' and, with ``cfg.fsdp``, gathers each layer's
+the batch by its (pod, data) coordinates (the frontend embeddings'
+rows with them, where the batch carries them); the dense decoder, the vlm and the encoder-decoder run
+tensor-parallel over 'model' and, with ``cfg.fsdp``, gather each layer's
 weights over 'data' just before use (``models.api.GridLayout``); the
 gradients are all-reduced over the batch's ranks (a leaf FSDP cuts is
 reduce-scattered over 'data' by its gather's backward instead, and
@@ -56,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
@@ -68,7 +70,7 @@ from repro_torch.models.module import (ParamSpec, init_params, tensor_leaves,
                                        tree_map)
 from repro_torch.core.grid import as_grid
 from repro_torch.models.sharding import (assemble, cut_tree, make_rules,
-                                         shard_shape, spec_axes)
+                                         map_specs, shard_shape, spec_axes)
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                opt_state_specs)
 from repro_torch.optim.adamw import adamw_update_zero, zero_plan
@@ -110,19 +112,39 @@ def train_step_shardings(model_cfg, grid) -> tuple:
              "opt": zrules.tree(specs["opt"]), "step": ()}
     bspec = prules.spec_for((1 << 30, 1), ("batch", "seq"))
     batch = {"tokens": bspec, "labels": bspec, "mask": bspec}
-    if model_cfg.family in ("vlm", "audio"):
-        key = "extra_embeds" if model_cfg.family == "vlm" else "src_embeds"
+    key = frontend_key(model_cfg)
+    if key is not None:
         batch[key] = prules.spec_for((1 << 30, 1, 1),
                                      ("batch", "seq", "embed"))
     return state, batch
 
 
-def _map_specs(fn, specs, shardings):
-    """``fn(ParamSpec, spec)`` over a state's spec tree and its
-    shardings."""
-    if isinstance(specs, dict):
-        return {k: _map_specs(fn, specs[k], shardings[k]) for k in specs}
-    return fn(specs, shardings)
+def frontend_key(model_cfg) -> str | None:
+    """The batch key of the family's frontend embeddings: the audio
+    family's encoder frames, the vlm's patch prefix, or ``None``."""
+    return {"audio": "src_embeds", "vlm": "extra_embeds"}.get(
+        model_cfg.family)
+
+
+def frontend_embeds(model_cfg, rows: int, seq_len: int, seed: int,
+                    step: int) -> dict:
+    """The frontend stub's embeddings of a step's global batch of ``rows``
+    rows of ``seq_len`` tokens, where the family takes them (the
+    reference's input specs): the audio family's ``api.cross_frames(S)``
+    encoder frames a row (``src_embeds``), the vlm's ``frontend_tokens``
+    patch embeddings (``extra_embeds``, prefixed to the tokens); ``{}``
+    for the others.  N(0, 0.02^2) in f32 (``launch.inputs.materialize``'s
+    scale) from a stream keyed on (seed, step): every rank draws the same
+    global batch and takes its rows, and a resumed run the same
+    embeddings."""
+    key = frontend_key(model_cfg)
+    if key is None:
+        return {}
+    n = (api.cross_frames(seq_len) if model_cfg.family == "audio"
+         else model_cfg.frontend_tokens)
+    rng = np.random.default_rng((seed, step, 1))
+    return {key: rng.standard_normal((rows, n, model_cfg.d_model),
+                                     dtype=np.float32) * np.float32(0.02)}
 
 
 def abstract_train_state(model_cfg, grid) -> dict:
@@ -130,7 +152,7 @@ def abstract_train_state(model_cfg, grid) -> dict:
     shapes and dtypes (nothing allocated; the reference's
     ``ShapeDtypeStruct`` tree with shardings)."""
     shardings, _ = train_step_shardings(model_cfg, grid)
-    return _map_specs(lambda s, sh: torch.empty(
+    return map_specs(lambda s, sh: torch.empty(
         shard_shape(s.shape, sh, grid), dtype=s.dtype, device="meta"),
         train_state_specs(model_cfg), shardings)
 
@@ -383,7 +405,13 @@ class Trainer:
     (``train.elastic.run_data_parallel(..., grid=...)``): the state is the
     rank's blocks by the rules (:func:`train_step_shardings`), a fresh one
     cut from the one-rank draw, a restored one from the logical tree;
-    :meth:`logical_state` assembles the whole tree on rank 0."""
+    :meth:`logical_state` assembles the whole tree on rank 0.
+
+    The audio family's batches carry the frontend stub's encoder frames
+    with the stream's tokens (:func:`frontend_embeds`: its encoder has no
+    other input; the reference's Trainer feeds none, so it cannot train
+    that family).  The vlm trains on the stream's tokens alone, as the
+    reference's Trainer does, in one process and on a grid."""
 
     def __init__(self, model_cfg, run_cfg: TrainRunConfig, comm=None, *,
                  device="cuda", grid=None):
@@ -471,7 +499,12 @@ class Trainer:
         t0 = time.time()
         start = int(self.state["step"])
         for i in range(start, steps):
-            self.state, metrics = self._step(self.state, next(self.stream))
+            batch = next(self.stream)
+            if self.model_cfg.family == "audio":
+                batch.update(frontend_embeds(
+                    self.model_cfg, len(batch["tokens"]),
+                    self.stream.seq_len, self.run_cfg.seed, i))
+            self.state, metrics = self._step(self.state, batch)
             if (i + 1) % self.run_cfg.log_every == 0 or i == start:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = i + 1

@@ -354,11 +354,11 @@ def test_launcher_refuses_a_grid_the_family_lacks(arch, mesh):
 
 
 @pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "dbrx_132b",
-                                  "mamba2_370m", "seamless_m4t_large_v2",
-                                  "llava_next_34b"])
+                                  "mamba2_370m", "jamba_1_5_large_398b"])
 def test_families_not_ported_to_a_grid_raise(arch):
-    """MoE on any grid, and the other families where 'model' > 1, raise
-    naming the ROADMAP queue (nothing is replicated in their place)."""
+    """MoE on any grid, and the ssm / hybrid families where 'model' > 1,
+    raise naming the ROADMAP queue (nothing is replicated in their
+    place)."""
     cfg = tconfigs.get_reduced(arch)
     with pytest.raises(ValueError, match="ROADMAP"):
         api.check_grid_family(cfg, as_grid((1, 2)))
@@ -369,6 +369,18 @@ def test_families_not_ported_to_a_grid_raise(arch):
         api.check_grid_family(cfg, as_grid((2, 1)))
     api.check_grid_family(tconfigs.get_reduced("llama3_2_3b"),
                           as_grid((2, 2)))
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "llava_next_34b"])
+def test_vlm_and_audio_accepted_on_a_grid(arch):
+    """The vlm and the encoder-decoder train and serve on a grid (tensor
+    parallelism over 'model', FSDP over 'data'): ``check_grid_family``
+    accepts them on (1, 2) and (2, 2), with and without FSDP
+    (``tests/test_torch_grid_families.py`` runs them)."""
+    cfg = tconfigs.get_reduced(arch)
+    for c in (cfg, dataclasses.replace(cfg, fsdp=True)):
+        for grid in ((1, 2), (2, 2)):
+            api.check_grid_family(c, as_grid(grid))
 
 
 def test_error_terms_and_digests_on_the_ranks(world):
@@ -393,6 +405,9 @@ def test_error_terms_and_digests_on_the_ranks(world):
     for o in outs:
         assert o["replicated"]["digests"] == o["grid"]["digests"]
         assert o["grid"]["opt_bytes"] * 4 == o["replicated"]["opt_bytes"]
+        end = dict(o["grid"]["digests"])
+        assert o["grid"]["start"] and all(
+            d != end[k] for k, d in o["grid"]["start"])
 
 
 def _tapped_step(comm, device, *, cfg, params, batch):
