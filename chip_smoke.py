@@ -241,6 +241,20 @@ Phases (any failure raises; nothing is caught):
      its 2880-patch prefix: the same serving gates (2 layers f32, 1 f64),
      a train step at 1 layer on the ranks laid out (1, 4) against one
      process, bf16 timing at LLAVA_BF16_LAYERS of 60 layers.
+ 19. the ssm family (mamba2-370m) in that layout on phase 14's world laid
+     out (2, 2) (plain torch and collectives; counted, the "grid ssm"
+     path, all zero), at its published width, random weights from
+     --seed: (a) a train step at SSM_TRAIN_LAYERS of 48 layers in f32 on
+     4 rows of two SSD chunks against one process (loss within 1e-6, the
+     grad norm and m / master at 15c's gates, every master block moved),
+     its f64 twin at 1 layer, ms a step, the share of it in the
+     collectives, each rank's peak; (b) prefill and 8 decode steps of 4
+     prompts of one SSD chunk in f32 (2 layers) and f64 (1 layer) against
+     one process under both cache layouts, which give the same bits, the
+     collectives a step by kind; (c) the bf16 engine at all 48 layers, two
+     slots a row, against the grid's greedy oracle: ms a decode step,
+     tok/s, the collectives of a decode call, each rank's bytes against
+     ``decode_specs(..., grid=)``'s and the card's read bound.
 
 Run from the repository root:  python3 chip_smoke.py [--iters N] [--seed N]
 Needs one CUDA card; exits non-zero without one.  Prints a JSON line of
@@ -5252,6 +5266,276 @@ def family_grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the ssm family on a grid of ranks
+# ---------------------------------------------------------------------------
+# Phase 14's four gloo ranks sharing the card, laid out (2, 2): mamba's
+# "inner" over 'model' (wz / wx / conv_x / norm by d_inner's channels, out
+# by its rows, wdt / A_log / D / dt_bias by its 32 heads; wB / wC /
+# conv_B / conv_C whole), the vocab over 'model', ZeRO-1 over 'data', at
+# mamba2-370m's published width (d_model 1024, d_inner 2048, 32 heads of
+# 64, d_state 128, vocab 50432 padded), random weights from --seed as
+# init_params draws them (no attention, so no fan-in rescale).  Cuts, and
+# why (the phase is paid for within the script's limit; a host-staged
+# collective costs 4-6 ms, and a layer takes two a decode step): 19a
+# steps SSM_TRAIN_LAYERS of 48 layers in f32 (its f64 twin at
+# SSM_F64_LAYERS) on SSM_TRAIN_ROWS rows of two SSD chunks; 19b serves
+# SSM_SERVE_LAYERS (f32) and SSM_F64_LAYERS (f64) against one process;
+# 19c serves all 48 layers in bf16 through the engine.  f64 models keep
+# the reference's f32 islands (dt, B, C, the scan and its state), which
+# the grid rounds otherwise than one process where the card's f32
+# products change shape with the rank's heads and rows: 19b holds f64
+# logits at SSM_SERVE_F64_TOL, f32's gate (read on an H100: 5.90e-6 at
+# 1 layer, f32 8.70e-6 at 2; tests/test_torch_grid_ssm.py reads 1.7e-7
+# on the CPU), and 19a the f64 loss at SSM_F64_LOSS_TOL (read 1.5e-9).
+SSM_GRID = (2, 2)
+SSM_TRAIN_LAYERS = 2
+SSM_F64_LAYERS = 1
+SSM_SERVE_LAYERS = 2
+SSM_TRAIN_ROWS = 4              # of 2 SSD chunks (512 tokens) each
+SSM_LOSS_TOL = 1e-6             # relative, f32
+SSM_F64_LOSS_TOL = 1e-8
+SSM_SERVE_F64_TOL = SERVE_GRID_TOL  # the f32 islands' spread
+SSM_GRID_PROMPTS = 4            # of one SSD chunk (256 tokens) each
+SSM_STEPS = 8
+SSM_ENGINE_NEW = 8
+SSM_MAX_SEQ = 512
+
+
+def ssm_cfg(layers: int, dtype):
+    """mamba2-370m at its published width cut to ``layers``, in
+    ``dtype``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2_370m"), n_layers=layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def ssm_grid_prompts(cfg, dev, seed: int) -> tuple:
+    """(tokens, lens): SSM_GRID_PROMPTS prompts of one SSD chunk, every
+    token real (a recurrence is not mask-protected)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    S = cfg.ssm.chunk
+    tokens = torch.randint(0, cfg.vocab, (SSM_GRID_PROMPTS, S),
+                           generator=gen, device=dev)
+    return tokens, torch.full((SSM_GRID_PROMPTS,), S, device=dev)
+
+
+def ssm_grid_train(world, gates, dev, seed: int, stats) -> None:
+    """19a: one train step on SSM_GRID against one process (f32 at
+    SSM_TRAIN_LAYERS, f64 at SSM_F64_LAYERS)."""
+    from repro_torch.launch.grid_train import grid_train_steps
+    cfg = ssm_cfg(SSM_TRAIN_LAYERS, torch.float32)
+    shape = (SSM_TRAIN_ROWS, 2 * cfg.ssm.chunk)
+    params, batch, m1, want, one_ms = grid_one_process(cfg, dev, seed, shape)
+    got = grid_train_steps(world, SSM_GRID, cfg, params, batch, keep=False,
+                           want=want)
+    del params, batch, want
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    cfg64 = ssm_cfg(SSM_F64_LAYERS, torch.float64)
+    p64, b64, m64, _, one64_ms = grid_one_process(cfg64, dev, seed, shape)
+    g64 = grid_train_steps(world, SSM_GRID, cfg64, p64, b64, keep=False)
+    del p64, b64
+    tm = got["first"]
+    rel_ = {k: abs(tm[k] - m1[k]) / abs(m1[k]) for k in ("loss", "grad_norm")}
+    rel64 = {k: abs(g64["first"][k] - m64[k]) / abs(m64[k])
+             for k in ("loss", "grad_norm")}
+    worst = {k: max(((n, e) for n, e in got["err"].items()
+                     if n.startswith(k + "/")), key=lambda kv: kv[1])
+             for k in ("master", "m")}
+    ms = max(s[-1] for s in got["step_s"]) * 1e3
+    share = [round(h / s[-1], 3) for h, s in zip(got["host_s"],
+                                                  got["step_s"])]
+    peaks = [round((b or 0) / 1e9, 2) for b in got["peak_bytes"]]
+    kinds = {k: (v["all_reduces"], v["all_gathers"], v["reduce_scatters"])
+             for k, v in got["counters"][0].items()}
+    stats["grid_19a"] = {"rel": rel_, "rel64": rel64, "worst": worst,
+                         "still": got["still"], "ms": ms,
+                         "one_process_ms": one_ms,
+                         "f64_ms": max(s[-1] for s in g64["step_s"]) * 1e3,
+                         "one_process_f64_ms": one64_ms,
+                         "collective_share": share, "peak_gb": peaks,
+                         "calls_rank0": kinds}
+    gates.check(
+        f"19a {cfg.name} train step on {SSM_GRID} == one process",
+        rel_["loss"] <= SSM_LOSS_TOL
+        and rel_["grad_norm"] <= GRID_TOL["grad_norm"]
+        and worst["m"][1] <= GRID_TOL["m"]
+        and worst["master"][1] <= GRID_TOL["master"]
+        and not got["still"] and rel64["loss"] <= SSM_F64_LOSS_TOL,
+        f"{card()}; {SSM_TRAIN_LAYERS} layers f32, {shape[0]} x {shape[1]} "
+        f"tokens, one step at lr 1e-3 (no warmup): loss {tm['loss']:.6f} "
+        f"(rel {rel_['loss']:.1e}, tol {SSM_LOSS_TOL:g}), grad norm "
+        f"{tm['grad_norm']:.4f} (rel {rel_['grad_norm']:.1e}), worst master "
+        f"move {worst['master'][0]} {worst['master'][1]:.2e}, worst m "
+        f"{worst['m'][0]} {worst['m'][1]:.2e}; master blocks that did not "
+        f"move {got['still']}; f64 at {SSM_F64_LAYERS} layer: loss rel "
+        f"{rel64['loss']:.1e} (tol {SSM_F64_LOSS_TOL:g}), grad norm rel "
+        f"{rel64['grad_norm']:.1e}; the step {ms:.1f} ms on the grid (the "
+        f"slowest rank) against {one_ms:.1f} ms in one process (each the "
+        f"first), the share of it in the collectives by rank {share}; rank "
+        f"0's (all-reduce, all-gather, reduce-scatter) calls by group "
+        f"{kinds}; peaks {peaks} GB a rank")
+
+
+def ssm_grid_serve(world, gates, dev, seed: int, stats) -> None:
+    """19b: prefill and SSM_STEPS decode steps on SSM_GRID under both
+    cache layouts (the same bits: the ssm cache has no positions) against
+    one process, f32 at SSM_SERVE_LAYERS and f64 at SSM_F64_LAYERS; the
+    collectives of prefill and of a decode step."""
+    from repro_torch.launch.grid_serve import grid_serve, one_process_serve
+    rec = {}
+    for dt, layers, dtype, tol in (
+            ("f32", SSM_SERVE_LAYERS, torch.float32, SERVE_GRID_TOL),
+            ("f64", SSM_F64_LAYERS, torch.float64, SSM_SERVE_F64_TOL)):
+        cfg = ssm_cfg(layers, dtype)
+        params = family_params(cfg, dev, seed)
+        tokens, lens = ssm_grid_prompts(cfg, dev, seed)
+        one = one_process_serve(cfg, params, tokens, lens, SSM_MAX_SEQ,
+                                SSM_STEPS)
+        one_ms = float(np.median(one["step_s"][1:])) * 1e3
+        runs = {seq: grid_serve(world, SSM_GRID, cfg, params, tokens, lens,
+                                SSM_MAX_SEQ, SSM_STEPS,
+                                feed=one["fed"].to(dev), seq_shard=seq)
+                for seq in (True, False)}
+        got = runs[True]
+        same_bits = (torch.equal(got["logits"], runs[False]["logits"])
+                     and torch.equal(got["picks"], runs[False]["picks"]))
+        errs = step_errors(got["logits"], one["logits"])
+        same = torch.equal(got["picks"], one["picks"])
+        ms = max(float(np.median(s[1:])) for s in got["step_s"]) * 1e3
+        pre_ms = max(got["prefill_s"]) * 1e3
+        calls = calls_by_group(got["calls"][0])
+        pre_calls = calls_by_group(got["prefill_calls"][0])
+        want = {"model": {"all_reduce": 1 + 2 * layers}}
+        rec[dt] = {"errs": errs, "tokens_equal": same,
+                   "layouts_same_bits": same_bits, "step_ms": ms,
+                   "one_process_step_ms": one_ms, "prefill_ms": pre_ms,
+                   "one_process_prefill_ms": one["prefill_s"] * 1e3,
+                   "host_ms": [round(h * 1e3, 2) for h in got["host_s"]],
+                   "calls_rank0": calls, "prefill_calls_rank0": pre_calls,
+                   "cache_shapes": got["cache_shapes"][0]}
+        gates.check(
+            f"19b {cfg.name} {dt} (2, 2) == one process",
+            max(errs) <= tol and same and same_bits and calls == want
+            and pre_calls == want,
+            f"{card()}; {layers} layers {dt}: prefill + {SSM_STEPS} decode "
+            f"steps, worst step's logits {max(errs):.2e} of their norm (tol "
+            f"{tol:g}); greedy tokens equal {same}; cache_seq and kv-head "
+            f"layouts the same bits {same_bits}; rank 0's cache block "
+            f"{got['cache_shapes'][0]}; a decode step {ms:.2f} ms on the "
+            f"grid (the slowest rank, median of steps 2-{SSM_STEPS}) against "
+            f"{one_ms:.2f} ms in one process; rank 0's calls a step {calls} "
+            f"and in prefill {pre_calls} (predicted {want}); prefill "
+            f"{pre_ms:.1f} ms against {one['prefill_s'] * 1e3:.1f} ms")
+        del params, one, runs, got
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    stats["grid_19b"] = rec
+
+
+def ssm_grid_engine(world, gates, dev, seed: int, stats) -> None:
+    """19c: the bf16 engine on SSM_GRID at all 48 layers, two slots a row,
+    against the grid's stepwise greedy oracle; ms a decode step, tok/s,
+    a decode call's collectives, each rank's bytes against
+    ``decode_specs(..., grid=)``'s, the card's read bound."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch.grid_serve import grid_engine, grid_oracle
+    from repro_torch.serve import ServeConfig
+    layers = get_config("mamba2_370m").n_layers
+    cfg = ssm_cfg(layers, torch.bfloat16)
+    params = family_params(cfg, dev, seed)
+    tokens, _ = ssm_grid_prompts(cfg, dev, seed)
+    prompts = [list(map(int, t)) for t in tokens.tolist()]
+    sc = ServeConfig(max_seq=SSM_MAX_SEQ, slots=SSM_GRID_PROMPTS)
+    recs = grid_engine(world, SSM_GRID, cfg, params, prompts,
+                       SSM_ENGINE_NEW, sc)
+    torch.cuda.ipc_collect()
+    oracle = grid_oracle(world, SSM_GRID, cfg, params, prompts,
+                         SSM_ENGINE_NEW, sc)
+    torch.cuda.ipc_collect()
+    shape = ShapeConfig("serve", SSM_MAX_SEQ, SSM_GRID_PROMPTS, "decode")
+    p_specs, c_specs, _, _ = I.decode_specs(cfg, shape, grid=SSM_GRID)
+    want_p, want_c = I.tree_bytes(p_specs), I.tree_bytes(c_specs)
+    bound, read_w, read_c = grid_read_bound_ms(cfg, p_specs, c_specs,
+                                               len(recs))
+    ssm = c_specs["blocks"]["sub0"]["ssm"]
+    counted = (read_w == want_p and read_c == want_c
+               and ssm.dtype == torch.float32
+               and "mamba" in p_specs["blocks"]["sub0"])
+    outs = recs[0]["outs"]
+    same = all(r["outs"] == oracle["outs"] for r in recs)
+    sized = all(r["param_bytes"] == want_p and r["cache_bytes"] == want_c
+                for r in recs)
+    gen_s = max(r["generate_s"] for r in recs)
+    ntok = sum(len(o) for o in outs)
+    step_ms = max(float(np.median(s[1:])) for s in oracle["step_s"]) * 1e3
+    prefill_ms = max(max(s) for s in oracle["prefill_s"]) * 1e3
+    calls = calls_by_group(oracle["calls"][0])
+    peaks = [round((r["peak_bytes"] or 0) / 1e9, 2) for r in recs]
+    stats["grid_19c"] = {
+        "tokens": outs, "oracle_equal": same, "bytes_equal": sized,
+        "param_bytes": want_p, "cache_bytes": want_c,
+        "ssm_state_bytes": I.tree_bytes({"ssm": ssm}),
+        "generate_s": gen_s, "tok_s": ntok / gen_s, "step_ms": step_ms,
+        "prefill_ms": prefill_ms, "bound_ms": bound,
+        "read_counts_mamba_and_f32_state": counted, "calls_rank0": calls,
+        "peak_gb": peaks}
+    gates.check(
+        "19c bf16 engine on (2, 2) == the grid's stepwise greedy oracle",
+        same and sized and counted and oracle["finite"] and all(
+            len(o) == SSM_ENGINE_NEW for o in outs),
+        f"{card()}; {layers} layers bf16, {SSM_GRID_PROMPTS} requests of "
+        f"{cfg.ssm.chunk} tokens, {SSM_ENGINE_NEW} new each (the first from "
+        f"the prefill), two slots a row: tokens {outs} equal to the "
+        f"oracle's {same}; logits finite {oracle['finite']}; a rank's "
+        f"parameters {want_p / 1e9:.3f} GB and cache {want_c / 1e6:.2f} MB "
+        f"(the f32 ssm state {I.tree_bytes({'ssm': ssm}) / 1e6:.2f} MB), "
+        f"decode_specs' on every rank {sized}; generate {gen_s:.2f} s "
+        f"({ntok / gen_s:.1f} tok/s); the oracle's prefill {prefill_ms:.1f} "
+        f"ms a request, decode {step_ms:.2f} ms a step (the slowest rank, "
+        f"median of steps 2-{SSM_ENGINE_NEW - 1}, with the greedy "
+        f"all-gather) against the card's read bound {bound:.3f} ms (four "
+        f"ranks each reading {read_w / 1e9:.3f} GB of weights and "
+        f"{read_c / 1e6:.2f} MB of cache: mamba leaves and f32 state "
+        f"counted {counted}); rank 0's calls a decode call {calls}; peaks "
+        f"GB by rank {peaks}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ssm_grid_phase(seed: int, stats: dict, dev=None, world=None) -> dict:
+    """Phase 19: mamba2-370m trained and served on a (2, 2) grid of gloo
+    ranks sharing the card (plain torch and collectives: the returned
+    launch counts are all zero), on ``world`` when given (phase 14's: its
+    caller closes it).  Raises at the end if any gate failed."""
+    dev = torch.device("cuda") if dev is None else dev
+    gates = Gates()
+    gk.reset_launch_counts()
+    own = world is None
+    world = spawn_world(dev, GRID_RANKS) if own else world
+    try:
+        for name, fn in (
+                ("19a", lambda: ssm_grid_train(world, gates, dev, seed,
+                                               stats)),
+                ("19b", lambda: ssm_grid_serve(world, gates, dev, seed,
+                                               stats)),
+                ("19c", lambda: ssm_grid_engine(world, gates, dev, seed,
+                                                stats))):
+            _, secs = timed(fn)
+            stats[f"phase{name}_s"] = secs
+            log(f"  {name} took {secs:.1f} s")
+            release_ranks(world)
+    finally:
+        if own:
+            world.close()
+    counts = launches()
+    if gates.failed:
+        raise AssertionError(f"phase 19 gates failed: {gates.failed}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=1024,
@@ -5409,7 +5693,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 13. training ---------------------------------------------------------
-    # phases 13f-18 share one world of four gloo ranks (a spawn is 9-13 s);
+    # phases 13f-19 share one world of four gloo ranks (a spawn is 9-13 s);
     # its ranks give their cached blocks back to the card between phases
     world = spawn_world(dev, SEQ_RANKS, kernels=True)
     try:
@@ -5473,6 +5757,17 @@ def main() -> int:
         paths["grid families"], stats["phase18_s"] = timed(
             lambda: family_grid_phase(args.seed, stats, world=world))
         log(f"  phase 18 took {stats['phase18_s']:.1f} s")
+        release_ranks(world)
+
+        # -- 19. the ssm family on a grid of ranks ----------------------------
+        log(f"== 19. mamba2-370m on a {SSM_GRID} grid of {GRID_RANKS} gloo "
+            "ranks on one card (phase 14's): a train step against one "
+            "process, prefill and decode under both cache layouts against "
+            "one process (f32 and f64), the bf16 engine at 48 layers "
+            "against the grid's greedy oracle (random weights)")
+        paths["grid ssm"], stats["phase19_s"] = timed(
+            lambda: ssm_grid_phase(args.seed, stats, world=world))
+        log(f"  phase 19 took {stats['phase19_s']:.1f} s")
     finally:
         world.close()
 

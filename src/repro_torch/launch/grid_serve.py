@@ -37,7 +37,7 @@ from repro_torch.models.module import tree_map
 from repro_torch.models.sharding import (assemble, assemble_tree, cut,
                                          make_rules)
 from repro_torch.serve import Engine
-from repro_torch.serve.engine import sample_tokens
+from repro_torch.serve.engine import RECURRENT, sample_tokens
 from repro_torch.serve.slots import bucket_pow2
 from repro_torch.train.trainer import frontend_key
 
@@ -244,7 +244,11 @@ def _rank_oracle(comm, device, *, cfg, params, prompts, max_new: int,
     row's prompts (row, row + R, ...; at most its slots), each prefilled
     alone at its bucket into its slot, then ``max_new`` decode steps of
     all the row's slots (the last prompt token replayed first), as the
-    engine calls them -- with each call timed."""
+    engine calls them -- with each call timed.  The ssm family's prompts
+    are prefilled unpadded and their first token is the prefill's, decode
+    starting at the prompt's length (the engine's rule, ``RECURRENT``):
+    ``max_new - 1`` decode steps follow.  ``calls``: the last decode
+    call's collectives by group (the sampling's not counted)."""
     device = torch.device(device)
     model = api.grid_model(cfg, params, comm, device)
     batch = comm.batch
@@ -257,29 +261,39 @@ def _rank_oracle(comm, device, *, cfg, params, prompts, max_new: int,
                            grid=comm.grid, seq_shard=seq_shard)
     tok = torch.zeros((slots,), dtype=torch.int64, device=device)
     pos = torch.zeros((slots,), dtype=torch.int64, device=device)
+    recurrent = cfg.family in RECURRENT
     prefill_s, step_s = [], []
+    outs, finite = [[] for _ in mine], True
     with torch.no_grad():
         for s, i in enumerate(mine):
             p = prompts[i]
-            bucket = bucket_pow2(len(p), serve.min_bucket, serve.max_seq)
+            bucket = len(p) if recurrent else bucket_pow2(
+                len(p), serve.min_bucket, serve.max_seq)
             toks = torch.zeros((1, bucket), dtype=torch.int64, device=device)
             toks[0, :len(p)] = torch.tensor(p, device=device)
             sync_device(device)
             t0 = time.perf_counter()
-            _, one = api.prefill(model, cfg, {"tokens": toks},
-                                 max_seq=serve.max_seq, seq_shard=seq_shard)
+            logits, one = api.prefill(model, cfg, {"tokens": toks},
+                                      max_seq=serve.max_seq,
+                                      seq_shard=seq_shard)
             for sub, leaves in one["blocks"].items():
                 for name, leaf in leaves.items():
                     cache["blocks"][sub][name][:, s] = leaf[:, 0]
+            if recurrent:
+                tok[s], pos[s] = _greedy(model, logits, cfg.vocab)[0], len(p)
+                outs[s].append(int(tok[s]))
+            else:
+                tok[s], pos[s] = p[-1], len(p) - 1
             sync_device(device)
             prefill_s.append(time.perf_counter() - t0)
-            tok[s], pos[s] = p[-1], len(p) - 1
-        outs, finite = [[] for _ in mine], True
-        for _ in range(max_new):
+        calls = None
+        for _ in range(max_new - recurrent):
+            comm.reset()
             sync_device(device)
             t0 = time.perf_counter()
             logits, cache = api.decode_step(model, cfg, cache, tok, pos,
                                             seq_shard=seq_shard)
+            calls = comm.counters()
             tok = _greedy(model, logits, cfg.vocab)
             sync_device(device)
             step_s.append(time.perf_counter() - t0)
@@ -290,15 +304,16 @@ def _rank_oracle(comm, device, *, cfg, params, prompts, max_new: int,
     del model, cache
     _release(device)
     return {"outs": dict(zip(mine, outs)), "prefill_s": prefill_s,
-            "step_s": step_s, "finite": finite}
+            "step_s": step_s, "finite": finite, "calls": calls}
 
 
 def grid_oracle(world, grid, cfg, params: dict, prompts, max_new: int,
                 serve, *, seq_shard: bool = True) -> dict:
     """The stepwise greedy oracle of :func:`grid_engine` on ``grid``:
-    ``{"outs": every request's tokens, "prefill_s", "step_s"}`` (each rank's
-    lists) and ``finite`` (every step's logits on every rank); raises if a
-    row's model ranks disagree."""
+    ``{"outs": every request's tokens, "prefill_s", "step_s", "calls"}``
+    (each rank's lists; ``calls`` its last decode call's collectives) and
+    ``finite`` (every step's logits on every rank); raises if a row's
+    model ranks disagree."""
     recs = world.run_grid(_rank_oracle, as_grid(grid), cfg=cfg,
                           params=params, prompts=prompts, max_new=max_new,
                           serve=serve, seq_shard=seq_shard)
@@ -311,6 +326,7 @@ def grid_oracle(world, grid, cfg, params: dict, prompts, max_new: int,
     return {"outs": [outs[i] for i in range(len(prompts))],
             "prefill_s": [r["prefill_s"] for r in recs],
             "step_s": [r["step_s"] for r in recs],
+            "calls": [r["calls"] for r in recs],
             "finite": all(r["finite"] for r in recs)}
 
 

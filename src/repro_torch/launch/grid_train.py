@@ -32,7 +32,8 @@ def _rank_steps(comm, device, *, cfg, params, batch, steps: int, lr: float,
     counts of the last), the allocator's peak on CUDA, the assembled
     state on rank 0 with ``keep``, and with ``want`` (another run's
     ``{"master", "m"}`` after the first step) its blocks' error terms
-    after the first step (:func:`_error_terms`)."""
+    after the first step (:func:`_error_terms`) and the master blocks
+    the step left as they were (``still``)."""
     cuda = torch.device(device).type == "cuda"
     state = place_fresh(params, cfg, comm)
     step = make_train_step(cfg, AdamWConfig(lr=lr), comm=comm)
@@ -48,7 +49,8 @@ def _rank_steps(comm, device, *, cfg, params, batch, steps: int, lr: float,
         secs.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
         if want is not None and i == 0:
-            out["err"] = _error_terms(state, want, params, cfg, comm)
+            out["err"], out["still"] = _error_terms(state, want, params, cfg,
+                                                    comm)
     out.update({"metrics": metrics[-1], "first": metrics[0],
            "step_s": secs, "counters": comm.counters(),
            "host_s": comm.host_s(), "coords": comm.coords,
@@ -64,14 +66,15 @@ def _rank_steps(comm, device, *, cfg, params, batch, steps: int, lr: float,
     return out
 
 
-def _error_terms(state, want, params, cfg, comm) -> dict:
+def _error_terms(state, want, params, cfg, comm) -> tuple:
     """``{"master/<leaf>": (|move - want's move|^2, |want's move|^2),
     "m/<leaf>": (|m - want|^2, |want|^2)}`` over the rank's optimizer
     blocks that count (one rank of those holding the same block), the
     moves from ``params`` in f32: summed over the ranks, the whole
-    leaves' squared errors and norms."""
+    leaves' squared errors and norms; and the leaves whose master block
+    did not move on this rank."""
     shardings, _ = train_step_shardings(cfg, comm.grid)
-    out = {}
+    out, still = {}, []
     for name in ("master", "m"):
         mine = dict(tree_items(state["opt"][name], torch.is_tensor))
         specs = dict(tree_items(shardings["opt"][name], torch.is_tensor))
@@ -86,9 +89,11 @@ def _error_terms(state, want, params, cfg, comm) -> dict:
                 b = cut(_at(params, k), spec, comm.grid, comm.coords).to(
                     g.device, torch.float32).to(torch.float64)
                 g, w = g - b, w - b
+                if not bool(g.any()):
+                    still.append(k)
             out[f"{name}/{k}"] = (float(torch.sum((g - w) ** 2)),
                                   float(torch.sum(w ** 2)))
-    return out
+    return out, still
 
 
 def _at(tree, path: str):
@@ -123,7 +128,8 @@ def grid_train_steps(world, grid, cfg, params: dict, batch: dict, *,
     ``opt_bytes``; with ``want`` (the one-process ``{"master", "m"}``
     after the first step) each leaf's relative error after the first
     step, ``err`` (:func:`combine_errors`: the master's move, m against
-    its norm), computed on the ranks' blocks."""
+    its norm), computed on the ranks' blocks, and ``still``, the leaves
+    of which some rank's master block did not move."""
     outs = world.run_grid(_rank_steps, grid, cfg=cfg, params=params,
                           batch=batch, steps=steps, lr=lr, keep=keep,
                           want=want)
@@ -131,6 +137,8 @@ def grid_train_steps(world, grid, cfg, params: dict, batch: dict, *,
             "state": outs[0].get("state"),
             "err": (None if want is None
                     else combine_errors([o["err"] for o in outs])),
+            "still": (None if want is None else
+                      sorted({k for o in outs for k in o["still"]})),
             **{k: [o[k] for o in outs] for k in (
                 "step_s", "counters", "host_s", "peak_bytes", "opt_bytes",
                 "coords")}}

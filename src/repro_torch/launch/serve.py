@@ -13,9 +13,9 @@ no encoder frames.
 ``--mesh`` lays the ranks out as ``launch.train`` does
 (``launch.train.choose_layout``): ``none`` serves on one device, ``DxM`` on
 a grid of D x M ranks in the reference's production layout (one nccl rank
-a card; with ``--device cpu`` gloo ranks on the CPU; the dense decoder
-and the vlm where M > 1, ``models.api.check_grid_family``, else it
-raises),
+a card; with ``--device cpu`` gloo ranks on the CPU; the dense decoder,
+the vlm and the ssm family where M > 1, ``models.api.check_grid_family``,
+else it raises),
 ``auto`` on ``plan_mesh``'s grid of every local card where the family
 runs on it, else on one card (the line says why).  ``--seq-shard-decode
 true|false`` is the reference dry run's flag: the decode cache's positions

@@ -62,14 +62,14 @@ take the rank's ``comm`` (its rows of the global batch, or with
 'data'; the port replicates them).
 
 On a grid of ranks (:class:`GridLayout`, the reference's production
-layout; section "A grid of ranks" below) the dense decoder, the vlm and
-the encoder-decoder train and serve: ``prefill`` and ``decode_step`` of a
-rank's model (:func:`grid_model`) take the rank's (pod, data) rows and
-give the logits of its vocab columns, and the decode cache is cut as the
-reference's ``decode_specs`` cut it (:func:`cache_shardings`): by default
-its positions over 'model' (``cache_seq: ("model",)``; flash-decoding
-over the 'model' group), with ``seq_shard=False`` its kv heads
-(Megatron's decode).
+layout; section "A grid of ranks" below) the dense decoder, the vlm, the
+encoder-decoder and the ssm family train and serve: ``prefill`` and
+``decode_step`` of a rank's model (:func:`grid_model`) take the rank's
+(pod, data) rows and give the logits of its vocab columns, and the
+decode cache is cut as the reference's ``decode_specs`` cut it
+(:func:`cache_shardings`): by default its positions over 'model'
+(``cache_seq: ("model",)``; flash-decoding over the 'model' group), with
+``seq_shard=False`` its kv heads (Megatron's decode).
 
 Serving keeps the parameters frozen.  Training calls
 :meth:`_LM.trainable`: every parameter requires grad, and backward adds
@@ -456,8 +456,9 @@ def _apply_layer(layer, x, cfg, positions, aux, caches=None, ep=None,
     appends the layer's decode cache to ``caches`` when given (prefill's:
     an attention layer's rope'd k and its v, a mamba layer's state).
     ``ep``: ``(comm, replicated)`` of experts sharded over ranks, or
-    ``None``.  ``lay``: the rank's :class:`GridLayout` (a dense layer;
-    prefill's cache holds the kv heads the rank holds; no experts)."""
+    ``None``.  ``lay``: the rank's :class:`GridLayout` (a dense or mamba
+    layer, :func:`_grid_layer`; prefill's cache holds the kv heads, or
+    the block of the mamba state, the rank holds; no experts)."""
     if lay is not None:
         return _grid_layer(lay.layer_tree(layer), x, cfg, positions, lay,
                            caches), aux
@@ -1039,7 +1040,8 @@ def _prefill_encdec(model, cfg, batch, max_seq):
 # ---------------------------------------------------------------------------
 # The reference's production layout (models.sharding's rule table on its
 # mesh) for the attention families' forward (the dense decoder, the vlm --
-# the decoder behind its patch prefix -- and the encoder-decoder):
+# the decoder behind its patch prefix -- and the encoder-decoder) and the
+# ssm family's:
 # attention cut by heads / kv_heads, the MLP by its hidden columns (w1 /
 # w3) and rows (w2), the embedding and the unembedding by vocab rows, each
 # region entered by ``copy_to`` (identity, all-reduce of the gradient) and
@@ -1048,10 +1050,14 @@ def _prefill_encdec(model, cfg, batch, max_seq):
 # with no collective.  The encoder's layers are the decoder's, bidirectional;
 # a decoder layer's cross-attention takes its q heads from the layer's
 # input and its k / v heads from the encoder's output (whole on every
-# model rank, entering the regions once), one all-reduce after wo.  Under
-# FSDP (``cfg.fsdp``) the non-TP 'embed' dimension of every weight is cut
-# over 'data' and gathered (``gather_from``: its gradient reduce-scattered)
-# just before use.
+# model rank, entering the regions once), one all-reduce after wo.  A
+# mamba layer (the ssm family) cuts its d_inner, and its heads where they
+# divide 'model', as the rule's ``"inner": ("model",)`` cuts them
+# (``models.mamba2.grid_block_with_state``): B and C enter the region
+# whole, the gated norm's sum of squares is all-reduced both ways, one
+# all-reduce after ``out``.  Under FSDP (``cfg.fsdp``) the non-TP 'embed'
+# dimension of every weight is cut over 'data' and gathered
+# (``gather_from``: its gradient reduce-scattered) just before use.
 #
 # Serving runs the same layers.  Prefill is the forward on the rank's
 # (pod, data) rows, keeping each layer's rope'd k and its v (and the cross
@@ -1066,20 +1072,24 @@ def _prefill_encdec(model, cfg, batch, max_seq):
 # :func:`_grid_decode_cross`) is flash-decoding over the 'model' group on
 # a position-cut cache (the rank's q heads, and the new k / v, gathered;
 # one max and one sum all-reduce; one all-reduce after wo), or Megatron's
-# on a head-cut or whole one (one all-reduce after wo).  Tokens come from
-# the vocab-cut logits by one all-gather (:meth:`GridLayout.greedy`,
-# :meth:`GridLayout.whole_vocab`).
+# on a head-cut or whole one (one all-reduce after wo).  The ssm family's
+# cache is the rank's block of each layer's state (its heads of ``ssm``,
+# its channels of ``conv_x``; no positions, so both layouts give one
+# block), and a decode step's mamba layer takes two all-reduces (the
+# norm, ``out``).  Tokens come from the vocab-cut logits by one
+# all-gather (:meth:`GridLayout.greedy`, :meth:`GridLayout.whole_vocab`).
 
 GRID_QUEUE = "ROADMAP.md queue 1, 'The grid'"
-GRID_FAMILIES = ("dense", "vlm", "audio")
+GRID_FAMILIES = ("dense", "vlm", "audio", "ssm")
 
 
 def check_grid_family(cfg, grid) -> None:
     """Raise unless ``cfg`` trains and serves on ``grid``: any family but
     MoE on a grid whose 'model' axis is one rank (data parallelism: the
     train step's ZeRO-1, the engine's rows of slots), the attention
-    families (dense, vlm, audio) alone where 'model' > 1 or FSDP cuts the
-    weights.  Nothing is replicated in place of a layout not ported."""
+    families (dense, vlm, audio) and the ssm family alone where 'model' >
+    1 or FSDP cuts the weights.  Nothing is replicated in place of a
+    layout not ported."""
     if cfg.moe:
         raise ValueError(
             f"{cfg.name}: MoE experts over 'model' on a grid are not ported "
@@ -1091,8 +1101,8 @@ def check_grid_family(cfg, grid) -> None:
         raise ValueError(
             f"{cfg.name} ({cfg.family}): tensor parallelism / FSDP on a grid "
             f"trains and serves the {', '.join(GRID_FAMILIES)} families only "
-            f"(mamba's 'inner' over 'model': {GRID_QUEUE}); this grid is "
-            f"{grid}")
+            f"(the hybrid's MoE and mamba layers together: {GRID_QUEUE}); "
+            f"this grid is {grid}")
 
 
 def grid_layout(cfg, comm) -> "GridLayout | None":
@@ -1127,12 +1137,14 @@ def _data_dim(spec: tuple, skip: int = 0) -> int | None:
 
 
 class GridLayout:
-    """A rank's part of an attention model on a grid (``comm``: its
+    """A rank's part of a model on a grid (``comm``: its
     ``core.world.GridComm``): which leaves the rule table cut over 'model'
     (``tp_heads``, ``tp_kv``, ``tp_mlp``, ``tp_vocab``; every attention of
     a layer -- the encoder's, the decoder's self and cross -- has one
-    spec, and so has every MLP) and over 'data' (FSDP), the 'model' and
-    'data' groups, and the layers' functions."""
+    spec, and so has every MLP; mamba's ``tp_inner``, its d_inner, and
+    ``tp_ssm_heads``, its heads; a flag of a sublayer the model lacks is
+    false) and over 'data' (FSDP), the 'model' and 'data' groups, and the
+    layers' functions."""
 
     def __init__(self, cfg, comm):
         grid = comm.grid
@@ -1142,14 +1154,22 @@ class GridLayout:
         self.model = comm.model
         self.data = comm.data
         self.rank = comm.coords["model"]
-        self.group = cfg.resolved_q_heads // cfg.n_kv_heads
         stacks = ([self.specs["encoder"], self.specs["decoder"]]
-                  if cfg.family == "audio" else [self.specs["blocks"]["sub0"]])
-        sub = stacks[-1]
+                  if cfg.family == "audio" else
+                  list(self.specs["blocks"].values()))
+        kinds = {k: v for stack in stacks for k, v in stack.items()}
         M = grid["model"]
-        self.tp_heads = M > 1 and sub["attn"]["wq"][2] == "model"
-        self.tp_kv = M > 1 and sub["attn"]["wk"][2] == "model"
-        self.tp_mlp = M > 1 and sub["mlp"]["w1"][2] == "model"
+
+        def cut(kind, leaf, dim):        # dim counts the layer axis
+            return (M > 1 and kind in kinds
+                    and kinds[kind][leaf][dim] == "model")
+        self.group = (cfg.resolved_q_heads // cfg.n_kv_heads
+                      if "attn" in kinds else None)
+        self.tp_heads = cut("attn", "wq", 2)
+        self.tp_kv = cut("attn", "wk", 2)
+        self.tp_mlp = cut("mlp", "w1", 2)
+        self.tp_inner = cut("mamba", "wz", 2)
+        self.tp_ssm_heads = cut("mamba", "A_log", 1)
         self.tp_vocab = M > 1 and self.specs["embedding"][0] == "model"
         # (sublayer, leaf) -> the layer tensor's dim cut over 'data'
         self.layer_dims = {}
@@ -1335,11 +1355,31 @@ def _grid_mlp(p, h, lay: GridLayout):
     return reduce_from(L.swiglu(p, copy_to(h, lay.model)), lay.model)
 
 
+def _grid_mamba(p, h, cfg, lay: GridLayout):
+    """The mamba block of a rank on a grid: its d_inner (and heads) over
+    'model' (``models.mamba2.grid_block_with_state``), or whole on every
+    rank where the guard dropped d_inner (no collective).  Returns (out,
+    the rank's block of the layer's decode state)."""
+    if not lay.tp_inner:
+        return M.mamba_block_with_state(p, h, cfg)
+    return M.grid_block_with_state(p, h, cfg, lay.model, lay.rank,
+                                   lay.tp_ssm_heads)
+
+
 def _grid_layer(p: dict, x, cfg, positions, lay: GridLayout, caches=None):
-    """One dense decoder layer on a grid (``p``: its parameters, gathered
-    under FSDP); appends the layer's k / v to ``caches`` when given."""
+    """One decoder layer on a grid, attention or mamba, then the MLP where
+    it has one (``p``: its parameters, gathered under FSDP); appends the
+    layer's k / v or mamba state to ``caches`` when given."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + _grid_attention(p["attn"], h, cfg, positions, lay, caches)
+    if "attn" in p:
+        x = x + _grid_attention(p["attn"], h, cfg, positions, lay, caches)
+    else:
+        out, state = _grid_mamba(p["mamba"], h, cfg, lay)
+        x = x + out
+        if caches is not None:
+            caches.append(state)
+    if "mlp" not in p:
+        return x
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + _grid_mlp(p["mlp"], h, lay)
 
@@ -1426,7 +1466,15 @@ def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
     padded: under ``cache_seq`` their frames go with the same all-to-all
     (or slice) where they divide 'model', and are otherwise whole, every
     kv head on every rank (one all-gather of the rank's heads where it
-    holds its own); on a head-cut cache they keep the rank's kv heads."""
+    holds its own); on a head-cut cache they keep the rank's kv heads.
+    The ssm family's per-layer states are the rank's blocks already (no
+    positions: both layouts give the same block), stacked as they are."""
+    period = _superblock_period(cfg)
+    if "ssm" in caches[0]:
+        return {"blocks": {f"sub{j}": {
+            n: torch.stack([c[n] for c in caches[j::period]]).to(
+                torch.float32 if n == "ssm" else cfg.dtype).contiguous()
+            for n in caches[0]} for j in range(period)}}
     k = torch.stack([c["k"] for c in caches])      # (layers, B, S, h, Dh)
     v = torch.stack([c["v"] for c in caches])
     S = k.shape[2]
@@ -1470,7 +1518,6 @@ def _grid_cache(caches: list, cfg, lay: GridLayout, max_seq: int,
         return {"decoder": {"k": kv[0].contiguous(), "v": kv[1].contiguous(),
                             "xk": xkv[0].contiguous(),
                             "xv": xkv[1].contiguous()}}
-    period = _superblock_period(cfg)
     return {"blocks": {f"sub{j}": {"k": kv[0, j::period].contiguous(),
                                    "v": kv[1, j::period].contiguous()}
                        for j in range(period)}}
@@ -1614,13 +1661,29 @@ def _grid_decode_cross(p, c, h, cfg, lay: GridLayout, seq_shard: bool,
     return reduce_from(out, m) if lay.tp_heads else out
 
 
+def _grid_decode_mamba(p, c, h, cfg, lay: GridLayout):
+    """A decode step's mamba block on a rank of a grid: ``c`` the layer's
+    state block, updated in place (``models.mamba2.grid_decode_step``: one
+    all-reduce for the norm, one after ``out``; whole on every rank, no
+    collective, where the guard dropped d_inner)."""
+    if lay.tp_inner:
+        out, state = M.grid_decode_step(p, c, h[:, 0], cfg, lay.model,
+                                        lay.rank, lay.tp_ssm_heads)
+    else:
+        out, state = M.mamba_decode_step(p, c, h[:, 0], cfg)
+    for name, leaf in state.items():
+        c[name].copy_(leaf)
+    return out[:, None, :]
+
+
 def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool,
                       enc_len: int | None = None):
     """:func:`decode_step` of a rank's model on a grid: the token in by the
     vocab-parallel lookup (one all-reduce), each layer's weights gathered
     under FSDP, :func:`_grid_decode_attention` (and the enc-dec body's
     :func:`_grid_decode_cross`) and the tensor-parallel MLP (one
-    all-reduce), the logits of the rank's vocab columns."""
+    all-reduce), or :func:`_grid_decode_mamba`, the logits of the rank's
+    vocab columns."""
     lay = model.layout
     check_grid_family(cfg, lay.grid)
     dev = model.device
@@ -1634,13 +1697,17 @@ def _grid_decode_step(model, cfg, cache: dict, token, pos, seq_shard: bool,
         p = lay.layer_tree(layer)
         c = _layer_cache(cache, cfg, i)
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        x = x + _grid_decode_attention(p["attn"], c, h, cfg, pos, rows, lay,
-                                       seq_shard)
+        if "mamba" in p:
+            x = x + _grid_decode_mamba(p["mamba"], c, h, cfg, lay)
+        else:
+            x = x + _grid_decode_attention(p["attn"], c, h, cfg, pos, rows,
+                                           lay, seq_shard)
         if "cross" in p:
             h = L.rmsnorm(x, p["lnx"], cfg.norm_eps)
             x = x + _grid_decode_cross(p["cross"], c, h, cfg, lay, seq_shard,
                                        enc_len)
-        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _grid_mlp(p["mlp"], h, lay)
+        if "mlp" in p:
+            h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + _grid_mlp(p["mlp"], h, lay)
     x = L.rmsnorm(x, top["final_norm"], cfg.norm_eps)
     return lay.unembed(top, x)[:, 0, :], cache

@@ -18,13 +18,32 @@ and the state are f32 and the block's output goes back to f64 after them.
 (:func:`mamba_specs`).
 
 Decode is one state update per token, with no cache growth.
+
+On a grid of ranks (:func:`grid_block_with_state`, :func:`grid_decode_step`)
+the block runs with its ``"inner"`` leaves cut over the 'model' group, as
+the reference's rule table cuts them: ``wz`` / ``wx`` / ``conv_x`` / ``norm``
+by the rank's channels of d_inner, ``out`` by its rows, and ``wdt`` /
+``A_log`` / ``D`` / ``dt_bias`` by its heads where the heads divide the
+group (``heads_cut``).  ``wB`` / ``wC`` / ``conv_B`` / ``conv_C`` are
+whole: B and C are computed before the tensor-parallel region and enter
+it by ``copy_to``, so that every rank's gradient of those leaves is the
+whole one.  The gated norm runs over the whole d_inner: the rank's sum of
+squares, one all-reduce over 'model' both ways (``copy_to(reduce_from(.))``,
+since each rank's gradient of the sum is a partial one), one all-reduce
+after ``out``.  Where the heads do not divide the group (``heads_cut``
+false: a rank may hold part of a head), dt, A and D are computed whole
+before the region and enter it by ``copy_to``, the rank's conv'd channels
+are all-gathered over 'model' so that every rank scans every head (the
+whole ``ssm`` state, which the cache then holds whole on every rank), and
+each rank keeps its channels of the scan's output.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import rmsnorm
+from repro_torch.core.collectives import copy_to, gather_from, reduce_from
+from .layers import acc_dtype, rmsnorm
 from .module import ParamSpec
 
 F32 = torch.float32
@@ -222,4 +241,98 @@ def mamba_decode_step(p, state: dict, xt: torch.Tensor, cfg):
     y = torch.einsum("bhpn,bn->bhp", S, Cm.to(F32))
     out = _output(p, y, xh, z, xt.dtype, cfg)
     return out, {
+        "ssm": S, "conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C}
+
+
+# ------------------------------------------------------------ on a grid ----
+
+def _grid_norm(y: torch.Tensor, w: torch.Tensor, cfg, m) -> torch.Tensor:
+    """:func:`~repro_torch.models.layers.rmsnorm` over the whole d_inner of
+    the rank's channels ``y``: the rank's sum of squares in
+    ``layers.acc_dtype``, summed over 'model' both ways (forward and the
+    gradient), over the whole d_inner."""
+    di = cfg.ssm.d_inner(cfg.d_model)
+    acc = acc_dtype(y.dtype)
+    ya = y.to(acc)
+    ss = copy_to(reduce_from((ya * ya).sum(dim=-1, keepdim=True), m), m)
+    return (ya * torch.rsqrt(ss / di + cfg.norm_eps) * w.to(acc)).to(y.dtype)
+
+
+def _grid_heads(p, x, m, heads_cut: bool):
+    """dt (f32, softplus'd and biased), A and D of the heads a rank scans:
+    its own, from ``x`` inside the region, where the heads are cut; else
+    every head, computed from ``x`` before the region and entering it by
+    ``copy_to`` (their gradients summed over 'model')."""
+    dt = F.softplus((x @ p["wdt"]).to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    if heads_cut:
+        return dt, A, p["D"]
+    return copy_to(dt, m), copy_to(A, m), copy_to(p["D"], m)
+
+
+def grid_block_with_state(p, x: torch.Tensor, cfg, m, rank: int,
+                          heads_cut: bool) -> tuple[torch.Tensor, dict]:
+    """:func:`mamba_block_with_state` of a rank on a grid (module
+    docstring): ``p`` its blocks of the block's leaves, x (B, L, D) whole
+    on the 'model' group ``m`` (the rank at ``rank`` of it).  Returns the
+    block's output (B, L, D), the sum over 'model', and the rank's block
+    of the decode state: its heads of ``ssm`` (every head where
+    ``heads_cut`` is false), its channels of ``conv_x``, the whole
+    ``conv_B`` / ``conv_C``."""
+    s = cfg.ssm
+    Bsz, L, _ = x.shape
+    W = s.d_conv
+    Bm0 = x @ p["wB"]
+    Cm0 = x @ p["wC"]
+    Bm = F.silu(_causal_conv(Bm0, p["conv_B"])).to(F32)
+    Cm = F.silu(_causal_conv(Cm0, p["conv_C"])).to(F32)
+    Bm, Cm = copy_to(torch.cat([Bm, Cm], dim=-1), m).split(
+        [Bm.shape[-1], Cm.shape[-1]], dim=-1)    # whole: one copy_to
+    if not heads_cut:
+        dt, A, D = _grid_heads(p, x, m, False)
+    x = copy_to(x, m)
+    if heads_cut:
+        dt, A, D = _grid_heads(p, x, m, True)
+    z = x @ p["wz"]
+    xin0 = x @ p["wx"]
+    xin = F.silu(_causal_conv(xin0, p["conv_x"]))
+    width = xin.shape[-1]
+    scanned = xin if heads_cut else gather_from(xin, m, xin.dim() - 1)
+    xh = scanned.reshape(Bsz, L, -1, s.head_dim).to(F32)
+    y, S = ssd_chunked(xh * dt[..., None], dt * A, Bm, Cm, s.chunk)
+    y = (y + xh * D[..., :, None]).reshape(Bsz, L, -1)
+    if not heads_cut:                           # the rank's channels
+        y = y[..., rank * width:(rank + 1) * width]
+    y = _grid_norm(y.to(x.dtype) * F.silu(z), p["norm"], cfg, m)
+    state = {"ssm": S, "conv_x": xin0[:, -(W - 1):, :],
+             "conv_B": Bm0[:, -(W - 1):, :], "conv_C": Cm0[:, -(W - 1):, :]}
+    return reduce_from(y @ p["out"], m), state
+
+
+def grid_decode_step(p, state: dict, xt: torch.Tensor, cfg, m, rank: int,
+                     heads_cut: bool):
+    """:func:`mamba_decode_step` of a rank on a grid: ``state`` the rank's
+    block of the layer's decode state (:func:`grid_block_with_state`'s),
+    xt (B, D) whole on the 'model' group.  One all-reduce for the norm and
+    one after ``out`` (and, where the heads are not cut, one all-gather of
+    the rank's conv'd channels).  Returns ((B, D), the new state block)."""
+    s = cfg.ssm
+    Bsz = xt.shape[0]
+    conv_B, Bm = _conv_step(state["conv_B"], xt @ p["wB"], p["conv_B"])
+    conv_C, Cm = _conv_step(state["conv_C"], xt @ p["wC"], p["conv_C"])
+    dt, A, D = _grid_heads(p, xt, m, heads_cut)
+    z = xt @ p["wz"]
+    conv_x, xin = _conv_step(state["conv_x"], xt @ p["wx"], p["conv_x"])
+    xin, Bm, Cm = F.silu(xin), F.silu(Bm), F.silu(Cm)
+    width = xin.shape[-1]
+    scanned = xin if heads_cut else gather_from(xin, m, 1)
+    xh = scanned.reshape(Bsz, -1, s.head_dim).to(F32)
+    S = state["ssm"] * torch.exp(dt * A)[:, :, None, None] + torch.einsum(
+        "bhp,bn->bhpn", xh * dt[..., None], Bm.to(F32))
+    y = torch.einsum("bhpn,bn->bhp", S, Cm.to(F32))
+    y = (y + xh * D[..., :, None]).reshape(Bsz, -1)
+    if not heads_cut:                           # the rank's channels
+        y = y[:, rank * width:(rank + 1) * width]
+    y = _grid_norm(y.to(xt.dtype) * F.silu(z), p["norm"], cfg, m)
+    return reduce_from(y @ p["out"], m), {
         "ssm": S, "conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C}

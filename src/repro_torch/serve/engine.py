@@ -41,8 +41,9 @@ decode call dispatches over the world (``replicated=True``: one
 all-gather of the experts' outputs an MoE layer), so every rank computes
 the same logits and samples the same tokens as the one-rank engine.
 
-``Engine(..., grid=...)`` serves the dense decoder and the vlm (text-only
-requests, as on one rank) on a grid of ranks in the reference's
+``Engine(..., grid=...)`` serves the dense decoder, the vlm (text-only
+requests, as on one rank) and the ssm family (its prompts' rule and first
+token as on one rank) on a grid of ranks in the reference's
 production layout (``grid``: the rank's
 ``core.world.GridComm``; ``model``: the rank's model,
 ``models.api.grid_model``): each (pod, data) row of the grid serves its own

@@ -39,8 +39,9 @@ layout: every leaf a rank's block under the rule table
 (:func:`train_step_shardings`: parameters under ``cfg.fsdp``, the f32
 (master, m, v) under the fsdp rule set, ZeRO-1); a rank takes its rows of
 the batch by its (pod, data) coordinates (the frontend embeddings'
-rows with them, where the batch carries them); the dense decoder, the vlm and the encoder-decoder run
-tensor-parallel over 'model' and, with ``cfg.fsdp``, gather each layer's
+rows with them, where the batch carries them); the dense decoder, the
+vlm, the encoder-decoder and the ssm family run tensor-parallel over
+'model' and, with ``cfg.fsdp``, gather each layer's
 weights over 'data' just before use (``models.api.GridLayout``); the
 gradients are all-reduced over the batch's ranks (a leaf FSDP cuts is
 reduce-scattered over 'data' by its gather's backward instead, and

@@ -316,24 +316,30 @@ def test_sampling_from_vocab_blocks(world):
 
 
 def test_families_not_ported_refused_on_a_grid(world):
-    """On a (2, 2) grid the ssm and moe configs raise, naming the ROADMAP
+    """On a (2, 2) grid the hybrid and moe configs raise, naming the ROADMAP
     queue, in grid_model, prefill, decode_step and the engine (before
     any collective: nothing is served replicated in their place); the
     engine also refuses a whole model on model > 1 and FSDP over 'data'."""
     params = api.init_model(tconfigs.get_reduced("llama3_2_3b"),
                             torch.Generator().manual_seed(0)).param_tree()
     for msgs in refusals_on_grid(world, (2, 2), params,
-                                 ("mamba2_370m", "phi3_5_moe_42b")):
+                                 ("jamba_1_5_large_398b",
+                                  "phi3_5_moe_42b")):
         assert all("ROADMAP" in m for m in msgs[:8]), msgs
         assert "grid_model" in msgs[8] and "FSDP" in msgs[9]
 
 
 def test_serve_launcher_on_a_grid():
     """``launch.serve --mesh 2x2`` on gloo CPU ranks: every request's
-    tokens; ``--mesh`` refuses a family the grid does not run."""
+    tokens; ``--mesh 1x2`` serves the ssm family; ``--mesh`` refuses a
+    family the grid does not run."""
     from repro_torch.launch.serve import main
     outs = main(["--mesh", "2x2", "--device", "cpu", "--requests", "4",
                  "--max-new", "3", "--seq-shard-decode", "false"])
     assert [len(o) for o in outs] == [3] * 4
+    outs = main(["--arch", "mamba2_370m", "--mesh", "1x2", "--device",
+                 "cpu", "--requests", "4", "--max-new", "3"])
+    assert [len(o) for o in outs] == [3] * 4
     with pytest.raises(ValueError, match="ROADMAP"):
-        main(["--arch", "mamba2_370m", "--mesh", "1x2", "--device", "cpu"])
+        main(["--arch", "jamba_1_5_large_398b", "--mesh", "1x2",
+              "--device", "cpu"])

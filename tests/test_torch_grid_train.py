@@ -320,7 +320,7 @@ def _forward_columns(comm, device, *, cfg, params, tokens):
 @pytest.mark.parametrize("arch,mesh,cards,want", [
     ("llama3_2_3b", "auto", 4, (4, {"data": 1, "model": 4})),
     ("dbrx_132b", "auto", 4, (4, None)),
-    ("mamba2_370m", "auto", 4, (4, None)),
+    ("mamba2_370m", "auto", 4, (4, {"data": 1, "model": 4})),
     ("llama3_2_3b", "auto", 1, (1, None)),
     ("dbrx_132b", "auto", 0, (1, None)),
     ("mamba2_370m", "2x1", 0, (2, {"data": 2, "model": 1})),
@@ -329,9 +329,9 @@ def _forward_columns(comm, device, *, cfg, params, tokens):
 ])
 def test_launcher_layout(arch, mesh, cards, want):
     """``launch.train --mesh``: ``auto`` puts a family the grid runs on
-    plan_mesh's grid and the others (MoE, and any family but the dense one
-    where 'model' > 1) on the 1-D data-parallel world of every card, as
-    before the grid; one card or none is the single-device run."""
+    plan_mesh's grid (the dense decoder, the ssm family) and the others
+    (MoE) on the 1-D data-parallel world of every card, as before the
+    grid; one card or none is the single-device run."""
     from repro_torch.launch.train import choose_layout
     ranks, grid, why = choose_layout(tconfigs.get_reduced(arch), mesh, cards)
     assert (ranks, grid) == want
@@ -341,7 +341,7 @@ def test_launcher_layout(arch, mesh, cards, want):
 
 @pytest.mark.parametrize("arch,mesh", [("dbrx_132b", "2x2"),
                                        ("dbrx_132b", "2x1"),
-                                       ("mamba2_370m", "2x2")])
+                                       ("jamba_1_5_large_398b", "2x2")])
 def test_launcher_refuses_a_grid_the_family_lacks(arch, mesh):
     """An explicit ``--mesh DxM`` the family does not run on raises
     before any rank starts (nothing runs replicated in its place)."""
@@ -354,12 +354,17 @@ def test_launcher_refuses_a_grid_the_family_lacks(arch, mesh):
 
 
 @pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "dbrx_132b",
-                                  "mamba2_370m", "jamba_1_5_large_398b"])
+                                  "jamba_1_5_large_398b",
+                                  "jamba_1_5_large_398b:no-moe"])
 def test_families_not_ported_to_a_grid_raise(arch):
-    """MoE on any grid, and the ssm / hybrid families where 'model' > 1,
-    raise naming the ROADMAP queue (nothing is replicated in their
-    place)."""
-    cfg = tconfigs.get_reduced(arch)
+    """MoE on any grid, and the hybrid family where 'model' > 1 (jamba's
+    interleave with its MoE layers made dense: the family alone), raise
+    naming the ROADMAP queue (nothing is replicated in their place); the
+    ssm family is accepted (``tests/test_torch_grid_ssm.py``)."""
+    name, _, variant = arch.partition(":")
+    cfg = tconfigs.get_reduced(name)
+    if variant == "no-moe":
+        cfg = dataclasses.replace(cfg, moe=None)
     with pytest.raises(ValueError, match="ROADMAP"):
         api.check_grid_family(cfg, as_grid((1, 2)))
     if cfg.moe:
